@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels (``romis_tpu_torch/csrc``).
+
+Every ``csrc/*.cu`` file is compiled with ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
+plain C interface, loaded with ``ctypes``. The library lands in
+``build/romis_tpu_torch/`` at the repository root, named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one loads
+the cached library. The build uses only the repository's sources and the
+installed CUDA toolkit; a missing ``nvcc`` or a failed build raises.
+
+Nothing here runs at import time: ``library()`` builds on first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "romis_tpu_torch"
+
+# --fmad=false: no multiply-add contraction, so each kernel rounds like the
+# op-by-op plain PyTorch version it is checked against on the card.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P, _I, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_ulonglong, ctypes.c_float)
+
+# C entry points (each returns cudaGetLastError() after its launch) and
+# their argument types; the last argument of each is the CUDA stream.
+SIGNATURES = {
+    # o, d, n_pix, tri_cols, n_tris, t_max, t, tri, u, v, stream
+    "romis_closest_hit": (_P, _P, _LL, _P, _I, _F, _P, _P, _P, _P, _P),
+    # table, n_rows, n_cols, idx, n_idx, out, stream
+    "romis_gather_rows": (_P, _I, _I, _P, _LL, _P, _P),
+    # ctx17, n_pix, light_rows, n_rows, num_lights, s, k, seed, uniforms,
+    # out, stream
+    "romis_ris": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _P),
+    # ctx18, res, n_pix, k, tri_cols, n_tris, out, stream
+    "romis_final_shade": (_P, _P, _LL, _I, _P, _I, _P, _P),
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of romis_tpu_torch "
+                           "are built with the CUDA toolkit at first use")
+    return path
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if the cached library is missing or stale →
+    path of the shared library. The compiler's report (registers, shared
+    memory, spills) is kept beside it as ``build.log``."""
+    lib = BUILD_DIR / f"libromis_kernels_{_digest()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so",
+                                     delete=False) as tmp:
+        tmp_path = tmp.name
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp_path, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp_path)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp_path, lib)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` on the current CUDA stream; raise if the
+    launch reported an error."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def check(t, name: str, dtype, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and of
+    ``shape``, where given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
