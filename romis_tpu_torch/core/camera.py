@@ -95,3 +95,25 @@ def generate_rays(cam: CameraParams, height: int, width: int) -> Rays:
     dirs = quat_rotate_imgminor(q, vnormalize(dirs_cam))
     origins = origin[:, None, None].expand(dirs.shape).contiguous()
     return Rays(origin=origins, direction=dirs.contiguous())
+
+
+def project_to_pixel(cam: CameraParams, points: torch.Tensor, height: int,
+                     width: int):
+    """Project world points [..., 3, H, W] back to (row, col) pixel
+    coordinates under ``cam``, the inverse of ``generate_rays``, for temporal
+    reprojection → (rows, cols float32, in_front bool), each [..., H, W]."""
+    q = quat_from_euler_xyz(cam.rotation)
+    origin = camera_position(cam)
+    q_inv = q * torch.tensor([1.0, -1.0, -1.0, -1.0], device=q.device)
+    v_cam = quat_rotate_imgminor(q_inv, points - origin[:, None, None])
+
+    half_h = torch.tan(cam.fovy * 0.5)
+    half_w = cam.aspect * half_h
+    z = v_cam[..., 2, :, :]
+    in_front = z > 1e-6
+    zs = torch.where(in_front, z, 1.0)
+    px = -(v_cam[..., 0, :, :] / zs) / half_w
+    py = (v_cam[..., 1, :, :] / zs) / half_h
+    col = (px + 1.0) * 0.5 * width
+    row = (height - 1) - (py + 1.0) * 0.5 * height
+    return row, col, in_front

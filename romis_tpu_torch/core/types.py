@@ -87,11 +87,16 @@ def pack_reservoir_planes(res: Reservoirs) -> torch.Tensor:
 
 
 def unpack_reservoir_planes(g: torch.Tensor, k: int) -> Reservoirs:
-    """[10K, H, W] → Reservoirs (views into ``g``)."""
-    hw = tuple(g.shape[-2:])
+    """[..., 10K, H, W] → Reservoirs with the leading axes first (views
+    into ``g``)."""
+    lead, hw = tuple(g.shape[:-3]), tuple(g.shape[-2:])
+
+    def planes(i, j, shape):
+        return g[..., i:j, :, :].reshape(lead + shape + hw)
+
     return Reservoirs(
-        pos=g[0:3 * k].reshape((k, 3) + hw),
-        color=g[3 * k:6 * k].reshape((k, 3) + hw),
-        w_sum=g[6 * k:7 * k], m=g[7 * k:8 * k],
-        big_w=g[8 * k:9 * k], chosen_w=g[9 * k:10 * k],
+        pos=planes(0, 3 * k, (k, 3)), color=planes(3 * k, 6 * k, (k, 3)),
+        w_sum=planes(6 * k, 7 * k, (k,)), m=planes(7 * k, 8 * k, (k,)),
+        big_w=planes(8 * k, 9 * k, (k,)),
+        chosen_w=planes(9 * k, 10 * k, (k,)),
     )

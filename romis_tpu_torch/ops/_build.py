@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``romis_tpu_torch/csrc``).
 
 Every ``csrc/*.cu`` file is compiled with ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per source, all
+started together, and the objects are linked into ONE shared library with a
 plain C interface, loaded with ``ctypes``. The library lands in
 ``build/romis_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads
@@ -28,11 +29,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "romis_tpu_torch"
 # --fmad=false: no multiply-add contraction, so each kernel rounds like the
 # op-by-op plain PyTorch version it is checked against on the card.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_ulonglong, ctypes.c_float)
+_P, _I, _U, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                             ctypes.c_longlong, ctypes.c_ulonglong,
+                             ctypes.c_float)
 
 # C entry points (each returns cudaGetLastError() after its launch) and
 # their argument types; the last argument of each is the CUDA stream.
@@ -46,6 +47,14 @@ SIGNATURES = {
     "romis_ris": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _P),
     # ctx18, res, n_pix, k, tri_cols, n_tris, out, stream
     "romis_final_shade": (_P, _P, _LL, _I, _P, _I, _P, _P),
+    # origins, dirs, t_max, n_pix, n_rays, tri_cols, n_tris, out, stream
+    "romis_any_hit": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
+    # planes, c, h, w, dy, dx, n_out, out, stream
+    "romis_halo_gather": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
+    # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,
+    # gumbel, out, stream
+    "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,
+                           _P, _P, _P),
 }
 
 
@@ -73,24 +82,40 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the kernels if the cached library is missing or stale →
-    path of the shared library. The compiler's report (registers, shared
-    memory, spills) is kept beside it as ``build.log``."""
+    path of the shared library. Each source compiles in its own ``nvcc``
+    process, all at once; the compilers' reports (registers, shared memory,
+    spills) are kept beside the library as ``build.log``."""
     lib = BUILD_DIR / f"libromis_kernels_{_digest()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = tmp.name
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp_path, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp_path, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                   str(Path(tmp) / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        if not failed:
+            tmp_lib = Path(tmp) / lib.name
+            cmd = [nvcc, "-shared", "-o", str(tmp_lib),
+                   *(cmd[cmd.index("-o") + 1] for cmd, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp_lib, lib)
     return lib
 
 

@@ -17,6 +17,8 @@ with the combine reducing over the leading R axis.
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 import torch
 
@@ -25,22 +27,39 @@ from romis_tpu.core.features import Features
 from ..core.types import Reservoirs, ShadeCtx
 from ..core.vec import e, vnorm
 from .intersect import intersect_any
-from .shading import target_pdf_planes
+from .shading import target_pdf, target_pdf_planes
 
 SHADOW_RAY_EPSILON = 1e-3
 
 
-def visibility(ctx_position, sample_pos, geometry) -> torch.Tensor:
+def visibility(ctx_position, sample_pos, geometry,
+               any_hit=intersect_any) -> torch.Tensor:
     """Shadow-ray visibility from surface points [3, H, W] to light samples
     [..., 3, H, W] → bool [..., H, W] (True = visible). The direction comes
     from the unoffset point, the origin is pushed SHADOW_RAY_EPSILON along
-    it, t_max is the remaining distance; coincident pairs are visible."""
+    it, t_max is the remaining distance; coincident pairs are visible.
+    ``any_hit`` traces the occlusion rays (the plain block scan by default,
+    ``ops.trace.any_hit`` for the kernel)."""
     to = sample_pos - ctx_position
     dist = vnorm(to)
     d = to / e(torch.clamp_min(dist, 1e-20))
     origin = ctx_position + SHADOW_RAY_EPSILON * d
     t_max = vnorm(sample_pos - origin)
-    occluded = intersect_any(origin, d, t_max, geometry)
+    occluded = any_hit(origin, d, t_max, geometry)
+    return (~occluded) | (dist <= SHADOW_RAY_EPSILON)
+
+
+def visibility_from(from_position, sample_pos, geometry,
+                    any_hit=intersect_any) -> torch.Tensor:
+    """visibility() from per-sample origins (the inputs' own surface points
+    in the unbiased Z-count). from_position [..., 3, H, W] broadcasts
+    against sample_pos."""
+    to = sample_pos - from_position
+    dist = vnorm(to)
+    d = to / e(torch.clamp_min(dist, 1e-20))
+    origin = (from_position + SHADOW_RAY_EPSILON * d).expand(d.shape)
+    t_max = vnorm(sample_pos - origin)
+    occluded = any_hit(origin, d, t_max, geometry)
     return (~occluded) | (dist <= SHADOW_RAY_EPSILON)
 
 
@@ -130,19 +149,24 @@ def gen_canonical_samples_plain(ctx: ShadeCtx, lights, num_lights: int,
 
 
 def gen_canonical_samples(ctx: ShadeCtx, lights, num_lights: int, geometry,
-                          features: Features, generator=None,
-                          uniforms=None) -> Reservoirs:
+                          features: Features, generator=None, uniforms=None,
+                          ris=None, any_hit=None) -> Reservoirs:
     """Per-pixel RIS candidate generation (reference genCanonicalSamples):
-    kernel 3 for CUDA tensors, the plain version for CPU tensors. Give a
+    ``ris`` (kernel 3 by default: the plain version for CPU tensors), then
+    the optional initial visibility check, which zeroes W where the winner
+    is occluded, through ``any_hit`` (kernel 6 by default). Give a
     ``generator`` on the tensors' device, or the ``uniforms`` test hook."""
-    if features.initial_samples_visibility_check:
-        raise NotImplementedError(
-            "initial_samples_visibility_check needs the any-hit kernel "
-            "(pallas_any), ported in a later slice")
     from .ris import gen_canonical_samples_ris
+    from .trace import any_hit as any_hit_kernel
 
-    return gen_canonical_samples_ris(ctx, lights, num_lights, features,
-                                     generator=generator, uniforms=uniforms)
+    ris = ris or gen_canonical_samples_ris
+    res = ris(ctx, lights, num_lights, features, generator=generator,
+              uniforms=uniforms)
+    if features.initial_samples_visibility_check:
+        vis = visibility(ctx.position, res.pos, geometry,
+                         any_hit or any_hit_kernel)
+        res = replace(res, big_w=torch.where(vis, res.big_w, 0.0))
+    return res
 
 
 def _stream_weights(receiver: ShadeCtx, inputs: Reservoirs, in_mask,
@@ -197,6 +221,34 @@ def combine_biased(receiver: ShadeCtx, inputs: Reservoirs, in_mask,
         gumbel, w, p_hat, inputs, in_mask)
     big_w = _safe_big_w(w_sum, sel_p_hat, m_out,
                         (sel_p_hat > 0.0) & (m_out > 0.0))
+    return Reservoirs(pos=sel_pos, color=sel_color, w_sum=w_sum, m=m_out,
+                      big_w=big_w, chosen_w=sel_w)
+
+
+def combine_unbiased(receiver: ShadeCtx, inputs: Reservoirs, in_mask,
+                     input_ctxs: ShadeCtx, features: Features,
+                     gumbel: torch.Tensor, geometry=None,
+                     any_hit=intersect_any) -> Reservoirs:
+    """ReSTIR Algorithm 6: the biased combine's race, but W = wSum /
+    (p_hat(winner)·Z), where Z sums the lane M of every input whose own
+    target PDF of the winner (times its visibility with
+    ``spatial_reuse_visibility_check``) is positive. ``input_ctxs`` holds
+    each input's geometry, fields [R, ..., H, W]."""
+    w, p_hat = _stream_weights(receiver, inputs, in_mask, features)
+    sel_pos, sel_color, sel_w, sel_p_hat, w_sum, m_out = _select_lanewise(
+        gumbel, w, p_hat, inputs, in_mask)
+    # The K winners at every input's geometry: [R, 1, ...] x [K, ...].
+    ctx_r = ShadeCtx(**{f: getattr(input_ctxs, f)[:, None] for f in (
+        "valid", "position", "normal", "view_origin", "kd", "ks",
+        "shininess", "geom_id", "depth_t")})
+    p_hat_at_inputs = target_pdf(ctx_r, sel_pos, sel_color, features)
+    if features.spatial_reuse_visibility_check:
+        vis = visibility_from(input_ctxs.position[:, None], sel_pos, geometry,
+                              any_hit)
+        p_hat_at_inputs = torch.where(vis, p_hat_at_inputs, 0.0)
+    z = torch.where((p_hat_at_inputs > 0.0) & in_mask[:, None], inputs.m,
+                    0.0).sum(dim=0)
+    big_w = _safe_big_w(w_sum, sel_p_hat, z, (sel_p_hat > 0.0) & (z > 0.0))
     return Reservoirs(pos=sel_pos, color=sel_color, w_sum=w_sum, m=m_out,
                       big_w=big_w, chosen_w=sel_w)
 

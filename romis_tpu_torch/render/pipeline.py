@@ -21,7 +21,9 @@ def render_frame(generator, cam: CameraParams, scene, height: int, width: int,
                  features: Features, prev: TemporalState | None = None,
                  noise=None, ops: FrameOps = KERNELS):
     """Render one frame with the configured mode → (image [H, W, 3],
-    TemporalState). Only ReSTIR is ported so far."""
+    TemporalState). Only ReSTIR is ported so far. ``noise`` replaces every
+    random draw of the frame: (RIS uniforms, temporal Gumbel noise, and per
+    spatial pass (offsets, Gumbel noise)), see ``render_restir_frame``."""
     if features.ray_trace_mode != RayTraceMode.RESTIR:
         raise NotImplementedError(
             f"{features.ray_trace_mode.value}: R-MIS and R-OMIS need the MIS "

@@ -1,18 +1,21 @@
-"""The ReSTIR frame: trace → RIS → temporal reuse → shade → tone map
-(reference ``romis_tpu/render/restir.py``).
+"""The ReSTIR frame: trace → RIS → temporal reuse → spatial reuse → shade →
+tone map (reference ``romis_tpu/render/restir.py``).
 
-This slice renders the frame with ``Features(spatial_reuse=False)``:
-primary rays, closest hit (kernel 1), hit attributes and materials (kernel
-2, twice), canonical RIS (kernel 3), temporal reuse without reprojection
-(plain tensor code), final shade (kernel 4) and tone mapping. The spatial
-pass, reprojection, the unbiased combine and the initial visibility check
-belong to later slices and raise ``NotImplementedError``.
+A frame runs primary rays, the closest hit (kernel 1), hit attributes and
+materials (kernel 2, twice), canonical RIS (kernel 3) with the optional
+initial visibility check (any-hit, kernel 6), temporal reuse with
+M-clamping (plain tensor code; with ``temporal_reprojection`` the
+predecessor is fetched by the halo offset gather, kernel 9), the spatial
+passes (biased: kernel 5; unbiased: kernel 11), the final shade (kernel 4)
+and tone mapping. Still refused, naming the slice that brings them: the
+unbiased combine with ``spatial_reuse_visibility_check`` (Z-count
+occlusion) and the gradient-path options ``coherent_spatial_offsets`` and
+``surrogate_resampling_grad``.
 
-``FrameOps`` names the four kernel entry points a frame calls. ``KERNELS``
-(the default) holds the wrappers, which launch the CUDA kernels for CUDA
-tensors and run the plain versions for CPU tensors; ``PLAIN`` holds the
-plain versions, for running the same frame without the kernels on any
-device.
+``FrameOps`` names the kernel entry points a frame calls. ``KERNELS`` (the
+default) holds the wrappers, which launch the CUDA kernels for CUDA tensors
+and run the plain versions for CPU tensors; ``PLAIN`` holds the plain
+versions, for running the same frame without the kernels on any device.
 """
 
 from __future__ import annotations
@@ -24,18 +27,29 @@ import torch
 
 from romis_tpu.core.features import Features
 
-from ..core.camera import CameraParams, generate_rays
-from ..core.types import Rays, Reservoirs, ShadeCtx, empty_reservoirs
-from ..ops import rows, shade, trace
-from ..ops.intersect import make_hit_record, make_shade_ctx
+from ..core.camera import CameraParams, generate_rays, project_to_pixel
+from ..core.types import (
+    Rays, Reservoirs, ShadeCtx, empty_reservoirs, pack_reservoir_planes,
+    unpack_reservoir_planes,
+)
+from ..core.vec import vdot
+from ..ops import rows, shade, spatial, trace
+from ..ops.intersect import intersect_any, make_hit_record, make_shade_ctx
 from ..ops.ris import gen_canonical_samples_ris
 from ..ops.shading import exposure_tone_mapping
 from ..ops.wrs import (
     clamp_temporal_m,
     combine_biased,
+    combine_unbiased,
+    gen_canonical_samples,
     gen_canonical_samples_plain,
     gumbel_noise,
 )
+
+# Spatial-reuse similarity gates (reference render_utils.cpp:113-118): more
+# than 10 % depth difference or 25° normal difference rejects a neighbour.
+SPATIAL_DEPTH_FRAC = 0.1
+SPATIAL_NORMAL_COS = 0.90630778703  # cos(25°)
 
 
 @dataclass(frozen=True)
@@ -44,12 +58,22 @@ class FrameOps:
     gather_rows: Callable  # (table, idx) → [C, ..., H, W]
     ris: Callable  # (ctx, lights, num_lights, features, generator, uniforms)
     final_shade: Callable  # (ctx, reservoirs, geometry, features) → [3, H, W]
+    any_hit: Callable  # (origins, dirs, t_max, geometry) → bool [..., H, W]
+    halo_gather: Callable  # (planes, dy, dx) → [D, C, H, W]
+    spatial_pass: Callable  # (res, gates, cen, k, R, radius, features, ...)
+    spatial_pass_unbiased: Callable  # (res, cen, k, R, radius, features, ...)
 
 
 KERNELS = FrameOps(trace.closest_hit, rows.gather_rows,
-                   gen_canonical_samples_ris, shade.final_shade_fused)
+                   gen_canonical_samples_ris, shade.final_shade_fused,
+                   trace.any_hit, spatial.halo_offset_gather,
+                   spatial.spatial_pass_fused,
+                   spatial.spatial_pass_unbiased_fused)
 PLAIN = FrameOps(trace.closest_hit_plain, rows.gather_rows_plain,
-                 gen_canonical_samples_plain, shade.final_shade_plain)
+                 gen_canonical_samples_plain, shade.final_shade_plain,
+                 trace.any_hit_plain, spatial.halo_offset_gather_plain,
+                 spatial.spatial_pass_plain,
+                 spatial.spatial_pass_unbiased_plain)
 
 
 @dataclass
@@ -90,19 +114,60 @@ def trace_primary(rays: Rays, geometry, features: Features,
     return hits, ctx
 
 
+def _similar(ctx: ShadeCtx, depth, normal) -> torch.Tensor:
+    """The similarity gates: depth within SPATIAL_DEPTH_FRAC of the
+    receiver's and normal within 25° of it."""
+    depth_ok = (torch.abs(1.0 - depth / torch.clamp_min(ctx.depth_t, 1e-20))
+                <= SPATIAL_DEPTH_FRAC)
+    return depth_ok & (vdot(normal, ctx.normal) >= SPATIAL_NORMAL_COS)
+
+
 def temporal_reuse(gumbel: torch.Tensor, ctx: ShadeCtx, current: Reservoirs,
                    prev: TemporalState, height: int, width: int,
-                   features: Features) -> Reservoirs:
-    """Temporal reuse with M-clamping, without reprojection: clamp the
-    predecessor's history, then a 2-way biased combine of {current,
-    predecessor} at the same pixel. ``gumbel`` [2, K, H, W] is the race
-    noise."""
-    if features.temporal_reprojection:
-        raise NotImplementedError(
-            "temporal_reprojection needs the halo offset gather "
-            "(halo_offset_gather_pallas), ported in a later slice")
+                   features: Features, ops: FrameOps = KERNELS) -> Reservoirs:
+    """Temporal reuse with M-clamping: clamp the predecessor's history, then
+    a 2-way biased combine of {current, predecessor}. ``gumbel``
+    [2, K, H, W] is the race noise.
+
+    With ``temporal_reprojection`` the predecessor is fetched at the pixel
+    where the previous camera saw the current hit point, within
+    ±``reprojection_radius`` pixels (``ops.halo_gather``), and kept only if
+    it is on screen, in front, in the band, valid, and within the depth and
+    normal gates; otherwise it is rejected."""
     dev = ctx.position.device
-    pred = clamp_temporal_m(prev.reservoirs, current.total_m(),
+    if features.temporal_reprojection:
+        rows_f, cols_f, in_front = project_to_pixel(prev.cam, ctx.position,
+                                                    height, width)
+        # Round half to even (as jnp.round); clamping before the cast keeps
+        # far-off projections defined.
+        ri = torch.round(rows_f).clamp(0, height - 1).int()
+        ci = torch.round(cols_f).clamp(0, width - 1).int()
+        in_bounds = ((rows_f >= -0.5) & (rows_f <= height - 0.5)
+                     & (cols_f >= -0.5) & (cols_f <= width - 0.5) & in_front)
+        dy = ri - torch.arange(height, dtype=torch.int32, device=dev)[:, None]
+        dx = ci - torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+        rr = features.reprojection_radius
+        in_band = (dy.abs() <= rr) & (dx.abs() <= rr)
+        dy = dy.clamp(-rr, rr)
+        dx = dx.clamp(-rr, rr)
+        k = prev.reservoirs.k
+        # Reservoir planes + the 5 gate planes (normal, depth, valid).
+        planes = torch.cat([
+            pack_reservoir_planes(prev.reservoirs), prev.ctx.normal,
+            prev.ctx.depth_t[None], prev.ctx.valid.float()[None]], dim=0)
+        g = ops.halo_gather(planes, dy[None], dx[None])[0]
+        pred = unpack_reservoir_planes(g[:10 * k], k)
+        p_normal = g[10 * k:10 * k + 3]
+        p_depth = g[10 * k + 3]
+        p_valid = g[10 * k + 4] > 0.5
+        pred_mask = (in_bounds & in_band & ctx.valid & p_valid
+                     & _similar(ctx, p_depth, p_normal))
+    else:
+        pred = prev.reservoirs
+        pred_mask = torch.ones((height, width), dtype=torch.bool, device=dev)
+    pred_mask = pred_mask & bool(prev.has_prev)
+
+    pred = clamp_temporal_m(pred, current.total_m(),
                             float(features.temporal_clamp_m))
     inputs = Reservoirs(*(torch.stack([a, b], dim=0) for a, b in zip(
         (current.pos, current.color, current.w_sum, current.m,
@@ -110,9 +175,90 @@ def temporal_reuse(gumbel: torch.Tensor, ctx: ShadeCtx, current: Reservoirs,
         (pred.pos, pred.color, pred.w_sum, pred.m, pred.big_w,
          pred.chosen_w))))
     in_mask = torch.stack([
-        torch.ones((height, width), dtype=torch.bool, device=dev),
-        torch.full((height, width), bool(prev.has_prev), device=dev)])
+        torch.ones((height, width), dtype=torch.bool, device=dev), pred_mask])
     return combine_biased(ctx, inputs, in_mask, features, gumbel)
+
+
+def spatial_pass(ctx: ShadeCtx, reservoirs: Reservoirs, nbr: Reservoirs,
+                 nbr_ctx: ShadeCtx, features: Features, gumbel: torch.Tensor,
+                 geometry=None, any_hit=intersect_any) -> Reservoirs:
+    """One spatial-reuse combine given gathered neighbours (fields
+    [R, K, ..., H, W] and [R, ..., H, W]): the depth/normal gates (biased
+    combine only), then the combine of {neighbours..., self} in that stream
+    order with the race noise ``gumbel`` [R+1, K, H, W]."""
+    hw = ctx.depth_t.shape[-2:]
+    r = nbr.m.shape[0]
+    dev = ctx.depth_t.device
+    if features.unbiased_combination:
+        nbr_mask = torch.ones((r,) + tuple(hw), dtype=torch.bool, device=dev)
+    else:
+        nbr_mask = (_similar(ctx, nbr_ctx.depth_t, nbr_ctx.normal)
+                    & ctx.valid & nbr_ctx.valid)
+    inputs = Reservoirs(*(torch.cat([getattr(nbr, f), getattr(
+        reservoirs, f)[None]]) for f in ("pos", "color", "w_sum", "m",
+                                         "big_w", "chosen_w")))
+    in_mask = torch.cat([nbr_mask, torch.ones((1,) + tuple(hw),
+                                              dtype=torch.bool, device=dev)])
+    if features.unbiased_combination:
+        input_ctxs = ShadeCtx(**{f: torch.cat([getattr(nbr_ctx, f), getattr(
+            ctx, f)[None]]) for f in ("valid", "position", "normal",
+                                      "view_origin", "kd", "ks", "shininess",
+                                      "geom_id", "depth_t")})
+        return combine_unbiased(ctx, inputs, in_mask, input_ctxs, features,
+                                gumbel, geometry, any_hit)
+    return combine_biased(ctx, inputs, in_mask, features, gumbel)
+
+
+def pack_pixel_planes(res: Reservoirs, ctx: ShadeCtx) -> torch.Tensor:
+    """Reservoirs and ShadeCtx → [10K + 19, H, W]: the reservoir planes,
+    then position3 | normal3 | view3 | kd3 | ks3 | shininess | depth |
+    geom_id | valid."""
+    return torch.cat([
+        pack_reservoir_planes(res), ctx.position, ctx.normal,
+        ctx.view_origin, ctx.kd, ctx.ks, ctx.shininess[None],
+        ctx.depth_t[None], ctx.geom_id.float()[None],
+        ctx.valid.float()[None]], dim=0)
+
+
+def unpack_pixel_planes(g: torch.Tensor, k: int):
+    """Inverse of pack_pixel_planes for gathered planes [N, C, H, W] →
+    (Reservoirs [N, K, ..., H, W], ShadeCtx [N, ..., H, W])."""
+    res = unpack_reservoir_planes(g[:, :10 * k], k)
+    c = g[:, 10 * k:]
+    ctx = ShadeCtx(position=c[:, 0:3], normal=c[:, 3:6],
+                   view_origin=c[:, 6:9], kd=c[:, 9:12], ks=c[:, 12:15],
+                   shininess=c[:, 15], depth_t=c[:, 16],
+                   geom_id=c[:, 17].int(), valid=c[:, 18] > 0.5)
+    return res, ctx
+
+
+def spatial_reuse(generator, ctx: ShadeCtx, reservoirs: Reservoirs,
+                  height: int, width: int, features: Features,
+                  ops: FrameOps = KERNELS, inject=None) -> Reservoirs:
+    """Spatial reuse (reference spatialReuse, render_utils.cpp:87-140):
+    ``spatial_resampling_passes`` passes, each drawing R per-pixel offsets
+    in the ±radius box (clamped to the screen) and combining
+    {neighbours..., self}. The state stays in the [10K, H, W] plane layout
+    across the passes, and each pass writes a fresh buffer, since the next
+    one reads its output at neighbouring pixels. ``inject`` (per pass:
+    offsets [2, R, H, W], Gumbel [R+1, K, H, W]) replaces the draws."""
+    k = features.num_samples_in_reservoir
+    r = features.num_neighbours_to_sample
+    radius = features.spatial_resample_radius
+    key = None if inject is not None else spatial.philox_key(generator)
+    cen = shade.pack_center_ctx(ctx)
+    res_planes = pack_reservoir_planes(reservoirs)
+    gates = None if features.unbiased_combination else spatial.pack_gates(ctx)
+    for p in range(features.spatial_resampling_passes):
+        noise = dict(generator=generator, key=key, pass_index=p,
+                     inject=None if inject is None else inject[p])
+        if features.unbiased_combination:
+            res_planes = ops.spatial_pass_unbiased(res_planes, cen, k, r,
+                                                   radius, features, **noise)
+        else:
+            res_planes = ops.spatial_pass(res_planes, gates, cen, k, r,
+                                          radius, features, **noise)
+    return unpack_reservoir_planes(res_planes, k)
 
 
 def final_shade(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
@@ -123,18 +269,21 @@ def final_shade(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
 
 
 def _check_slice(features: Features) -> None:
-    later = {
-        "spatial_reuse": "the fused spatial pass (spatial_pass_pallas)",
-        "temporal_reprojection": "the halo offset gather",
-        "unbiased_combination": "the unbiased spatial pass and Z-count "
-                                "occlusion",
-        "initial_samples_visibility_check": "the any-hit kernel",
-    }
-    for flag, what in later.items():
+    """Refuse the options whose kernels belong to later slices."""
+    if (features.spatial_reuse and features.unbiased_combination
+            and features.spatial_reuse_visibility_check):
+        raise NotImplementedError(
+            "Features(spatial_reuse_visibility_check=True) with the unbiased "
+            "combine needs the Z-count occlusion kernel (pallas_zcount_occ), "
+            "ported in slice 3")
+    gradient = ["surrogate_resampling_grad"]
+    if features.spatial_reuse:
+        gradient.append("coherent_spatial_offsets")
+    for flag in gradient:
         if getattr(features, flag):
             raise NotImplementedError(
-                f"Features({flag}=True) needs {what}, ported in a later "
-                f"slice; this slice renders with {flag}=False")
+                f"Features({flag}=True) belongs to the ReSTIR gradient "
+                f"slice, not ported yet")
 
 
 def render_restir_frame(generator, cam: CameraParams, geometry, lights,
@@ -147,20 +296,27 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
     ``generator`` (a ``torch.Generator`` on the scene's device) takes the
     place of the reference's key. ``noise`` is the test hook that replaces
     every random draw: (RIS uniforms [S/K, 4, K, H, W], temporal race
-    Gumbel noise [2, K, H, W]); it is None on the main path."""
+    Gumbel noise [2, K, H, W], and with spatial reuse, per pass
+    (offsets [2, R, H, W], Gumbel [R+1, K, H, W])); it is None on the main
+    path."""
     _check_slice(features)
     k = features.num_samples_in_reservoir
-    ris_u, temporal_g = (None, None) if noise is None else noise
+    ris_u, temporal_g, spatial_inject = (None, None, None) if noise is None \
+        else (tuple(noise) + (None,))[:3]
 
     rays = generate_rays(cam, height, width)
     _, ctx = trace_primary(rays, geometry, features, ops)
-    res = ops.ris(ctx, lights, num_lights, features, generator=generator,
-                  uniforms=ris_u)
+    res = gen_canonical_samples(ctx, lights, num_lights, geometry, features,
+                                generator=generator, uniforms=ris_u,
+                                ris=ops.ris, any_hit=ops.any_hit)
     if features.temporal_reuse:
         if temporal_g is None:
             temporal_g = gumbel_noise(generator, (2, k, height, width))
         res = temporal_reuse(temporal_g, ctx, res, prev, height, width,
-                             features)
+                             features, ops)
+    if features.spatial_reuse:
+        res = spatial_reuse(generator, ctx, res, height, width, features,
+                            ops, spatial_inject)
     color = final_shade(ctx, res, geometry, features, ops)
     if features.enable_tone_mapping:
         color = exposure_tone_mapping(color, features)

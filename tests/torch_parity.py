@@ -83,3 +83,29 @@ def jax_ris_uniforms(key, s, k, h, w):
     keys = jax.random.split(key, sk)
     return np.stack([np.asarray(jax.random.uniform(keys[i], (4, k, h, w)))
                      for i in range(sk)])
+
+
+def jax_frame_noise(key, features, h, w):
+    """Every random draw the JAX XLA path makes in render_restir_frame with
+    ``key``, as the port's ``noise`` hook: RIS uniforms, the temporal race
+    Gumbel noise, and per spatial pass the offsets
+    randint(fold_in(fold_in(key, PH_SPATIAL), p)) and the race noise
+    gumbel(fold_in(kp, 1000), (R+1, K, H, W))."""
+    from romis_tpu.render.restir import (
+        PH_CANDIDATES, PH_SPATIAL, PH_TEMPORAL,
+    )
+
+    s, k = features.initial_light_samples, features.num_samples_in_reservoir
+    r = features.num_neighbours_to_sample
+    radius = features.spatial_resample_radius
+    fold = jax.random.fold_in
+    spatial = []
+    for p in range(features.spatial_resampling_passes):
+        kp = fold(fold(key, PH_SPATIAL), p)
+        spatial.append((
+            t(jax.random.randint(kp, (2, r, h, w), -radius, radius + 1)),
+            t(jax.random.gumbel(fold(kp, 1000), (r + 1, k, h, w)))))
+    return (torch.from_numpy(jax_ris_uniforms(fold(key, PH_CANDIDATES), s, k,
+                                              h, w)),
+            t(jax.random.gumbel(fold(key, PH_TEMPORAL), (2, k, h, w))),
+            spatial)
