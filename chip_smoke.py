@@ -13,10 +13,16 @@ GPU.
    random soup of 2048 triangles; the halo gather on random offsets and on
    the smooth field of a camera shift; the biased and unbiased spatial
    passes on injected noise (exact) and on their own random streams (means
-   within 1 %). Tolerances are the constants below.
-4. Three main paths through ``render_frame``, each at 1920x1080, once
-   through the kernels and once through the plain versions, with the launch
-   counters set to 0 just before and read just after the kernels' run:
+   within 1 %). Then the gradient step's kernels: the row scatter-add into
+   the light table, the material table (every index the same row) and the
+   soup's packed vertices; the halo scatter at D=5, C=2; the replay RIS on
+   injected uniforms (records exact) and on Philox; and one
+   ``torch.autograd.grad`` through each autograd wrapper (row gather, halo
+   gather, closest hit, final shade) against autograd of the plain
+   version. Tolerances are the constants below.
+4. Five main paths, each at 1920x1080, once through the kernels and once
+   through the plain versions, with the launch counters set to 0 just
+   before and read just after the kernels' run:
    - slice 1: ``Features(spatial_reuse=False)``, 2 frames;
    - config 5: ``Features()`` (the reference defaults of bench.py config 5:
      S=32, K=2, temporal reuse, 2 biased spatial passes of 5 neighbours in
@@ -24,11 +30,24 @@ GPU.
    - the animated path: a camera turning about 4 pixels per frame, with
      temporal reprojection, the unbiased combine and the initial visibility
      check, 4 frames (``render_animation``).
-   Every pixel is finite, the last images' means agree within 2 %, and the
-   launch counters rose by exactly the per-frame counts in PATHS. The last
-   config-5 image goes to ``build/chip_smoke_frame.png``.
+   - the gradient paths of ``diff.grad.make_grad_fn`` on config 5's
+     features without tone mapping: ``grad_surrogate``
+     (``surrogate_resampling_grad``: the replay RIS, replay records through
+     the reuse phases, coherent spatial offsets) and ``grad_per_pixel``
+     (the same with ``exact_gradients``: per-pixel offsets, so big_w goes
+     through the halo gather and its scatter), 2 steps each (one on
+     injected noise, one on the Philox streams), from the state of one
+     forward frame, against a target rendered with the light colours x 0.8.
+     The plain run takes the first step's injected noise.
+   Every pixel is finite, the last images' means (the losses) agree within
+   2 %, the launch counters rose by exactly the per-frame (per-step) counts
+   in PATHS, and every gradient leaf is finite, reaches the image where it
+   should, and agrees with the plain run's within GRAD_REL of its largest
+   element. The last config-5 image goes to ``build/chip_smoke_frame.png``.
 5. Timing with CUDA events: ms/frame of each path through the kernels and
-   the plain versions, and each kernel beside its plain version.
+   the plain versions (a gradient step beside its forward-only frame, with
+   the peak device memory of a step), and each kernel beside its plain
+   version.
 
 Any failed check raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table.
@@ -37,6 +56,8 @@ Any failed check raises, so the exit code is non-zero. The last line is
 from __future__ import annotations
 
 import json
+import math
+from dataclasses import replace
 import subprocess
 import sys
 import time
@@ -62,9 +83,17 @@ PASS_M_RTOL = 1e-6
 PASS_BIG_W_RTOL = 1e-4
 PHILOX_REL = 0.01  # Philox stream vs torch.rand stream, over the frame
 FRAME_REL = 0.02  # last-frame mean, kernels vs plain versions
+# Row scatter-add vs index_add_, per (row, component), relative to the sum
+# of |contributions| there: both add float32 in no fixed order, and the
+# plain version adds up to 2 M terms one by one into the same cell.
+SCATTER_REL = 1e-3
+SCATTER_F64_REL = 1e-4  # the kernel against a float64 index_add_
+HALO_SCATTER_REL = 1e-5  # a few terms per cell, in another order
+GRAD_REL = 1e-2  # gradient leaves, kernels vs plain, of the leaf's max |g|
 
 KERNELS = ("closest_hit", "gather_rows", "ris", "final_shade",
-           "spatial_pass", "spatial_pass_unbiased", "halo_gather", "any_hit")
+           "spatial_pass", "spatial_pass_unbiased", "halo_gather", "any_hit",
+           "scatter_rows_add", "halo_scatter", "ris_replay")
 SOURCES = {
     "closest_hit": ("romis_tpu_torch/csrc/trace.cu",
                     "romis_tpu/ops/pallas_trace.py:465"),
@@ -82,8 +111,20 @@ SOURCES = {
                     "romis_tpu/ops/pallas_spatial.py:283"),
     "any_hit": ("romis_tpu_torch/csrc/any.cu",
                 "romis_tpu/ops/pallas_trace.py:506"),
+    "scatter_rows_add": ("romis_tpu_torch/csrc/scatter.cu",
+                         "romis_tpu/ops/pallas_scatter.py:77"),
+    "halo_scatter": ("romis_tpu_torch/csrc/halo.cu",
+                     "romis_tpu/ops/pallas_spatial.py:403"),
+    "ris_replay": ("romis_tpu_torch/csrc/ris.cu",
+                   "romis_tpu/ops/pallas_ris.py:625"),
 }
-# Launches per frame of each main path.
+# Launches per frame (per gradient step) of each main path. A gradient
+# step's row gathers: hit attributes and materials, the closest hit's
+# re-evaluation, the RIS tail's two races, and two replays per spatial
+# pass; a scatter for each of them whose table needs a gradient (all but
+# the attributes). The any-hit runs in the final shade's backward; the
+# per-pixel path adds two halo gathers per pass, one (big_w) with a
+# scatter.
 PATHS = {
     "slice1": {"closest_hit": 1, "gather_rows": 2, "ris": 1,
                "final_shade": 1},
@@ -92,8 +133,17 @@ PATHS = {
     "animated": {"closest_hit": 1, "gather_rows": 2, "ris": 1, "any_hit": 1,
                  "halo_gather": 1, "spatial_pass_unbiased": 2,
                  "final_shade": 1},
+    "grad_surrogate": {"closest_hit": 1, "gather_rows": 9, "ris_replay": 1,
+                       "final_shade": 1, "any_hit": 1,
+                       "scatter_rows_add": 8},
+    "grad_per_pixel": {"closest_hit": 1, "gather_rows": 9, "ris_replay": 1,
+                       "final_shade": 1, "any_hit": 1,
+                       "scatter_rows_add": 8, "halo_gather": 4,
+                       "halo_scatter": 2},
 }
-FRAMES = {"slice1": 2, "config5": 4, "animated": 4}
+FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "grad_surrogate": 2,
+          "grad_per_pixel": 2}
+GRAD_PATHS = ("grad_surrogate", "grad_per_pixel")
 
 
 def fail(msg: str):
@@ -170,15 +220,23 @@ def main() -> None:
     from romis_tpu_torch.core.types import (
         pack_reservoir_planes, unpack_reservoir_planes,
     )
-    from romis_tpu_torch.ops import _build, rows, ris, shade, spatial, trace
-    from romis_tpu_torch.ops.wrs import gen_canonical_samples_plain
+    from romis_tpu_torch.diff.grad import (
+        extract_params, make_grad_fn, render_with_params,
+    )
+    from romis_tpu_torch.ops import (
+        _build, rows, ris, scatter, shade, spatial, trace,
+    )
+    from romis_tpu_torch.ops.wrs import (
+        gen_canonical_replay_plain, gen_canonical_samples_plain, gumbel_noise,
+        replay_uniforms,
+    )
     from romis_tpu_torch.render import restir
     from romis_tpu_torch.render.animation import (
         camera_at, interpolate_cameras, render_animation,
     )
     from romis_tpu_torch.render.pipeline import render_frame, save_image
     from romis_tpu_torch.scene.scene import (
-        build_geometry, flagship_camera, flagship_scene,
+        build_geometry, flagship_camera, flagship_scene, repack_rows,
     )
 
     dev = torch.device("cuda", 0)
@@ -211,7 +269,10 @@ def main() -> None:
                 "spatial_pass": spatial.spatial_pass_fused,
                 "spatial_pass_unbiased": spatial.spatial_pass_unbiased_fused,
                 "halo_gather": spatial.halo_offset_gather,
-                "any_hit": trace.any_hit}
+                "any_hit": trace.any_hit,
+                "scatter_rows_add": scatter.scatter_rows_add,
+                "halo_scatter": spatial.halo_offset_scatter,
+                "ris_replay": ris.gen_canonical_replay}
 
     # ---- 3. each kernel against its plain version ----
     feats = Features()
@@ -442,6 +503,144 @@ def main() -> None:
     for label, (kernel_fn, plain_fn) in pass_fns.items():
         errs[label] = check_pass(label, kernel_fn, plain_fn)
 
+    # The gradient step's kernels. Row scatter-add: the light table
+    # (4 M lane indices over 512 rows), the material table (every pixel on
+    # its one row: the contention case) and the packed v0|e1|e2 of the
+    # 2048-triangle soup at its closest-hit triangles.
+    def check_scatter(label, ct, idx, n_rows):
+        o_k = scatter.scatter_rows_add(ct, idx, n_rows)
+        o_p = scatter.scatter_rows_add_plain(ct, idx, n_rows)
+        o_64 = torch.zeros((n_rows, ct.shape[0]), dtype=torch.float64,
+                           device=dev).index_add_(
+            0, idx.reshape(-1).long().clamp(0, n_rows - 1),
+            ct.reshape(ct.shape[0], -1).t().double())
+        mag = scatter.scatter_rows_add_plain(ct.abs(), idx,
+                                             n_rows).double().clamp_min(1e-30)
+        torch.cuda.synchronize()
+        rel = ((o_k - o_p).abs() / mag).max().item()
+        rel64 = ((o_k.double() - o_64).abs() / mag).max().item()
+        rel_p64 = ((o_p.double() - o_64).abs() / mag).max().item()
+        print(f"check scatter_rows_add[{label}]: rows {n_rows}, indices "
+              f"{idx.numel()}, max err / sum|ct| vs plain {rel:.2e}, vs "
+              f"float64 {rel64:.2e} (plain vs float64 {rel_p64:.2e})")
+        require(rel <= SCATTER_REL, f"scatter {label}: vs plain {rel}")
+        require(rel64 <= SCATTER_F64_REL, f"scatter {label}: vs f64 {rel64}")
+        return (o_k - o_p).abs().max().item()
+
+    light_idx = torch.randint(0, scene.num_lights, (k, H, W), generator=gen,
+                              device=dev, dtype=torch.int32)
+    light_ct = torch.randn((24, k, H, W), generator=gen, device=dev)
+    soup_tri = torch.clamp_min(trace.closest_hit_plain(rays, soup)[1], 0)
+    scatter_cases = {
+        "lights": (light_ct, light_idx, scene.num_lights),
+        "material": (torch.randn((8, H, W), generator=gen, device=dev),
+                     torch.zeros((H, W), dtype=torch.int32, device=dev), 1),
+        "soup2048": (torch.randn((9, H, W), generator=gen, device=dev),
+                     soup_tri, SOUP_TRIS),
+    }
+    errs["scatter_rows_add"] = max(check_scatter(label, *case)
+                                   for label, case in scatter_cases.items())
+
+    # Halo scatter: the per-pixel path's big_w cotangents (D = R = 5,
+    # C = K = 2) at clamped offsets within ±radius.
+    halo_ct = torch.randn((n_nbr, k, H, W), generator=gen, device=dev)
+    sdy, sdx = spatial.clamped_offsets(torch.randint(
+        -radius, radius + 1, (2, n_nbr, H, W), generator=gen, device=dev,
+        dtype=torch.int32), H, W)
+    hs_k = spatial.halo_offset_scatter(halo_ct, sdy, sdx)
+    hs_p = spatial.halo_offset_scatter_plain(halo_ct, sdy, sdx)
+    hs_mag = spatial.halo_offset_scatter_plain(halo_ct.abs(), sdy,
+                                               sdx).clamp_min(1e-30)
+    torch.cuda.synchronize()
+    hs_rel = ((hs_k - hs_p).abs() / hs_mag).max().item()
+    print(f"check halo_scatter: D={n_nbr}, C={k}, max err / sum|ct| "
+          f"{hs_rel:.2e}")
+    require(hs_rel <= HALO_SCATTER_REL, f"halo scatter: {hs_rel}")
+    errs["halo_scatter"] = (hs_k - hs_p).abs().max().item()
+
+    # Replay RIS: injected uniforms (records exact), then Philox.
+    def check_replay(c, label):
+        uni5 = torch.rand((sk, 5, k, H, W), generator=gen, device=dev)
+        w_k, *recs_k = ris.gen_canonical_replay(c, scene.lights,
+                                                scene.num_lights, feats,
+                                                uniforms=uni5)
+        w_p, *recs_p = gen_canonical_replay_plain(c, scene.lights,
+                                                  scene.num_lights, feats,
+                                                  uniforms=uni5)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for rk, rp in zip(recs_k, recs_p)
+                    for a, b in zip(rk, rp))
+        ws_rel = ((w_k - w_p).abs() / w_p.abs().clamp_min(1e-30)).max().item()
+        print(f"check ris_replay[{label}, uniforms]: records of both races "
+              f"exact {exact}, w_sum max rel err {ws_rel:.2e}, live lanes "
+              f"{(w_p > 0).float().mean().item():.4f}")
+        require(exact, f"replay {label}: records differ")
+        require(ws_rel <= RIS_W_SUM_RTOL, f"replay {label}: w_sum {ws_rel}")
+        return (w_k - w_p).abs().max().item()
+
+    errs["ris_replay"] = max(check_replay(ctx, "flagship"),
+                             check_replay(soup_ctx, "soup2048"))
+    w_k = ris.gen_canonical_replay(ctx, scene.lights, scene.num_lights, feats,
+                                   generator=gen)[0]
+    w_p = gen_canonical_replay_plain(ctx, scene.lights, scene.num_lights,
+                                     feats, generator=gen)[0]
+    for lane in range(k):
+        mk, mp = w_k[lane].mean().item(), w_p[lane].mean().item()
+        print(f"check ris_replay[philox]: lane {lane} mean w_sum {mk:.6g} vs "
+              f"plain {mp:.6g}")
+        require(abs(mk - mp) <= PHILOX_REL * abs(mp), "replay Philox w_sum")
+
+    # One torch.autograd.grad through each autograd wrapper, against
+    # autograd of the plain version.
+    def check_grad(label, kernel_fn, plain_fn, leaves):
+        outs_k, outs_p = kernel_fn(), plain_fn()
+        cts = [torch.randn(o.shape, generator=gen, device=dev)
+               for o in outs_k]
+        g_k = torch.autograd.grad(outs_k, leaves, cts)
+        g_p = torch.autograd.grad(outs_p, leaves, cts)
+        torch.cuda.synchronize()
+        rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  .item() for a, b in zip(g_k, g_p))
+        nz = all(bool(b.abs().max() > 0) for b in g_p)
+        print(f"check grad[{label}]: max err / max |g| {rel:.2e}, all leaves "
+              f"reached {nz}")
+        require(rel <= GRAD_REL and nz, f"grad {label}: {rel}")
+
+    table_g = scene.lights.rows.clone().requires_grad_()
+    check_grad("gather_rows", lambda: [rows.gather_rows(table_g, light_idx)],
+               lambda: [rows.gather_rows_plain(table_g, light_idx)],
+               [table_g])
+    planes_g = torch.rand((k, H, W), generator=gen,
+                          device=dev).requires_grad_()
+    check_grad("halo_gather",
+               lambda: [spatial.halo_offset_gather(planes_g, sdy, sdx)],
+               lambda: [spatial.halo_offset_gather_plain(planes_g, sdy, sdx)],
+               [planes_g])
+    verts = [getattr(scene.geometry, f).clone().requires_grad_()
+             for f in ("v0", "e1", "e2")]
+    geo_g = repack_rows(replace(scene.geometry, v0=verts[0], e1=verts[1],
+                                e2=verts[2]))
+    hit_mask = torch.isfinite(trace.closest_hit_plain(rays, geo_g)[0])
+
+    def tuv(fn):
+        t_, _, u_, v_ = fn(rays, geo_g)
+        return [torch.where(hit_mask, t_, 0.0), u_, v_]
+
+    check_grad("closest_hit", lambda: tuv(trace.closest_hit),
+               lambda: tuv(trace.closest_hit_plain), verts)
+    shade_leaves = [ctx.kd.clone().requires_grad_(),
+                    res_main.pos.clone().requires_grad_(),
+                    res_main.color.clone().requires_grad_(),
+                    res_main.big_w.clone().requires_grad_()]
+    ctx_g = replace(ctx, kd=shade_leaves[0])
+    res_g = replace(res_main, pos=shade_leaves[1], color=shade_leaves[2],
+                    big_w=shade_leaves[3])
+    check_grad("final_shade",
+               lambda: [shade.final_shade_fused(ctx_g, res_g, scene.geometry,
+                                                feats)],
+               lambda: [shade.final_shade_plain(ctx_g, res_g, scene.geometry,
+                                                feats)], shade_leaves)
+
     # ---- 4. the main paths through the entry points ----
     path_feats = {
         "slice1": Features(spatial_reuse=False),
@@ -475,6 +674,8 @@ def main() -> None:
 
     launches = {n: 0 for n in KERNELS}
     for path, per_frame in PATHS.items():
+        if path in GRAD_PATHS:
+            continue
         for fn in wrappers.values():
             fn.launches = 0
         img_k, state_k = run_path(path, restir.KERNELS, 0)
@@ -503,6 +704,85 @@ def main() -> None:
             save_image(str(png), img_k)
             print(f"path {path}: wrote {png.relative_to(ROOT)}")
 
+    # The gradient paths: make_grad_fn from one forward frame's state,
+    # against a target rendered with the light colours x 0.8.
+    grad_feats = {
+        "grad_surrogate": Features(enable_tone_mapping=False,
+                                   surrogate_resampling_grad=True),
+        "grad_per_pixel": Features(enable_tone_mapping=False,
+                                   surrogate_resampling_grad=True,
+                                   exact_gradients=True),
+    }
+    params = extract_params(scene.geometry, scene.lights)
+    dim = replace(params, **{f: getattr(params, f) * 0.8 for f in (
+        "light_c0", "light_c1", "light_c2", "light_c3")})
+
+    def grad_setup(path):
+        """(features, prev state, target image, one step's injected noise)."""
+        f = grad_feats[path]
+        g = torch.Generator(device=dev).manual_seed(11)
+        args = (cam, scene.geometry, scene.lights, scene.num_lights, H, W, f)
+        with torch.no_grad():
+            _, prev = render_with_params(
+                params, g, *args, restir.initial_temporal_state(H, W, k, cam))
+            target, _ = render_with_params(dim, g, *args, prev)
+        shape = (2, n_nbr, H, W) if f.exact_gradients else (2, n_nbr)
+        noise = (replay_uniforms(g, s, k, H, W),
+                 gumbel_noise(g, (2, k, H, W)),
+                 [(torch.randint(-radius, radius + 1, shape, generator=g,
+                                 device=dev, dtype=torch.int32),
+                   gumbel_noise(g, (n_nbr + 1, k, H, W)),
+                   gumbel_noise(g, (n_nbr + 1, k, H, W)))
+                  for _ in range(f.spatial_resampling_passes)])
+        return f, prev, target, noise
+
+    grad_reach = ("light_c0", "light_v0", "mat_kd", "tri_v0")
+    for path in GRAD_PATHS:
+        f, prev, target, noise = grad_setup(path)
+        fn_k = make_grad_fn(scene.geometry, scene.lights, scene.num_lights,
+                            H, W, f)
+        fn_p = make_grad_fn(scene.geometry, scene.lights, scene.num_lights,
+                            H, W, f, ops=restir.PLAIN)
+        for fn in wrappers.values():
+            fn.launches = 0
+        loss_k, g_k = fn_k(params, target, None, cam, prev, noise)
+        loss_k2, g_k2 = fn_k(params, target,
+                             torch.Generator(device=dev).manual_seed(12),
+                             cam, prev)
+        torch.cuda.synchronize()
+        got = {n: fn.launches for n, fn in wrappers.items()}
+        loss_p, g_p = fn_p(params, target, None, cam, prev, noise)
+        torch.cuda.synchronize()
+        expect = {n: PATHS[path].get(n, 0) * FRAMES[path] for n in KERNELS}
+        print(f"path {path}: launches over {FRAMES[path]} steps "
+              f"{ {n: c for n, c in got.items() if c} }")
+        require(got == expect, f"{path}: launch counts {got} != {expect}")
+        for n in KERNELS:
+            launches[n] += got[n]
+        lk, lp, lk2 = loss_k.item(), loss_p.item(), loss_k2.item()
+        print(f"path {path}: loss {lk:.8g} (kernels) vs {lp:.8g} (plain), "
+              f"Philox step {lk2:.8g}")
+        require(all(map(math.isfinite, (lk, lp, lk2))) and lk > 0,
+                f"{path}: loss")
+        require(abs(lk - lp) <= FRAME_REL * abs(lp), f"{path}: losses differ")
+        worst = 0.0
+        for leaf in g_k.__dataclass_fields__:
+            a, b, a2 = (getattr(x, leaf) for x in (g_k, g_p, g_k2))
+            require(bool(torch.isfinite(a).all() & torch.isfinite(b).all()
+                         & torch.isfinite(a2).all()),
+                    f"{path}: non-finite gradient {leaf}")
+            scale = b.abs().max().item()
+            rel = (a - b).abs().max().item() / max(scale, 1e-30)
+            worst = max(worst, rel if scale > 0 else 0.0)
+            print(f"path {path}: grad {leaf} max |g| {scale:.4e}, max err / "
+                  f"max |g| {rel:.2e}")
+            require(rel <= GRAD_REL or scale == a.abs().max().item() == 0,
+                    f"{path}: gradient {leaf} differs ({rel})")
+            if leaf in grad_reach:
+                require(scale > 0 and a2.abs().max().item() > 0,
+                        f"{path}: no gradient reaches {leaf}")
+        print(f"path {path}: worst gradient leaf err / max |g| {worst:.2e}")
+
     # ---- 5. timing ----
     def one_frame(path, ops):
         g = torch.Generator(device=dev).manual_seed(5)
@@ -519,11 +799,54 @@ def main() -> None:
         return run
 
     for path in PATHS:
+        if path in GRAD_PATHS:
+            continue
         f_k, f_p = ab_ms(torch, one_frame(path, restir.KERNELS),
                          one_frame(path, restir.PLAIN), 10, 3)
         print(f"time frame[{path}]: {f_k:.3f} ms/frame kernels, {f_p:.3f} "
               f"ms/frame plain ({H * W * (1 + k) / f_k / 1e3:.1f} Mrays/s) "
               f"[{card}]")
+
+    for path in GRAD_PATHS:
+        f, prev, target, _ = grad_setup(path)
+
+        def grad_step(ops):
+            fn = make_grad_fn(scene.geometry, scene.lights, scene.num_lights,
+                              H, W, f, ops=ops)
+            g = torch.Generator(device=dev).manual_seed(5)
+            return lambda: fn(params, target, g, cam, prev)
+
+        def forward_frame(ops):
+            g = torch.Generator(device=dev).manual_seed(5)
+
+            def run():
+                with torch.no_grad():
+                    render_with_params(params, g, cam, scene.geometry,
+                                       scene.lights, scene.num_lights, H, W,
+                                       f, prev, ops=ops)
+            return run
+
+        s_k, s_p = ab_ms(torch, grad_step(restir.KERNELS),
+                         grad_step(restir.PLAIN), 3, 1)
+        f_k, f_p = ab_ms(torch, forward_frame(restir.KERNELS),
+                         forward_frame(restir.PLAIN), 5, 2)
+        peaks = []
+        for ops in (restir.KERNELS, restir.PLAIN):
+            step = grad_step(ops)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated(), base))
+        (pk, bk), (pp, bp) = peaks
+        print(f"time grad[{path}]: {s_k:.3f} ms/step kernels, {s_p:.3f} "
+              f"ms/step plain; forward frame {f_k:.3f} ms kernels, "
+              f"{f_p:.3f} ms plain [{card}]")
+        print(f"memory grad[{path}]: peak {pk / 2**30:.3f} GiB kernels "
+              f"({(pk - bk) / 2**30:.3f} above the {bk / 2**30:.3f} GiB "
+              f"held before the step), {pp / 2**30:.3f} GiB plain "
+              f"({(pp - bp) / 2**30:.3f} above) [{card}]")
 
     uni = torch.rand((sk, 4, k, H, W), generator=gen, device=dev)
     o, d, tm = shadow_rays(ctx, res_main)
@@ -560,6 +883,23 @@ def main() -> None:
         timings[label] = ab_ms(torch, lambda: kernel_fn(generator=gen,
                                                         key=key),
                                lambda: plain_fn(generator=gen), 10, 3)
+    for label, (ct, idx_s, n_rows) in scatter_cases.items():
+        ms = ab_ms(torch, lambda: scatter.scatter_rows_add(ct, idx_s, n_rows),
+                   lambda: scatter.scatter_rows_add_plain(ct, idx_s, n_rows),
+                   20, 5)
+        print(f"time scatter_rows_add[{label}]: {ms[0]:.4f} ms kernel, "
+              f"{ms[1]:.4f} ms plain [{card}]")
+        if label == "lights":
+            timings["scatter_rows_add"] = ms
+    timings["halo_scatter"] = ab_ms(
+        torch, lambda: spatial.halo_offset_scatter(halo_ct, sdy, sdx),
+        lambda: spatial.halo_offset_scatter_plain(halo_ct, sdy, sdx), 20, 5)
+    uni5 = torch.rand((sk, 5, k, H, W), generator=gen, device=dev)
+    timings["ris_replay"] = ab_ms(
+        torch, lambda: ris.gen_canonical_replay(
+            ctx, scene.lights, scene.num_lights, feats, uniforms=uni5),
+        lambda: gen_canonical_replay_plain(
+            ctx, scene.lights, scene.num_lights, feats, uniforms=uni5), 10, 3)
     for n, (km, pm) in timings.items():
         print(f"time {n}: {km:.4f} ms kernel, {pm:.4f} ms plain [{card}]")
     inject = spatial.spatial_noise(gen, n_nbr, k, radius, H, W)
@@ -572,6 +912,9 @@ def main() -> None:
     ms = cuda_ms(torch, lambda: ris.gen_canonical_samples_ris(
         ctx, scene.lights, scene.num_lights, feats, generator=gen), 10)
     print(f"time ris (philox): {ms:.4f} ms [{card}]")
+    ms = cuda_ms(torch, lambda: ris.gen_canonical_replay(
+        ctx, scene.lights, scene.num_lights, feats, generator=gen), 10)
+    print(f"time ris_replay (philox): {ms:.4f} ms [{card}]")
 
     table_rows = [{"name": n, "route": "cuda", "source": SOURCES[n][0],
                    "replaces": SOURCES[n][1], "launches": launches[n],

@@ -1,4 +1,4 @@
-"""Carry a scene and a camera over from the JAX package.
+"""Carry a scene, a camera and scene parameters over from the JAX package.
 
 The caller extracts the reference's arrays with ``np.asarray``; these
 functions build the port's objects from them. Nothing here imports JAX.
@@ -40,3 +40,13 @@ def camera_from_numpy(look_at, rotation, distance, fovy, aspect,
     return CameraParams(look_at=f32(look_at), rotation=f32(rotation),
                         distance=f32(distance), fovy=f32(fovy),
                         aspect=f32(aspect))
+
+
+def params_from_numpy(params: dict[str, np.ndarray], device="cpu"):
+    """The reference SceneParams' 13 leaves (``diff.grad.SceneParams``
+    field names) → the port's SceneParams."""
+    from .diff.grad import SceneParams
+
+    return SceneParams(**{
+        f: torch.as_tensor(np.array(params[f], np.float32), device=device)
+        for f in SceneParams.__dataclass_fields__})

@@ -5,7 +5,7 @@ lead."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 
 import torch
 
@@ -100,3 +100,10 @@ def unpack_reservoir_planes(g: torch.Tensor, k: int) -> Reservoirs:
         big_w=planes(8 * k, 9 * k, (k,)),
         chosen_w=planes(9 * k, 10 * k, (k,)),
     )
+
+
+def detached(state):
+    """A dataclass of tensors (ShadeCtx, Reservoirs, LightTable, ...) with
+    every field detached from the autograd graph."""
+    return replace(state, **{f.name: getattr(state, f.name).detach()
+                             for f in fields(state)})

@@ -18,19 +18,38 @@
 // (pick, u, v, race) per candidate — or, when `uniforms` is given
 // ([S/K, 4, K, N]), those numbers. Bound: compute, S x ~90 flops plus one
 // powf per candidate; device-memory traffic is 17 planes in, 10K out.
+//
+// Kernel 14, the replay mode (kReplay), replaces
+// romis_tpu/ops/pallas_ris.py gen_canonical_replay_pallas (the same
+// _ris_kernel with replay=True): the detached candidate loop of the
+// winner-replay surrogate gradient (ops/wrs.gen_canonical_surrogate). It
+// runs TWO independent races per lane over the same candidates and writes
+// only their replay records, 7 planes per lane in the reference's order
+// (w_sum, idx1, u1, v1, idx2, u2, v2; the light index as a float); the
+// caller re-derives the reservoir differentiably from them. It needs 5
+// uniforms per candidate (pick, u, v, race 1, race 2): Philox block
+// (slot*K + lane, pixel, tag) gives the first four and block
+// (..., tag | 1) the fifth, with tag = kReplayTag in the counter's last
+// word, disjoint from the forward RIS (0) and the spatial passes
+// (0x5350/0x5351 << 16); or they come from `uniforms` [S/K, 5, K, N]. The
+// replay writes 7K planes instead of 10K and selects no position or
+// colour, so it is the same compute bound with less traffic.
 #include "common.cuh"
 
 namespace romis {
 
 constexpr int kRowStride = 24;
 constexpr int kMaxSmemLightBytes = 96 * 1024;
+constexpr uint32_t kReplayTag = 0x5250u << 16;
 
-template <bool kSmem>
+template <bool kSmem, bool kReplay>
 __global__ void __launch_bounds__(kThreads)
 ris_kernel(const float* __restrict__ ctx, long long n,
            const float* __restrict__ rows, int n_rows, int num_lights, int s,
            int k, uint32_t key0, uint32_t key1,
            const float* __restrict__ uniforms, float* __restrict__ out) {
+  constexpr int kUniforms = kReplay ? 5 : 4;
+  constexpr uint32_t kTag = kReplay ? kReplayTag : 0u;
   extern __shared__ float s_rows[];
   if (kSmem) {
     for (int i = threadIdx.x; i < n_rows * kRowStride; i += blockDim.x)
@@ -60,26 +79,33 @@ ris_kernel(const float* __restrict__ ctx, long long n,
   for (int lane = 0; lane < k; ++lane) {
     float w_sum = 0.0f, best = -INFINITY, sel_w = 0.0f, sel_ph = 0.0f;
     float sel[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    // Replay records of the two races: (light index, u, v).
+    float best2 = -INFINITY;
+    float rec1[3] = {0.f, 0.f, 0.f}, rec2[3] = {0.f, 0.f, 0.f};
     int count = 0;
     for (int t = 0; t < sk; ++t) {
       const bool real = t * k + lane < s;
       count += real;
-      float ui, u, v, ur;
+      float ui, u, v, ur, ur2 = 0.0f;
       if (uniforms != nullptr) {
-        const long long base = (static_cast<long long>(t) * 4 * k + lane) * n + p;
+        const long long base = (static_cast<long long>(t) * kUniforms * k + lane) * n + p;
         ui = uniforms[base];
         u = uniforms[base + k * n];
         v = uniforms[base + 2 * k * n];
         ur = uniforms[base + 3 * k * n];
+        if (kReplay) ur2 = uniforms[base + 4 * k * n];
       } else {
-        const U4 b = philox4x32_10(
-            U4{static_cast<uint32_t>(t * k + lane), static_cast<uint32_t>(p),
-               static_cast<uint32_t>(p >> 32), 0u},
-            key0, key1);
+        const U4 ctr{static_cast<uint32_t>(t * k + lane), static_cast<uint32_t>(p),
+                     static_cast<uint32_t>(p >> 32), kTag};
+        const U4 b = philox4x32_10(ctr, key0, key1);
         ui = u01(b.x); u = u01(b.y); v = u01(b.z); ur = u01(b.w);
+        if (kReplay) {
+          const U4 b2 = philox4x32_10(U4{ctr.x, ctr.y, ctr.z, kTag | 1u}, key0, key1);
+          ur2 = u01(b2.x);
+        }
       }
-      int idx = min(static_cast<int>(ui * nl), num_lights - 1);
-      idx = min(max(idx, 0), n_rows - 1);
+      const int pick = min(static_cast<int>(ui * nl), num_lights - 1);
+      const int idx = min(max(pick, 0), n_rows - 1);
       const float* row = kSmem ? s_rows + idx * kRowStride : rows + idx * kRowStride;
       float q[21];
 #pragma unroll
@@ -99,13 +125,33 @@ ris_kernel(const float* __restrict__ ctx, long long n,
       const float e_clock = -logf(fmaxf(ur, 1e-37f)) + 1e-37f;
       const float score = w > 0.0f ? w / e_clock : -INFINITY;
       w_sum = w_sum + w;
-      if (score > best) {
+      if (kReplay) {
+        const float e2 = -logf(fmaxf(ur2, 1e-37f)) + 1e-37f;
+        const float score2 = w > 0.0f ? w / e2 : -INFINITY;
+        if (score > best) {
+          best = score;
+          rec1[0] = static_cast<float>(pick); rec1[1] = u; rec1[2] = v;
+        }
+        if (score2 > best2) {
+          best2 = score2;
+          rec2[0] = static_cast<float>(pick); rec2[1] = u; rec2[2] = v;
+        }
+      } else if (score > best) {
         best = score;
         sel[0] = lx; sel[1] = ly; sel[2] = lz;
         sel[3] = col[0]; sel[4] = col[1]; sel[5] = col[2];
         sel_w = w;
         sel_ph = ph;
       }
+    }
+    if (kReplay) {
+      float* o = out + static_cast<long long>(7 * lane) * n + p;
+      o[0] = w_sum;
+      for (int c = 0; c < 3; ++c) {
+        o[(1 + c) * n] = rec1[c];
+        o[(4 + c) * n] = rec2[c];
+      }
+      continue;
     }
     const float m = static_cast<float>(count);
     const bool cond = sel_ph > 0.0f;
@@ -123,10 +169,12 @@ ris_kernel(const float* __restrict__ ctx, long long n,
 
 }  // namespace romis
 
-extern "C" int romis_ris(const float* ctx, long long n, const float* rows,
-                         int n_rows, int num_lights, int s, int k,
-                         unsigned long long seed, const float* uniforms,
-                         float* out, cudaStream_t stream) {
+namespace {
+
+template <bool kReplay>
+int launch_ris(const float* ctx, long long n, const float* rows, int n_rows,
+               int num_lights, int s, int k, unsigned long long seed,
+               const float* uniforms, float* out, cudaStream_t stream) {
   using namespace romis;
   const uint32_t key0 = static_cast<uint32_t>(seed);
   const uint32_t key1 = static_cast<uint32_t>(seed >> 32);
@@ -134,14 +182,32 @@ extern "C" int romis_ris(const float* ctx, long long n, const float* rows,
   if (smem <= kMaxSmemLightBytes) {
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          ris_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          ris_kernel<true, kReplay>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    ris_kernel<true><<<blocks_for(n), kThreads, smem, stream>>>(
+    ris_kernel<true, kReplay><<<blocks_for(n), kThreads, smem, stream>>>(
         ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out);
   } else {
-    ris_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
+    ris_kernel<false, kReplay><<<blocks_for(n), kThreads, 0, stream>>>(
         ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int romis_ris(const float* ctx, long long n, const float* rows,
+                         int n_rows, int num_lights, int s, int k,
+                         unsigned long long seed, const float* uniforms,
+                         float* out, cudaStream_t stream) {
+  return launch_ris<false>(ctx, n, rows, n_rows, num_lights, s, k, seed,
+                           uniforms, out, stream);
+}
+
+extern "C" int romis_ris_replay(const float* ctx, long long n, const float* rows,
+                                int n_rows, int num_lights, int s, int k,
+                                unsigned long long seed, const float* uniforms,
+                                float* out, cudaStream_t stream) {
+  return launch_ris<true>(ctx, n, rows, n_rows, num_lights, s, k, seed,
+                          uniforms, out, stream);
 }

@@ -45,12 +45,18 @@ SIGNATURES = {
     # ctx17, n_pix, light_rows, n_rows, num_lights, s, k, seed, uniforms,
     # out, stream
     "romis_ris": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _P),
+    # the same arguments; out holds the 7K replay-record planes
+    "romis_ris_replay": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _P),
     # ctx18, res, n_pix, k, tri_cols, n_tris, out, stream
     "romis_final_shade": (_P, _P, _LL, _I, _P, _I, _P, _P),
     # origins, dirs, t_max, n_pix, n_rays, tri_cols, n_tris, out, stream
     "romis_any_hit": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
     # planes, c, h, w, dy, dx, n_out, out, stream
     "romis_halo_gather": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
+    # ct, c, h, w, dy, dx, n_in, out, stream
+    "romis_halo_scatter": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
+    # ct, n_cols, idx, n_idx, n_rows, out, stream
+    "romis_scatter_rows_add": (_P, _I, _P, _LL, _I, _P, _P),
     # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,
     # gumbel, out, stream
     "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,

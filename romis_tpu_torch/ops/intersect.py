@@ -4,6 +4,8 @@ attributes (reference ``romis_tpu/ops/intersect.py``).
 ``intersect_closest`` and ``intersect_any`` are the plain block scans:
 Möller–Trumbore of every ray against a block of triangles at a time, a
 running best across blocks. They are the plain versions of kernels 1 and 4.
+``reeval_tuv`` re-evaluates (t, u, v) of already selected triangles
+differentiably: the backward of the closest hit (``ops.trace.closest_hit``).
 
 Semantics: closest hit accepts t in (0, t_max) and returns barycentrics
 (u toward v1, v toward v2); any-hit accepts t in (0, t_max); ties in t go to
@@ -17,7 +19,7 @@ import torch
 from romis_tpu.core.features import Features
 
 from ..core.types import HitRecord, Rays, ShadeCtx
-from ..core.vec import comp, e, vnorm
+from ..core.vec import comp, e, vcross, vdot, vnorm
 from .rows import gather_rows
 from .shading import acquire_texel
 
@@ -52,6 +54,38 @@ def _mt(ray, tri):
     ok = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
           & (t > 0.0) & (act > 0.0))
     return torch.where(ok, t, torch.inf), u, v
+
+
+def mt_one(o, d, v0, e1, e2):
+    """Möller–Trumbore against one gathered triangle per ray (reference
+    ``ops/traverse._mt_one``). All vectors [..., 3, H, W] → (t, u, v, ok),
+    each [..., H, W]."""
+    pvec = vcross(d, e2)
+    det = vdot(e1, pvec)
+    det_ok = torch.abs(det) > MT_EPSILON
+    inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
+    tvec = o - v0
+    u = vdot(tvec, pvec) * inv_det
+    qvec = vcross(tvec, e1)
+    v = vdot(d, qvec) * inv_det
+    t = vdot(e2, qvec) * inv_det
+    ok = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t > 0.0))
+    return t, u, v, ok
+
+
+def reeval_tuv(rays: Rays, v0, e1, e2, tri, gather=gather_rows):
+    """(t, u, v) of the already selected triangles ``tri`` [H, W] (-1 on a
+    miss), differentiable in the rays and the vertex columns v0/e1/e2
+    [T, 3] (reference ``ops/intersect._reeval_tuv``): ONE row gather of the
+    packed [T, 9] v0|e1|e2 table, rebuilt here so that gradients reach the
+    live columns, then Möller–Trumbore. Misses give (inf, 0, 0)."""
+    rows = gather(torch.cat([v0, e1, e2], dim=1), torch.clamp_min(tri, 0))
+    t, u, v, _ = mt_one(rays.origin, rays.direction, rows[0:3], rows[3:6],
+                        rows[6:9])
+    valid = tri >= 0
+    return (torch.where(valid, t, torch.inf), torch.where(valid, u, 0.0),
+            torch.where(valid, v, 0.0))
 
 
 def _ray_planes(origins, dirs):

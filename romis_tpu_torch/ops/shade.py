@@ -5,7 +5,12 @@ Kernel 4 (``csrc/shade.cu``) replaces the Pallas ``_shade_kernel``: per
 pixel, K shadow rays any-hit traced against the triangle soup in shared
 memory with an early exit, and the Phong arithmetic in the same thread.
 Its plain version, ``final_shade_plain``, is the unfused formulation:
-``ops.wrs.visibility`` and ``ops.shading.phong_shade``.
+``ops.wrs.visibility`` and ``ops.shading.phong_shade``. ``final_shade_fused``
+is differentiable in the context and the reservoirs, with the reference's
+re-evaluation backward (``render/restir._final_shade_fused_bwd``): the
+shadow rays are traced again without gradient by ``ops.trace.any_hit``
+(kernel 6 on CUDA), and Phong x W is differentiated with that visibility
+held fixed.
 
 Bound on the H100: compute, ~30 flops per live shadow-ray/triangle test up
 to the first hit; dead rays skip the trace. Device memory sees 18 + 10K
@@ -22,7 +27,7 @@ from ..core.types import Reservoirs, ShadeCtx, pack_reservoir_planes
 from ..core.vec import e
 from . import _build
 from .shading import phong_shade
-from .trace import MAX_SOUP_TRIS
+from .trace import MAX_SOUP_TRIS, any_hit
 from .wrs import visibility
 
 CTX_PLANES = 18
@@ -38,19 +43,28 @@ def pack_center_ctx(ctx: ShadeCtx) -> torch.Tensor:
     ], dim=0)
 
 
-def final_shade_plain(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
-                      features: Features) -> torch.Tensor:
-    """The plain version → pre-tone-map color [3, H, W]."""
-    vis = visibility(ctx.position, reservoirs.pos, geometry)  # [K, H, W]
+_CTX_FIELDS = ("valid", "position", "normal", "view_origin", "kd", "ks",
+               "shininess", "geom_id", "depth_t")
+_RES_FIELDS = ("pos", "color", "w_sum", "m", "big_w", "chosen_w")
+
+
+def _shade(ctx: ShadeCtx, reservoirs: Reservoirs, vis,
+           features: Features) -> torch.Tensor:
+    """Phong x W where ``vis`` [K, H, W], averaged over the K lanes."""
     shade = phong_shade(ctx, reservoirs.pos, reservoirs.color, features)
     contrib = torch.where(e(vis), shade, 0.0) * e(reservoirs.big_w)
     return contrib.sum(dim=0) / reservoirs.k
 
 
-def final_shade_fused(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
+def final_shade_plain(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
                       features: Features) -> torch.Tensor:
-    """Visibility x Phong x W lane average → color [3, H, W], pre-tone-map.
-    Kernel 4 for CUDA tensors, the plain version for CPU tensors."""
+    """The plain version → pre-tone-map color [3, H, W]."""
+    vis = visibility(ctx.position, reservoirs.pos, geometry)  # [K, H, W]
+    return _shade(ctx, reservoirs, vis, features)
+
+
+def _final_shade_forward(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
+                         features: Features) -> torch.Tensor:
     if not ctx.position.is_cuda:
         return final_shade_plain(ctx, reservoirs, geometry, features)
     if not features.enable_shading:
@@ -77,6 +91,47 @@ def final_shade_fused(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
                       out.data_ptr())
         final_shade_fused.launches += 1
     return out
+
+
+def _split(tensors):
+    n = len(_CTX_FIELDS)
+    return (ShadeCtx(*tensors[:n]), Reservoirs(*tensors[n:]))
+
+
+class _FinalShade(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, geometry, features, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.geometry, ctx.features = geometry, features
+        return _final_shade_forward(*_split(tensors), geometry, features)
+
+    @staticmethod
+    def backward(ctx, ct):
+        needs = ctx.needs_input_grad[2:]
+        tensors = [a.detach().requires_grad_(n)
+                   for a, n in zip(ctx.saved_tensors, needs)]
+        c, r = _split(tensors)
+        with torch.no_grad():
+            vis = visibility(c.position, r.pos, ctx.geometry, any_hit)
+        with torch.enable_grad():
+            out = _shade(c, r, vis, ctx.features)
+            grads = iter(torch.autograd.grad(
+                out, [a for a, n in zip(tensors, needs) if n], ct,
+                allow_unused=True))
+        return (None, None) + tuple(next(grads) if n else None
+                                    for n in needs)
+
+
+def final_shade_fused(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
+                      features: Features) -> torch.Tensor:
+    """Visibility x Phong x W lane average → color [3, H, W], pre-tone-map.
+    Kernel 4 for CUDA tensors, the plain version for CPU tensors;
+    differentiable in ``ctx`` and ``reservoirs``."""
+    tensors = ([getattr(ctx, f) for f in _CTX_FIELDS]
+               + [getattr(reservoirs, f) for f in _RES_FIELDS])
+    if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
+        return _FinalShade.apply(geometry, features, *tensors)
+    return _final_shade_forward(ctx, reservoirs, geometry, features)
 
 
 final_shade_fused.launches = 0

@@ -23,14 +23,23 @@ Random numbers: ``inject`` = (offsets [2, R, H, W] int, Gumbel noise
 identically. Without it, the plain version draws them from ``generator``
 and the kernel from Philox keyed by ``key`` (a device int64 tensor from
 ``philox_key``: no host synchronisation), with the pass index in the
-counter. The reference's ``fused_spatial_gather`` and ``fused_resampling``
-flags are TPU dispatch switches and are ignored: CUDA tensors always take
-the kernels, CPU tensors always the plain versions.
+counter. Whether a frame runs these passes at all is
+``render.restir.spatial_reuse``'s choice: with ``fused_resampling`` on
+CUDA tensors (the reference's Pallas-on-TPU gate); otherwise it gathers
+through ``halo_offset_gather`` (or coherent slices) and combines with
+differentiable tensor code.
+
+Kernel 10 (``csrc/halo.cu``, ``halo_offset_scatter``) replaces
+``_offset_scatter_kernel``: the transpose of the clamped gather, and the
+backward of ``halo_offset_gather`` (an autograd Function, so gradients
+reach the gathered planes); its plain version is ``index_add_``.
 
 Bound on the H100: the passes are compute-bound, (R+1)·K target-PDF
 evaluations with one ``powf`` each per pixel (2·R·K more for the unbiased
 Z); the neighbour reads stay within ±radius and are served mostly by L1
-and L2. The halo gather is bound by device-memory bandwidth.
+and L2. The halo gather is bound by device-memory bandwidth, the scatter
+by bandwidth and atomics (D inputs land on a source pixel on average; the
+clamped border pixels take more).
 """
 
 from __future__ import annotations
@@ -112,22 +121,25 @@ def halo_offset_gather_plain(planes: torch.Tensor, dy: torch.Tensor,
     return planes[:, ny, nx].movedim(1, 0)
 
 
-def halo_offset_gather(planes: torch.Tensor, dy: torch.Tensor,
-                       dx: torch.Tensor) -> torch.Tensor:
-    """out[d, c, i, j] = planes[c, i + dy[d, i, j], j + dx[d, i, j]], the
-    coordinates clamped into the image. planes [C, H, W] f32, dy/dx
-    [D, H, W] int → [D, C, H, W]."""
+def _check_offsets(name, planes_hw, dy, dx):
+    """dy/dx as contiguous int32 [D, H, W] matching the planes' (H, W)."""
+    dyi = dy.to(torch.int32).contiguous()
+    dxi = dx.to(torch.int32).contiguous()
+    _build.check(dyi, "dy", torch.int32)
+    _build.check(dxi, "dx", torch.int32, dyi.shape)
+    if dyi.dim() != 3 or tuple(dyi.shape[1:]) != tuple(planes_hw):
+        raise ValueError(f"{name}: offsets {tuple(dyi.shape)} do not match "
+                         f"planes of {tuple(planes_hw)} pixels")
+    return dyi, dxi
+
+
+def _halo_gather_forward(planes, dy, dx):
     if not planes.is_cuda:
         return halo_offset_gather_plain(planes, dy, dx)
     c, h, w = planes.shape
-    dyi = dy.to(torch.int32).contiguous()
-    dxi = dx.to(torch.int32).contiguous()
+    dyi, dxi = _check_offsets("halo_offset_gather", (h, w), dy, dx)
+    planes = planes.contiguous()
     _build.check(planes, "planes", torch.float32)
-    _build.check(dyi, "dy", torch.int32)
-    _build.check(dxi, "dx", torch.int32, dyi.shape)
-    if dyi.dim() != 3 or tuple(dyi.shape[1:]) != (h, w):
-        raise ValueError(f"halo_offset_gather: offsets {tuple(dyi.shape)} do "
-                         f"not match planes {tuple(planes.shape)}")
     d = dyi.shape[0]
     out = torch.empty((d, c, h, w), dtype=torch.float32, device=planes.device)
     if out.numel():
@@ -136,6 +148,71 @@ def halo_offset_gather(planes: torch.Tensor, dy: torch.Tensor,
                       out.data_ptr())
         halo_offset_gather.launches += 1
     return out
+
+
+def halo_offset_scatter_plain(ct: torch.Tensor, dy: torch.Tensor,
+                              dx: torch.Tensor) -> torch.Tensor:
+    """The plain version: ``index_add_`` at the clamped coordinates (the
+    gather's segment-sum VJP)."""
+    d, c, h, w = ct.shape
+    dev = ct.device
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = torch.arange(w, device=dev)[None, :]
+    q = (torch.clamp(rows + dy.long(), 0, h - 1) * w
+         + torch.clamp(cols + dx.long(), 0, w - 1))  # [D, H, W]
+    out = torch.zeros((c, h * w), dtype=torch.float32, device=dev)
+    return out.index_add_(1, q.reshape(-1),
+                          ct.movedim(1, 0).reshape(c, -1)).reshape(c, h, w)
+
+
+def halo_offset_scatter(ct: torch.Tensor, dy: torch.Tensor,
+                        dx: torch.Tensor) -> torch.Tensor:
+    """The transpose of ``halo_offset_gather``: ct [D, C, H, W] f32 →
+    [C, H, W] with out[c, clamp(i + dy), clamp(j + dx)] += ct[d, c, i, j].
+    Kernel 10 for CUDA tensors, the plain version for CPU tensors."""
+    if not ct.is_cuda:
+        return halo_offset_scatter_plain(ct, dy, dx)
+    d, c, h, w = ct.shape
+    dyi, dxi = _check_offsets("halo_offset_scatter", (h, w), dy, dx)
+    if dyi.shape[0] != d:
+        raise ValueError(f"halo_offset_scatter: {dyi.shape[0]} offsets for "
+                         f"{d} gathered copies")
+    ctc = ct.contiguous()
+    _build.check(ctc, "ct", torch.float32)
+    out = torch.zeros((c, h, w), dtype=torch.float32, device=ct.device)
+    if ctc.numel():
+        _build.launch("romis_halo_scatter", ctc.data_ptr(), c, h, w,
+                      dyi.data_ptr(), dxi.data_ptr(), d * h * w,
+                      out.data_ptr())
+        halo_offset_scatter.launches += 1
+    return out
+
+
+halo_offset_scatter.launches = 0
+
+
+class _HaloGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, planes, dy, dx):
+        ctx.save_for_backward(dy, dx)
+        return _halo_gather_forward(planes, dy, dx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        dy, dx = ctx.saved_tensors
+        return halo_offset_scatter(ct, dy, dx), None, None
+
+
+def halo_offset_gather(planes: torch.Tensor, dy: torch.Tensor,
+                       dx: torch.Tensor) -> torch.Tensor:
+    """out[d, c, i, j] = planes[c, i + dy[d, i, j], j + dx[d, i, j]], the
+    coordinates clamped into the image. planes [C, H, W] f32, dy/dx
+    [D, H, W] int → [D, C, H, W]. Kernel 9 for CUDA tensors, the plain
+    version for CPU tensors; differentiable in ``planes``, with
+    ``halo_offset_scatter`` as the backward."""
+    if planes.requires_grad and torch.is_grad_enabled():
+        return _HaloGather.apply(planes, dy, dx)
+    return _halo_gather_forward(planes, dy, dx)
 
 
 halo_offset_gather.launches = 0

@@ -5,7 +5,12 @@ Kernel 1 (``csrc/trace.cu``) replaces the Pallas ``_closest_kernel``:
 Möller–Trumbore over the whole triangle soup, one thread per ray, triangles
 staged through shared memory. Same contract as the plain block scan
 ``ops.intersect.intersect_closest``: t in (0, t_max), ties to the lowest
-triangle index, (t = inf, tri = -1, u = v = 0) on a miss.
+triangle index, (t = inf, tri = -1, u = v = 0) on a miss. ``closest_hit``
+is differentiable in the rays and the vertex columns, with the reference's
+re-evaluation backward (``ops/intersect.closest_hit_diff``): the selected
+triangles are fixed and (t, u, v) re-derived from one Möller–Trumbore
+evaluation each (``ops.intersect.reeval_tuv``, whose row gather and its
+scatter backward are kernels 2 and 13 on CUDA).
 
 Kernel 6 (``csrc/any.cu``) replaces the Pallas ``_any_kernel``: boolean
 occlusion at t in (0, t_max) with an early exit per ray, leading sample
@@ -25,7 +30,7 @@ import torch
 
 from ..core.types import Rays
 from . import _build
-from .intersect import intersect_any, intersect_closest
+from .intersect import intersect_any, intersect_closest, reeval_tuv
 
 # The soup the reference kernel holds on chip (pallas_trace.MAX_SMEM_TRIS);
 # larger scenes go through the paged BVH, which is not ported yet.
@@ -40,8 +45,7 @@ def closest_hit_plain(rays: Rays, geometry, t_max: float = math.inf):
     return intersect_closest(rays, geometry, tm)
 
 
-def closest_hit(rays: Rays, geometry, t_max: float = math.inf):
-    """Closest hit of rays [3, H, W] → (t, tri int32, u, v), each [H, W]."""
+def _closest_hit_forward(rays: Rays, geometry, t_max: float):
     if not rays.origin.is_cuda:
         return closest_hit_plain(rays, geometry, t_max)
     h, w = rays.hw
@@ -66,6 +70,41 @@ def closest_hit(rays: Rays, geometry, t_max: float = math.inf):
                   v.data_ptr())
     closest_hit.launches += 1
     return t, tri, u, v
+
+
+class _ClosestHit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, origin, direction, v0, e1, e2, geometry, t_max):
+        t, tri, u, v = _closest_hit_forward(Rays(origin, direction),
+                                            geometry, t_max)
+        ctx.save_for_backward(origin, direction, v0, e1, e2, tri)
+        ctx.mark_non_differentiable(tri)
+        return t, tri, u, v
+
+    @staticmethod
+    def backward(ctx, ct_t, _ct_tri, ct_u, ct_v):
+        *inputs, tri = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        inputs = [a.detach().requires_grad_(n) for a, n in zip(inputs, needs)]
+        # A miss's t is inf; its cotangent is zeroed, never propagated.
+        ct_t = torch.where(torch.isfinite(ct_t), ct_t, 0.0)
+        with torch.enable_grad():
+            t, u, v = reeval_tuv(Rays(inputs[0], inputs[1]), *inputs[2:],
+                                 tri)
+            grads = iter(torch.autograd.grad(
+                (t, u, v), [a for a, n in zip(inputs, needs) if n],
+                (ct_t, ct_u, ct_v), allow_unused=True))
+        return tuple(next(grads) if n else None for n in needs) + (None, None)
+
+
+def closest_hit(rays: Rays, geometry, t_max: float = math.inf):
+    """Closest hit of rays [3, H, W] → (t, tri int32, u, v), each [H, W];
+    differentiable in the rays and in ``geometry.v0/e1/e2``."""
+    inputs = (rays.origin, rays.direction, geometry.v0, geometry.e1,
+              geometry.e2)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in inputs):
+        return _ClosestHit.apply(*inputs, geometry, t_max)
+    return _closest_hit_forward(rays, geometry, t_max)
 
 
 closest_hit.launches = 0

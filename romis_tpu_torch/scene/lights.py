@@ -11,7 +11,7 @@ The builder is numpy-only; ``build(device)`` places the tensors.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -40,28 +40,32 @@ class LightTable:
 COLUMNS = ("v0", "edge01", "edge02", "c0", "c1", "c2", "c3")
 
 
-def pack_rows(v0, e01, e02, c0, c1, c2, c3) -> np.ndarray:
-    cols = np.concatenate(
-        [np.asarray(x, np.float32) for x in (v0, e01, e02, c0, c1, c2, c3)],
-        axis=1)
-    pad = np.zeros((cols.shape[0], 24 - cols.shape[1]), np.float32)
-    return np.concatenate([cols, pad], axis=1)
+def pack_rows(v0, e01, e02, c0, c1, c2, c3) -> torch.Tensor:
+    """The packed [L, 24] rows from the [L, 3] columns; differentiable in
+    them (reference ``scene/lights._pack_rows_jnp``)."""
+    cols = torch.cat([v0, e01, e02, c0, c1, c2, c3], dim=1)
+    return torch.cat([cols, torch.zeros((cols.shape[0], 24 - cols.shape[1]),
+                                        device=cols.device)], dim=1)
+
+
+def repack_rows(lights: LightTable) -> LightTable:
+    """Rebuild the packed rows after replacing any column."""
+    return replace(lights, rows=pack_rows(
+        *(getattr(lights, c) for c in COLUMNS)))
 
 
 def light_table_from_arrays(arrays: dict, device="cpu") -> LightTable:
     """LightTable from numpy columns (``COLUMNS`` [L, 3] each, ``kind``
-    [L]); the packed rows are rebuilt from the columns."""
-    cols = [np.asarray(arrays[c], np.float32).reshape(-1, 3) for c in COLUMNS]
-
+    [L]); the packed rows are built from the columns."""
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.array(a, order="C"), dtype=dtype,
                                device=device)
 
-    return LightTable(
-        **{c: t(a) for c, a in zip(COLUMNS, cols)},
-        kind=t(np.asarray(arrays["kind"], np.int32), torch.int32),
-        rows=t(pack_rows(*cols)),
-    )
+    cols = {c: t(np.asarray(arrays[c], np.float32).reshape(-1, 3))
+            for c in COLUMNS}
+    return repack_rows(LightTable(
+        **cols, kind=t(np.asarray(arrays["kind"], np.int32), torch.int32),
+        rows=None))
 
 
 class LightListBuilder:

@@ -8,11 +8,15 @@ as tensors. Packed row tables:
     tri_cols  [10, T]: v0 xyz | e1 xyz | e2 xyz | active    (kernel layout)
     attr_rows [T, 24]: n0 n1 n2 (9) | uv0 uv1 uv2 (6) | mat_id | geom_id | pad(7)
     mat_rows  [M, 8]:  kd(3) | ks(3) | shininess | tex_id
+
+``repack_rows`` builds them from the columns with ``torch.cat``, so they
+are differentiable in the columns (``diff.grad.apply_params`` relies on
+this); the kernels read them as plain contiguous tables.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -71,39 +75,49 @@ class Scene:
     name: str = "scene"
 
 
+def pack_tri_cols(v0, e1, e2, active) -> torch.Tensor:
+    """[T, 3] x 3 and [T] bool → the kernel layout [10, T]."""
+    return torch.cat([v0.t(), e1.t(), e2.t(), active.float()[None]], dim=0)
+
+
+def pack_attr_rows(n0, n1, n2, uv0, uv1, uv2, mat_id, geom_id) -> torch.Tensor:
+    n = n0.shape[0]
+    return torch.cat([n0, n1, n2, uv0, uv1, uv2, mat_id.float()[:, None],
+                      geom_id.float()[:, None],
+                      torch.zeros((n, 7), device=n0.device)], dim=1)
+
+
+def pack_mat_rows(mat_kd, mat_ks, mat_shininess, mat_tex_id) -> torch.Tensor:
+    return torch.cat([mat_kd, mat_ks, mat_shininess[:, None],
+                      mat_tex_id.float()[:, None]], dim=1)
+
+
+def repack_rows(g: Geometry) -> Geometry:
+    """(Re)build the packed tables from the component columns (reference
+    ``scene/scene.repack_rows``); call it after replacing any column."""
+    return replace(
+        g, tri_cols=pack_tri_cols(g.v0, g.e1, g.e2, g.active),
+        attr_rows=pack_attr_rows(g.n0, g.n1, g.n2, g.uv0, g.uv1, g.uv2,
+                                 g.mat_id, g.geom_id),
+        mat_rows=pack_mat_rows(g.mat_kd, g.mat_ks, g.mat_shininess,
+                               g.mat_tex_id))
+
+
 def geometry_from_arrays(a: dict, device="cpu") -> Geometry:
     """Geometry from numpy columns (``COLUMNS``); packs the row tables."""
-    f = {k: np.asarray(a[k]) for k in COLUMNS}
-    fl = {k: f[k].astype(np.float32) for k in COLUMNS
-          if k not in ("mat_id", "geom_id", "active", "mat_tex_id",
-                       "tex_size")}
-    n = f["v0"].shape[0]
-    active_f = f["active"].astype(np.float32)[:, None]
-    attr_rows = np.concatenate(
-        [fl["n0"], fl["n1"], fl["n2"], fl["uv0"], fl["uv1"], fl["uv2"],
-         f["mat_id"].astype(np.float32)[:, None],
-         f["geom_id"].astype(np.float32)[:, None],
-         np.zeros((n, 7), np.float32)], axis=1)
-    mat_rows = np.concatenate(
-        [fl["mat_kd"], fl["mat_ks"], fl["mat_shininess"][:, None],
-         f["mat_tex_id"].astype(np.float32)[:, None]], axis=1)
-    tri_cols = np.concatenate(
-        [fl["v0"].T, fl["e1"].T, fl["e2"].T, active_f.T], axis=0)
+    ints = ("mat_id", "geom_id", "mat_tex_id", "tex_size")
 
-    def t(x, dtype=torch.float32):
+    def t(k):
+        x = np.asarray(a[k])
+        if k == "active":
+            return torch.as_tensor(x.astype(bool), device=device)
+        dtype = torch.int32 if k in ints else torch.float32
         return torch.as_tensor(np.array(x, order="C"), dtype=dtype,
                                device=device)
 
-    return Geometry(
-        **{k: t(v) for k, v in fl.items()},
-        mat_id=t(f["mat_id"], torch.int32),
-        geom_id=t(f["geom_id"], torch.int32),
-        active=t(f["active"].astype(bool), torch.bool),
-        mat_tex_id=t(f["mat_tex_id"], torch.int32),
-        tex_size=t(f["tex_size"], torch.int32),
-        tri_cols=t(tri_cols), attr_rows=t(attr_rows),
-        mat_rows=t(mat_rows),
-    )
+    cols = {k: t(k) for k in COLUMNS}
+    return repack_rows(Geometry(**cols, tri_cols=None, attr_rows=None,
+                                mat_rows=None))
 
 
 def _load_texture(path: str) -> np.ndarray | None:

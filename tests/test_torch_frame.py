@@ -2,8 +2,9 @@
 frames that carry the temporal state, with every random draw injected:
 without spatial reuse, with the reference defaults (config 5), and along an
 animated camera path with reprojection, the unbiased combine and the
-initial visibility check; the options of later slices refusing; and the
-port importing and rendering without JAX."""
+initial visibility check; the Z-count option of a later slice refusing, and
+the gradient-path options that used to refuse rendering as JAX does; and
+the port importing, rendering and taking a gradient step without JAX."""
 
 import subprocess
 import sys
@@ -180,9 +181,53 @@ LATER = [
 ]
 
 
+def _renders_as_jax(flags, entry):
+    """The frame (or a 2-frame animated path) with ``flags`` against JAX's,
+    with JAX's own draws replayed."""
+    h, w, n = 12, 16, 2
+    feats = Features(initial_light_samples=8, num_neighbours_to_sample=3,
+                     spatial_resample_radius=2, **flags)
+    jax_scene = ge._flagship_scene()
+    scene = port_scene(jax_scene)
+    args = (jax_scene.geometry, jax_scene.lights, jax_scene.num_lights, h, w,
+            feats)
+    key = jax.random.PRNGKey(11)
+    if entry == "frame":
+        jcam = ge._flagship_camera(h, w)
+        expect, _ = jax.jit(jax_render_frame, static_argnums=(4, 5, 6, 7))(
+            key, jcam, *args, jax_initial_state(h, w, 2, jcam))
+        images, _ = render_frame(None, port_camera(jcam), scene, h, w, feats,
+                                 noise=jax_frame_noise(key, feats, h, w))
+        images, expect = images[None], np.asarray(expect)[None]
+    else:
+        cam_kw = dict(look_at=(2.57, 1.23, -1.35), distance=25.0,
+                      fov_deg=30.0, resolution=(h, w))
+        jcams = jax_interpolate(
+            jax_make_camera(rotation_deg=(10.3, 30.0, 0.0), **cam_kw),
+            jax_make_camera(rotation_deg=(10.3, 31.0, 0.0), **cam_kw), n)
+        expect, _ = jax.jit(jax_render_animation,
+                            static_argnums=(4, 5, 6, 7))(key, jcams, *args)
+        keys = jax.random.split(key, n)
+        images, _ = render_animation(
+            None, stack_cameras([port_camera(jax.tree.map(
+                lambda a, i=i: a[i], jcams)) for i in range(n)]),
+            scene.geometry, scene.lights, scene.num_lights, h, w, feats,
+            noises=[jax_frame_noise(keys[f], feats, h, w) for f in range(n)])
+    for f in range(len(images)):
+        np.testing.assert_allclose(images[f].numpy(), np.asarray(expect[f]),
+                                   rtol=1e-4, atol=1e-5, err_msg=f"frame {f}")
+    assert float(np.asarray(expect).mean()) > 0.05
+
+
 @pytest.mark.parametrize("entry", ["frame", "animation"])
 @pytest.mark.parametrize("flags,match", LATER, ids=[m for _, m in LATER])
 def test_later_slices_refuse(flags, match, entry):
+    """The unbiased combine's Z-count visibility still refuses, naming its
+    option; the gradient-path options, which refused before their slice,
+    now render and match JAX."""
+    if match != "spatial_reuse_visibility_check":
+        _renders_as_jax(flags, entry)
+        return
     feats = Features(**flags)
     scene, cam = flagship_scene(), flagship_camera(4, 4)
     with pytest.raises(NotImplementedError, match=match):
@@ -238,6 +283,17 @@ def test_port_imports_and_renders_without_jax(tmp_path):
         img, state = render_frame(gen, cam, scene, 8, 8, feats, state)
         assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
         save_image(sys.argv[1], img)
+
+        from romis_tpu_torch.diff.grad import extract_params, make_grad_fn
+        feats = Features(initial_light_samples=8, enable_tone_mapping=False,
+                         surrogate_resampling_grad=True)
+        fn = make_grad_fn(scene.geometry, scene.lights, scene.num_lights, 8,
+                          8, feats)
+        loss, grads = fn(extract_params(scene.geometry, scene.lights),
+                         torch.zeros(8, 8, 3), gen, cam, state)
+        assert float(loss) > 0
+        assert all(bool(torch.isfinite(g).all()) for g in grads.leaves())
+        assert float(grads.light_c0.abs().max()) > 0
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
         assert not bad, bad
         print("ok")

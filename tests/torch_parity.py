@@ -75,22 +75,32 @@ def random_rays(rng, h, w, half=1.5):
     return planes(o), planes(d)
 
 
-def jax_ris_uniforms(key, s, k, h, w):
+def jax_ris_uniforms(key, s, k, h, w, replay=False):
     """The uniforms the JAX XLA path draws for RIS: one u4 [4, K, H, W] per
     slot from jax.random.split(key, S/K) (ops/wrs.py gen_canonical_samples)
-    → [S/K, 4, K, H, W]."""
+    → [S/K, 4, K, H, W]. With ``replay`` (the surrogate scan,
+    ops/wrs._gen_canonical_surrogate) each slot adds the second race's
+    uniform from fold_in(slot_key, 77) → [S/K, 5, K, H, W]."""
     sk = -(-s // k)
     keys = jax.random.split(key, sk)
-    return np.stack([np.asarray(jax.random.uniform(keys[i], (4, k, h, w)))
-                     for i in range(sk)])
+    out = []
+    for i in range(sk):
+        u = [np.asarray(jax.random.uniform(keys[i], (4, k, h, w)))]
+        if replay:
+            u.append(np.asarray(jax.random.uniform(
+                jax.random.fold_in(keys[i], 77), (k, h, w)))[None])
+        out.append(np.concatenate(u))
+    return np.stack(out)
 
 
 def jax_frame_noise(key, features, h, w):
     """Every random draw the JAX XLA path makes in render_restir_frame with
-    ``key``, as the port's ``noise`` hook: RIS uniforms, the temporal race
-    Gumbel noise, and per spatial pass the offsets
-    randint(fold_in(fold_in(key, PH_SPATIAL), p)) and the race noise
-    gumbel(fold_in(kp, 1000), (R+1, K, H, W))."""
+    ``key``, as the port's ``noise`` hook: RIS uniforms (with the surrogate
+    RIS, its second race's too), the temporal race Gumbel noise, and per
+    spatial pass the offsets randint(fold_in(fold_in(key, PH_SPATIAL), p))
+    ([2, R] with coherent_spatial_offsets, else [2, R, H, W]), the race
+    noise gumbel(fold_in(kp, 1000), (R+1, K, H, W)) and, for the biased
+    surrogate combine, its second race's gumbel(fold_in(that key, 77))."""
     from romis_tpu.render.restir import (
         PH_CANDIDATES, PH_SPATIAL, PH_TEMPORAL,
     )
@@ -98,14 +108,36 @@ def jax_frame_noise(key, features, h, w):
     s, k = features.initial_light_samples, features.num_samples_in_reservoir
     r = features.num_neighbours_to_sample
     radius = features.spatial_resample_radius
+    surrogate = features.surrogate_resampling_grad
     fold = jax.random.fold_in
     spatial = []
     for p in range(features.spatial_resampling_passes):
         kp = fold(fold(key, PH_SPATIAL), p)
-        spatial.append((
-            t(jax.random.randint(kp, (2, r, h, w), -radius, radius + 1)),
-            t(jax.random.gumbel(fold(kp, 1000), (r + 1, k, h, w)))))
+        shape = (2, r) if features.coherent_spatial_offsets else (2, r, h, w)
+        ck = fold(kp, 1000)
+        draws = [t(jax.random.randint(kp, shape, -radius, radius + 1)),
+                 t(jax.random.gumbel(ck, (r + 1, k, h, w)))]
+        if surrogate and not features.unbiased_combination:
+            draws.append(t(jax.random.gumbel(fold(ck, 77), (r + 1, k, h, w))))
+        spatial.append(tuple(draws))
     return (torch.from_numpy(jax_ris_uniforms(fold(key, PH_CANDIDATES), s, k,
-                                              h, w)),
+                                              h, w, replay=surrogate)),
             t(jax.random.gumbel(fold(key, PH_TEMPORAL), (2, k, h, w))),
             spatial)
+
+
+def port_params(jax_params):
+    """A JAX SceneParams → the port's (through numpy)."""
+    from romis_tpu_torch.convert import params_from_numpy
+
+    return params_from_numpy({f: np.asarray(getattr(jax_params, f))
+                              for f in vars(jax_params)})
+
+
+def port_state(jax_state, cam):
+    """A JAX TemporalState → the port's, with the port camera ``cam``."""
+    from romis_tpu_torch.render.restir import TemporalState
+
+    return TemporalState(reservoirs=port_reservoirs(jax_state.reservoirs),
+                         ctx=port_ctx(jax_state.ctx), cam=cam,
+                         has_prev=bool(jax_state.has_prev))
