@@ -20,7 +20,18 @@ GPU.
    ``torch.autograd.grad`` through each autograd wrapper (row gather, halo
    gather, closest hit, final shade) against autograd of the plain
    version. Tolerances are the constants below.
-4. Five main paths, each at 1920x1080, once through the kernels and once
+   Then the R-MIS / R-OMIS kernels: the neighbour selection for the three
+   similarity strategies on injected score planes (the same slots on every
+   pixel; the two-class counts exact) and on its Philox stream (two-class
+   counts exact, the share of preferred-class picks within 1 %, the
+   picks' histogram over (class, box offset) as close to the plain Gumbel
+   stream's as PICKS_SPREAD times the plain stream's seed-to-seed
+   distance); the batched MIS RIS
+   against one plain RIS per iteration on injected uniforms; and the sweep
+   in its four modes (equal, balance, R-OMIS direct and progressive) per
+   output plane, at 1080p on the flagship scene and at 480x270 on the soup
+   (shadows; a smaller frame because the plain any-hit is a block scan).
+4. Nine main paths, each at 1920x1080, once through the kernels and once
    through the plain versions, with the launch counters set to 0 just
    before and read just after the kernels' run:
    - slice 1: ``Features(spatial_reuse=False)``, 2 frames;
@@ -39,15 +50,26 @@ GPU.
      injected noise, one on the Philox streams), from the state of one
      forward frame, against a target rendered with the light colours x 0.8.
      The plain run takes the first step's injected noise.
+   - R-MIS and R-OMIS at the reference defaults (D=5, r=10, K=2, S=32, 5
+     iterations): ``romis`` (direct, SIMILAR), ``romis_progressive``,
+     ``rmis_equal`` and ``rmis_balance`` (EQUAL_SIMILAR_DISSIMILAR), 2
+     frames each, one on injected noise and one on the Philox streams; the
+     plain run takes the injected frame.
    Every pixel is finite, the last images' means (the losses) agree within
    2 %, the launch counters rose by exactly the per-frame (per-step) counts
    in PATHS, and every gradient leaf is finite, reaches the image where it
    should, and agrees with the plain run's within GRAD_REL of its largest
-   element. The last config-5 image goes to ``build/chip_smoke_frame.png``.
+   element. The last config-5 image goes to ``build/chip_smoke_frame.png``,
+   the R-OMIS one to ``build/chip_smoke_romis.png``.
 5. Timing with CUDA events: ms/frame of each path through the kernels and
    the plain versions (a gradient step beside its forward-only frame, with
    the peak device memory of a step), and each kernel beside its plain
-   version.
+   version, its bound (the larger of the bytes it must move over 3.35 TB/s
+   and its float32 operations over 67 TFLOP/s, special functions, Philox
+   and divisions at their instruction cost, from this run's shapes) and,
+   where one PyTorch call computes the same function, that call; then
+   ``torch.profiler`` over 3 R-OMIS frames (device busy and idle share,
+   kernels per frame, the top kernels by device time).
 
 Any failed check raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table.
@@ -90,10 +112,53 @@ SCATTER_REL = 1e-3
 SCATTER_F64_REL = 1e-4  # the kernel against a float64 index_add_
 HALO_SCATTER_REL = 1e-5  # a few terms per cell, in another order
 GRAD_REL = 1e-2  # gradient leaves, kernels vs plain, of the leaf's max |g|
+# MIS sweep vs its plain version, per output plane, of the plane's largest
+# |value|: the same operations in the same order (--fmad=false); what may
+# differ is powf/sqrt between CUDA's libdevice and PyTorch's kernels.
+MIS_REL = 1e-5
+SHARE_ABS = 0.01  # preferred-class share of picks, Philox vs plain stream
+# The Philox selection's histogram of picks over (class, box offset) may be
+# at most this many times as far (total variation) from the plain stream's
+# as two plain streams of different seeds are from each other, measured in
+# the same run.
+PICKS_SPREAD = 3.0
+
+# The bound of a kernel (H100 SXM datasheet peaks at 700 W): the bytes it
+# must move once over HBM3, and its operations over the float32 peak
+# outside the tensor cores. That peak counts an FMA as 2 operations on the
+# 128 float lanes an SM has each clock; a float add, multiply or compare
+# is counted as 1. Other instructions are counted at their throughput cost
+# in the same currency: the special-function unit (rcp, rsqrt, lg2, ex2,
+# int-float conversion) has 16 lanes an SM, 1/8 of the FMA rate, so 16
+# each; the 32-bit integer pipe 64 lanes, so 4 each. The libdevice
+# sequences the kernels compile to (no fast math) are estimates from their
+# instructions, not measurements:
+HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
+SFU_OPS, INT_OPS = 16, 4
+DIV_OPS = SFU_OPS + 10  # IEEE division: rcp, a Newton step, the rounding
+SQRT_OPS = SFU_OPS + 8  # IEEE sqrtf: rsqrt, the product, its correction
+LOG_OPS = 40  # logf: integer range reduction and a degree-8 polynomial
+POW_OPS = 2 * LOG_OPS + SFU_OPS + 24  # powf: extended log2, ex2, cases
+PHILOX_OPS = 10 * 8 * INT_OPS  # one Philox4x32-10 call (4 words): a round
+#   is 2 wide multiplies (4 instructions), 2 three-way xors, 2 key adds
+UNIFORM_OPS = SFU_OPS + 2  # 24 bits to a float in [0, 1)
+DRAW_OPS = PHILOX_OPS + 4 * UNIFORM_OPS  # one call's 4 uniforms
+GUMBEL_OPS = UNIFORM_OPS + 2 * LOG_OPS  # -log(-log u) of one word
+MT_OPS = 40 + DIV_OPS  # one Moller-Trumbore ray-triangle test
+PHONG_OPS = 70 + 3 * SQRT_OPS + 3 * DIV_OPS + POW_OPS  # Phong, p-hat norm
+CANDIDATE_OPS = 60 + SFU_OPS + PHONG_OPS + LOG_OPS + DIV_OPS  # one RIS
+#   candidate: light pick, point, colour, p-hat, exponential race
+RACE_OPS = LOG_OPS + DIV_OPS  # the replay's second race
+STREAM_OPS = DRAW_OPS + 2 * GUMBEL_OPS + DIV_OPS  # one spatial-pass
+#   stream's Philox offsets and race noise (K = 2), its depth gate
+GATE_OPS = 14 + DIV_OPS  # one box cell of the selection: gates, race test
+COLVEC_OPS = 10 + 2 * DIV_OPS  # one technique's mock weight, reciprocal
+SHADOW_OPS = 20 + SQRT_OPS + 3 * DIV_OPS  # one shadow ray's set-up
 
 KERNELS = ("closest_hit", "gather_rows", "ris", "final_shade",
            "spatial_pass", "spatial_pass_unbiased", "halo_gather", "any_hit",
-           "scatter_rows_add", "halo_scatter", "ris_replay")
+           "scatter_rows_add", "halo_scatter", "ris_replay",
+           "neighbour_select", "mis_ris", "mis_iteration")
 SOURCES = {
     "closest_hit": ("romis_tpu_torch/csrc/trace.cu",
                     "romis_tpu/ops/pallas_trace.py:465"),
@@ -117,6 +182,12 @@ SOURCES = {
                      "romis_tpu/ops/pallas_spatial.py:403"),
     "ris_replay": ("romis_tpu_torch/csrc/ris.cu",
                    "romis_tpu/ops/pallas_ris.py:625"),
+    "neighbour_select": ("romis_tpu_torch/csrc/nbrsel.cu",
+                         "romis_tpu/ops/pallas_nbrsel.py:184"),
+    "mis_ris": ("romis_tpu_torch/csrc/ris.cu",
+                "romis_tpu/ops/pallas_ris.py:553"),
+    "mis_iteration": ("romis_tpu_torch/csrc/mis.cu",
+                      "romis_tpu/ops/pallas_mis.py:491"),
 }
 # Launches per frame (per gradient step) of each main path. A gradient
 # step's row gathers: hit attributes and materials, the closest hit's
@@ -141,9 +212,19 @@ PATHS = {
                        "scatter_rows_add": 8, "halo_gather": 4,
                        "halo_scatter": 2},
 }
+_MIS = {"closest_hit": 1, "gather_rows": 2, "neighbour_select": 1,
+        "mis_ris": 1, "mis_iteration": 5}
+PATHS.update({  # 5 iterations; the neighbours' contexts: one halo gather
+    "romis": dict(_MIS, halo_gather=1),
+    "romis_progressive": dict(_MIS, halo_gather=1),
+    "rmis_equal": _MIS,
+    "rmis_balance": dict(_MIS, halo_gather=1),
+})
 FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "grad_surrogate": 2,
-          "grad_per_pixel": 2}
+          "grad_per_pixel": 2, "romis": 2, "romis_progressive": 2,
+          "rmis_equal": 2, "rmis_balance": 2}
 GRAD_PATHS = ("grad_surrogate", "grad_per_pixel")
+MIS_PATHS = ("romis", "romis_progressive", "rmis_equal", "rmis_balance")
 
 
 def fail(msg: str):
@@ -186,6 +267,13 @@ def ab_ms(torch, kernel_fn, plain_fn, reps_k: int, reps_p: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(least ms the card could take, what bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def random_soup(n_tris: int, center, half: float, seed: int):
     """A SubMesh of n_tris random triangles in a box around ``center``."""
     import numpy as np
@@ -213,7 +301,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs a GPU")
     sys.path.insert(0, str(ROOT))
-    from romis_tpu_torch import Features
+    from romis_tpu_torch import (
+        Features, MISWeight, NeighbourSelectionStrategy, RayTraceMode,
+    )
     from romis_tpu_torch.core.camera import (
         generate_rays, make_camera, project_to_pixel,
     )
@@ -224,7 +314,7 @@ def main() -> None:
         extract_params, make_grad_fn, render_with_params,
     )
     from romis_tpu_torch.ops import (
-        _build, rows, ris, scatter, shade, spatial, trace,
+        _build, mis, nbrsel, rows, ris, scatter, shade, spatial, trace,
     )
     from romis_tpu_torch.ops.wrs import (
         gen_canonical_replay_plain, gen_canonical_samples_plain, gumbel_noise,
@@ -234,7 +324,9 @@ def main() -> None:
     from romis_tpu_torch.render.animation import (
         camera_at, interpolate_cameras, render_animation,
     )
+    from romis_tpu_torch.render.neighbours import select_neighbour_indices
     from romis_tpu_torch.render.pipeline import render_frame, save_image
+    from romis_tpu_torch.render.rmis import mis_offsets
     from romis_tpu_torch.scene.scene import (
         build_geometry, flagship_camera, flagship_scene, repack_rows,
     )
@@ -255,12 +347,19 @@ def main() -> None:
     lib = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    entry = ""
+    # The compiler's report, one line per kernel: registers, spill bytes.
+    entry, regs, spill = "", [], 0
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "Used" in line and "registers" in line:
-            print(f"  ptxas {entry}: {line.split(':', 1)[1].strip()}")
+            regs.append(f"{entry.replace('_ZN5romis', '')[:32]} "
+                        f"{line.split('Used')[1].split()[0]}r"
+                        + (f"+{spill}B" if spill else ""))
+    print(f"ptxas ({len(regs)} kernels; registers, spill stores): "
+          + ", ".join(regs))
 
     wrappers = {"closest_hit": trace.closest_hit,
                 "gather_rows": rows.gather_rows,
@@ -272,7 +371,10 @@ def main() -> None:
                 "any_hit": trace.any_hit,
                 "scatter_rows_add": scatter.scatter_rows_add,
                 "halo_scatter": spatial.halo_offset_scatter,
-                "ris_replay": ris.gen_canonical_replay}
+                "ris_replay": ris.gen_canonical_replay,
+                "neighbour_select": nbrsel.neighbour_select,
+                "mis_ris": ris.gen_mis_reservoir_planes,
+                "mis_iteration": mis.mis_iteration}
 
     # ---- 3. each kernel against its plain version ----
     feats = Features()
@@ -641,6 +743,206 @@ def main() -> None:
                lambda: [shade.final_shade_plain(ctx_g, res_g, scene.geometry,
                                                 feats)], shade_leaves)
 
+    # The R-MIS / R-OMIS kernels. Neighbour selection over the +-10 box
+    # (440 cells) for the three similarity strategies: injected score
+    # planes (3.6 GB at 1080p), then the Philox stream.
+    it_n = feats.max_iterations_mis
+    sel_gates = nbrsel.selection_gates(ctx)
+    sel_args = (feats.neighbour_same_geometry,
+                feats.neighbour_max_depth_difference_fraction,
+                math.cos(feats.neighbour_max_normal_angle_difference_radians))
+    strategies = {"similar": (False, True), "dissimilar": (False, False),
+                  "equal_similar_dissimilar": (True, True)}
+
+    def preferred_share(o, two):
+        """Share of the real picks that fall in the preferred class."""
+        if two:
+            n_sim = torch.isfinite(o[0]).sum()
+            return (n_sim / (n_sim + torch.isfinite(o[2]).sum())).item()
+        real = torch.isfinite(o[0])
+        return ((o[0] >= nbrsel.CLASS_OFFSET / 2) & real).sum().item() / max(
+            real.sum().item(), 1)
+
+    side = 2 * radius + 1
+    box_dy = (torch.arange(side * side, device=dev) // side - radius).double()
+    box_dx = (torch.arange(side * side, device=dev) % side - radius).double()
+
+    def pick_hist(o, two):
+        """Shares of the real picks over (class, box offset) [2, side²];
+        class 0 is the preferred one (similar with two classes)."""
+        if two:
+            parts = [(o[0], o[1], 0), (o[2], o[3], 1)]
+        else:
+            parts = [(o[0], o[1], (o[0] < nbrsel.CLASS_OFFSET / 2).long())]
+        idx = torch.cat([torch.where(torch.isfinite(sc), pk.long() + c
+                                     * side * side, -1).flatten()
+                         for sc, pk, c in parts])
+        idx = idx[idx >= 0]
+        return (torch.bincount(idx, minlength=2 * side * side).double()
+                / max(idx.numel(), 1)).reshape(2, side * side)
+
+    def pick_moments(hist):
+        """Mean and spread of the picked dy and dx."""
+        box = hist.sum(dim=0)
+        out = []
+        for v in (box_dy, box_dx):
+            mean = (box * v).sum().item()
+            out += [mean, math.sqrt(max((box * v * v).sum().item()
+                                        - mean * mean, 0.0))]
+        return out
+
+    def top_score(o):
+        """Mean best score of the preferred class, its offset removed."""
+        top = o[0][0][torch.isfinite(o[0][0])].double()
+        return torch.where(top >= nbrsel.CLASS_OFFSET / 2,
+                           top - nbrsel.CLASS_OFFSET, top).mean().item()
+
+    sel_scores = nbrsel.selection_noise(gen, radius, H, W)
+    errs["neighbour_select"] = 0.0
+    for label, (two, prefer) in strategies.items():
+        o_k = nbrsel.neighbour_select(sel_gates, n_nbr, radius, two, prefer,
+                                      *sel_args, scores=sel_scores)
+        o_p = nbrsel.neighbour_select_plain(sel_gates, n_nbr, radius, two,
+                                            prefer, *sel_args,
+                                            scores=sel_scores)
+        torch.cuda.synchronize()
+        slots = (lambda o: torch.cat([o[1], o[3]]) if two else o[1])
+        same = (slots(o_k).sort(dim=0).values == slots(o_p).sort(
+            dim=0).values).all(dim=0).float().mean().item()
+        exact = all(torch.equal(a, b) for a, b in zip(o_k, o_p))
+        fin = torch.isfinite(o_p[0])
+        err = (o_k[0][fin] - o_p[0][fin]).abs().max().item()
+        print(f"check neighbour_select[{label}, injected]: pixels with the "
+              f"same slots {same:.6f}, all outputs bit-exact {exact}, score "
+              f"max abs err {err:.2e}")
+        require(same >= MIN_AGREE, f"selection {label}: same slots {same}")
+        if two:
+            require(torch.equal(o_k[4], o_p[4]), f"selection {label}: counts")
+        errs["neighbour_select"] = max(errs["neighbour_select"], err)
+        key = spatial.philox_key(gen)
+        p_k = nbrsel.neighbour_select(sel_gates, n_nbr, radius, two, prefer,
+                                      *sel_args, generator=gen, key=key)
+        p_p = nbrsel.neighbour_select_plain(sel_gates, n_nbr, radius, two,
+                                            prefer, *sel_args, generator=gen)
+        p_p2 = nbrsel.neighbour_select_plain(sel_gates, n_nbr, radius, two,
+                                             prefer, *sel_args, generator=gen)
+        sk_, sp_ = preferred_share(p_k, two), preferred_share(p_p, two)
+        print(f"check neighbour_select[{label}, philox]: preferred-class "
+              f"share of picks {sk_:.6f} vs plain {sp_:.6f}"
+              + (f", counts exact {torch.equal(p_k[4], p_p[4])}" if two
+                 else ""))
+        require(abs(sk_ - sp_) <= SHARE_ABS, f"selection {label}: share")
+        # The picks' distribution over the box, against the plain Gumbel
+        # stream on the same gates; the tolerance is the plain stream's
+        # own seed-to-seed distance.
+        h_k, h_p, h_p2 = (pick_hist(o, two) for o in (p_k, p_p, p_p2))
+        tv_kp = 0.5 * (h_k - h_p).abs().sum().item()
+        tv_pp = 0.5 * (h_p2 - h_p).abs().sum().item()
+        top_k, top_p = (top_score(o) for o in (p_k, p_p))
+        mk_, mp_ = pick_moments(h_k), pick_moments(h_p)
+        print(f"check neighbour_select[{label}, philox]: pick histogram "
+              f"distance {tv_kp:.3e} vs plain seed-to-seed {tv_pp:.3e}; dy "
+              f"mean/sd {mk_[0]:.4f}/{mk_[1]:.4f} vs {mp_[0]:.4f}/"
+              f"{mp_[1]:.4f}, dx {mk_[2]:.4f}/{mk_[3]:.4f} vs {mp_[2]:.4f}/"
+              f"{mp_[3]:.4f}; mean top score {top_k:.5f} vs {top_p:.5f}")
+        require(tv_kp <= PICKS_SPREAD * tv_pp,
+                f"selection {label}: pick distribution {tv_kp} vs {tv_pp}")
+        if two:
+            require(torch.equal(p_k[4], p_p[4]), f"selection {label}: counts")
+    del sel_scores
+
+    # Batched MIS RIS: the 5 iterations' packs against 5 plain RIS calls.
+    mis_uni = torch.rand((it_n, sk, 4, k, H, W), generator=gen, device=dev)
+    packs = {}
+    errs["mis_ris"] = 0.0
+    for romis_pack in (False, True):
+        c_blk = (8 if romis_pack else 7) * k
+        pk_k = ris.gen_mis_reservoir_planes(ctx, scene.lights,
+                                            scene.num_lights, feats, it_n,
+                                            romis_pack, uniforms=mis_uni)
+        pk_p = ris.gen_mis_reservoir_planes_plain(
+            ctx, scene.lights, scene.num_lights, feats, it_n, romis_pack,
+            uniforms=mis_uni)
+        torch.cuda.synchronize()
+        b_k, b_p = (x.reshape(it_n, c_blk, H, W) for x in (pk_k, pk_p))
+        pos_k, pos_p = b_k[:, :3 * k], b_p[:, :3 * k]
+        win = ((pos_k - pos_p).abs() <= 1e-6 + 1e-5 * pos_p.abs()).reshape(
+            it_n, k, 3, H, W).all(dim=2)
+        agree = win.float().mean().item()
+        st_k, st_p = b_k[:, 6 * k:7 * k], b_p[:, 6 * k:7 * k]
+        st_rel = ((st_k - st_p).abs() / st_p.abs().clamp_min(1e-30))[
+            win].max().item()
+        print(f"check mis_ris[{'romis' if romis_pack else 'rmis'}, "
+              f"uniforms]: {it_n} iterations, winners agree {agree:.6f}, "
+              f"{'w_sum' if romis_pack else 'big_w'} max rel err "
+              f"{st_rel:.2e}, bit-exact {torch.equal(pk_k, pk_p)}")
+        require(agree >= MIN_AGREE, f"MIS RIS: winners agree {agree}")
+        require(st_rel <= RIS_BIG_W_RTOL, f"MIS RIS: stats {st_rel}")
+        errs["mis_ris"] = max(errs["mis_ris"], (st_k - st_p).abs()[
+            win].max().item())
+        packs[romis_pack] = pk_p
+    ph_k = ris.gen_mis_reservoir_planes(ctx, scene.lights, scene.num_lights,
+                                        feats, it_n, True, generator=gen)
+    ph_p = gen_canonical_samples_plain(ctx, scene.lights, scene.num_lights,
+                                       feats, generator=gen).w_sum.mean()
+    for i in range(it_n):
+        mk = ph_k[i * 8 * k + 6 * k:i * 8 * k + 7 * k].mean().item()
+        print(f"check mis_ris[philox]: iteration {i} mean w_sum {mk:.6g} vs "
+              f"plain {ph_p.item():.6g}")
+        require(abs(mk - ph_p.item()) <= PHILOX_REL * ph_p.item(),
+                "MIS RIS Philox w_sum mean")
+
+    # The sweep in its four modes, on the neighbourhoods of the plain
+    # selection and iteration 0 of the packs above.
+    def check_sweep(label, c, geometry, pack_r, pack_o, hw):
+        h_, w_ = hw
+        ny_, nx_ = select_neighbour_indices(
+            gen, c, h_, w_, feats, select=nbrsel.neighbour_select_plain)
+        offs_ = mis_offsets(ny_, nx_)
+        cen_ = shade.pack_center_ctx(c)
+        nbr_ = mis.resolve_neighbour_ctx(cen_, offs_,
+                                         spatial.halo_offset_gather_plain)
+        d1 = n_nbr + 1
+        al = torch.rand((3 * d1, h_, w_), generator=gen, device=dev) - 0.5
+        worst = 0.0
+        for mode in ("rmis_equal", "rmis_balance", "romis", "romis_prog"):
+            m = "romis" if mode == "romis_prog" else mode
+            kw = dict(nbr_ctx=None if m == "rmis_equal" else nbr_,
+                      alphas=al if mode == "romis_prog" else None)
+            pack = pack_o if m == "romis" else pack_r
+            o_k = mis.mis_iteration(cen_, pack, offs_, geometry, k, m,
+                                    scene.num_lights, feats, **kw)
+            o_p = mis.mis_iteration_plain(cen_, pack, offs_, geometry, k, m,
+                                          scene.num_lights, feats, **kw)
+            torch.cuda.synchronize()
+            o_k = o_k if isinstance(o_k, tuple) else (o_k,)
+            o_p = o_p if isinstance(o_p, tuple) else (o_p,)
+            rel = 0.0
+            for a, b in zip(o_k, o_p):
+                require(bool(torch.isfinite(a).all()),
+                        f"sweep {label} {mode}: non-finite")
+                top = b.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+                rel = max(rel, ((a - b).abs() / top).max().item())
+                worst = max(worst, (a - b).abs().max().item())
+            exact = all(torch.equal(a, b) for a, b in zip(o_k, o_p))
+            print(f"check mis_iteration[{label}, {mode}]: outputs "
+                  f"{[tuple(a.shape)[0] for a in o_k]} planes, max err / "
+                  f"plane max {rel:.2e}, bit-exact {exact}")
+            require(rel <= MIS_REL, f"sweep {label} {mode}: {rel}")
+        return worst
+
+    errs["mis_iteration"] = check_sweep("flagship", ctx, scene.geometry,
+                                        packs[False], packs[True], (H, W))
+    hs, ws = H // 4, W // 4
+    soup_cam = flagship_camera(hs, ws, dev)
+    _, soup_ctx_s = restir.trace_primary(generate_rays(soup_cam, hs, ws),
+                                         soup, feats, restir.PLAIN)
+    soup_packs = [ris.gen_mis_reservoir_planes_plain(
+        soup_ctx_s, scene.lights, scene.num_lights, feats, 1, romis_pack,
+        generator=gen) for romis_pack in (False, True)]
+    check_sweep("soup2048 480x270", soup_ctx_s, soup, *soup_packs, (hs, ws))
+    del mis_uni, ph_k
+
     # ---- 4. the main paths through the entry points ----
     path_feats = {
         "slice1": Features(spatial_reuse=False),
@@ -648,6 +950,15 @@ def main() -> None:
         "animated": Features(temporal_reprojection=True,
                              unbiased_combination=True,
                              initial_samples_visibility_check=True),
+        "romis": Features(ray_trace_mode=RayTraceMode.ROMIS),
+        "romis_progressive": Features(ray_trace_mode=RayTraceMode.ROMIS,
+                                      use_progressive_romis=True),
+        "rmis_equal": Features(ray_trace_mode=RayTraceMode.RMIS),
+        "rmis_balance": Features(
+            ray_trace_mode=RayTraceMode.RMIS,
+            mis_weight_rmis=MISWeight.BALANCE,
+            neighbour_selection_strategy=(
+                NeighbourSelectionStrategy.EQUAL_SIMILAR_DISSIMILAR)),
     }
     cam_path = interpolate_cameras(
         cam, make_camera(look_at=(2.57, 1.23, -1.35),
@@ -674,7 +985,7 @@ def main() -> None:
 
     launches = {n: 0 for n in KERNELS}
     for path, per_frame in PATHS.items():
-        if path in GRAD_PATHS:
+        if path in GRAD_PATHS or path in MIS_PATHS:
             continue
         for fn in wrappers.values():
             fn.launches = 0
@@ -783,6 +1094,51 @@ def main() -> None:
                         f"{path}: no gradient reaches {leaf}")
         print(f"path {path}: worst gradient leaf err / max |g| {worst:.2e}")
 
+    # R-MIS / R-OMIS: frame 1 on injected noise (the selection's score
+    # planes, every iteration's RIS uniforms), frame 2 on the Philox
+    # streams; the plain run takes frame 1's noise.
+    mis_noise = (nbrsel.selection_noise(gen, radius, H, W),
+                 torch.rand((it_n, sk, 4, k, H, W), generator=gen,
+                            device=dev))
+    for path in MIS_PATHS:
+        f = path_feats[path]
+        for fn in wrappers.values():
+            fn.launches = 0
+        img_k, st = render_frame(None, cam, scene, H, W, f, noise=mis_noise)
+        img_k2, _ = render_frame(torch.Generator(device=dev).manual_seed(0),
+                                 cam, scene, H, W, f)
+        torch.cuda.synchronize()
+        got = {n: fn.launches for n, fn in wrappers.items()}
+        img_p, _ = render_frame(None, cam, scene, H, W, f, noise=mis_noise,
+                                ops=restir.PLAIN)
+        torch.cuda.synchronize()
+        expect = {n: PATHS[path].get(n, 0) * FRAMES[path] for n in KERNELS}
+        print(f"path {path}: launches over {FRAMES[path]} frames "
+              f"{ {n: c for n, c in got.items() if c} }")
+        require(got == expect, f"{path}: launch counts {got} != {expect}")
+        for n in KERNELS:
+            launches[n] += got[n]
+        require(st is None and tuple(img_k.shape) == (H, W, 3),
+                f"{path}: image {tuple(img_k.shape)}")
+        for label, img in (("kernels", img_k), ("Philox", img_k2),
+                           ("plain", img_p)):
+            require(bool(torch.isfinite(img).all()),
+                    f"{path}: non-finite pixels ({label})")
+        mk, mk2, mp = (x.mean().item() for x in (img_k, img_k2, img_p))
+        same = (img_k == img_p).all(dim=-1).float().mean().item()
+        print(f"path {path}: injected-noise frame mean {mk:.6f} (kernels) vs "
+              f"{mp:.6f} (plain), pixels bit-equal {same:.6f}, max abs diff "
+              f"{(img_k - img_p).abs().max().item():.2e}; Philox frame mean "
+              f"{mk2:.6f}")
+        require(abs(mk - mp) <= FRAME_REL * abs(mp), f"{path}: means differ")
+        require(abs(mk2 - mp) <= FRAME_REL * abs(mp),
+                f"{path}: Philox frame mean differs")
+        if path == "romis":
+            png = ROOT / "build" / "chip_smoke_romis.png"
+            save_image(str(png), img_k2)
+            print(f"path {path}: wrote {png.relative_to(ROOT)}")
+    del mis_noise
+
     # ---- 5. timing ----
     def one_frame(path, ops):
         g = torch.Generator(device=dev).manual_seed(5)
@@ -801,11 +1157,47 @@ def main() -> None:
     for path in PATHS:
         if path in GRAD_PATHS:
             continue
+        if path in MIS_PATHS:
+            f_k, f_p = ab_ms(torch, one_frame(path, restir.KERNELS),
+                             one_frame(path, restir.PLAIN), 5, 2)
+            print(f"time frame[{path}]: {f_k:.3f} ms/frame kernels, "
+                  f"{f_p:.3f} ms/frame plain [{card}]")
+            continue
         f_k, f_p = ab_ms(torch, one_frame(path, restir.KERNELS),
                          one_frame(path, restir.PLAIN), 10, 3)
         print(f"time frame[{path}]: {f_k:.3f} ms/frame kernels, {f_p:.3f} "
               f"ms/frame plain ({H * W * (1 + k) / f_k / 1e3:.1f} Mrays/s) "
               f"[{card}]")
+
+    # Where an R-OMIS frame's time goes: torch.profiler over 3 frames.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run = one_frame("romis", restir.KERNELS)
+    run()
+    torch.cuda.synchronize()
+    ev_a = torch.cuda.Event(enable_timing=True)
+    ev_b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev_a.record()
+        for _ in range(3):
+            run()
+        ev_b.record()
+        torch.cuda.synchronize()
+    span = ev_a.elapsed_time(ev_b) / 3
+    dev_rows = sorted(((e.key, e.self_device_time_total / 3e3, e.count / 3)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+    busy = sum(r[1] for r in dev_rows)
+    print(f"profile frame[romis]: span {span:.3f} ms/frame, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / span:.3f}, "
+          f"{sum(r[2] for r in dev_rows):.0f} device kernels/frame [{card}]"
+          if busy else "profile frame[romis]: no device time recorded")
+    for key_, ms_, n_ in dev_rows[:8]:
+        print(f"profile frame[romis]: {ms_:.3f} ms in {n_:.0f} x {key_[:70]}")
 
     for path in GRAD_PATHS:
         f, prev, target, _ = grad_setup(path)
@@ -900,8 +1292,123 @@ def main() -> None:
             ctx, scene.lights, scene.num_lights, feats, uniforms=uni5),
         lambda: gen_canonical_replay_plain(
             ctx, scene.lights, scene.num_lights, feats, uniforms=uni5), 10, 3)
+    # The R-MIS / R-OMIS kernels on the main path's streams: the SIMILAR
+    # selection (Philox), the 5-iteration R-OMIS pack (Philox) and one
+    # R-OMIS direct sweep iteration.
+    sel_key = spatial.philox_key(gen)
+    timings["neighbour_select"] = ab_ms(
+        torch, lambda: nbrsel.neighbour_select(
+            sel_gates, n_nbr, radius, False, True, *sel_args, generator=gen,
+            key=sel_key),
+        lambda: nbrsel.neighbour_select_plain(
+            sel_gates, n_nbr, radius, False, True, *sel_args,
+            generator=gen), 10, 2)
+    timings["mis_ris"] = ab_ms(
+        torch, lambda: ris.gen_mis_reservoir_planes(
+            ctx, scene.lights, scene.num_lights, feats, it_n, True,
+            generator=gen),
+        lambda: ris.gen_mis_reservoir_planes_plain(
+            ctx, scene.lights, scene.num_lights, feats, it_n, True,
+            generator=gen), 10, 2)
+    ny_t, nx_t = select_neighbour_indices(
+        gen, ctx, H, W, feats, select=nbrsel.neighbour_select_plain)
+    offs_t = mis_offsets(ny_t, nx_t)
+    nbr_t = mis.resolve_neighbour_ctx(cen, offs_t)
+    d1 = n_nbr + 1
+    sweep_args = dict(romis=("romis", packs[True], nbr_t),
+                      rmis_equal=("rmis_equal", packs[False], None),
+                      rmis_balance=("rmis_balance", packs[False], nbr_t))
+    for label, (m, pack, nbr_) in sweep_args.items():
+        ms = ab_ms(
+            torch, lambda: mis.mis_iteration(
+                cen, pack, offs_t, scene.geometry, k, m, scene.num_lights,
+                feats, nbr_ctx=nbr_),
+            lambda: mis.mis_iteration_plain(
+                cen, pack, offs_t, scene.geometry, k, m, scene.num_lights,
+                feats, nbr_ctx=nbr_), 20, 3)
+        print(f"time mis_iteration[{label}]: {ms[0]:.4f} ms kernel, "
+              f"{ms[1]:.4f} ms plain [{card}]")
+        if label == "romis":
+            timings["mis_iteration"] = ms
     for n, (km, pm) in timings.items():
         print(f"time {n}: {km:.4f} ms kernel, {pm:.4f} ms plain [{card}]")
+
+    # One PyTorch call computing the same function, where there is one
+    # (the yardstick; the port never calls it this way).
+    attr = scene.geometry.attr_rows
+    idx_l = idx.reshape(-1).long()
+    rows_i = torch.arange(H, device=dev)[:, None]
+    cols_i = torch.arange(W, device=dev)[None, :]
+    ny_l = torch.clamp(rows_i + smooth_dy.long(), 0, H - 1)
+    nx_l = torch.clamp(cols_i + smooth_dx.long(), 0, W - 1)
+    l_ct, l_idx, l_rows = scatter_cases["lights"]
+    l_src = l_ct.reshape(l_ct.shape[0], -1).t()
+    l_flat = l_idx.reshape(-1).long()
+    q_flat = (torch.clamp(rows_i + sdy.long(), 0, H - 1) * W
+              + torch.clamp(cols_i + sdx.long(), 0, W - 1)).reshape(-1)
+    hs_src = halo_ct.movedim(1, 0).reshape(k, -1).contiguous()
+    library = {
+        "gather_rows": cuda_ms(
+            torch, lambda: torch.index_select(attr, 0, idx_l), 20),
+        "halo_gather": cuda_ms(
+            torch, lambda: halo_planes[:, ny_l, nx_l], 20),
+        "scatter_rows_add": cuda_ms(
+            torch, lambda: torch.zeros((l_rows, l_ct.shape[0]), device=dev)
+            .index_add_(0, l_flat, l_src), 20),
+        "halo_scatter": cuda_ms(
+            torch, lambda: torch.zeros((k, H * W), device=dev).index_add_(
+                1, q_flat, hs_src), 20),
+    }
+    for n, ms in library.items():
+        print(f"time {n} (one PyTorch call): {ms:.4f} ms [{card}]")
+
+    # Bounds of the timed calls, from this run's shapes: bytes read once
+    # and written once (4 B a plane element), float32 operations.
+    hw, n_t = H * W, scene.geometry.tri_cols.shape[1]
+    n_off = (2 * radius + 1) ** 2 - 1
+    n_up = d1 * (d1 + 1) // 2
+    live_lanes = ((res_main.big_w != 0) & ctx.valid[None]).sum().item()
+    live_rays = ctx.valid.sum().item() * d1 * k  # at most: every sample
+    bounds = {
+        "closest_hit": bound(hw * 10 * 4 + n_t * 40, hw * n_t * MT_OPS),
+        "gather_rows": bound(hw * 4 * (1 + attr.shape[1]) + attr.numel() * 4,
+                             0),
+        "ris": bound(hw * 4 * (17 + sk * 4 * k + 10 * k), hw * s
+                     * CANDIDATE_OPS),  # on injected uniforms
+        "final_shade": bound(hw * 4 * (18 + 10 * k + 3),
+                             live_lanes * (n_t * MT_OPS + SHADOW_OPS
+                                           + PHONG_OPS)),
+        "any_hit": bound(o.shape[0] * hw * 29, o.shape[0] * hw * n_t
+                         * MT_OPS),
+        "halo_gather": bound(hw * 4 * (2 * halo_planes.shape[0] + 2), 0),
+        "spatial_pass": bound(hw * 4 * (20 * k + 5 + 18), hw * (n_nbr + 1)
+                              * (STREAM_OPS + k * (PHONG_OPS + LOG_OPS))),
+        "spatial_pass_unbiased": bound(
+            hw * 4 * (20 * k + 18), hw * (n_nbr + 1) * (STREAM_OPS + k
+                                                         * LOG_OPS)
+            + hw * k * (3 * n_nbr + 1) * PHONG_OPS),
+        "scatter_rows_add": bound(l_ct.numel() * 4 + l_idx.numel() * 4
+                                  + l_rows * l_ct.shape[0] * 4, l_ct.numel()),
+        "halo_scatter": bound(halo_ct.numel() * 4 + sdy.numel() * 8
+                              + k * hw * 4, halo_ct.numel()),
+        "ris_replay": bound(hw * 4 * (17 + sk * 5 * k + 7 * k),
+                            hw * s * (CANDIDATE_OPS + RACE_OPS)),
+        # SIMILAR on Philox: a Philox call for every 4 cells, a Gumbel score
+        # and the gates for every cell.
+        "neighbour_select": bound(hw * 4 * (5 + 2 * n_nbr + 2), hw * n_off
+                                  * (PHILOX_OPS / 4 + GUMBEL_OPS
+                                     + GATE_OPS)),
+        "mis_ris": bound(hw * 4 * (17 + it_n * 8 * k),
+                         hw * it_n * s * (CANDIDATE_OPS + DRAW_OPS)),
+        # One R-OMIS direct iteration: per sample, p-hat and colvec under
+        # the D1 techniques, the A and b updates and the scale; the shadow
+        # rays of the live samples.
+        "mis_iteration": bound(
+            hw * 4 * (18 + 8 * k + 2 * n_nbr + 14 * n_nbr + n_up + 3 * d1),
+            hw * d1 * k * (d1 * (PHONG_OPS + COLVEC_OPS) + 2 * n_up
+                           + 6 * d1 + DIV_OPS)
+            + live_rays * (n_t * MT_OPS + SHADOW_OPS)),
+    }
     inject = spatial.spatial_noise(gen, n_nbr, k, radius, H, W)
     for label, (kernel_fn, _) in pass_fns.items():
         ms = cuda_ms(torch, lambda: kernel_fn(inject=inject), 10)
@@ -916,11 +1423,24 @@ def main() -> None:
         ctx, scene.lights, scene.num_lights, feats, generator=gen), 10)
     print(f"time ris_replay (philox): {ms:.4f} ms [{card}]")
 
+    ms = cuda_ms(torch, lambda: nbrsel.neighbour_select(
+        sel_gates, n_nbr, radius, True, True, *sel_args, generator=gen,
+            key=sel_key), 10)
+    print(f"time neighbour_select (two classes, philox): {ms:.4f} ms "
+          f"[{card}]")
+
     table_rows = [{"name": n, "route": "cuda", "source": SOURCES[n][0],
                    "replaces": SOURCES[n][1], "launches": launches[n],
                    "max_abs_err": errs[n], "ms": timings[n][0],
-                   "plain_ms": timings[n][1]}
+                   "plain_ms": timings[n][1], "bound_ms": bounds[n][0],
+                   "bound_by": bounds[n][1],
+                   "library_ms": library.get(n)}
                   for n in KERNELS]
+    for r in table_rows:
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']}, launches {r['launches']} [{card}]")
     print(json.dumps({"kernels": table_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-"""romis_tpu_torch — the ReSTIR renderer of ``romis_tpu`` in PyTorch, with
-hand-written CUDA kernels for Hopper (sm_90a).
+"""romis_tpu_torch — the renderer of ``romis_tpu`` (ReSTIR, R-MIS and
+R-OMIS) in PyTorch, with hand-written CUDA kernels for Hopper (sm_90a).
 
 Module for module this package mirrors ``romis_tpu`` (the JAX reference it
 is tested against) and keeps its image-minor ``[C, H, W]`` plane layout at
@@ -8,11 +8,15 @@ the ported path is a CUDA C++ kernel under ``csrc/``, compiled with ``nvcc``
 at first use (``ops/_build.py``). Every kernel wrapper runs its plain
 PyTorch version for CPU tensors and launches the kernel for CUDA tensors.
 
-The framework-free reference modules are shared, not copied:
-``romis_tpu.core.features``, ``romis_tpu.scene.objloader`` and
-``romis_tpu.io.image``. None of them imports JAX.
+The package imports nothing of ``romis_tpu``: it keeps its own copies of
+the reference's framework-free modules (``core.features``,
+``scene.objloader``, ``io.image``). Entry points place their tensors on
+the CUDA device unless given ``device=`` (``core.device``).
 """
 
-from romis_tpu.core.features import Features, RayTraceMode
+from .core.features import (
+    Features, MISWeight, NeighbourSelectionStrategy, RayTraceMode,
+)
 
-__all__ = ["Features", "RayTraceMode"]
+__all__ = ["Features", "MISWeight", "NeighbourSelectionStrategy",
+           "RayTraceMode"]

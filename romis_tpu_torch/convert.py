@@ -10,13 +10,14 @@ import numpy as np
 import torch
 
 from .core.camera import CameraParams
+from .core.device import resolve_device
 from .scene.lights import COLUMNS as LIGHT_COLUMNS, light_table_from_arrays
 from .scene.scene import COLUMNS as GEOMETRY_COLUMNS, Scene, geometry_from_arrays
 
 
 def scene_from_numpy(geometry: dict[str, np.ndarray],
                      lights: dict[str, np.ndarray], num_lights: int,
-                     device="cpu", name: str = "scene") -> Scene:
+                     device=None, name: str = "scene") -> Scene:
     """``geometry`` holds the reference Geometry's columns
     (``scene.scene.COLUMNS``: v0, e1, e2, n0..n2, uv0..uv2, mat_id, geom_id,
     active, the material table and the texture stack); ``lights`` the
@@ -32,8 +33,10 @@ def scene_from_numpy(geometry: dict[str, np.ndarray],
 
 
 def camera_from_numpy(look_at, rotation, distance, fovy, aspect,
-                      device="cpu") -> CameraParams:
+                      device=None) -> CameraParams:
     """The reference CameraParams' fields (rotation and fovy in radians)."""
+    device = resolve_device(device)
+
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
 
@@ -42,10 +45,12 @@ def camera_from_numpy(look_at, rotation, distance, fovy, aspect,
                         aspect=f32(aspect))
 
 
-def params_from_numpy(params: dict[str, np.ndarray], device="cpu"):
+def params_from_numpy(params: dict[str, np.ndarray], device=None):
     """The reference SceneParams' 13 leaves (``diff.grad.SceneParams``
     field names) → the port's SceneParams."""
     from .diff.grad import SceneParams
+
+    device = resolve_device(device)
 
     return SceneParams(**{
         f: torch.as_tensor(np.array(params[f], np.float32), device=device)

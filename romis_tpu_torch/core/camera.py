@@ -9,6 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .device import resolve_device
 from .types import Rays
 from .vec import vcross, vnormalize
 
@@ -24,8 +25,10 @@ class CameraParams:
 
 def make_camera(look_at=(0.0, 0.0, 0.0), rotation_deg=(20.0, 20.0, 0.0),
                 distance=3.0, fov_deg=50.0, resolution=(256, 256),
-                device="cpu") -> CameraParams:
+                device=None) -> CameraParams:
+    """Camera parameters on ``device`` (default: the CUDA device)."""
     height, width = resolution
+    device = resolve_device(device)
 
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)

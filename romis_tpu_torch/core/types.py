@@ -9,6 +9,8 @@ from dataclasses import dataclass, fields, replace
 
 import torch
 
+from .device import resolve_device
+
 
 @dataclass
 class Rays:
@@ -67,7 +69,9 @@ class Reservoirs:
 
 
 def empty_reservoirs(height: int, width: int, k: int,
-                     device="cpu") -> Reservoirs:
+                     device=None) -> Reservoirs:
+    device = resolve_device(device)
+
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 

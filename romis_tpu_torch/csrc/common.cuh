@@ -80,14 +80,14 @@ struct Receiver {
   bool valid;
 };
 
-// ops/shading.phong_shade_planes followed by target_pdf_planes' norm:
-// unshadowed Phong of the light sample (l, c) at the receiver → p-hat.
-// (vx, vy, vz) is the receiver's unit view vector, hoisted by the caller
-// exactly as the plain version computes it.
-__device__ __forceinline__ float target_pdf(const Receiver& r, float vx,
-                                            float vy, float vz, float lx,
-                                            float ly, float lz, float cr,
-                                            float cg, float cb) {
+// ops/shading.phong_shade_planes: unshadowed Phong of the light sample
+// (l, c) at the receiver → o[3], 0 for a light behind the surface or an
+// invalid receiver. (vx, vy, vz) is the receiver's unit view vector,
+// hoisted by the caller exactly as the plain version computes it.
+__device__ __forceinline__ void phong_rgb(const Receiver& r, float vx,
+                                          float vy, float vz, float lx,
+                                          float ly, float lz, float cr,
+                                          float cg, float cb, float (&o)[3]) {
   const float tox = lx - r.px, toy = ly - r.py, toz = lz - r.pz;
   const float dist2 = tox * tox + toy * toy + toz * toz;
   const float dist = sqrtf(fmaxf(dist2, 1e-24f));
@@ -102,15 +102,34 @@ __device__ __forceinline__ float target_pdf(const Receiver& r, float vx,
   const float spec_pow = cos_t > 0.0f ? powf(fmaxf(cos_t, 1e-12f), r.shin) : 0.0f;
   const float falloff = dist < kZeroEpsilon ? 1.0f : dist;
   const float inv_f2 = 1.0f / (falloff * falloff);
-  if (dot_nl < 0.0f || !r.valid) return 0.0f;
+  const bool dead = dot_nl < 0.0f || !r.valid;
   const float col[3] = {cr, cg, cb};
-  float o[3];
   for (int c = 0; c < 3; ++c) {
-    o[c] = (scrub(col[c] * r.kd[c] * dot_nl) + scrub(col[c] * r.ks[c] * spec_pow)) *
-           inv_f2;
+    o[c] = dead ? 0.0f
+                : (scrub(col[c] * r.kd[c] * dot_nl) + scrub(col[c] * r.ks[c] * spec_pow)) *
+                      inv_f2;
   }
+}
+
+// target_pdf_planes: the norm of phong_rgb → p-hat.
+__device__ __forceinline__ float target_pdf(const Receiver& r, float vx,
+                                            float vy, float vz, float lx,
+                                            float ly, float lz, float cr,
+                                            float cg, float cb) {
+  float o[3];
+  phong_rgb(r, vx, vy, vz, lx, ly, lz, cr, cg, cb, o);
   const float sq = o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
   return sq > 1e-30f ? sqrtf(sq) : 0.0f;
+}
+
+// The dot product of the normal and the light direction as phong_rgb
+// computes it (a sample whose dot_nl < 0 shades to 0).
+__device__ __forceinline__ float light_dot_nl(const Receiver& r, float lx,
+                                              float ly, float lz) {
+  const float tox = lx - r.px, toy = ly - r.py, toz = lz - r.pz;
+  const float dist = sqrtf(fmaxf(tox * tox + toy * toy + toz * toz, 1e-24f));
+  const float dinv = 1.0f / fmaxf(dist, 1e-20f);
+  return r.nx * (tox * dinv) + r.ny * (toy * dinv) + r.nz * (toz * dinv);
 }
 
 // Philox4x32-10 (Salmon et al., SC'11): counter-based random bits.

@@ -34,6 +34,18 @@
 // (0x5350/0x5351 << 16); or they come from `uniforms` [S/K, 5, K, N]. The
 // replay writes 7K planes instead of 10K and selects no position or
 // colour, so it is the same compute bound with less traffic.
+//
+// Kernel 15, the MIS mode (kMis), replaces romis_tpu/ops/pallas_ris.py
+// gen_mis_reservoir_planes (the same _ris_kernel in the MIS layout): every
+// iteration of an R-MIS / R-OMIS frame draws its canonical reservoirs in
+// ONE launch, `iters` x K lanes per thread, each iteration with the
+// per-iteration lane counts and its own draws: Philox counter tag
+// kMisTag | iteration, or the uniforms [iters, S/K, 4, K, N], which
+// reproduce `iters` separate canonical calls exactly. The output is the
+// sweep's pack, per iteration [pos 3K | color 3K | big_w K] (R-MIS, 7K
+// planes) or [pos 3K | color 3K | w_sum K | chosen_w K] (R-OMIS, 8K), so
+// no per-iteration repack follows. Same compute bound, iters times over;
+// 17 planes in, iters x 7K or 8K out.
 #include "common.cuh"
 
 namespace romis {
@@ -41,15 +53,18 @@ namespace romis {
 constexpr int kRowStride = 24;
 constexpr int kMaxSmemLightBytes = 96 * 1024;
 constexpr uint32_t kReplayTag = 0x5250u << 16;
+constexpr uint32_t kMisTag = 0x4D49u << 16;
+constexpr int kCanonical = 0, kReplayMode = 1, kMis = 2;
 
-template <bool kSmem, bool kReplay>
+template <bool kSmem, int kMode>
 __global__ void __launch_bounds__(kThreads)
 ris_kernel(const float* __restrict__ ctx, long long n,
            const float* __restrict__ rows, int n_rows, int num_lights, int s,
            int k, uint32_t key0, uint32_t key1,
-           const float* __restrict__ uniforms, float* __restrict__ out) {
+           const float* __restrict__ uniforms, float* __restrict__ out,
+           int iters, bool romis) {
+  constexpr bool kReplay = kMode == kReplayMode;
   constexpr int kUniforms = kReplay ? 5 : 4;
-  constexpr uint32_t kTag = kReplay ? kReplayTag : 0u;
   extern __shared__ float s_rows[];
   if (kSmem) {
     for (int i = threadIdx.x; i < n_rows * kRowStride; i += blockDim.x)
@@ -76,94 +91,114 @@ ris_kernel(const float* __restrict__ ctx, long long n,
 
   const float nl = static_cast<float>(num_lights);
   const int sk = (s + k - 1) / k;
-  for (int lane = 0; lane < k; ++lane) {
-    float w_sum = 0.0f, best = -INFINITY, sel_w = 0.0f, sel_ph = 0.0f;
-    float sel[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    // Replay records of the two races: (light index, u, v).
-    float best2 = -INFINITY;
-    float rec1[3] = {0.f, 0.f, 0.f}, rec2[3] = {0.f, 0.f, 0.f};
-    int count = 0;
-    for (int t = 0; t < sk; ++t) {
-      const bool real = t * k + lane < s;
-      count += real;
-      float ui, u, v, ur, ur2 = 0.0f;
-      if (uniforms != nullptr) {
-        const long long base = (static_cast<long long>(t) * kUniforms * k + lane) * n + p;
-        ui = uniforms[base];
-        u = uniforms[base + k * n];
-        v = uniforms[base + 2 * k * n];
-        ur = uniforms[base + 3 * k * n];
-        if (kReplay) ur2 = uniforms[base + 4 * k * n];
-      } else {
-        const U4 ctr{static_cast<uint32_t>(t * k + lane), static_cast<uint32_t>(p),
-                     static_cast<uint32_t>(p >> 32), kTag};
-        const U4 b = philox4x32_10(ctr, key0, key1);
-        ui = u01(b.x); u = u01(b.y); v = u01(b.z); ur = u01(b.w);
+  for (int it = 0; it < iters; ++it) {
+    const uint32_t tag = kReplay ? kReplayTag : kMode == kMis ? (kMisTag | it) : 0u;
+    const float* u_it = uniforms == nullptr ? nullptr
+        : uniforms + static_cast<long long>(it) * sk * kUniforms * k * n;
+    for (int lane = 0; lane < k; ++lane) {
+      float w_sum = 0.0f, best = -INFINITY, sel_w = 0.0f, sel_ph = 0.0f;
+      float sel[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      // Replay records of the two races: (light index, u, v).
+      float best2 = -INFINITY;
+      float rec1[3] = {0.f, 0.f, 0.f}, rec2[3] = {0.f, 0.f, 0.f};
+      int count = 0;
+      for (int t = 0; t < sk; ++t) {
+        const bool real = t * k + lane < s;
+        count += real;
+        float ui, u, v, ur, ur2 = 0.0f;
+        if (u_it != nullptr) {
+          const long long base = (static_cast<long long>(t) * kUniforms * k + lane) * n + p;
+          ui = u_it[base];
+          u = u_it[base + k * n];
+          v = u_it[base + 2 * k * n];
+          ur = u_it[base + 3 * k * n];
+          if (kReplay) ur2 = u_it[base + 4 * k * n];
+        } else {
+          const U4 ctr{static_cast<uint32_t>(t * k + lane), static_cast<uint32_t>(p),
+                       static_cast<uint32_t>(p >> 32), tag};
+          const U4 b = philox4x32_10(ctr, key0, key1);
+          ui = u01(b.x); u = u01(b.y); v = u01(b.z); ur = u01(b.w);
+          if (kReplay) {
+            const U4 b2 = philox4x32_10(U4{ctr.x, ctr.y, ctr.z, tag | 1u}, key0, key1);
+            ur2 = u01(b2.x);
+          }
+        }
+        const int pick = min(static_cast<int>(ui * nl), num_lights - 1);
+        const int idx = min(max(pick, 0), n_rows - 1);
+        const float* row = kSmem ? s_rows + idx * kRowStride : rows + idx * kRowStride;
+        float q[21];
+#pragma unroll
+        for (int c = 0; c < 21; ++c) q[c] = kSmem ? row[c] : __ldg(row + c);
+        const float lx = q[0] + u * q[3] + v * q[6];
+        const float ly = q[1] + u * q[4] + v * q[7];
+        const float lz = q[2] + u * q[5] + v * q[8];
+        float col[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float lerp01 = q[9 + c] * (1.0f - u) + q[12 + c] * u;
+          const float lerp23 = q[15 + c] * (1.0f - u) + q[18 + c] * u;
+          col[c] = lerp01 * (1.0f - v) + lerp23 * v;
+        }
+        const float ph = target_pdf(r, vx, vy, vz, lx, ly, lz, col[0], col[1], col[2]);
+        const float w = ph * nl * (real ? 1.0f : 0.0f);
+        const float e_clock = -logf(fmaxf(ur, 1e-37f)) + 1e-37f;
+        const float score = w > 0.0f ? w / e_clock : -INFINITY;
+        w_sum = w_sum + w;
         if (kReplay) {
-          const U4 b2 = philox4x32_10(U4{ctr.x, ctr.y, ctr.z, kTag | 1u}, key0, key1);
-          ur2 = u01(b2.x);
-        }
-      }
-      const int pick = min(static_cast<int>(ui * nl), num_lights - 1);
-      const int idx = min(max(pick, 0), n_rows - 1);
-      const float* row = kSmem ? s_rows + idx * kRowStride : rows + idx * kRowStride;
-      float q[21];
-#pragma unroll
-      for (int c = 0; c < 21; ++c) q[c] = kSmem ? row[c] : __ldg(row + c);
-      const float lx = q[0] + u * q[3] + v * q[6];
-      const float ly = q[1] + u * q[4] + v * q[7];
-      const float lz = q[2] + u * q[5] + v * q[8];
-      float col[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float lerp01 = q[9 + c] * (1.0f - u) + q[12 + c] * u;
-        const float lerp23 = q[15 + c] * (1.0f - u) + q[18 + c] * u;
-        col[c] = lerp01 * (1.0f - v) + lerp23 * v;
-      }
-      const float ph = target_pdf(r, vx, vy, vz, lx, ly, lz, col[0], col[1], col[2]);
-      const float w = ph * nl * (real ? 1.0f : 0.0f);
-      const float e_clock = -logf(fmaxf(ur, 1e-37f)) + 1e-37f;
-      const float score = w > 0.0f ? w / e_clock : -INFINITY;
-      w_sum = w_sum + w;
-      if (kReplay) {
-        const float e2 = -logf(fmaxf(ur2, 1e-37f)) + 1e-37f;
-        const float score2 = w > 0.0f ? w / e2 : -INFINITY;
-        if (score > best) {
+          const float e2 = -logf(fmaxf(ur2, 1e-37f)) + 1e-37f;
+          const float score2 = w > 0.0f ? w / e2 : -INFINITY;
+          if (score > best) {
+            best = score;
+            rec1[0] = static_cast<float>(pick); rec1[1] = u; rec1[2] = v;
+          }
+          if (score2 > best2) {
+            best2 = score2;
+            rec2[0] = static_cast<float>(pick); rec2[1] = u; rec2[2] = v;
+          }
+        } else if (score > best) {
           best = score;
-          rec1[0] = static_cast<float>(pick); rec1[1] = u; rec1[2] = v;
+          sel[0] = lx; sel[1] = ly; sel[2] = lz;
+          sel[3] = col[0]; sel[4] = col[1]; sel[5] = col[2];
+          sel_w = w;
+          sel_ph = ph;
         }
-        if (score2 > best2) {
-          best2 = score2;
-          rec2[0] = static_cast<float>(pick); rec2[1] = u; rec2[2] = v;
-        }
-      } else if (score > best) {
-        best = score;
-        sel[0] = lx; sel[1] = ly; sel[2] = lz;
-        sel[3] = col[0]; sel[4] = col[1]; sel[5] = col[2];
-        sel_w = w;
-        sel_ph = ph;
       }
-    }
-    if (kReplay) {
-      float* o = out + static_cast<long long>(7 * lane) * n + p;
-      o[0] = w_sum;
+      if (kReplay) {
+        float* o = out + static_cast<long long>(7 * lane) * n + p;
+        o[0] = w_sum;
+        for (int c = 0; c < 3; ++c) {
+          o[(1 + c) * n] = rec1[c];
+          o[(4 + c) * n] = rec2[c];
+        }
+        continue;
+      }
+      const float m = static_cast<float>(count);
+      const bool cond = sel_ph > 0.0f;
+      const float big_w = cond ? w_sum / (sel_ph * m) : 0.0f;
+      if (kMode == kMis) {
+        // ops/mis.pack_mis_reservoirs order, one block per iteration.
+        float* o = out + static_cast<long long>(it) * (romis ? 8 : 7) * k * n + p;
+        for (int c = 0; c < 3; ++c) {
+          o[(3 * lane + c) * n] = sel[c];
+          o[(3 * k + 3 * lane + c) * n] = sel[3 + c];
+        }
+        if (romis) {
+          o[(6 * k + lane) * n] = w_sum;
+          o[(7 * k + lane) * n] = sel_w;
+        } else {
+          o[(6 * k + lane) * n] = big_w;
+        }
+        continue;
+      }
       for (int c = 0; c < 3; ++c) {
-        o[(1 + c) * n] = rec1[c];
-        o[(4 + c) * n] = rec2[c];
+        out[(3 * lane + c) * n + p] = sel[c];
+        out[(3 * k + 3 * lane + c) * n + p] = sel[3 + c];
       }
-      continue;
+      out[(6 * k + lane) * n + p] = w_sum;
+      out[(7 * k + lane) * n + p] = m;
+      out[(8 * k + lane) * n + p] = big_w;
+      out[(9 * k + lane) * n + p] = sel_w;
     }
-    const float m = static_cast<float>(count);
-    const bool cond = sel_ph > 0.0f;
-    const float big_w = cond ? w_sum / (sel_ph * m) : 0.0f;
-    for (int c = 0; c < 3; ++c) {
-      out[(3 * lane + c) * n + p] = sel[c];
-      out[(3 * k + 3 * lane + c) * n + p] = sel[3 + c];
-    }
-    out[(6 * k + lane) * n + p] = w_sum;
-    out[(7 * k + lane) * n + p] = m;
-    out[(8 * k + lane) * n + p] = big_w;
-    out[(9 * k + lane) * n + p] = sel_w;
   }
 }
 
@@ -171,10 +206,11 @@ ris_kernel(const float* __restrict__ ctx, long long n,
 
 namespace {
 
-template <bool kReplay>
+template <int kMode>
 int launch_ris(const float* ctx, long long n, const float* rows, int n_rows,
                int num_lights, int s, int k, unsigned long long seed,
-               const float* uniforms, float* out, cudaStream_t stream) {
+               const float* uniforms, float* out, int iters, bool romis,
+               cudaStream_t stream) {
   using namespace romis;
   const uint32_t key0 = static_cast<uint32_t>(seed);
   const uint32_t key1 = static_cast<uint32_t>(seed >> 32);
@@ -182,14 +218,16 @@ int launch_ris(const float* ctx, long long n, const float* rows, int n_rows,
   if (smem <= kMaxSmemLightBytes) {
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          ris_kernel<true, kReplay>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          ris_kernel<true, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    ris_kernel<true, kReplay><<<blocks_for(n), kThreads, smem, stream>>>(
-        ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out);
+    ris_kernel<true, kMode><<<blocks_for(n), kThreads, smem, stream>>>(
+        ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out,
+        iters, romis);
   } else {
-    ris_kernel<false, kReplay><<<blocks_for(n), kThreads, 0, stream>>>(
-        ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out);
+    ris_kernel<false, kMode><<<blocks_for(n), kThreads, 0, stream>>>(
+        ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out,
+        iters, romis);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -200,14 +238,24 @@ extern "C" int romis_ris(const float* ctx, long long n, const float* rows,
                          int n_rows, int num_lights, int s, int k,
                          unsigned long long seed, const float* uniforms,
                          float* out, cudaStream_t stream) {
-  return launch_ris<false>(ctx, n, rows, n_rows, num_lights, s, k, seed,
-                           uniforms, out, stream);
+  return launch_ris<romis::kCanonical>(ctx, n, rows, n_rows, num_lights, s, k,
+                                       seed, uniforms, out, 1, false, stream);
 }
 
 extern "C" int romis_ris_replay(const float* ctx, long long n, const float* rows,
                                 int n_rows, int num_lights, int s, int k,
                                 unsigned long long seed, const float* uniforms,
                                 float* out, cudaStream_t stream) {
-  return launch_ris<true>(ctx, n, rows, n_rows, num_lights, s, k, seed,
-                          uniforms, out, stream);
+  return launch_ris<romis::kReplayMode>(ctx, n, rows, n_rows, num_lights, s,
+                                        k, seed, uniforms, out, 1, false,
+                                        stream);
+}
+
+extern "C" int romis_ris_mis(const float* ctx, long long n, const float* rows,
+                             int n_rows, int num_lights, int s, int k,
+                             unsigned long long seed, const float* uniforms,
+                             float* out, int iters, int romis_pack,
+                             cudaStream_t stream) {
+  return launch_ris<romis::kMis>(ctx, n, rows, n_rows, num_lights, s, k, seed,
+                                 uniforms, out, iters, romis_pack != 0, stream);
 }

@@ -24,7 +24,7 @@ from dataclasses import dataclass, fields, replace
 
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.camera import CameraParams
 from ..render.restir import (

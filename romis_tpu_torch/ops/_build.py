@@ -57,6 +57,16 @@ SIGNATURES = {
     "romis_halo_scatter": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
     # ct, n_cols, idx, n_idx, n_rows, out, stream
     "romis_scatter_rows_add": (_P, _I, _P, _LL, _I, _P, _P),
+    # the same arguments, then iters, romis; out holds iters pack blocks
+    "romis_ris_mis": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _I, _P),
+    # gates, h, w, d, radius, two_classes, prefer_similar, same_geom,
+    # depth_frac, normal_cos, key, tag, scores, s_out, p_out, cnt, stream
+    "romis_neighbour_select": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
+                               _U, _P, _P, _P, _P, _P),
+    # cen, res, offs, nbr, alphas, tri_cols, n_tris, h, w, d1, k, s,
+    # num_lights, mode, out0, out1, out2, stream
+    "romis_mis_iteration": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P),
     # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,
     # gumbel, out, stream
     "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.types import HitRecord, Rays, ShadeCtx
 from ..core.vec import comp, e, vcross, vdot, vnorm

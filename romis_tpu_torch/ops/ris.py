@@ -13,6 +13,13 @@ loop of the surrogate gradient, two independent races per lane, only their
 replay records written (7K planes). Its plain version is
 ``ops.wrs.gen_canonical_replay_plain``.
 
+Kernel 15, the MIS mode of the same source (``gen_mis_reservoir_planes``),
+replaces the Pallas ``gen_mis_reservoir_planes``: every iteration of an
+R-MIS / R-OMIS frame in one launch, written straight into the sweep's pack
+(``ops.mis.pack_mis_reservoirs`` blocks). Its plain version, one canonical
+RIS per iteration then the pack, is ``gen_mis_reservoir_planes_plain``.
+The TPU's compact coordinate pack is not ported.
+
 Bound on the H100: compute, S Phong evaluations (one ``powf`` each) per
 pixel with the whole reservoir state in registers; device memory sees 17
 context planes in and 10K reservoir planes out.
@@ -22,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.types import Reservoirs, ShadeCtx, unpack_reservoir_planes
 from . import _build
@@ -138,3 +145,57 @@ def gen_canonical_replay(ctx: ShadeCtx, lights, num_lights: int,
 
 
 gen_canonical_replay.launches = 0
+
+
+def gen_mis_reservoir_planes_plain(ctx: ShadeCtx, lights, num_lights: int,
+                                   features: Features, iterations: int,
+                                   romis: bool, generator=None,
+                                   uniforms=None) -> torch.Tensor:
+    """The plain version: ``iterations`` canonical RIS calls (uniforms
+    [iterations, S/K, 4, K, H, W] when given), each packed."""
+    from .mis import pack_mis_reservoirs
+    from .wrs import gen_canonical_samples_plain
+
+    return torch.cat([pack_mis_reservoirs(gen_canonical_samples_plain(
+        ctx, lights, num_lights, features, generator,
+        None if uniforms is None else uniforms[it]), romis)
+        for it in range(iterations)])
+
+
+def gen_mis_reservoir_planes(ctx: ShadeCtx, lights, num_lights: int,
+                             features: Features, iterations: int, romis: bool,
+                             generator=None, uniforms=None) -> torch.Tensor:
+    """Every MIS iteration's canonical reservoirs in the sweep's pack →
+    [iterations · 7K, H, W] (R-MIS) or [iterations · 8K, H, W] (R-OMIS).
+    Random numbers: ``uniforms`` [iterations, S/K, 4, K, H, W], which give
+    what ``iterations`` canonical calls on their slices give, else drawn
+    from ``generator`` (a Philox key for the kernel). Kernel 15 for CUDA
+    tensors, the plain version for CPU tensors."""
+    h, w = ctx.depth_t.shape[-2:]
+    s = features.initial_light_samples
+    k = features.num_samples_in_reservoir
+    if uniforms is None and generator is None:
+        raise ValueError("MIS RIS needs a torch.Generator or the uniforms")
+    if not ctx.position.is_cuda:
+        return gen_mis_reservoir_planes_plain(ctx, lights, num_lights,
+                                              features, iterations, romis,
+                                              generator, uniforms)
+    packed, rows = _check_launch(ctx, lights, None, 4, features)
+    if uniforms is not None:
+        uniforms = uniforms.contiguous()
+        _build.check(uniforms, "uniforms", torch.float32,
+                     (iterations,) + (-(-s // k), 4, k, h, w))
+        seed, u_ptr = 0, uniforms.data_ptr()
+    else:
+        seed, u_ptr = _seed(generator), None
+    out = torch.empty(((8 if romis else 7) * k * iterations, h, w),
+                      dtype=torch.float32, device=packed.device)
+    if h * w and iterations:
+        _build.launch("romis_ris_mis", packed.data_ptr(), h * w,
+                      rows.data_ptr(), rows.shape[0], num_lights, s, k, seed,
+                      u_ptr, out.data_ptr(), iterations, int(romis))
+        gen_mis_reservoir_planes.launches += 1
+    return out
+
+
+gen_mis_reservoir_planes.launches = 0

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.types import Reservoirs, ShadeCtx, pack_reservoir_planes
 from ..core.vec import e

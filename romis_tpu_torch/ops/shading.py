@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.types import ShadeCtx
 from ..core.vec import comp, e, vdot, vnorm, vnormalize

@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.types import (
     ShadeCtx, pack_reservoir_planes, unpack_reservoir_planes,

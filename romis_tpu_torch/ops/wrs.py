@@ -31,7 +31,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.types import Reservoirs, ShadeCtx, detached
 from ..core.vec import e, vnorm

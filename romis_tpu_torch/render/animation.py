@@ -13,7 +13,7 @@ from dataclasses import fields
 
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.camera import CameraParams
 from .restir import (

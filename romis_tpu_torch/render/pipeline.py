@@ -1,11 +1,12 @@
-"""Render-mode dispatch (reference ``romis_tpu/render/pipeline.py``)."""
+"""Render-mode dispatch: ReSTIR, R-MIS or R-OMIS (reference
+``romis_tpu/render/pipeline.py``)."""
 
 from __future__ import annotations
 
 import torch
 
-from romis_tpu.core.features import Features, RayTraceMode
-from romis_tpu.io.image import write_image
+from ..core.features import Features, RayTraceMode
+from ..io.image import write_image
 
 from ..core.camera import CameraParams
 from .restir import (
@@ -15,25 +16,33 @@ from .restir import (
     initial_temporal_state,
     render_restir_frame,
 )
+from .rmis import render_rmis
+from .romis import render_romis
 
 
 def render_frame(generator, cam: CameraParams, scene, height: int, width: int,
                  features: Features, prev: TemporalState | None = None,
                  noise=None, ops: FrameOps = KERNELS):
     """Render one frame with the configured mode → (image [H, W, 3],
-    TemporalState). Only ReSTIR is ported so far. ``noise`` replaces every
-    random draw of the frame: (RIS uniforms, temporal Gumbel noise, and per
-    spatial pass (offsets, Gumbel noise)), see ``render_restir_frame``."""
-    if features.ray_trace_mode != RayTraceMode.RESTIR:
-        raise NotImplementedError(
-            f"{features.ray_trace_mode.value}: R-MIS and R-OMIS need the MIS "
-            "sweep kernels, ported in a later slice")
+    TemporalState for ReSTIR, None for R-MIS and R-OMIS). ``noise`` replaces
+    every random draw of the frame: for ReSTIR (RIS uniforms, temporal
+    Gumbel noise, and per spatial pass (offsets, Gumbel noise)), see
+    ``render_restir_frame``; for R-MIS and R-OMIS (the neighbour
+    selection's noise, RIS uniforms per iteration), see
+    ``render.rmis.render_rmis``."""
+    g, li, nl = scene.geometry, scene.lights, scene.num_lights
+    mode = features.ray_trace_mode
+    if mode == RayTraceMode.RMIS:
+        return render_rmis(generator, cam, g, li, nl, height, width, features,
+                           noise=noise, ops=ops), None
+    if mode == RayTraceMode.ROMIS:
+        return render_romis(generator, cam, g, li, nl, height, width,
+                            features, noise=noise, ops=ops), None
     if prev is None:
         prev = initial_temporal_state(height, width,
                                       features.num_samples_in_reservoir, cam)
-    return render_restir_frame(generator, cam, scene.geometry, scene.lights,
-                               scene.num_lights, height, width, features,
-                               prev, noise=noise, ops=ops)
+    return render_restir_frame(generator, cam, g, li, nl, height, width,
+                               features, prev, noise=noise, ops=ops)
 
 
 def save_image(path: str, image: torch.Tensor) -> None:

@@ -38,7 +38,7 @@ from typing import Callable
 
 import torch
 
-from romis_tpu.core.features import Features
+from ..core.features import Features
 
 from ..core.camera import CameraParams, generate_rays, project_to_pixel
 from ..core.types import (
@@ -46,9 +46,12 @@ from ..core.types import (
     pack_reservoir_planes, unpack_reservoir_planes,
 )
 from ..core.vec import vdot
-from ..ops import rows, shade, spatial, trace
+from ..ops import mis, nbrsel, rows, shade, spatial, trace
 from ..ops.intersect import intersect_any, make_hit_record, make_shade_ctx
-from ..ops.ris import gen_canonical_replay, gen_canonical_samples_ris
+from ..ops.ris import (
+    gen_canonical_replay, gen_canonical_samples_ris, gen_mis_reservoir_planes,
+    gen_mis_reservoir_planes_plain,
+)
 from ..ops.shading import exposure_tone_mapping
 from ..ops.wrs import (
     clamp_temporal_m,
@@ -81,19 +84,27 @@ class FrameOps:
     spatial_pass_unbiased: Callable  # (res, cen, k, R, radius, features, ...)
     ris_replay: Callable  # (ctx, lights, num_lights, features, generator,
     #                        uniforms) → (w_sum, replay1, replay2)
+    # R-MIS / R-OMIS (render/rmis.py, render/romis.py):
+    neighbour_select: Callable  # (gates, d, radius, ...) → slots, packs
+    mis_ris: Callable  # (ctx, lights, num_lights, features, iterations,
+    #                     romis, generator, uniforms) → the sweep's pack
+    mis_iteration: Callable  # (cen, pack, offs, geometry, k, mode, ...)
 
 
 KERNELS = FrameOps(trace.closest_hit, rows.gather_rows,
                    gen_canonical_samples_ris, shade.final_shade_fused,
                    trace.any_hit, spatial.halo_offset_gather,
                    spatial.spatial_pass_fused,
-                   spatial.spatial_pass_unbiased_fused, gen_canonical_replay)
+                   spatial.spatial_pass_unbiased_fused, gen_canonical_replay,
+                   nbrsel.neighbour_select, gen_mis_reservoir_planes,
+                   mis.mis_iteration)
 PLAIN = FrameOps(trace.closest_hit_plain, rows.gather_rows_plain,
                  gen_canonical_samples_plain, shade.final_shade_plain,
                  trace.any_hit_plain, spatial.halo_offset_gather_plain,
                  spatial.spatial_pass_plain,
                  spatial.spatial_pass_unbiased_plain,
-                 gen_canonical_replay_plain)
+                 gen_canonical_replay_plain, nbrsel.neighbour_select_plain,
+                 gen_mis_reservoir_planes_plain, mis.mis_iteration_plain)
 
 
 def _fused(features: Features, t: torch.Tensor) -> bool:

@@ -16,6 +16,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 POINT, SEGMENT, PARALLELOGRAM = 0, 1, 2
 
 
@@ -54,9 +56,11 @@ def repack_rows(lights: LightTable) -> LightTable:
         *(getattr(lights, c) for c in COLUMNS)))
 
 
-def light_table_from_arrays(arrays: dict, device="cpu") -> LightTable:
+def light_table_from_arrays(arrays: dict, device=None) -> LightTable:
     """LightTable from numpy columns (``COLUMNS`` [L, 3] each, ``kind``
-    [L]); the packed rows are built from the columns."""
+    [L]) on ``device`` (default: the CUDA device); the packed rows are
+    built from the columns."""
+    device = resolve_device(device)
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.array(a, order="C"), dtype=dtype,
                                device=device)
@@ -107,7 +111,7 @@ class LightListBuilder:
         out["kind"] = np.asarray(cols[7], np.int32)
         return out
 
-    def build(self, device="cpu") -> LightTable:
+    def build(self, device=None) -> LightTable:
         return light_table_from_arrays(self.arrays(), device)
 
     def __len__(self):

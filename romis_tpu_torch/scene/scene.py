@@ -21,7 +21,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from romis_tpu.scene.objloader import Material, SubMesh
+from ..core.device import resolve_device
+from .objloader import Material, SubMesh
 
 from .lights import LightListBuilder, LightTable, regular_light_grid
 
@@ -103,8 +104,10 @@ def repack_rows(g: Geometry) -> Geometry:
                                g.mat_tex_id))
 
 
-def geometry_from_arrays(a: dict, device="cpu") -> Geometry:
-    """Geometry from numpy columns (``COLUMNS``); packs the row tables."""
+def geometry_from_arrays(a: dict, device=None) -> Geometry:
+    """Geometry from numpy columns (``COLUMNS``) on ``device`` (default:
+    the CUDA device, ``core.device``); packs the row tables."""
+    device = resolve_device(device)
     ints = ("mat_id", "geom_id", "mat_tex_id", "tex_size")
 
     def t(k):
@@ -201,7 +204,7 @@ def geometry_arrays(submeshes: list[SubMesh]) -> dict:
     return out
 
 
-def build_geometry(submeshes: list[SubMesh], device="cpu") -> Geometry:
+def build_geometry(submeshes: list[SubMesh], device=None) -> Geometry:
     return geometry_from_arrays(geometry_arrays(submeshes), device)
 
 
@@ -219,7 +222,7 @@ def nightclub_lights(builder: LightListBuilder) -> LightListBuilder:
     return builder
 
 
-def flagship_scene(device="cpu") -> Scene:
+def flagship_scene(device=None) -> Scene:
     """The procedural stand-in for the Cornell Nightclub: a 20x20 ground quad
     (2 triangles) under two 16x16 grids of area lights (512 lights) — the
     scene the reference's flagship benchmark renders when the OBJ assets are
@@ -242,7 +245,7 @@ def flagship_scene(device="cpu") -> Scene:
                  name="procedural_nightclub")
 
 
-def flagship_camera(height: int, width: int, device="cpu"):
+def flagship_camera(height: int, width: int, device=None):
     """The reference camera defaults (CameraConfig) used with the flagship
     scene."""
     from ..core.camera import make_camera

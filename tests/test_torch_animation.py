@@ -8,13 +8,13 @@ import torch
 
 from romis_tpu.core.camera import make_camera as jax_make_camera
 from romis_tpu.core.camera import project_to_pixel as jax_project
-from romis_tpu.core.features import Features
 from romis_tpu.render.animation import (
     interpolate_cameras as jax_interpolate, stack_cameras as jax_stack,
 )
 from romis_tpu_torch.core.camera import (
     generate_rays, make_camera, project_to_pixel,
 )
+from romis_tpu_torch.core.features import Features
 from romis_tpu_torch.render import restir
 from romis_tpu_torch.render.animation import (
     camera_at, interpolate_cameras, render_animation, render_camera_batch,
@@ -36,7 +36,8 @@ def test_interpolate_and_stack_cameras_match_jax():
     n = 5
     expect = jax_interpolate(jax_make_camera(**CAM_A),
                              jax_make_camera(**CAM_B), n)
-    got = interpolate_cameras(make_camera(**CAM_A), make_camera(**CAM_B), n)
+    got = interpolate_cameras(make_camera(device="cpu", **CAM_A),
+                              make_camera(device="cpu", **CAM_B), n)
     for f in FIELDS:
         np.testing.assert_allclose(getattr(got, f).numpy(),
                                    np.asarray(getattr(expect, f)),
@@ -66,7 +67,7 @@ def test_project_to_pixel_matches_jax():
 
 def test_project_to_pixel_inverts_generate_rays():
     h, w = 18, 30
-    cam = flagship_camera(h, w)
+    cam = flagship_camera(h, w, "cpu")
     rays = generate_rays(cam, h, w)
     rows, cols, front = project_to_pixel(cam, rays.origin + 7.0
                                          * rays.direction, h, w)
@@ -81,9 +82,10 @@ def test_render_animation_is_the_frame_loop():
     h, w = 10, 14
     feats = Features(initial_light_samples=4, num_neighbours_to_sample=2,
                      spatial_resample_radius=2, temporal_reprojection=True)
-    scene = flagship_scene()
-    cams = interpolate_cameras(flagship_camera(h, w),
-                               make_camera(**dict(CAM_B, resolution=(h, w))),
+    scene = flagship_scene("cpu")
+    cams = interpolate_cameras(flagship_camera(h, w, "cpu"),
+                               make_camera(device="cpu",
+                                           **dict(CAM_B, resolution=(h, w))),
                                3)
     images, state = render_animation(
         torch.Generator().manual_seed(3), cams, scene.geometry, scene.lights,
@@ -102,9 +104,10 @@ def test_render_camera_batch_renders_first_frames():
     h, w = 8, 12
     feats = Features(initial_light_samples=4, num_neighbours_to_sample=2,
                      spatial_resample_radius=2)
-    scene = flagship_scene()
-    cams = stack_cameras([flagship_camera(h, w),
-                          make_camera(**dict(CAM_B, resolution=(h, w)))])
+    scene = flagship_scene("cpu")
+    cams = stack_cameras([flagship_camera(h, w, "cpu"),
+                          make_camera(device="cpu",
+                                      **dict(CAM_B, resolution=(h, w)))])
     images = render_camera_batch(torch.Generator().manual_seed(1), cams,
                                  scene.geometry, scene.lights,
                                  scene.num_lights, h, w, feats)

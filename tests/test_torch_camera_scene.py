@@ -31,7 +31,7 @@ CAMERAS = [
 def test_generate_rays_matches_jax(cfg):
     h, w = cfg["resolution"]
     expect = jax_generate_rays(jax_make_camera(**cfg), h, w)
-    got = generate_rays(make_camera(**cfg), h, w)
+    got = generate_rays(make_camera(device="cpu", **cfg), h, w)
     for a, b in ((got.origin, expect.origin),
                  (got.direction, expect.direction)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
@@ -41,7 +41,7 @@ def test_generate_rays_matches_jax(cfg):
 def test_camera_from_numpy_matches_make_camera():
     h, w = 12, 20
     cam = port_camera(ge._flagship_camera(h, w))
-    ref = flagship_camera(h, w)
+    ref = flagship_camera(h, w, "cpu")
     for f in ("look_at", "rotation", "distance", "fovy", "aspect"):
         np.testing.assert_array_equal(getattr(cam, f).numpy(),
                                       getattr(ref, f).numpy())
@@ -50,7 +50,7 @@ def test_camera_from_numpy_matches_make_camera():
 def test_flagship_scene_tables_match_jax():
     jax_scene = ge._flagship_scene()
     assert jax_scene.name == "procedural_nightclub"
-    scene = flagship_scene()
+    scene = flagship_scene("cpu")
     assert scene.num_lights == jax_scene.num_lights == 512
     g, jg = scene.geometry, jax_scene.geometry
     for name in ("attr_rows", "mat_rows", "v0", "e1", "e2",
@@ -75,7 +75,7 @@ def test_flagship_scene_tables_match_jax():
 def test_sample_lights_planes_matches_jax():
     rng = np.random.default_rng(3)
     jax_scene = ge._flagship_scene()
-    lights = flagship_scene().lights
+    lights = flagship_scene("cpu").lights
     k, h, w = 2, 6, 10
     idx = rng.integers(0, 512, (k, h, w)).astype(np.int32)
     u = rng.uniform(size=(k, h, w)).astype(np.float32)

@@ -3,8 +3,10 @@ frames that carry the temporal state, with every random draw injected:
 without spatial reuse, with the reference defaults (config 5), and along an
 animated camera path with reprojection, the unbiased combine and the
 initial visibility check; the Z-count option of a later slice refusing, and
-the gradient-path options that used to refuse rendering as JAX does; and
-the port importing, rendering and taking a gradient step without JAX."""
+the gradient-path options that used to refuse rendering as JAX does; the
+R-MIS and R-OMIS modes rendering through render_frame; the port's own
+Features and its default device; and the port importing, rendering and
+taking a gradient step without JAX or the JAX package."""
 
 import subprocess
 import sys
@@ -27,9 +29,6 @@ from romis_tpu.render.restir import (
     PH_CANDIDATES, PH_TEMPORAL, initial_temporal_state as jax_initial_state,
     render_restir_frame as jax_render_frame,
 )
-from romis_tpu.scene.objloader import Material, SubMesh
-from romis_tpu.scene.scene import Scene as JaxScene
-from romis_tpu.scene.scene import build_geometry as jax_build_geometry
 from romis_tpu_torch.render import restir
 from romis_tpu_torch.render.animation import (
     render_animation, render_camera_batch, stack_cameras,
@@ -38,7 +37,8 @@ from romis_tpu_torch.render.pipeline import render_frame
 from romis_tpu_torch.scene.scene import flagship_camera, flagship_scene
 
 from torch_parity import (
-    jax_frame_noise, jax_ris_uniforms, port_camera, port_scene, random_soup,
+    jax_frame_noise, jax_ris_uniforms, occluder_scene, port_camera,
+    port_features, port_scene,
 )
 
 
@@ -63,7 +63,7 @@ def test_frame_matches_jax_with_injected_noise():
                 jax.random.fold_in(key, PH_TEMPORAL), (2, k, h, w)))))
         image, state = restir.render_restir_frame(
             None, cam, scene.geometry, scene.lights, scene.num_lights, h, w,
-            feats, state, noise=noise)
+            port_features(feats), state, noise=noise)
         assert image.shape == (h, w, 3)
         np.testing.assert_allclose(image.numpy(), np.asarray(expect),
                                    rtol=1e-4, atol=1e-5)
@@ -81,14 +81,14 @@ def test_kernel_and_plain_ops_agree_on_cpu():
                      spatial_resample_radius=2, unbiased_combination=True,
                      temporal_reprojection=True,
                      initial_samples_visibility_check=True)
-    scene, cam = flagship_scene(), flagship_camera(h, w)
+    scene, cam = flagship_scene("cpu"), flagship_camera(h, w, "cpu")
     images = []
     for ops in (restir.KERNELS, restir.PLAIN):
         gen = torch.Generator().manual_seed(0)
         state = None
         for _ in range(2):
-            image, state = render_frame(gen, cam, scene, h, w, feats, state,
-                                        ops=ops)
+            image, state = render_frame(gen, cam, scene, h, w,
+                                        port_features(feats), state, ops=ops)
         images.append(image)
     assert torch.equal(images[0], images[1])
 
@@ -111,7 +111,8 @@ def test_config5_frame_matches_jax():
         key = jax.random.PRNGKey(20 + frame)
         expect, jstate = fn(key, jcam, jax_scene.geometry, jax_scene.lights,
                             jax_scene.num_lights, h, w, feats, jstate)
-        image, state = render_frame(None, cam, scene, h, w, feats, state,
+        image, state = render_frame(None, cam, scene, h, w,
+                                    port_features(feats), state,
                                     noise=jax_frame_noise(key, feats, h, w))
         np.testing.assert_allclose(image.numpy(), np.asarray(expect),
                                    rtol=1e-4, atol=1e-5)
@@ -123,21 +124,6 @@ def test_config5_frame_matches_jax():
     assert float(np.asarray(expect).mean()) > 0.05
 
 
-def _occluder_scene(jax_lights):
-    """A ground plane under a random soup (the occluders), lit by the
-    flagship lights: the initial visibility check has shadows to find."""
-    ground = SubMesh(
-        positions=np.array([[-10, -1.6, -10], [10, -1.6, -10],
-                            [10, -1.6, 10], [-10, -1.6, 10]], np.float32),
-        normals=np.tile(np.array([0, 1, 0], np.float32), (4, 1)),
-        texcoords=np.zeros((4, 2), np.float32),
-        triangles=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
-        material=Material(kd=(0.7, 0.7, 0.7)))
-    soup = random_soup(np.random.default_rng(21), 40)
-    return JaxScene(geometry=jax_build_geometry([ground, soup]),
-                    lights=jax_lights, num_lights=512)
-
-
 def test_animated_path_matches_jax():
     """A camera moving about 1.5 pixels per frame, with temporal
     reprojection, the unbiased spatial combine and the initial visibility
@@ -147,7 +133,7 @@ def test_animated_path_matches_jax():
                      spatial_resample_radius=3, temporal_reprojection=True,
                      unbiased_combination=True,
                      initial_samples_visibility_check=True)
-    jax_scene = _occluder_scene(ge._flagship_scene().lights)
+    jax_scene = occluder_scene(ge._flagship_scene().lights)
     scene = port_scene(jax_scene)
     cam_kw = dict(look_at=(0.0, -0.5, 0.0), distance=6.0, fov_deg=50.0,
                   resolution=(h, w))
@@ -163,7 +149,8 @@ def test_animated_path_matches_jax():
                                                    jcams))
                           for i in range(n)])
     images, state = render_animation(
-        None, cams, scene.geometry, scene.lights, 512, h, w, feats,
+        None, cams, scene.geometry, scene.lights, 512, h, w,
+        port_features(feats),
         noises=[jax_frame_noise(keys[f], feats, h, w) for f in range(n)])
     for f in range(n):
         np.testing.assert_allclose(images[f].numpy(), np.asarray(expect[f]),
@@ -196,7 +183,8 @@ def _renders_as_jax(flags, entry):
         jcam = ge._flagship_camera(h, w)
         expect, _ = jax.jit(jax_render_frame, static_argnums=(4, 5, 6, 7))(
             key, jcam, *args, jax_initial_state(h, w, 2, jcam))
-        images, _ = render_frame(None, port_camera(jcam), scene, h, w, feats,
+        images, _ = render_frame(None, port_camera(jcam), scene, h, w,
+                                 port_features(feats),
                                  noise=jax_frame_noise(key, feats, h, w))
         images, expect = images[None], np.asarray(expect)[None]
     else:
@@ -211,7 +199,8 @@ def _renders_as_jax(flags, entry):
         images, _ = render_animation(
             None, stack_cameras([port_camera(jax.tree.map(
                 lambda a, i=i: a[i], jcams)) for i in range(n)]),
-            scene.geometry, scene.lights, scene.num_lights, h, w, feats,
+            scene.geometry, scene.lights, scene.num_lights, h, w,
+            port_features(feats),
             noises=[jax_frame_noise(keys[f], feats, h, w) for f in range(n)])
     for f in range(len(images)):
         np.testing.assert_allclose(images[f].numpy(), np.asarray(expect[f]),
@@ -228,8 +217,8 @@ def test_later_slices_refuse(flags, match, entry):
     if match != "spatial_reuse_visibility_check":
         _renders_as_jax(flags, entry)
         return
-    feats = Features(**flags)
-    scene, cam = flagship_scene(), flagship_camera(4, 4)
+    feats = port_features(Features(**flags))
+    scene, cam = flagship_scene("cpu"), flagship_camera(4, 4, "cpu")
     with pytest.raises(NotImplementedError, match=match):
         if entry == "frame":
             render_frame(torch.Generator(), cam, scene, 4, 4, feats)
@@ -242,22 +231,73 @@ def test_later_slices_refuse(flags, match, entry):
 def test_biased_visibility_check_is_not_refused():
     """spatial_reuse_visibility_check only changes the unbiased combine's
     Z (as in the reference); with the biased combine the frame renders."""
-    feats = Features(spatial_reuse_visibility_check=True,
-                     initial_light_samples=4)
-    scene = flagship_scene()
+    feats = port_features(Features(spatial_reuse_visibility_check=True,
+                                   initial_light_samples=4))
+    scene = flagship_scene("cpu")
     images = render_camera_batch(torch.Generator().manual_seed(0),
-                                 stack_cameras([flagship_camera(6, 8)]),
+                                 stack_cameras([flagship_camera(6, 8, "cpu")]),
                                  scene.geometry, scene.lights,
                                  scene.num_lights, 6, 8, feats)
     assert images.shape == (1, 6, 8, 3) and bool(torch.isfinite(images).all())
 
 
 @pytest.mark.parametrize("mode", [RayTraceMode.RMIS, RayTraceMode.ROMIS])
-def test_mis_modes_refuse(mode):
-    feats = Features(spatial_reuse=False, ray_trace_mode=mode)
-    scene, cam = flagship_scene(), flagship_camera(4, 4)
-    with pytest.raises(NotImplementedError):
-        render_frame(torch.Generator(), cam, scene, 4, 4, feats)
+def test_mis_modes_render(mode):
+    """R-MIS and R-OMIS render through render_frame at the reference
+    defaults (D=5, r=10, S=32, K=2, 5 iterations) as their own entry
+    points render them, with no temporal state."""
+    from romis_tpu_torch.render.rmis import render_rmis
+    from romis_tpu_torch.render.romis import render_romis
+
+    feats = port_features(Features(spatial_reuse=False, ray_trace_mode=mode))
+    scene, cam = flagship_scene("cpu"), flagship_camera(4, 4, "cpu")
+    img, state = render_frame(torch.Generator().manual_seed(2), cam, scene,
+                              4, 4, feats)
+    fn = render_rmis if mode == RayTraceMode.RMIS else render_romis
+    expect = fn(torch.Generator().manual_seed(2), cam, scene.geometry,
+                scene.lights, scene.num_lights, 4, 4, feats)
+    assert state is None and img.shape == (4, 4, 3)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.05
+    assert torch.equal(img, expect)
+
+
+def test_port_features_match_jax_field_by_field():
+    """The port's own Features: the reference's fields, in its order, with
+    its defaults, and the same JSON form both ways."""
+    import dataclasses
+
+    from romis_tpu_torch.core.features import Features as PortFeatures
+    from romis_tpu_torch.core.features import RayTraceMode as PortMode
+
+    jf, pf = dataclasses.fields(Features), dataclasses.fields(PortFeatures)
+    assert [f.name for f in jf] == [f.name for f in pf]
+    for a, b in zip(jf, pf):
+        da, db = a.default, b.default
+        assert getattr(da, "value", da) == getattr(db, "value", db), a.name
+    flags = Features(ray_trace_mode=RayTraceMode.ROMIS, max_iterations_mis=3)
+    assert port_features(flags).to_json() == flags.to_json()
+    assert port_features(flags) == PortFeatures(
+        ray_trace_mode=PortMode.ROMIS, max_iterations_mis=3)
+
+
+@pytest.mark.parametrize("entry", ["flagship_scene", "flagship_camera",
+                                   "make_camera", "empty_reservoirs"])
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device=`` an entry point places its tensors on the CUDA
+    device; with no card it raises, naming device="cpu", rather than run on
+    the CPU."""
+    from romis_tpu_torch.core.camera import make_camera
+    from romis_tpu_torch.core.types import empty_reservoirs
+
+    fn = {"flagship_scene": lambda: flagship_scene().geometry.v0,
+          "flagship_camera": lambda: flagship_camera(4, 4).look_at,
+          "make_camera": lambda: make_camera().look_at,
+          "empty_reservoirs": lambda: empty_reservoirs(2, 2, 1).pos}[entry]
+    if torch.cuda.is_available():
+        assert fn().is_cuda
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            fn()
 
 
 def test_port_imports_and_renders_without_jax(tmp_path):
@@ -266,7 +306,8 @@ def test_port_imports_and_renders_without_jax(tmp_path):
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax",
+                                          "romis_tpu"):
                     raise ImportError("blocked: " + name)
                 return None
 
@@ -276,7 +317,7 @@ def test_port_imports_and_renders_without_jax(tmp_path):
         from romis_tpu_torch.render.pipeline import render_frame, save_image
         from romis_tpu_torch.scene.scene import flagship_camera, flagship_scene
 
-        scene, cam = flagship_scene(), flagship_camera(8, 8)
+        scene, cam = flagship_scene("cpu"), flagship_camera(8, 8, "cpu")
         gen = torch.Generator().manual_seed(0)
         feats = Features(initial_light_samples=8)
         img, state = render_frame(gen, cam, scene, 8, 8, feats)
@@ -294,7 +335,15 @@ def test_port_imports_and_renders_without_jax(tmp_path):
         assert float(loss) > 0
         assert all(bool(torch.isfinite(g).all()) for g in grads.leaves())
         assert float(grads.light_c0.abs().max()) > 0
-        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
+
+        from romis_tpu_torch import RayTraceMode
+        feats = Features(initial_light_samples=8, num_neighbours_to_sample=3,
+                         spatial_resample_radius=2, max_iterations_mis=2,
+                         ray_trace_mode=RayTraceMode.ROMIS)
+        img, state = render_frame(gen, cam, scene, 8, 8, feats)
+        assert state is None and bool(torch.isfinite(img).all())
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "flax", "romis_tpu")]
         assert not bad, bad
         print("ok")
     """)

@@ -42,8 +42,8 @@ from romis_tpu_torch.scene.scene import flagship_camera, flagship_scene
 
 from helpers import random_reservoirs_and_ctx
 from torch_parity import (
-    jax_frame_noise, jax_ris_uniforms, port_camera, port_ctx, port_params,
-    port_reservoirs, port_scene, port_state, t,
+    jax_frame_noise, jax_ris_uniforms, port_camera, port_ctx, port_features,
+    port_params, port_reservoirs, port_scene, port_state, t,
 )
 
 H, W = 12, 16
@@ -97,7 +97,7 @@ def test_replay_and_surrogate_tail_match_jax():
                                                  replay=True))
     res, rec = gen_canonical_surrogate(
         port_ctx(jctx), replace(scene.lights, rows=rows_t), scene.num_lights,
-        None, feats, uniforms=uniforms)
+        None, port_features(feats), uniforms=uniforms)
     loss = ((res.big_w * t(proj[0])).sum() + (res.pos * t(proj[1])).sum()
             + (res.w_sum * t(proj[2])).sum())
     (grad,) = torch.autograd.grad(loss, rows_t)
@@ -133,9 +133,11 @@ def test_replay_zero_prng_matches_jax_kernel():
 
     lights = light_table_from_arrays(
         {c: np.asarray(getattr(jlights, c)) for c in (
-            "v0", "edge01", "edge02", "c0", "c1", "c2", "c3", "kind")})
+            "v0", "edge01", "edge02", "c0", "c1", "c2", "c3", "kind")},
+        device="cpu")
     sk = -(-feats.initial_light_samples // k)
-    got = gen_canonical_replay(port_ctx(jctx), lights, len(b), feats,
+    got = gen_canonical_replay(port_ctx(jctx), lights, len(b),
+                               port_features(feats),
                                uniforms=torch.zeros((sk, 5, k, h, w)))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(w_sum), rtol=2e-4,
                                atol=1e-5)
@@ -188,7 +190,8 @@ def test_surrogate_combine_with_records_matches_jax():
     rows_t = scene.lights.rows.clone().requires_grad_()
     out, rec = combine_biased_surrogate(
         replace(ctx, kd=kd), replace(inputs, big_w=big_w),
-        torch.from_numpy(in_mask), feats, t(gumbel), t(gumbel2),
+        torch.from_numpy(in_mask), port_features(feats), t(gumbel),
+        t(gumbel2),
         records=t(records), lights=replace(scene.lights, rows=rows_t))
     loss = sum((getattr(out, f) * t(proj[i])).sum() for i, f in enumerate(
         ("big_w", "w_sum", "chosen_w", "m")))
@@ -245,7 +248,7 @@ def test_grad_step_matches_jax(flags):
 
     scene, cam = port_scene(jax_scene), port_camera(jcam)
     fn = make_grad_fn(scene.geometry, scene.lights, scene.num_lights, H, W,
-                      feats)
+                      port_features(feats))
     loss, grads = fn(port_params(jparams), t(target), None, cam,
                      port_state(jprev, cam),
                      noise=jax_frame_noise(key, effective, H, W))
@@ -263,9 +266,10 @@ def test_exact_gradient_matches_finite_differences(leaf):
     """The port's exact gradient (no JAX) along a random direction of one
     leaf against central differences of the loss, every draw fixed."""
     h, w, s, k = 12, 16, 8, 2
-    feats = Features(enable_tone_mapping=False, initial_light_samples=s,
-                     num_neighbours_to_sample=3, spatial_resample_radius=2)
-    scene, cam = flagship_scene(), flagship_camera(h, w)
+    feats = port_features(Features(
+        enable_tone_mapping=False, initial_light_samples=s,
+        num_neighbours_to_sample=3, spatial_resample_radius=2))
+    scene, cam = flagship_scene("cpu"), flagship_camera(h, w, "cpu")
     gen = torch.Generator().manual_seed(0)
     noise = (torch.rand((s // k, 4, k, h, w), generator=gen),
              -torch.log(-torch.log(torch.rand((2, k, h, w), generator=gen))),

@@ -24,14 +24,14 @@ from romis_tpu_torch.ops.rows import gather_rows
 from romis_tpu_torch.ops.trace import closest_hit
 from romis_tpu_torch.scene.scene import build_geometry as port_build_geometry
 
-from torch_parity import random_rays, random_soup
+from torch_parity import port_features, random_rays, random_soup
 
 H, W = 16, 64
 
 
 def _soup(seed=0, n_tris=64):
     sm = random_soup(np.random.default_rng(seed), n_tris)
-    return build_geometry([sm]), port_build_geometry([sm])
+    return build_geometry([sm]), port_build_geometry([sm], "cpu")
 
 
 def _rays(seed=1):
@@ -68,7 +68,7 @@ def test_closest_hit_lowest_index_wins_ties():
     """Two copies of the same triangle: every hit reports the first."""
     sm = random_soup(np.random.default_rng(4), 8)
     sm.triangles = np.concatenate([sm.triangles, sm.triangles[:8]])
-    geo = port_build_geometry([sm])
+    geo = port_build_geometry([sm], "cpu")
     _, rays = _rays(5)
     _, tri, _, _ = closest_hit(rays, geo)
     assert (tri < 8).all()
@@ -114,7 +114,7 @@ def test_make_shade_ctx_matches_jax():
     jhits = jax_hit_record(jrays, jgeo, *jax_closest(jrays, jgeo))
     jctx = jax_shade_ctx(jrays, jhits, jgeo, feats)
     hits = make_hit_record(rays, geo, *closest_hit(rays, geo))
-    ctx = make_shade_ctx(rays, hits, geo, feats)
+    ctx = make_shade_ctx(rays, hits, geo, port_features(feats))
     for name in ("valid", "mat_id", "geom_id", "prim_id"):
         np.testing.assert_array_equal(getattr(hits, name).numpy(),
                                       np.asarray(getattr(jhits, name)))

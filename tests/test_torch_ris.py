@@ -22,14 +22,16 @@ from romis_tpu_torch.scene.lights import LightListBuilder
 from romis_tpu_torch.scene.scene import flagship_scene
 
 from helpers import random_reservoirs_and_ctx
-from torch_parity import jax_ris_uniforms, port_ctx, port_reservoirs, t
+from torch_parity import (
+    jax_ris_uniforms, port_ctx, port_features, port_reservoirs, t,
+)
 
 
 @pytest.mark.parametrize("s,k", [(32, 2), (5, 2), (6, 3)])
 def test_ris_matches_jax_xla_path(s, k):
     h, w = 6, 20
     jax_scene = ge._flagship_scene()
-    scene = flagship_scene()
+    scene = flagship_scene("cpu")
     jres_in, jctx = random_reservoirs_and_ctx(np.random.default_rng(s), h, w,
                                               k)
     feats = Features(initial_light_samples=s, num_samples_in_reservoir=k,
@@ -39,7 +41,8 @@ def test_ris_matches_jax_xla_path(s, k):
                                jax_scene.geometry, feats)
     uniforms = torch.from_numpy(jax_ris_uniforms(key, s, k, h, w))
     got = gen_canonical_samples(port_ctx(jctx), scene.lights, 512,
-                                scene.geometry, feats, uniforms=uniforms)
+                                scene.geometry, port_features(feats),
+                                uniforms=uniforms)
     assert (np.asarray(expect.w_sum) > 0).mean() > 0.5
     # Same winners: the selected sample positions and colors agree.
     np.testing.assert_allclose(got.pos.numpy(), np.asarray(expect.pos),
@@ -75,7 +78,7 @@ def _point_lights(positions, colors):
     b = LightListBuilder()
     for p, c in zip(positions, colors):
         b.add_point(p, c)
-    return b.build(), len(b)
+    return b.build("cpu"), len(b)
 
 
 @pytest.mark.parametrize("s,frac", [(1, 0.5), (32, 0.8)])
@@ -85,8 +88,9 @@ def test_ris_lane_winner_distribution(s, frac):
     candidates resample toward the 4x light, P → 4/5."""
     n = 4000
     lights, nl = _point_lights([(0, 0, 1), (0, 0, 2)], [(1, 1, 1)] * 2)
-    feats = Features(initial_light_samples=s, num_samples_in_reservoir=1,
-                     spatial_reuse=False)
+    feats = port_features(Features(initial_light_samples=s,
+                                   num_samples_in_reservoir=1,
+                                   spatial_reuse=False))
     res = gen_canonical_samples(_flat_ctx(n), lights, nl, None, feats,
                                 generator=torch.Generator().manual_seed(s))
     near = (res.pos[0, 2] == 1.0).float().mean().item()
@@ -101,8 +105,9 @@ def test_ris_bookkeeping_and_unbiased_estimate():
     pos = [(0, 0, 1), (0.5, 0.5, 2), (-0.5, 0, 1.2)]
     col = [(1, 1, 1), (1, 0.2, 0.1), (0.1, 0.5, 1.0)]
     lights, nl = _point_lights(pos, col)
-    feats = Features(initial_light_samples=5, num_samples_in_reservoir=2,
-                     spatial_reuse=False)
+    feats = port_features(Features(initial_light_samples=5,
+                                   num_samples_in_reservoir=2,
+                                   spatial_reuse=False))
     res = gen_canonical_samples(ctx, lights, nl, None, feats,
                                 generator=torch.Generator().manual_seed(3))
     _, counts, _ = _lane_layout(5, 2)
@@ -139,7 +144,7 @@ def test_combine_biased_matches_jax_with_injected_noise():
                                 gumbel=jnp.asarray(gumbel))
     got = combine_biased(port_ctx(jctx),
                          _stack(*(port_reservoirs(x[0]) for x in ins)),
-                         torch.from_numpy(mask), feats,
+                         torch.from_numpy(mask), port_features(feats),
                          torch.from_numpy(gumbel))
     for name, rtol in (("pos", 1e-6), ("color", 1e-6), ("m", 0),
                        ("w_sum", 1e-5), ("chosen_w", 1e-5), ("big_w", 1e-4)):

@@ -31,7 +31,7 @@ from romis_tpu_torch.scene.scene import build_geometry as port_build_geometry
 
 from helpers import random_reservoirs_and_ctx
 from torch_parity import (
-    port_ctx, port_reservoirs, random_rays, random_soup, t,
+    port_ctx, port_features, port_reservoirs, random_rays, random_soup, t,
 )
 
 
@@ -139,7 +139,7 @@ def test_closest_hit_vjp_matches_jax():
     h, w = 24, 32
     rng = np.random.default_rng(5)
     sm = random_soup(rng, 40)
-    jgeo, geo = build_geometry([sm]), port_build_geometry([sm])
+    jgeo, geo = build_geometry([sm]), port_build_geometry([sm], "cpu")
     o, d = random_rays(rng, h, w)
     cts = [rng.normal(size=(h, w)).astype(np.float32) for _ in range(3)]
 
@@ -177,7 +177,7 @@ def test_final_shade_vjp_matches_jax():
     of the XLA final shade, into the receiver context and the reservoirs."""
     h, w, k = 16, 24, 2
     sm = random_soup(np.random.default_rng(6), 48)
-    jgeo, geo = build_geometry([sm]), port_build_geometry([sm])
+    jgeo, geo = build_geometry([sm]), port_build_geometry([sm], "cpu")
     jres, jctx = random_reservoirs_and_ctx(np.random.default_rng(7), h, w, k)
     feats = Features()
     ct = np.random.default_rng(8).normal(size=(3, h, w)).astype(np.float32)
@@ -200,7 +200,7 @@ def test_final_shade_vjp_matches_jax():
             x = getattr(obj, f).clone().requires_grad_()
             setattr(obj, f, x)
             leaves.append(x)
-    out = final_shade_fused(ctx, res, geo, feats)
+    out = final_shade_fused(ctx, res, geo, port_features(feats))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
                                rtol=1e-4, atol=1e-5)
     got = torch.autograd.grad(out, leaves, torch.from_numpy(ct))

@@ -22,14 +22,16 @@ from romis_tpu_torch.ops.shading import (
 from romis_tpu_torch.scene.scene import build_geometry as port_build_geometry
 
 from helpers import random_reservoirs_and_ctx
-from torch_parity import port_ctx, port_reservoirs, random_soup, t
+from torch_parity import (
+    port_ctx, port_features, port_reservoirs, random_soup, t,
+)
 
 H, W, K = 16, 64, 2
 
 
 def test_final_shade_matches_jax_and_pallas():
     sm = random_soup(np.random.default_rng(0), 64)
-    jgeo, geo = build_geometry([sm]), port_build_geometry([sm])
+    jgeo, geo = build_geometry([sm]), port_build_geometry([sm], "cpu")
     jres, jctx = random_reservoirs_and_ctx(np.random.default_rng(5), H, W, K)
     # The receivers carry the soup's material shininess, as in a frame (the
     # Pallas kernel specialises on the scene's one shared shininess).
@@ -37,7 +39,7 @@ def test_final_shade_matches_jax_and_pallas():
                                            jnp.float32))
     feats = Features()
     got = final_shade_fused(port_ctx(jctx), port_reservoirs(jres), geo,
-                            feats).numpy()
+                            port_features(feats)).numpy()
     assert got.shape == (3, H, W)
     xla = np.asarray(_final_shade_xla(jctx, jres, jgeo, feats))
     fused = np.asarray(final_shade_pallas(
@@ -62,7 +64,7 @@ def test_phong_and_target_pdf_match_jax():
     feats = Features()
     ctx, res = port_ctx(jctx), port_reservoirs(jres)
     np.testing.assert_allclose(
-        phong_shade(ctx, res.pos, res.color, feats).numpy(),
+        phong_shade(ctx, res.pos, res.color, port_features(feats)).numpy(),
         np.asarray(jax_phong_shade(jctx, jres.pos, jres.color, feats)),
         rtol=1e-5, atol=1e-7)
     comps = [res.pos[:, i] for i in range(3)] + [res.color[:, i]
@@ -70,13 +72,13 @@ def test_phong_and_target_pdf_match_jax():
     jcomps = [jres.pos[:, i] for i in range(3)] + [jres.color[:, i]
                                                    for i in range(3)]
     np.testing.assert_allclose(
-        target_pdf_planes(ctx, *comps, feats).numpy(),
+        target_pdf_planes(ctx, *comps, port_features(feats)).numpy(),
         np.asarray(jax_target_pdf_planes(jctx, *jcomps, feats)),
         rtol=1e-5, atol=1e-7)
     color = rng.uniform(0, 3, (3, 6, 20)).astype(np.float32)
     for f in (feats, Features(exposure=0.7, gamma=2.2)):
         np.testing.assert_allclose(
-            exposure_tone_mapping(t(color), f).numpy(),
+            exposure_tone_mapping(t(color), port_features(f)).numpy(),
             np.asarray(jax_tone_map(jnp.asarray(color), f)), rtol=1e-6)
 
 

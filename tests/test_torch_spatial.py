@@ -23,6 +23,7 @@ from romis_tpu.render.restir import (
     unpack_pixel_planes as jax_unpack_pixel_planes,
     unpack_reservoir_planes as jax_unpack_reservoir_planes,
 )
+from romis_tpu_torch.core.features import Features as PortFeatures
 from romis_tpu_torch.core.types import (
     pack_reservoir_planes, unpack_reservoir_planes,
 )
@@ -31,7 +32,7 @@ from romis_tpu_torch.ops.shade import pack_center_ctx
 from romis_tpu_torch.render import restir
 
 from helpers import random_reservoirs_and_ctx
-from torch_parity import port_ctx, port_reservoirs
+from torch_parity import port_ctx, port_features, port_reservoirs
 
 
 def _state(seed, h, w, k):
@@ -88,7 +89,7 @@ def test_spatial_reuse_matches_jax_xla_path(unbiased):
         jax.random.PRNGKey(0), jctx, jres, h, w, None, feats,
         inject=[(jnp.asarray(o), jnp.asarray(g)) for o, g in inject])
     got = restir.spatial_reuse(
-        None, ctx, res, h, w, feats,
+        None, ctx, res, h, w, port_features(feats),
         inject=[(torch.from_numpy(o), torch.from_numpy(g))
                 for o, g in inject])
     assert (np.asarray(expect.big_w) > 0).mean() > 0.3
@@ -124,7 +125,7 @@ def test_pass_matches_pallas_kernel_in_interpret_mode(unbiased):
             r, radius, interpret=pltpu.InterpretParams())
         got = spatial.spatial_pass_unbiased_fused(
             pack_reservoir_planes(res), pack_center_ctx(ctx), k, r, radius,
-            feats, inject=_replay_noise(h, w, k, r, radius))
+            port_features(feats), inject=_replay_noise(h, w, k, r, radius))
     else:
         expect = spatial_pass_pallas(
             5, jax_pack_reservoir_planes(jres), jax_pack_gates(jctx),
@@ -132,7 +133,7 @@ def test_pass_matches_pallas_kernel_in_interpret_mode(unbiased):
             interpret=pltpu.InterpretParams())
         got = spatial.spatial_pass_fused(
             pack_reservoir_planes(res), spatial.pack_gates(ctx),
-            pack_center_ctx(ctx), k, r, radius, feats,
+            pack_center_ctx(ctx), k, r, radius, port_features(feats),
             inject=_replay_noise(h, w, k, r, radius))
     expect = jax_unpack_reservoir_planes(expect, k)
     got = unpack_reservoir_planes(got, k)
@@ -174,10 +175,10 @@ def test_kernel_wrappers_refuse_what_they_cannot_run():
     rp, cen = pack_reservoir_planes(res), pack_center_ctx(ctx)
     with pytest.raises(ValueError, match="Generator"):
         spatial.spatial_pass_fused(rp, spatial.pack_gates(ctx), cen, k, 2, 1,
-                                   Features())
+                                   PortFeatures())
     # On the card a CPU-only tensor is never silently moved: the wrapper
     # dispatches on the device of the tensor it is given.
     out = spatial.spatial_pass_fused(
-        rp, spatial.pack_gates(ctx), cen, k, 2, 1, Features(),
+        rp, spatial.pack_gates(ctx), cen, k, 2, 1, PortFeatures(),
         inject=_replay_noise(h, w, k, 2, 1))
     assert out.device.type == "cpu" and out.shape == (10 * k, h, w)

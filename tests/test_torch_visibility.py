@@ -25,7 +25,8 @@ from romis_tpu_torch.scene.scene import flagship_scene
 
 from helpers import random_reservoirs_and_ctx
 from torch_parity import (
-    jax_ris_uniforms, port_ctx, port_reservoirs, random_rays, random_soup, t,
+    jax_ris_uniforms, port_ctx, port_features, port_reservoirs, random_rays,
+    random_soup, t,
 )
 
 H, W = 8, 24
@@ -33,7 +34,7 @@ H, W = 8, 24
 
 def _soup(seed, n_tris=48):
     sm = random_soup(np.random.default_rng(seed), n_tris)
-    return build_geometry([sm]), port_build_geometry([sm])
+    return build_geometry([sm]), port_build_geometry([sm], "cpu")
 
 
 def test_any_hit_matches_pallas_with_leading_axes():
@@ -93,7 +94,7 @@ def _occluded_scene(seed=5):
     """The flagship lights over a random soup (the occluders), as (JAX
     geometry, port geometry, JAX lights, port lights)."""
     jgeo, geo = _soup(seed, 64)
-    return jgeo, geo, ge._flagship_scene().lights, flagship_scene().lights
+    return jgeo, geo, ge._flagship_scene().lights, flagship_scene("cpu").lights
 
 
 def test_ris_with_initial_visibility_check_matches_jax():
@@ -105,7 +106,7 @@ def test_ris_with_initial_visibility_check_matches_jax():
     key = jax.random.PRNGKey(3)
     expect = jax_gen_canonical(key, jctx, jlights, 512, jgeo, feats)
     got = gen_canonical_samples(
-        port_ctx(jctx), lights, 512, geo, feats,
+        port_ctx(jctx), lights, 512, geo, port_features(feats),
         uniforms=torch.from_numpy(jax_ris_uniforms(key, s, k, h, w)))
     unchecked = jax_gen_canonical(
         key, jctx, jlights, 512, jgeo,
@@ -142,7 +143,7 @@ def test_combine_unbiased_matches_jax(vis_check):
                                   jnp.asarray(in_mask), jctxs, jgeo, feats,
                                   jnp.asarray(gumbel))
     got = combine_unbiased(port_ctx(jin_ctx), port_reservoirs(jstack),
-                           t(in_mask), port_ctx(jctxs), feats,
+                           t(in_mask), port_ctx(jctxs), port_features(feats),
                            t(gumbel), geo, any_hit)
     assert (np.asarray(expect.big_w) > 0).mean() > 0.3
     for f in ("pos", "w_sum", "m", "big_w", "chosen_w"):

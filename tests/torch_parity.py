@@ -7,7 +7,10 @@ import jax
 import torch
 
 from romis_tpu.scene.objloader import Material, SubMesh
+from romis_tpu.scene.scene import Scene as JaxScene
+from romis_tpu.scene.scene import build_geometry as jax_build_geometry
 from romis_tpu_torch.convert import camera_from_numpy, scene_from_numpy
+from romis_tpu_torch.core.features import Features as PortFeatures
 from romis_tpu_torch.core.types import Reservoirs, ShadeCtx
 from romis_tpu_torch.scene.lights import COLUMNS as LIGHT_COLUMNS
 from romis_tpu_torch.scene.scene import COLUMNS as GEOMETRY_COLUMNS
@@ -19,12 +22,19 @@ def port_scene(jax_scene):
     return scene_from_numpy(
         {c: np.asarray(getattr(g, c)) for c in GEOMETRY_COLUMNS},
         {c: np.asarray(getattr(li, c)) for c in LIGHT_COLUMNS + ("kind",)},
-        jax_scene.num_lights)
+        jax_scene.num_lights, device="cpu")
 
 
 def port_camera(jax_cam):
     return camera_from_numpy(*(np.asarray(getattr(jax_cam, f)) for f in (
-        "look_at", "rotation", "distance", "fovy", "aspect")))
+        "look_at", "rotation", "distance", "fovy", "aspect")), device="cpu")
+
+
+def port_features(jax_features):
+    """A JAX Features → the port's, through its JSON form."""
+    import json
+
+    return PortFeatures.from_dict(json.loads(jax_features.to_json()))
 
 
 def t(a):
@@ -57,6 +67,22 @@ def random_soup(rng, n_tris, half=1.5, edge=0.6):
                                        dtype=np.int32).reshape(-1, 3),
                    material=Material(kd=(0.6, 0.5, 0.4), ks=(0.3, 0.3, 0.3),
                                      shininess=20.0))
+
+
+def occluder_scene(jax_lights):
+    """A JAX Scene: a ground plane under a random soup (the occluders), lit
+    by ``jax_lights`` (the flagship's 512), so shadow rays have something
+    to find."""
+    ground = SubMesh(
+        positions=np.array([[-10, -1.6, -10], [10, -1.6, -10],
+                            [10, -1.6, 10], [-10, -1.6, 10]], np.float32),
+        normals=np.tile(np.array([0, 1, 0], np.float32), (4, 1)),
+        texcoords=np.zeros((4, 2), np.float32),
+        triangles=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+        material=Material(kd=(0.7, 0.7, 0.7)))
+    soup = random_soup(np.random.default_rng(21), 40)
+    return JaxScene(geometry=jax_build_geometry([ground, soup]),
+                    lights=jax_lights, num_lights=512)
 
 
 def random_rays(rng, h, w, half=1.5):
@@ -131,7 +157,7 @@ def port_params(jax_params):
     from romis_tpu_torch.convert import params_from_numpy
 
     return params_from_numpy({f: np.asarray(getattr(jax_params, f))
-                              for f in vars(jax_params)})
+                              for f in vars(jax_params)}, device="cpu")
 
 
 def port_state(jax_state, cam):
