@@ -31,8 +31,19 @@ GPU.
    in its four modes (equal, balance, R-OMIS direct and progressive) per
    output plane, at 1080p on the flagship scene and at 480x270 on the soup
    (shadows; a smaller frame because the plain any-hit is a block scan).
-4. Nine main paths, each at 1920x1080, once through the kernels and once
-   through the plain versions, with the launch counters set to 0 just
+   Then the BVH kernels on the 5x5 torus field (``scene.torus_field``,
+   24,202 triangles, the monkey field's count; the SAH tree built by the
+   port's own host builder), with the rays of its 1080p frame: the closest
+   hit (kernel 18), the any-hit with one walk per ray (19) on the frame's
+   shadow rays with 1 and with 17 planes, the shared K-ray walk (20) with
+   S = 2 (the shadow rays of the K lanes) and S = 12 (the ext_vis rays of
+   one MIS iteration), the BVH final shade (21), the sweep's ext_vis mode in
+   its four modes; and a cross-check with no plain version in it: the
+   2048-triangle soup with a BVH attached, kernel 18 against the soup's
+   closest hit (kernel 1: the same t and hit attributes) and kernel 20
+   against the soup's any-hit (kernel 6).
+4. Fourteen main paths, each at 1920x1080, once through the kernels and
+   once through the plain versions, with the launch counters set to 0 just
    before and read just after the kernels' run:
    - slice 1: ``Features(spatial_reuse=False)``, 2 frames;
    - config 5: ``Features()`` (the reference defaults of bench.py config 5:
@@ -55,6 +66,14 @@ GPU.
      ``rmis_equal`` and ``rmis_balance`` (EQUAL_SIMILAR_DISSIMILAR), 2
      frames each, one on injected noise and one on the Philox streams; the
      plain run takes the injected frame.
+   - the same on the 5x5 torus field with its BVH (bench.py config 6's
+     camera): ``large_config5`` (``Features()``, bench config 6's
+     features), ``large_animated``, ``large_k1`` (one sample per reservoir
+     with the initial check: its shadow rays take kernel 19), 2 frames each,
+     and ``large_romis`` (R-OMIS direct) and ``large_rmis_equal``, whose
+     sweeps run in the ext_vis mode; the plain run of these two is at
+     480x270 (on both sides, injected noise), because the plain any-hit of
+     12 rays per pixel walks the tree in lockstep.
    Every pixel is finite, the last images' means (the losses) agree within
    2 %, the launch counters rose by exactly the per-frame (per-step) counts
    in PATHS, and every gradient leaf is finite, reaches the image where it
@@ -68,8 +87,11 @@ GPU.
    and its float32 operations over 67 TFLOP/s, special functions, Philox
    and divisions at their instruction cost, from this run's shapes) and,
    where one PyTorch call computes the same function, that call; then
-   ``torch.profiler`` over 3 R-OMIS frames (device busy and idle share,
-   kernels per frame, the top kernels by device time).
+   ``torch.profiler`` over 3 R-OMIS frames and over a large config-5 frame
+   and a large R-OMIS frame (device busy and idle share, kernels per frame,
+   the top kernels by device time). The BVH kernels' bound counts the box
+   and triangle tests that the plain traversal made on the same rays and
+   tree (BOX_OPS and MT_OPS each, and each ray's three reciprocals).
 
 Any failed check raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table.
@@ -154,11 +176,16 @@ STREAM_OPS = DRAW_OPS + 2 * GUMBEL_OPS + DIV_OPS  # one spatial-pass
 GATE_OPS = 14 + DIV_OPS  # one box cell of the selection: gates, race test
 COLVEC_OPS = 10 + 2 * DIV_OPS  # one technique's mock weight, reciprocal
 SHADOW_OPS = 20 + SQRT_OPS + 3 * DIV_OPS  # one shadow ray's set-up
+BOX_OPS = 22  # one slab test: 6 subtractions, 6 multiplies, 10 min/max
+LARGE_N, LARGE_TRIS = 5, 24202  # the torus field: n x n tori of 968
+LH, LW = 270, 480  # the large MIS paths' plain comparison
+SKY_PLANES = 17  # kernel 19's many-plane case (above the K-ray walk's 16)
 
 KERNELS = ("closest_hit", "gather_rows", "ris", "final_shade",
            "spatial_pass", "spatial_pass_unbiased", "halo_gather", "any_hit",
            "scatter_rows_add", "halo_scatter", "ris_replay",
-           "neighbour_select", "mis_ris", "mis_iteration")
+           "neighbour_select", "mis_ris", "mis_iteration", "bvh_closest_hit",
+           "bvh_any_hit", "bvh_any_hit_k", "bvh_final_shade")
 SOURCES = {
     "closest_hit": ("romis_tpu_torch/csrc/trace.cu",
                     "romis_tpu/ops/pallas_trace.py:465"),
@@ -188,6 +215,14 @@ SOURCES = {
                 "romis_tpu/ops/pallas_ris.py:553"),
     "mis_iteration": ("romis_tpu_torch/csrc/mis.cu",
                       "romis_tpu/ops/pallas_mis.py:491"),
+    "bvh_closest_hit": ("romis_tpu_torch/csrc/walk.cu",
+                        "romis_tpu/ops/pallas_bvh.py:304"),
+    "bvh_any_hit": ("romis_tpu_torch/csrc/walk.cu",
+                    "romis_tpu/ops/pallas_bvh.py:356"),
+    "bvh_any_hit_k": ("romis_tpu_torch/csrc/walk.cu",
+                      "romis_tpu/ops/pallas_bvh.py:427"),
+    "bvh_final_shade": ("romis_tpu_torch/csrc/shade.cu",
+                        "romis_tpu/ops/pallas_shade.py:275"),
 }
 # Launches per frame (per gradient step) of each main path. A gradient
 # step's row gathers: hit attributes and materials, the closest hit's
@@ -220,11 +255,30 @@ PATHS.update({  # 5 iterations; the neighbours' contexts: one halo gather
     "rmis_equal": _MIS,
     "rmis_balance": dict(_MIS, halo_gather=1),
 })
+# The large paths: the BVH closest hit and final shade instead of the soup
+# kernels 1 and 4 (which no large path launches); the initial check's K = 2
+# shadow rays per pixel take the shared walk (kernel 20), K = 1 the per-ray
+# walk (kernel 19); the MIS sweeps' ext_vis planes take a halo gather of the
+# iteration's sample positions and a 12-ray shared walk each.
+_LARGE = {"bvh_closest_hit": 1, "gather_rows": 2, "bvh_final_shade": 1}
+_LARGE_MIS = {"bvh_closest_hit": 1, "gather_rows": 2, "neighbour_select": 1,
+              "mis_ris": 1, "mis_iteration": 5, "bvh_any_hit_k": 5}
+PATHS.update({
+    "large_config5": dict(_LARGE, ris=1, spatial_pass=2),
+    "large_animated": dict(_LARGE, ris=1, bvh_any_hit_k=1, halo_gather=1,
+                           spatial_pass_unbiased=2),
+    "large_k1": dict(_LARGE, ris=1, bvh_any_hit=1, spatial_pass=2),
+    "large_romis": dict(_LARGE_MIS, halo_gather=6),
+    "large_rmis_equal": dict(_LARGE_MIS, halo_gather=5),
+})
 FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "grad_surrogate": 2,
           "grad_per_pixel": 2, "romis": 2, "romis_progressive": 2,
-          "rmis_equal": 2, "rmis_balance": 2}
+          "rmis_equal": 2, "rmis_balance": 2, "large_config5": 2,
+          "large_animated": 2, "large_k1": 2, "large_romis": 2,
+          "large_rmis_equal": 2}
 GRAD_PATHS = ("grad_surrogate", "grad_per_pixel")
-MIS_PATHS = ("romis", "romis_progressive", "rmis_equal", "rmis_balance")
+MIS_PATHS = ("romis", "romis_progressive", "rmis_equal", "rmis_balance",
+             "large_romis", "large_rmis_equal")
 
 
 def fail(msg: str):
@@ -314,11 +368,13 @@ def main() -> None:
         extract_params, make_grad_fn, render_with_params,
     )
     from romis_tpu_torch.ops import (
-        _build, mis, nbrsel, rows, ris, scatter, shade, spatial, trace,
+        _build, mis, nbrsel, rows, ris, scatter, shade, spatial, trace, walk,
     )
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.ops.traverse import bvh_any, bvh_closest
     from romis_tpu_torch.ops.wrs import (
         gen_canonical_replay_plain, gen_canonical_samples_plain, gumbel_noise,
-        replay_uniforms,
+        replay_uniforms, visibility,
     )
     from romis_tpu_torch.render import restir
     from romis_tpu_torch.render.animation import (
@@ -326,9 +382,10 @@ def main() -> None:
     )
     from romis_tpu_torch.render.neighbours import select_neighbour_indices
     from romis_tpu_torch.render.pipeline import render_frame, save_image
-    from romis_tpu_torch.render.rmis import mis_offsets
+    from romis_tpu_torch.render.rmis import mis_ext_vis, mis_offsets
     from romis_tpu_torch.scene.scene import (
         build_geometry, flagship_camera, flagship_scene, repack_rows,
+        torus_field, torus_field_camera,
     )
 
     dev = torch.device("cuda", 0)
@@ -360,6 +417,15 @@ def main() -> None:
                         + (f"+{spill}B" if spill else ""))
     print(f"ptxas ({len(regs)} kernels; registers, spill stores): "
           + ", ".join(regs))
+    nvcc_s = [line.split()[2:] for line in (_build.BUILD_DIR / "build.log")
+              .read_text().splitlines() if line.startswith("nvcc seconds")]
+    print("build: seconds of each nvcc from the common start: "
+          + ", ".join(f"{a} {b}" for a, b in nvcc_s))
+    t0 = time.perf_counter()
+    host = _build.build_host()
+    _build.host_library()
+    print(f"build: host BVH builder {time.perf_counter() - t0:.1f} s -> "
+          f"{host.name}")
 
     wrappers = {"closest_hit": trace.closest_hit,
                 "gather_rows": rows.gather_rows,
@@ -374,7 +440,11 @@ def main() -> None:
                 "ris_replay": ris.gen_canonical_replay,
                 "neighbour_select": nbrsel.neighbour_select,
                 "mis_ris": ris.gen_mis_reservoir_planes,
-                "mis_iteration": mis.mis_iteration}
+                "mis_iteration": mis.mis_iteration,
+                "bvh_closest_hit": walk.closest_hit_bvh,
+                "bvh_any_hit": walk.any_hit_bvh,
+                "bvh_any_hit_k": walk.any_hit_bvh_k,
+                "bvh_final_shade": shade.final_shade_bvh}
 
     # ---- 3. each kernel against its plain version ----
     feats = Features()
@@ -391,9 +461,9 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(1234)
     errs = {}
 
-    def check_trace(geometry, label):
-        t_k, tri_k, u_k, v_k = trace.closest_hit(rays, geometry)
-        t_p, tri_p, u_p, v_p = trace.closest_hit_plain(rays, geometry)
+    def check_trace(geometry, label, r=rays):
+        t_k, tri_k, u_k, v_k = trace.closest_hit(r, geometry)
+        t_p, tri_p, u_p, v_p = trace.closest_hit_plain(r, geometry)
         torch.cuda.synchronize()
         same = tri_k == tri_p
         agree = same.float().mean().item()
@@ -894,7 +964,11 @@ def main() -> None:
 
     # The sweep in its four modes, on the neighbourhoods of the plain
     # selection and iteration 0 of the packs above.
-    def check_sweep(label, c, geometry, pack_r, pack_o, hw):
+    def check_sweep(label, c, geometry, pack_r, pack_o, hw,
+                    num_lights=scene.num_lights):
+        """The sweep in its four modes; on geometry with a BVH in its
+        ext_vis mode, the visibility planes of each pack traced by the
+        kernels (mis_ext_vis: halo gather, kernel 20) and fed to both."""
         h_, w_ = hw
         ny_, nx_ = select_neighbour_indices(
             gen, c, h_, w_, feats, select=nbrsel.neighbour_select_plain)
@@ -904,16 +978,21 @@ def main() -> None:
                                          spatial.halo_offset_gather_plain)
         d1 = n_nbr + 1
         al = torch.rand((3 * d1, h_, w_), generator=gen, device=dev) - 0.5
+        ext = {}
+        if geometry.bvh is not None:
+            ext = {id(pk): mis_ext_vis(c, pk[:3 * k], offs_, geometry, k)
+                   for pk in (pack_r, pack_o)}
         worst = 0.0
         for mode in ("rmis_equal", "rmis_balance", "romis", "romis_prog"):
             m = "romis" if mode == "romis_prog" else mode
-            kw = dict(nbr_ctx=None if m == "rmis_equal" else nbr_,
-                      alphas=al if mode == "romis_prog" else None)
             pack = pack_o if m == "romis" else pack_r
+            kw = dict(nbr_ctx=None if m == "rmis_equal" else nbr_,
+                      alphas=al if mode == "romis_prog" else None,
+                      ext_vis=ext.get(id(pack)))
             o_k = mis.mis_iteration(cen_, pack, offs_, geometry, k, m,
-                                    scene.num_lights, feats, **kw)
+                                    num_lights, feats, **kw)
             o_p = mis.mis_iteration_plain(cen_, pack, offs_, geometry, k, m,
-                                          scene.num_lights, feats, **kw)
+                                          num_lights, feats, **kw)
             torch.cuda.synchronize()
             o_k = o_k if isinstance(o_k, tuple) else (o_k,)
             o_p = o_p if isinstance(o_p, tuple) else (o_p,)
@@ -943,6 +1022,121 @@ def main() -> None:
     check_sweep("soup2048 480x270", soup_ctx_s, soup, *soup_packs, (hs, ws))
     del mis_uni, ph_k
 
+    # The BVH kernels on the 5x5 torus field at 1080p, against the plain
+    # traversal on the same rays and tree; the plain traversal's box and
+    # triangle tests feed the bounds.
+    large = torus_field(LARGE_N, dev)
+    t0 = time.perf_counter()
+    large.geometry = with_bvh(large.geometry)
+    lgeo = large.geometry
+    n_large = int(lgeo.active.sum())
+    print(f"large scene: torus field {LARGE_N}x{LARGE_N}, {n_large} "
+          f"triangles, SAH BVH of {lgeo.bvh.n_nodes} nodes (largest leaf "
+          f"{lgeo.bvh.max_leaf_count}) in {time.perf_counter() - t0:.2f} s")
+    require(n_large == LARGE_TRIS, f"torus field: {n_large} triangles")
+    lcam = torus_field_camera(H, W, dev)
+    lrays = generate_rays(lcam, H, W)
+    walk_counts = {}
+    errs["bvh_closest_hit"] = check_trace(lgeo, "torus5x5", lrays)
+    walk_counts["bvh_closest_hit"] = {}
+    bvh_closest(lrays, lgeo, lgeo.bvh, counts=walk_counts["bvh_closest_hit"])
+    _, lctx = restir.trace_primary(lrays, lgeo, feats, restir.KERNELS)
+    lres = ris.gen_canonical_samples_ris(lctx, large.lights,
+                                         large.num_lights, feats,
+                                         generator=gen)
+
+    def vis_rays(position, targets):
+        """The shadow rays ops.wrs.visibility traces from ``position`` to
+        ``targets`` [..., 3, H, W] → (origins, directions, t_max)."""
+        got = {}
+
+        def grab(o, d, tm, _g):
+            got["rays"] = (o.contiguous(), d.expand(o.shape).contiguous(),
+                           tm.contiguous())
+            return torch.zeros(tm.shape, dtype=torch.bool, device=dev)
+
+        visibility(position, targets, lgeo, grab)
+        return got["rays"]
+
+    def check_walk_any(label, fn, rays_):
+        cnt = {}
+        occ_k = fn(*rays_, lgeo)
+        occ_p = bvh_any(*rays_, lgeo, lgeo.bvh, counts=cnt)
+        torch.cuda.synchronize()
+        same = (occ_k == occ_p).float().mean().item()
+        print(f"check {label}: rays {occ_k.numel()}, occluded "
+              f"{occ_p.float().mean().item():.4f}, agree {same:.6f}, "
+              f"bit-exact {bool(torch.equal(occ_k, occ_p))}, box / triangle "
+              f"tests per ray {cnt['box'].float().mean().item():.2f} / "
+              f"{cnt['tri'].float().mean().item():.2f}")
+        require(same >= MIN_AGREE, f"{label}: agree {same}")
+        return 1.0 - same, cnt
+
+    lshadow = vis_rays(lctx.position, lres.pos)  # the K = 2 lanes
+    one = tuple(a[:1] for a in lshadow)
+    errs["bvh_any_hit"], walk_counts["bvh_any_hit"] = check_walk_any(
+        "bvh_any_hit[torus5x5, 1 plane]", walk.any_hit_bvh, one)
+    # 17 planes: the frame's receivers to 17 points of the sky light.
+    sky = large.lights.rows[0]
+    uv = torch.rand((2, SKY_PLANES, 1, H, W), generator=gen, device=dev)
+    sky_pts = (sky[0:3, None, None] + uv[0] * sky[3:6, None, None]
+               + uv[1] * sky[6:9, None, None])
+    sky_rays = vis_rays(lctx.position, sky_pts)
+    err17, _ = check_walk_any(f"bvh_any_hit[torus5x5, {SKY_PLANES} planes]",
+                              walk.any_hit_bvh, sky_rays)
+    errs["bvh_any_hit"] = max(errs["bvh_any_hit"], err17)
+    del sky_rays
+    errs["bvh_any_hit_k"], walk_counts["bvh_any_hit_k2"] = check_walk_any(
+        "bvh_any_hit_k[torus5x5, S=2]", walk.any_hit_bvh_k, lshadow)
+    # S = 12: one MIS iteration's ext_vis rays (D1 = 6 members x K = 2).
+    lny, lnx = select_neighbour_indices(gen, lctx, H, W, feats,
+                                        select=nbrsel.neighbour_select)
+    loffs = mis_offsets(lny, lnx)
+    lpack = ris.gen_mis_reservoir_planes(lctx, large.lights,
+                                         large.num_lights, feats, 1, True,
+                                         generator=gen)
+    lpos = lpack[:3 * k]
+    ext_targets = torch.cat([lpos[None], spatial.halo_offset_gather(
+        lpos, loffs[:n_nbr], loffs[n_nbr:])]).reshape(n_nbr + 1, k, 3, H, W)
+    ext_rays = vis_rays(lctx.position, ext_targets)
+    err12, walk_counts["bvh_any_hit_k"] = check_walk_any(
+        "bvh_any_hit_k[torus5x5, S=12 ext_vis rays]", walk.any_hit_bvh_k,
+        ext_rays)
+    errs["bvh_any_hit_k"] = max(errs["bvh_any_hit_k"], err12)
+    errs["bvh_final_shade"] = check_shade(lctx, lres, lgeo, "torus5x5 BVH")
+    lpack_r = ris.gen_mis_reservoir_planes(lctx, large.lights,
+                                           large.num_lights, feats, 1, False,
+                                           generator=gen)
+    errs["mis_iteration"] = max(errs["mis_iteration"], check_sweep(
+        "torus5x5 ext_vis", lctx, lgeo, lpack_r, lpack, (H, W),
+        large.num_lights))
+
+    # The cross-check with no plain version in it: the 2048-triangle soup
+    # with a BVH attached, the walk against the soup kernels.
+    soup_bvh = with_bvh(soup)
+    t_s, tri_s, _, _ = trace.closest_hit(rays, soup)  # kernel 1
+    t_b, tri_b, _, _ = walk.closest_hit_bvh(rays, soup_bvh)  # kernel 18
+    o_s, d_s, tm_s = shadow_rays(soup_ctx, res_soup)
+    occ6 = trace.any_hit(o_s, d_s, tm_s, soup)  # kernel 6
+    occ20 = walk.any_hit_bvh_k(o_s, d_s, tm_s, soup_bvh)  # kernel 20
+    torch.cuda.synchronize()
+    hit_s = torch.isfinite(t_s)
+    same_t = torch.where(hit_s, t_b == t_s, torch.isinf(t_b))
+    attr_s = soup.attr_rows[tri_s.clamp_min(0)]
+    attr_b = soup_bvh.attr_rows[tri_b.clamp_min(0)]
+    same_attr = ((attr_s == attr_b).all(dim=-1) & hit_s)[hit_s]
+    agree_t = same_t.float().mean().item()
+    agree_attr = same_attr.float().mean().item()
+    agree_occ = (occ6 == occ20).float().mean().item()
+    print(f"check soup2048 with a BVH: kernel 18 vs kernel 1 same t "
+          f"{agree_t:.6f}, same hit attributes {agree_attr:.6f} (hits "
+          f"{hit_s.float().mean().item():.4f}); kernel 20 vs kernel 6 "
+          f"occlusion agree {agree_occ:.6f} (occluded "
+          f"{occ6.float().mean().item():.4f})")
+    require(min(agree_t, agree_attr, agree_occ) >= MIN_AGREE,
+            "soup with a BVH: the walk and the soup kernels disagree")
+    del ext_rays, soup_bvh
+
     # ---- 4. the main paths through the entry points ----
     path_feats = {
         "slice1": Features(spatial_reuse=False),
@@ -960,26 +1154,44 @@ def main() -> None:
             neighbour_selection_strategy=(
                 NeighbourSelectionStrategy.EQUAL_SIMILAR_DISSIMILAR)),
     }
+    path_feats.update({
+        "large_config5": path_feats["config5"],
+        "large_animated": path_feats["animated"],
+        "large_k1": Features(num_samples_in_reservoir=1,
+                             initial_samples_visibility_check=True),
+        "large_romis": path_feats["romis"],
+        "large_rmis_equal": path_feats["rmis_equal"],
+    })
     cam_path = interpolate_cameras(
         cam, make_camera(look_at=(2.57, 1.23, -1.35),
                          rotation_deg=(10.3, 30.0 + PAN_DEG
                                        * (FRAMES["animated"] - 1), 0.0),
                          distance=25.0, fov_deg=30.0, resolution=(H, W),
                          device=dev), FRAMES["animated"])
+    lcam_path = interpolate_cameras(
+        lcam, make_camera(look_at=(0, 0, 0), rotation_deg=(
+            25.0, 30.0 + PAN_DEG * (FRAMES["large_animated"] - 1), 0.0),
+            distance=11.0, fov_deg=50.0, resolution=(H, W), device=dev),
+        FRAMES["large_animated"])
+
+    def path_scene(path):
+        """(scene, camera, animated camera path) of a main path."""
+        if path.startswith("large_"):
+            return large, lcam, lcam_path
+        return scene, cam, cam_path
 
     def run_path(path, ops, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
         f = path_feats[path]
-        if path == "animated":
-            imgs, state = render_animation(g, cam_path, scene.geometry,
-                                           scene.lights, scene.num_lights, H,
-                                           W, f, ops=ops)
+        sc, c, c_path = path_scene(path)
+        if path.endswith("animated"):
+            imgs, state = render_animation(g, c_path, sc.geometry, sc.lights,
+                                           sc.num_lights, H, W, f, ops=ops)
             img = imgs[-1]
         else:
             state, img = None, None
             for _ in range(FRAMES[path]):
-                img, state = render_frame(g, cam, scene, H, W, f, state,
-                                          ops=ops)
+                img, state = render_frame(g, c, sc, H, W, f, state, ops=ops)
         torch.cuda.synchronize()
         return img, state
 
@@ -1009,8 +1221,9 @@ def main() -> None:
         require(abs(mk - mp) <= FRAME_REL * abs(mp), f"{path}: means differ")
         require(state_k.has_prev and float(state_k.reservoirs.m.max())
                 > s / k, f"{path}: temporal state did not accumulate")
-        if path == "config5":
-            png = ROOT / "build" / "chip_smoke_frame.png"
+        if path in ("config5", "large_config5"):
+            png = ROOT / "build" / f"chip_smoke_{path}.png".replace(
+                "_config5", "_frame")
             png.parent.mkdir(parents=True, exist_ok=True)
             save_image(str(png), img_k)
             print(f"path {path}: wrote {png.relative_to(ROOT)}")
@@ -1100,17 +1313,30 @@ def main() -> None:
     mis_noise = (nbrsel.selection_noise(gen, radius, H, W),
                  torch.rand((it_n, sk, 4, k, H, W), generator=gen,
                             device=dev))
+    small_noise = (nbrsel.selection_noise(gen, radius, LH, LW),
+                   torch.rand((it_n, sk, 4, k, LH, LW), generator=gen,
+                              device=dev))
     for path in MIS_PATHS:
         f = path_feats[path]
+        sc, c, _ = path_scene(path)
         for fn in wrappers.values():
             fn.launches = 0
-        img_k, st = render_frame(None, cam, scene, H, W, f, noise=mis_noise)
+        img_k, st = render_frame(None, c, sc, H, W, f, noise=mis_noise)
         img_k2, _ = render_frame(torch.Generator(device=dev).manual_seed(0),
-                                 cam, scene, H, W, f)
+                                 c, sc, H, W, f)
         torch.cuda.synchronize()
         got = {n: fn.launches for n, fn in wrappers.items()}
-        img_p, _ = render_frame(None, cam, scene, H, W, f, noise=mis_noise,
-                                ops=restir.PLAIN)
+        ref = img_k  # the kernels' frame the plain run is held to
+        if path.startswith("large_"):
+            # The plain run at 480x270 (its 12 rays per pixel walk the
+            # tree in lockstep), against the kernels on the same noise.
+            cs = torus_field_camera(LH, LW, dev)
+            ref, _ = render_frame(None, cs, sc, LH, LW, f, noise=small_noise)
+            img_p, _ = render_frame(None, cs, sc, LH, LW, f,
+                                    noise=small_noise, ops=restir.PLAIN)
+        else:
+            img_p, _ = render_frame(None, c, sc, H, W, f, noise=mis_noise,
+                                    ops=restir.PLAIN)
         torch.cuda.synchronize()
         expect = {n: PATHS[path].get(n, 0) * FRAMES[path] for n in KERNELS}
         print(f"path {path}: launches over {FRAMES[path]} frames "
@@ -1121,41 +1347,53 @@ def main() -> None:
         require(st is None and tuple(img_k.shape) == (H, W, 3),
                 f"{path}: image {tuple(img_k.shape)}")
         for label, img in (("kernels", img_k), ("Philox", img_k2),
-                           ("plain", img_p)):
+                           ("plain", img_p), ("kernels vs plain", ref)):
             require(bool(torch.isfinite(img).all()),
                     f"{path}: non-finite pixels ({label})")
-        mk, mk2, mp = (x.mean().item() for x in (img_k, img_k2, img_p))
-        same = (img_k == img_p).all(dim=-1).float().mean().item()
-        print(f"path {path}: injected-noise frame mean {mk:.6f} (kernels) vs "
-              f"{mp:.6f} (plain), pixels bit-equal {same:.6f}, max abs diff "
-              f"{(img_k - img_p).abs().max().item():.2e}; Philox frame mean "
-              f"{mk2:.6f}")
-        require(abs(mk - mp) <= FRAME_REL * abs(mp), f"{path}: means differ")
-        require(abs(mk2 - mp) <= FRAME_REL * abs(mp),
+        mk, mk2, mr, mp = (x.mean().item() for x in (img_k, img_k2, ref,
+                                                     img_p))
+        same = (ref == img_p).all(dim=-1).float().mean().item()
+        print(f"path {path}: injected-noise frame mean {mr:.6f} (kernels) vs "
+              f"{mp:.6f} (plain) at {tuple(ref.shape[:2])}, pixels bit-equal "
+              f"{same:.6f}, max abs diff {(ref - img_p).abs().max().item():.2e}"
+              f"; Philox frame mean {mk2:.6f} vs injected {mk:.6f} at 1080p")
+        require(abs(mr - mp) <= FRAME_REL * abs(mp), f"{path}: means differ")
+        require(abs(mk2 - mk) <= FRAME_REL * abs(mk),
                 f"{path}: Philox frame mean differs")
-        if path == "romis":
-            png = ROOT / "build" / "chip_smoke_romis.png"
+        if path in ("romis", "large_romis"):
+            png = ROOT / "build" / f"chip_smoke_{path}.png"
             save_image(str(png), img_k2)
             print(f"path {path}: wrote {png.relative_to(ROOT)}")
-    del mis_noise
+    del mis_noise, small_noise
 
     # ---- 5. timing ----
-    def one_frame(path, ops):
+    def one_frame(path, ops, hw=(H, W)):
         g = torch.Generator(device=dev).manual_seed(5)
         f = path_feats[path]
-        st = restir.initial_temporal_state(H, W, k, cam)
+        sc, c0, c_path = path_scene(path)
+        if hw != (H, W):
+            c0 = torus_field_camera(*hw, dev)
+        st = restir.initial_temporal_state(
+            *hw, f.num_samples_in_reservoir, c0)
         i = 0
 
         def run():
             nonlocal st, i
-            c = camera_at(cam_path, i % FRAMES["animated"]) \
-                if path == "animated" else cam
-            _, st = render_frame(g, c, scene, H, W, f, st, ops=ops)
+            c = camera_at(c_path, i % FRAMES[path]) \
+                if path.endswith("animated") else c0
+            _, st = render_frame(g, c, sc, *hw, f, st, ops=ops)
             i += 1
         return run
 
     for path in PATHS:
         if path in GRAD_PATHS:
+            continue
+        if path.startswith("large_") and path in MIS_PATHS:
+            # The plain frame at 480x270 (lockstep 12-ray walks).
+            f_k = cuda_ms(torch, one_frame(path, restir.KERNELS), 5)
+            f_p = cuda_ms(torch, one_frame(path, restir.PLAIN, (LH, LW)), 1)
+            print(f"time frame[{path}]: {f_k:.3f} ms/frame kernels, "
+                  f"{f_p:.3f} ms/frame plain at {LH}x{LW} [{card}]")
             continue
         if path in MIS_PATHS:
             f_k, f_p = ab_ms(torch, one_frame(path, restir.KERNELS),
@@ -1164,40 +1402,48 @@ def main() -> None:
                   f"{f_p:.3f} ms/frame plain [{card}]")
             continue
         f_k, f_p = ab_ms(torch, one_frame(path, restir.KERNELS),
-                         one_frame(path, restir.PLAIN), 10, 3)
+                         one_frame(path, restir.PLAIN), 10,
+                         1 if path.startswith("large_") else 3)
         print(f"time frame[{path}]: {f_k:.3f} ms/frame kernels, {f_p:.3f} "
               f"ms/frame plain ({H * W * (1 + k) / f_k / 1e3:.1f} Mrays/s) "
               f"[{card}]")
 
-    # Where an R-OMIS frame's time goes: torch.profiler over 3 frames.
+    # Where a frame's time goes: torch.profiler over a few frames.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run = one_frame("romis", restir.KERNELS)
-    run()
-    torch.cuda.synchronize()
-    ev_a = torch.cuda.Event(enable_timing=True)
-    ev_b = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ev_a.record()
-        for _ in range(3):
-            run()
-        ev_b.record()
+    def profile_frames(path, n):
+        run = one_frame(path, restir.KERNELS)
+        run()
         torch.cuda.synchronize()
-    span = ev_a.elapsed_time(ev_b) / 3
-    dev_rows = sorted(((e.key, e.self_device_time_total / 3e3, e.count / 3)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0),
-                      key=lambda r: -r[1])
-    busy = sum(r[1] for r in dev_rows)
-    print(f"profile frame[romis]: span {span:.3f} ms/frame, device busy "
-          f"{busy:.3f} ms, idle share {1 - busy / span:.3f}, "
-          f"{sum(r[2] for r in dev_rows):.0f} device kernels/frame [{card}]"
-          if busy else "profile frame[romis]: no device time recorded")
-    for key_, ms_, n_ in dev_rows[:8]:
-        print(f"profile frame[romis]: {ms_:.3f} ms in {n_:.0f} x {key_[:70]}")
+        ev_a = torch.cuda.Event(enable_timing=True)
+        ev_b = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ev_a.record()
+            for _ in range(n):
+                run()
+            ev_b.record()
+            torch.cuda.synchronize()
+        span = ev_a.elapsed_time(ev_b) / n
+        dev_rows = sorted(((e.key, e.self_device_time_total / 1e3 / n,
+                            e.count / n) for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and e.self_device_time_total > 0),
+                          key=lambda r: -r[1])
+        busy = sum(r[1] for r in dev_rows)
+        print(f"profile frame[{path}]: span {span:.3f} ms/frame, device busy "
+              f"{busy:.3f} ms, idle share {1 - busy / span:.3f}, "
+              f"{sum(r[2] for r in dev_rows):.0f} device kernels/frame "
+              f"[{card}]" if busy
+              else f"profile frame[{path}]: no device time recorded")
+        for key_, ms_, n_ in dev_rows[:8]:
+            print(f"profile frame[{path}]: {ms_:.3f} ms in {n_:.0f} x "
+                  f"{key_[:70]}")
+
+    profile_frames("romis", 3)
+    profile_frames("large_config5", 5)
+    profile_frames("large_romis", 2)
 
     for path in GRAD_PATHS:
         f, prev, target, _ = grad_setup(path)
@@ -1330,6 +1576,47 @@ def main() -> None:
               f"{ms[1]:.4f} ms plain [{card}]")
         if label == "romis":
             timings["mis_iteration"] = ms
+    # The BVH kernels at the 1080p torus-field frame's shapes: primary rays,
+    # one plane of shadow rays (19), the 12 ext_vis rays per pixel (20), the
+    # final shade (21); the ext_vis sweep (R-OMIS) beside them.
+    timings["bvh_closest_hit"] = ab_ms(
+        torch, lambda: walk.closest_hit_bvh(lrays, lgeo),
+        lambda: bvh_closest(lrays, lgeo, lgeo.bvh), 20, 1)
+    timings["bvh_any_hit"] = ab_ms(
+        torch, lambda: walk.any_hit_bvh(*one, lgeo),
+        lambda: bvh_any(*one, lgeo, lgeo.bvh), 20, 1)
+    ext_rays = vis_rays(lctx.position, ext_targets)
+    timings["bvh_any_hit_k"] = ab_ms(
+        torch, lambda: walk.any_hit_bvh_k(*ext_rays, lgeo),
+        lambda: bvh_any(*ext_rays, lgeo, lgeo.bvh), 20, 1)
+    ms = cuda_ms(torch, lambda: walk.any_hit_bvh(*ext_rays, lgeo), 20)
+    print(f"time bvh_any_hit[12 planes, the S=12 ext_vis rays]: {ms:.4f} ms "
+          f"[{card}]")
+    ms = ab_ms(torch, lambda: walk.any_hit_bvh_k(*lshadow, lgeo),
+               lambda: bvh_any(*lshadow, lgeo, lgeo.bvh), 20, 1)
+    print(f"time bvh_any_hit_k[S=2]: {ms[0]:.4f} ms kernel, {ms[1]:.4f} ms "
+          f"plain [{card}]")
+    ms = cuda_ms(torch, lambda: walk.any_hit_bvh(*lshadow, lgeo), 20)
+    print(f"time bvh_any_hit[2 planes, the S=2 rays]: {ms:.4f} ms [{card}]")
+    del ext_rays
+    timings["bvh_final_shade"] = ab_ms(
+        torch, lambda: shade.final_shade_bvh(lctx, lres, lgeo, feats),
+        lambda: shade.final_shade_plain(lctx, lres, lgeo, feats), 20, 1)
+    lcen = shade.pack_center_ctx(lctx)
+    lnbr = mis.resolve_neighbour_ctx(lcen, loffs)
+    lext = mis_ext_vis(lctx, lpos, loffs, lgeo, k)
+    ms = ab_ms(
+        torch, lambda: mis.mis_iteration(
+            lcen, lpack, loffs, lgeo, k, "romis", large.num_lights, feats,
+            nbr_ctx=lnbr, ext_vis=lext),
+        lambda: mis.mis_iteration_plain(
+            lcen, lpack, loffs, lgeo, k, "romis", large.num_lights, feats,
+            nbr_ctx=lnbr, ext_vis=lext), 20, 3)
+    print(f"time mis_iteration[ext_vis romis, torus5x5]: {ms[0]:.4f} ms "
+          f"kernel, {ms[1]:.4f} ms plain [{card}]")
+    ms = cuda_ms(torch, lambda: mis_ext_vis(lctx, lpos, loffs, lgeo, k), 20)
+    print(f"time mis_ext_vis (halo gather + kernel 20, 12 rays/pixel): "
+          f"{ms:.4f} ms [{card}]")
     for n, (km, pm) in timings.items():
         print(f"time {n}: {km:.4f} ms kernel, {pm:.4f} ms plain [{card}]")
 
@@ -1409,6 +1696,39 @@ def main() -> None:
                            + 6 * d1 + DIV_OPS)
             + live_rays * (n_t * MT_OPS + SHADOW_OPS)),
     }
+    # The BVH kernels: the box and triangle tests the plain traversal made
+    # on the same rays and tree, BOX_OPS and MT_OPS each, and each ray's
+    # three reciprocals; rays in and results out (40 B a primary ray:
+    # 6 floats in, t, tri, u, v out; 29 B a shadow ray). The final shade:
+    # the walk's tests of its live lanes (those it traces) and each live
+    # lane's set-up and Phong.
+    def walk_ops(cnt, mask=None):
+        box, tri = cnt["box"], cnt["tri"]
+        if mask is not None:
+            box, tri = box[mask], tri[mask]
+        return (box.sum().item() * BOX_OPS + tri.sum().item() * MT_OPS
+                + box.numel() * 3 * DIV_OPS)
+
+    to_l = lres.pos - lctx.position[None]
+    dist_l = torch.linalg.vector_norm(to_l, dim=-3)
+    dot_l = (to_l * lctx.normal[None]).sum(dim=-3)
+    live_l = ((lres.big_w != 0) & lctx.valid[None] & (dot_l >= 0)
+              & (dist_l > 1e-3))
+    n_live_l = live_l.sum().item()
+    bounds.update({
+        "bvh_closest_hit": bound(hw * 40, walk_ops(
+            walk_counts["bvh_closest_hit"])),
+        "bvh_any_hit": bound(hw * 29, walk_ops(walk_counts["bvh_any_hit"])),
+        "bvh_any_hit_k": bound((n_nbr + 1) * k * hw * 29, walk_ops(
+            walk_counts["bvh_any_hit_k"])),
+        "bvh_final_shade": bound(
+            hw * 4 * (18 + 10 * k + 3),
+            walk_ops(walk_counts["bvh_any_hit_k2"], live_l)
+            + n_live_l * (SHADOW_OPS + PHONG_OPS)),
+    })
+    for n in ("bvh_closest_hit", "bvh_any_hit", "bvh_any_hit_k",
+              "bvh_final_shade"):
+        print(f"bound {n}: {bounds[n][0]:.4f} ms ({bounds[n][1]})")
     inject = spatial.spatial_noise(gen, n_nbr, k, radius, H, W)
     for label, (kernel_fn, _) in pass_fns.items():
         ms = cuda_ms(torch, lambda: kernel_fn(inject=inject), 10)

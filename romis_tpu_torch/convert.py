@@ -1,4 +1,5 @@
-"""Carry a scene, a camera and scene parameters over from the JAX package.
+"""Carry a scene, a camera, scene parameters and a BVH over from the JAX
+package.
 
 The caller extracts the reference's arrays with ``np.asarray``; these
 functions build the port's objects from them. Nothing here imports JAX.
@@ -55,3 +56,23 @@ def params_from_numpy(params: dict[str, np.ndarray], device=None):
     return SceneParams(**{
         f: torch.as_tensor(np.array(params[f], np.float32), device=device)
         for f in SceneParams.__dataclass_fields__})
+
+
+def bvh_from_numpy(arrays: dict[str, np.ndarray], device=None):
+    """The reference BVH's node columns (bmin_x/y/z, bmax_x/y/z, miss_link,
+    leaf_first, leaf_count) → the port's ``ops.bvh.BVH``. Its leaves index
+    the reference's permuted geometry, so carry that geometry over with
+    ``scene_from_numpy`` and attach the result as ``geometry.bvh``."""
+    from .ops.bvh import bvh_from_arrays
+
+    fields = ("bmin_x", "bmin_y", "bmin_z", "bmax_x", "bmax_y", "bmax_z",
+              "miss_link", "leaf_first", "leaf_count")
+    missing = [f for f in fields if f not in arrays]
+    if missing:
+        raise KeyError(f"bvh_from_numpy: missing columns {missing}")
+    a = {f: np.asarray(arrays[f]) for f in fields}
+    return bvh_from_arrays(
+        np.stack([a["bmin_x"], a["bmin_y"], a["bmin_z"]], -1),
+        np.stack([a["bmax_x"], a["bmax_y"], a["bmax_z"]], -1),
+        a["miss_link"], a["leaf_first"], a["leaf_count"],
+        resolve_device(device))

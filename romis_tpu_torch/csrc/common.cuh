@@ -29,16 +29,29 @@ __device__ __forceinline__ float safe_norm3(float x, float y, float z) {
   return sq > 1e-30f ? sqrtf(sq) : 0.0f;
 }
 
+// One triangle of the [10, T] columns: v0, e1 = v1 - v0, e2 = v2 - v0 and
+// the active flag.
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+  bool active;
+};
+
+__device__ __forceinline__ Tri load_tri(const float* tri, int stride) {
+  return Tri{tri[0 * stride], tri[1 * stride], tri[2 * stride],
+             tri[3 * stride], tri[4 * stride], tri[5 * stride],
+             tri[6 * stride], tri[7 * stride], tri[8 * stride],
+             tri[9 * stride] > 0.0f};
+}
+
 // Möller–Trumbore of one ray against one triangle (ops/intersect._mt_block).
 // Returns true on a hit with t > 0; t, u, v are always written.
-__device__ __forceinline__ bool mt_hit(float ox, float oy, float oz, float dx,
-                                       float dy, float dz, const float* tri,
-                                       int stride, float& t, float& u,
-                                       float& v) {
-  const float v0x = tri[0 * stride], v0y = tri[1 * stride], v0z = tri[2 * stride];
-  const float e1x = tri[3 * stride], e1y = tri[4 * stride], e1z = tri[5 * stride];
-  const float e2x = tri[6 * stride], e2y = tri[7 * stride], e2z = tri[8 * stride];
-  const bool active = tri[9 * stride] > 0.0f;
+__device__ __forceinline__ bool mt_tri(float ox, float oy, float oz, float dx,
+                                       float dy, float dz, const Tri& tr,
+                                       float& t, float& u, float& v) {
+  const float v0x = tr.v0x, v0y = tr.v0y, v0z = tr.v0z;
+  const float e1x = tr.e1x, e1y = tr.e1y, e1z = tr.e1z;
+  const float e2x = tr.e2x, e2y = tr.e2y, e2z = tr.e2z;
+  const bool active = tr.active;
   // pvec = d x e2
   const float px = dy * e2z - dz * e2y;
   const float py = dz * e2x - dx * e2z;
@@ -56,6 +69,14 @@ __device__ __forceinline__ bool mt_hit(float ox, float oy, float oz, float dx,
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   return det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
          t > 0.0f && active;
+}
+
+// mt_tri against triangle column `tri` of columns `stride` apart.
+__device__ __forceinline__ bool mt_hit(float ox, float oy, float oz, float dx,
+                                       float dy, float dz, const float* tri,
+                                       int stride, float& t, float& u,
+                                       float& v) {
+  return mt_tri(ox, oy, oz, dx, dy, dz, load_tri(tri, stride), t, u, v);
 }
 
 // Triangle columns [10, T] staged through shared memory in chunks.

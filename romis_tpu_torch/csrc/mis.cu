@@ -27,7 +27,9 @@
 // ray stops at its first hit, and only a 64-bit occlusion mask stays in
 // registers: the rays are rebuilt from the pack for each chunk. A ray whose
 // sample shades to 0 whatever the visibility (invalid receiver, light
-// behind the surface) is not traced. R-OMIS is templated on D1 so that
+// behind the surface) is not traced. With ext_vis (scenes with a BVH,
+// pallas_mis.py's ext_vis mode) the mask is read from visibility planes
+// traced beforehand by the BVH walk (kernel 20). R-OMIS is templated on D1 so that
 // colvec, A and b live in registers; the R-MIS modes loop over j at run
 // time. The reads of ctx.shininess are per pixel (no scene-wide
 // specialisation).
@@ -50,7 +52,8 @@ struct MisArgs {
   const int* offs;      // [2D, N] dy block, then dx block
   const float* nbr;     // [14D, N] resolve_neighbour_ctx, or null
   const float* alphas;  // [3 * D1, N] or null
-  const float* cols;    // [10, T] triangle columns
+  const float* ext_vis;  // [D1 * K, N] visibility planes (1 = visible) or null
+  const float* cols;    // [10, T] triangle columns (null with ext_vis)
   int n_tris, h, w, d1, k, s, num_lights;
   float* out0;  // contribution [3, N] or A upper [D1(D1+1)/2, N]
   float* out1;  // b [3 * D1, N]
@@ -146,12 +149,22 @@ __device__ __forceinline__ ShadowRay shadow_ray(const Receiver& r, float lx,
 }
 
 // Occlusion bits (bit d*K + lane) of every sample whose shade is not 0
-// regardless; all threads of the block call it (it synchronises).
+// regardless; all threads of the block call it (it synchronises). In the
+// ext_vis mode (scenes with a BVH) the bits come from the precomputed
+// visibility planes (render/rmis.mis_ext_vis: one walk batch of the D1*K
+// rays per pixel, the coincident-pair escape already applied) and no
+// triangle is read; the branch is uniform across the grid.
 __device__ unsigned long long occlusion_mask(const MisArgs& a, long long n,
                                              bool in_range, long long p, int y,
                                              int x, const Receiver& rc,
                                              float (*s)[kTriChunk]) {
   unsigned long long pending = 0ull, occ = 0ull;
+  if (a.ext_vis != nullptr) {
+    if (in_range)
+      for (int b = 0; b < a.d1 * a.k; ++b)
+        if (a.ext_vis[b * n + p] < 0.5f) occ |= 1ull << b;
+    return occ;
+  }
   if (in_range && rc.valid) {
     for (int d = 0; d < a.d1; ++d) {
       const long long q = member_pixel(a, n, p, y, x, d);
@@ -356,13 +369,14 @@ int launch_romis(const MisArgs& a, cudaStream_t stream) {
 
 extern "C" int romis_mis_iteration(const float* cen, const float* res, const int* offs,
                                    const float* nbr, const float* alphas,
-                                   const float* cols, int n_tris, int h, int w,
+                                   const float* ext_vis, const float* cols,
+                                   int n_tris, int h, int w,
                                    int d1, int k, int s, int num_lights, int mode,
                                    float* out0, float* out1, float* out2,
                                    cudaStream_t stream) {
   using namespace romis;
-  const MisArgs a{cen, res, offs, nbr, alphas, cols, n_tris, h, w, d1, k, s,
-                  num_lights, out0, out1, out2};
+  const MisArgs a{cen, res, offs, nbr, alphas, ext_vis, cols, n_tris, h, w, d1,
+                  k, s, num_lights, out0, out1, out2};
   const long long n = static_cast<long long>(h) * w;
   if (d1 * k > 64) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == kRmisEqual) {

@@ -16,18 +16,26 @@
 // K lanes' occlusion flags in registers across the chunks. Bound: compute,
 // ~30 flops per live ray-triangle test until the first hit; device-memory
 // traffic is 18 + 10K planes in, 3 out.
-#include "common.cuh"
+//
+// Kernel 21, the BVH mode (kBvh, romis_final_shade_bvh), replaces
+// romis_tpu/ops/pallas_shade.py final_shade_paged_pallas /
+// _shade_paged_kernel: the same pixel, with the K live shadow rays traced by
+// one shared walk of the BVH (walk.cuh walk_any, kernel 20's walk) instead
+// of the soup loop, for scenes of any size. Its plain version is the same
+// final_shade_plain, whose visibility then walks the tree
+// (ops/traverse.bvh_any). Bound: the box and triangle tests of the walk.
+#include "walk.cuh"
 
 namespace romis {
 
 // K is a template parameter so the per-lane ray state stays in registers.
-template <int K>
+template <int K, bool kBvh>
 __global__ void __launch_bounds__(kThreads)
 final_shade_kernel(const float* __restrict__ ctx, const float* __restrict__ res,
-                   long long n, const float* __restrict__ cols, int n_tris,
+                   long long n, const float4* __restrict__ nodes,
+                   const float* __restrict__ cols, int n_tris,
                    float* __restrict__ out) {
   constexpr int k = K;
-  __shared__ float s[10][kTriChunk];
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool in_range = p < n;
 
@@ -72,27 +80,40 @@ final_shade_kernel(const float* __restrict__ ctx, const float* __restrict__ res,
                     vdist > kShadowEpsilon;
   }
 
-  for (int base = 0; base < n_tris; base += kTriChunk) {
-    const int cnt = min(kTriChunk, n_tris - base);
-    __syncthreads();
-    stage_tris(s, cols, n_tris, base, cnt);
-    __syncthreads();
+  if constexpr (kBvh) {
+    if (!in_range) return;
+    unsigned live = 0u;
 #pragma unroll
-    for (int lane = 0; lane < K; ++lane) {
-      if (!pending[lane]) continue;
-      for (int j = 0; j < cnt; ++j) {
-        float t, u, v;
-        if (mt_hit(rox[lane], roy[lane], roz[lane], rdx[lane], rdy[lane],
-                   rdz[lane], &s[0][j], kTriChunk, t, u, v) &&
-            t < rtm[lane]) {
-          occluded[lane] = true;
-          pending[lane] = false;
-          break;
+    for (int lane = 0; lane < K; ++lane)
+      if (pending[lane]) live |= 1u << lane;
+    const unsigned occ = walk_any<K>(nodes, cols, n_tris, rox, roy, roz, rdx,
+                                     rdy, rdz, rtm, live);
+#pragma unroll
+    for (int lane = 0; lane < K; ++lane) occluded[lane] = (occ >> lane) & 1u;
+  } else {
+    __shared__ float s[10][kTriChunk];
+    for (int base = 0; base < n_tris; base += kTriChunk) {
+      const int cnt = min(kTriChunk, n_tris - base);
+      __syncthreads();
+      stage_tris(s, cols, n_tris, base, cnt);
+      __syncthreads();
+#pragma unroll
+      for (int lane = 0; lane < K; ++lane) {
+        if (!pending[lane]) continue;
+        for (int j = 0; j < cnt; ++j) {
+          float t, u, v;
+          if (mt_hit(rox[lane], roy[lane], roz[lane], rdx[lane], rdy[lane],
+                     rdz[lane], &s[0][j], kTriChunk, t, u, v) &&
+              t < rtm[lane]) {
+            occluded[lane] = true;
+            pending[lane] = false;
+            break;
+          }
         }
       }
     }
+    if (!in_range) return;
   }
-  if (!in_range) return;
 
   // Unit view vector (core/vec.vnormalize of view_origin - p).
   const float ax = ctx[6 * n + p] - px, ay = ctx[7 * n + p] - py,
@@ -133,19 +154,35 @@ final_shade_kernel(const float* __restrict__ ctx, const float* __restrict__ res,
   for (int c = 0; c < 3; ++c) out[c * n + p] = acc[c] / kf;
 }
 
+template <bool kBvh>
+int launch_shade(const float* ctx, const float* res, long long n, int k,
+                 const float* nodes, const float* cols, int n_tris, float* out,
+                 cudaStream_t stream) {
+  const int grid = blocks_for(n);
+  const float4* nd = reinterpret_cast<const float4*>(nodes);
+  switch (k) {
+    case 1: final_shade_kernel<1, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, out); break;
+    case 2: final_shade_kernel<2, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, out); break;
+    case 3: final_shade_kernel<3, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, out); break;
+    case 4: final_shade_kernel<4, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, out); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace romis
 
 extern "C" int romis_final_shade(const float* ctx, const float* res,
                                  long long n, int k, const float* cols,
                                  int n_tris, float* out, cudaStream_t stream) {
-  using namespace romis;
-  const int grid = blocks_for(n);
-  switch (k) {
-    case 1: final_shade_kernel<1><<<grid, kThreads, 0, stream>>>(ctx, res, n, cols, n_tris, out); break;
-    case 2: final_shade_kernel<2><<<grid, kThreads, 0, stream>>>(ctx, res, n, cols, n_tris, out); break;
-    case 3: final_shade_kernel<3><<<grid, kThreads, 0, stream>>>(ctx, res, n, cols, n_tris, out); break;
-    case 4: final_shade_kernel<4><<<grid, kThreads, 0, stream>>>(ctx, res, n, cols, n_tris, out); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return romis::launch_shade<false>(ctx, res, n, k, nullptr, cols, n_tris, out,
+                                    stream);
+}
+
+extern "C" int romis_final_shade_bvh(const float* ctx, const float* res,
+                                     long long n, int k, const float* nodes,
+                                     const float* cols, int n_tris, float* out,
+                                     cudaStream_t stream) {
+  return romis::launch_shade<true>(ctx, res, n, k, nodes, cols, n_tris, out,
+                                   stream);
 }

@@ -117,7 +117,14 @@ def make_grad_fn(geometry, lights, num_lights: int, height: int, width: int,
     """The value and gradient of the L2 loss with respect to SceneParams:
     ``fn(params, target, generator, cam, prev, noise=None)`` → (loss,
     SceneParams of gradients, zeros where a parameter does not reach the
-    image)."""
+    image). Geometry with a BVH is refused: a vertex update would leave
+    the tree's boxes stale."""
+    if geometry.bvh is not None:
+        raise NotImplementedError(
+            "gradients on geometry with a BVH: a vertex update leaves the "
+            "tree's boxes stale, and the reference tests no gradient through "
+            "a BVH scene; they come with the gradient slice of the port, "
+            "slice 7 (with the MIS gradients)")
 
     def value_and_grad(params: SceneParams, target, generator, cam,
                        prev: TemporalState, noise=None):

@@ -9,7 +9,13 @@ sources and flags, so a changed source rebuilds and an unchanged one loads
 the cached library. The build uses only the repository's sources and the
 installed CUDA toolkit; a missing ``nvcc`` or a failed build raises.
 
-Nothing here runs at import time: ``library()`` builds on first use.
+The host-side SAH BVH builder (``csrc/host/bvh_builder.cpp``, the port's
+own copy of the JAX package's native builder) is compiled the same way with
+the host C++ compiler into its own library (``build_host``,
+``host_library``); a missing compiler raises.
+
+Nothing here runs at import time: ``library()`` and ``host_library()``
+build on first use.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -63,10 +70,19 @@ SIGNATURES = {
     # depth_frac, normal_cos, key, tag, scores, s_out, p_out, cnt, stream
     "romis_neighbour_select": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
                                _U, _P, _P, _P, _P, _P),
-    # cen, res, offs, nbr, alphas, tri_cols, n_tris, h, w, d1, k, s,
-    # num_lights, mode, out0, out1, out2, stream
-    "romis_mis_iteration": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P, _P, _P, _P),
+    # cen, res, offs, nbr, alphas, ext_vis, tri_cols, n_tris, h, w, d1, k,
+    # s, num_lights, mode, out0, out1, out2, stream
+    "romis_mis_iteration": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P, _P, _P, _P),
+    # o, d, n_pix, nodes, tri_cols, n_tris, t_max, t, tri, u, v, stream
+    "romis_bvh_closest": (_P, _P, _LL, _P, _P, _I, _F, _P, _P, _P, _P, _P),
+    # origins, dirs, t_max, n_pix, n_rays, nodes, tri_cols, n_tris, out,
+    # stream
+    "romis_bvh_any": (_P, _P, _P, _LL, _LL, _P, _P, _I, _P, _P),
+    # origins, dirs, t_max, n_pix, s, nodes, tri_cols, n_tris, out, stream
+    "romis_bvh_any_k": (_P, _P, _P, _LL, _I, _P, _P, _I, _P, _P),
+    # ctx18, res, n_pix, k, nodes, tri_cols, n_tris, out, stream
+    "romis_final_shade_bvh": (_P, _P, _LL, _I, _P, _P, _I, _P, _P),
     # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,
     # gumbel, out, stream
     "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,
@@ -108,22 +124,32 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
+        start = time.perf_counter()
         for src in sorted(CSRC.glob("*.cu")):
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
                    str(Path(tmp) / f"{src.stem}.o"), str(src)]
-            jobs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            out = Path(tmp) / f"{src.stem}.log"
+            with open(out, "w") as f:
+                proc = subprocess.Popen(cmd, stdout=f,
+                                        stderr=subprocess.STDOUT)
+            jobs.append((cmd, proc, out))
         log, failed = [], []
-        for cmd, proc in jobs:
-            out, _ = proc.communicate()
-            log.append(" ".join(cmd) + "\n" + out)
+        seconds = {}
+        while len(seconds) < len(jobs):  # each source's compile seconds
+            for cmd, proc, _ in jobs:
+                if cmd[-1] not in seconds and proc.poll() is not None:
+                    seconds[cmd[-1]] = time.perf_counter() - start
+            time.sleep(0.05)
+        for cmd, proc, out in jobs:
+            text = out.read_text()
+            log.append(" ".join(cmd) + "\n" + text + f"nvcc seconds "
+                       f"{Path(cmd[-1]).name} {seconds[cmd[-1]]:.1f}\n")
             if proc.returncode != 0:
-                failed.append(out)
+                failed.append(text)
         if not failed:
             tmp_lib = Path(tmp) / lib.name
             cmd = [nvcc, "-shared", "-o", str(tmp_lib),
-                   *(cmd[cmd.index("-o") + 1] for cmd, _ in jobs)]
+                   *(cmd[cmd.index("-o") + 1] for cmd, _, _ in jobs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
             if proc.returncode != 0:
@@ -155,6 +181,54 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+HOST_SOURCE = CSRC / "host" / "bvh_builder.cpp"
+# -ffp-contract=off: no multiply-add contraction in the SAH sums, so the
+# tree does not depend on the host CPU (no -march=native either).
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off")
+
+
+def _cxx() -> str:
+    for name in ("c++", "g++", "clang++"):
+        path = shutil.which(name)
+        if path is not None:
+            return path
+    raise RuntimeError("no C++ compiler found: the SAH BVH builder of "
+                       "romis_tpu_torch (csrc/host/bvh_builder.cpp) is "
+                       "compiled with the host compiler at first use")
+
+
+def build_host() -> Path:
+    """Compile the host BVH builder if its cached library is missing or
+    stale → path of the shared library."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    lib = BUILD_DIR / f"libromis_bvh_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_lib = Path(tmp) / lib.name
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp_lib),
+                               str(HOST_SOURCE)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("the host BVH builder failed to compile:\n"
+                               + proc.stderr)
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+@functools.cache
+def host_library() -> ctypes.CDLL:
+    """The loaded host BVH builder (``bvh_build_sah``), built on first
+    use."""
+    lib = ctypes.CDLL(str(build_host()))
+    lib.bvh_build_sah.argtypes = [_P, _P, _P, ctypes.c_int32, ctypes.c_int32,
+                                  _P, _P, _P, _P, _P, _P, _P]
+    lib.bvh_build_sah.restype = ctypes.c_int32
+    return lib
 
 
 def check(t, name: str, dtype, shape=None) -> None:

@@ -3,7 +3,10 @@ attributes (reference ``romis_tpu/ops/intersect.py``).
 
 ``intersect_closest`` and ``intersect_any`` are the plain block scans:
 Möller–Trumbore of every ray against a block of triangles at a time, a
-running best across blocks. They are the plain versions of kernels 1 and 4.
+running best across blocks. They are the plain versions of kernels 1 and 6.
+On geometry that carries a BVH (``ops.bvh.with_bvh``) both dispatch to the
+plain threaded traversal (``ops/traverse.py``), as the reference's do off
+the TPU.
 ``reeval_tuv`` re-evaluates (t, u, v) of already selected triangles
 differentiably: the backward of the closest hit (``ops.trace.closest_hit``).
 
@@ -97,7 +100,12 @@ def _ray_planes(origins, dirs):
 
 def intersect_closest(rays: Rays, geometry, t_max=None):
     """Closest hit of rays [3, H, W] against the whole soup → (t, tri int32,
-    u, v), each [H, W]; t = inf, tri = -1 on a miss."""
+    u, v), each [H, W]; t = inf, tri = -1 on a miss. BVH geometry: the
+    plain traversal ``ops.traverse.bvh_closest``."""
+    if geometry.bvh is not None:
+        from .traverse import bvh_closest
+
+        return bvh_closest(rays, geometry, geometry.bvh, t_max)
     h, w = rays.hw
     dev = rays.origin.device
     ray = _ray_planes(rays.origin, rays.direction)
@@ -126,7 +134,12 @@ def intersect_closest(rays: Rays, geometry, t_max=None):
 
 def intersect_any(origins, dirs, t_max, geometry) -> torch.Tensor:
     """Occlusion: True where a triangle lies at t in (0, t_max).
-    origins/dirs [..., 3, H, W], t_max [..., H, W] → bool [..., H, W]."""
+    origins/dirs [..., 3, H, W], t_max [..., H, W] → bool [..., H, W]. BVH
+    geometry: the plain traversal ``ops.traverse.bvh_any``."""
+    if geometry.bvh is not None:
+        from .traverse import bvh_any
+
+        return bvh_any(origins, dirs, t_max, geometry, geometry.bvh)
     ray = _ray_planes(origins, dirs)
     cols = geometry.tri_cols
     n = cols.shape[1]

@@ -25,13 +25,17 @@ Kernel 17 (``csrc/mis.cu``, ``mis_iteration``) replaces the Pallas
 ``_mis_kernel``: one thread per pixel reads the neighbour reservoirs at its
 offsets straight from the pack, traces the D1·K shadow rays against the
 soup staged in shared memory, and keeps the whole (j, d, k) sweep and the
-accumulators in registers. Its plain version, ``mis_iteration_plain``, is
-the reference's XLA formulation of one iteration on the gathered
-neighbourhood (``render.rmis.rmis_sample_contrib``,
-``render.romis.romis_iteration_terms``), with the sample sums written out
-in the kernel's order (d-major, then lane), so the two round alike; the
-receiver's p̂ is the norm of its shade planes, as in the reference
-kernel.
+accumulators in registers. Its ``ext_vis`` mode (the reference's, for
+geometry with a BVH) reads the visibility of the D1·K rays from planes
+[D1·K, H, W] traced beforehand (``render.rmis.mis_ext_vis``, one batch
+through the BVH walk) instead of tracing the soup; the planes already hold
+the coincident-pair escape. Its plain version, ``mis_iteration_plain``
+(which takes the same planes), is the reference's XLA formulation of one
+iteration on the gathered neighbourhood (``render.rmis.
+rmis_sample_contrib``, ``render.romis.romis_iteration_terms``), with the
+sample sums written out in the kernel's order (d-major, then lane), so the
+two round alike; the receiver's p̂ is the norm of its shade planes, as in
+the reference kernel.
 
 Bound on the H100: operations, in every mode (narrowly for equal
 weights), with a ``powf``, a division or a square root counted at its
@@ -51,7 +55,7 @@ from . import _build
 from .spatial import (
     halo_offset_gather, halo_offset_gather_plain, unpack_center_ctx,
 )
-from .trace import MAX_SOUP_TRIS
+from .trace import check_soup
 from .wrs import _lane_layout
 
 MODES = ("rmis_equal", "rmis_balance", "romis")
@@ -133,11 +137,12 @@ def gather_neighbourhood(res_planes: torch.Tensor, offs: torch.Tensor,
 def mis_iteration_plain(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
                         offs: torch.Tensor, geometry, k: int, mode: str,
                         num_lights: int, features: Features, nbr_ctx=None,
-                        alphas=None, it_block: int = 0):
+                        alphas=None, it_block: int = 0, ext_vis=None):
     """The plain version: the neighbourhood gather, then
     ``render.rmis.rmis_sample_contrib`` or
     ``render.romis.romis_iteration_terms`` (shadow rays by the plain block
-    scan), with the lane layout of ``features.initial_light_samples``."""
+    scan or traversal, or read from ``ext_vis``), with the lane layout of
+    ``features.initial_light_samples``."""
     from ..render.rmis import ctx_j_getter, rmis_sample_contrib
     from ..render.romis import romis_iteration_terms
 
@@ -145,30 +150,34 @@ def mis_iteration_plain(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
     nb = gather_neighbourhood(res_planes, offs, mode, k, it_block)
     ctx = unpack_center_ctx(cen_ctx)
     get_j = ctx_j_getter(ctx, nbr_ctx)
+    vis = None
+    if ext_vis is not None:
+        vis = ext_vis.reshape(nb.pos.shape[:2] + nb.pos.shape[-2:]) > 0.5
     if mode != "romis":
         return rmis_sample_contrib(ctx, get_j, nb, geometry, features,
-                                   mode == "rmis_balance")
+                                   mode == "rmis_balance", vis)
     _, lane_counts, _ = _lane_layout(features.initial_light_samples, k)
     return romis_iteration_terms(ctx, get_j, nb, alphas, lane_counts,
-                                 num_lights, geometry, features)
+                                 num_lights, geometry, features, vis)
 
 
 def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
                   offs: torch.Tensor, geometry, k: int, mode: str,
                   num_lights: int, features: Features, nbr_ctx=None,
-                  alphas=None, it_block: int = 0):
+                  alphas=None, it_block: int = 0, ext_vis=None):
     """One fused iteration: cen_ctx [18, H, W], res_planes [n·C_res, H, W]
     (``pack_mis_reservoirs`` blocks; ``it_block`` picks one), offs
     [2D, H, W] int32, nbr_ctx [14D, H, W] (balance and R-OMIS), alphas
-    [3·D1, H, W] (progressive R-OMIS) → the R-MIS contribution [3, H, W], or
-    (A upper [D1(D1+1)/2, H, W], b [3·D1, H, W][, progressive sum
-    [3, H, W]]); the samples' M is the lane layout of
-    ``features.initial_light_samples`` over K. Kernel 17 for CUDA tensors,
-    the plain version for CPU tensors."""
+    [3·D1, H, W] (progressive R-OMIS), ext_vis [D1·K, H, W] (the samples'
+    visibility, 1 = visible, d-major; required for geometry with a BVH)
+    → the R-MIS contribution [3, H, W], or (A upper [D1(D1+1)/2, H, W], b
+    [3·D1, H, W][, progressive sum [3, H, W]]); the samples' M is the lane
+    layout of ``features.initial_light_samples`` over K. Kernel 17 for
+    CUDA tensors, the plain version for CPU tensors."""
     if not cen_ctx.is_cuda:
         return mis_iteration_plain(cen_ctx, res_planes, offs, geometry, k,
                                    mode, num_lights, features, nbr_ctx,
-                                   alphas, it_block)
+                                   alphas, it_block, ext_vis)
     _check_mode(mode, nbr_ctx, alphas)
     if not features.enable_shading:
         raise NotImplementedError(
@@ -189,15 +198,23 @@ def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
             0 <= it_block < res_planes.shape[0] // c_res:
         raise ValueError(f"mis_iteration: block {it_block} of a "
                          f"{res_planes.shape[0]}-plane pack of {c_res}")
-    cols = geometry.tri_cols
-    if cols.shape[1] > MAX_SOUP_TRIS:
-        raise ValueError(f"mis_iteration: {cols.shape[1]} triangles exceed "
-                         f"the soup kernel's {MAX_SOUP_TRIS}")
+    cols, n_tris = geometry.tri_cols, geometry.tri_cols.shape[1]
+    vis_ptr = None
+    if ext_vis is not None:
+        ext_vis = ext_vis.contiguous()
+        _build.check(ext_vis, "ext_vis", torch.float32, (d1 * k, h, w))
+        vis_ptr = ext_vis.data_ptr()
+        cols, n_tris = None, 0
+    elif geometry.bvh is not None:
+        raise ValueError("mis_iteration: geometry with a BVH takes its "
+                         "visibility as ext_vis (render.rmis.mis_ext_vis)")
+    else:
+        check_soup(geometry, "mis_iteration")
+        _build.check(cols, "tri_cols", torch.float32)
     _build.check(cen_ctx, "cen_ctx", torch.float32, (18, h, w))
     _build.check(res_planes, "res_planes", torch.float32)
     offs = offs.to(torch.int32).contiguous()
     _build.check(offs, "offs", torch.int32, (2 * d, h, w))
-    _build.check(cols, "tri_cols", torch.float32)
     nbr_ptr = al_ptr = None
     if nbr_ctx is not None:
         _build.check(nbr_ctx, "nbr_ctx", torch.float32,
@@ -221,8 +238,9 @@ def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
         block = res_planes[it_block * c_res:(it_block + 1) * c_res]
         _build.launch("romis_mis_iteration", cen_ctx.data_ptr(),
                       block.data_ptr(), offs.data_ptr(), nbr_ptr, al_ptr,
-                      cols.data_ptr(), cols.shape[1], h, w, d1, k, s,
-                      num_lights, MODES.index(mode), *ptrs)
+                      vis_ptr, None if cols is None else cols.data_ptr(),
+                      n_tris, h, w, d1, k, s, num_lights, MODES.index(mode),
+                      *ptrs)
         mis_iteration.launches += 1
     return outs[0] if not romis else tuple(outs)
 

@@ -15,6 +15,14 @@ held fixed.
 Bound on the H100: compute, ~30 flops per live shadow-ray/triangle test up
 to the first hit; dead rays skip the trace. Device memory sees 18 + 10K
 planes in and 3 out.
+
+Kernel 21 (``final_shade_bvh``, the BVH mode of ``csrc/shade.cu``) replaces
+the Pallas ``_shade_paged_kernel`` for geometry with a BVH: the same pixel,
+its K live shadow rays traced by one shared walk of the tree (kernel 20's
+walk, ``csrc/walk.cuh``). Its plain version is the same
+``final_shade_plain``, whose visibility then walks the tree
+(``ops.traverse.bvh_any``). ``final_shade_fused`` dispatches on
+``geometry.bvh`` (the reference's ``restir.py:571-579``).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from ..core.types import Reservoirs, ShadeCtx, pack_reservoir_planes
 from ..core.vec import e
 from . import _build
 from .shading import phong_shade
-from .trace import MAX_SOUP_TRIS, any_hit
+from .trace import any_hit, check_soup
 from .wrs import visibility
 
 CTX_PLANES = 18
@@ -63,10 +71,10 @@ def final_shade_plain(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     return _shade(ctx, reservoirs, vis, features)
 
 
-def _final_shade_forward(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
-                         features: Features) -> torch.Tensor:
-    if not ctx.position.is_cuda:
-        return final_shade_plain(ctx, reservoirs, geometry, features)
+def _packed(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
+            features: Features):
+    """The kernels' inputs, checked → (ctx [18, H, W], reservoirs
+    [10K, H, W], tri_cols, K, output [3, H, W])."""
     if not features.enable_shading:
         raise NotImplementedError(
             "the final-shade kernel computes Phong shading; the unshaded "
@@ -81,13 +89,43 @@ def _final_shade_forward(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     _build.check(cp, "ctx", torch.float32, (CTX_PLANES, h, w))
     _build.check(rp, "reservoirs", torch.float32, (10 * k, h, w))
     _build.check(cols, "tri_cols", torch.float32)
-    if cols.shape[1] > MAX_SOUP_TRIS:
-        raise ValueError(f"final shade: {cols.shape[1]} triangles exceed the "
-                         f"soup kernel's {MAX_SOUP_TRIS}")
     out = torch.empty((3, h, w), dtype=torch.float32, device=cp.device)
-    if h * w:
+    return cp, rp, cols, k, out
+
+
+def final_shade_bvh(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
+                    features: Features) -> torch.Tensor:
+    """Kernel 21: the final shade of geometry with a BVH, its shadow rays
+    traced by the shared K-ray walk → color [3, H, W]. The plain version
+    for CPU tensors."""
+    if not ctx.position.is_cuda:
+        return final_shade_plain(ctx, reservoirs, geometry, features)
+    from .walk import checked_tree
+
+    cp, rp, cols, k, out = _packed(ctx, reservoirs, geometry, features)
+    nodes, _ = checked_tree(geometry)
+    if out.numel():
+        _build.launch("romis_final_shade_bvh", cp.data_ptr(), rp.data_ptr(),
+                      out[0].numel(), k, nodes.data_ptr(), cols.data_ptr(),
+                      cols.shape[1], out.data_ptr())
+        final_shade_bvh.launches += 1
+    return out
+
+
+final_shade_bvh.launches = 0
+
+
+def _final_shade_forward(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
+                         features: Features) -> torch.Tensor:
+    if not ctx.position.is_cuda:
+        return final_shade_plain(ctx, reservoirs, geometry, features)
+    if geometry.bvh is not None:
+        return final_shade_bvh(ctx, reservoirs, geometry, features)
+    cp, rp, cols, k, out = _packed(ctx, reservoirs, geometry, features)
+    check_soup(geometry, "final shade")
+    if out.numel():
         _build.launch("romis_final_shade", cp.data_ptr(), rp.data_ptr(),
-                      h * w, k, cols.data_ptr(), cols.shape[1],
+                      out[0].numel(), k, cols.data_ptr(), cols.shape[1],
                       out.data_ptr())
         final_shade_fused.launches += 1
     return out
@@ -125,8 +163,9 @@ class _FinalShade(torch.autograd.Function):
 def final_shade_fused(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
                       features: Features) -> torch.Tensor:
     """Visibility x Phong x W lane average → color [3, H, W], pre-tone-map.
-    Kernel 4 for CUDA tensors, the plain version for CPU tensors;
-    differentiable in ``ctx`` and ``reservoirs``."""
+    Kernel 4 for CUDA tensors (kernel 21 for geometry with a BVH), the
+    plain version for CPU tensors; differentiable in ``ctx`` and
+    ``reservoirs``."""
     tensors = ([getattr(ctx, f) for f in _CTX_FIELDS]
                + [getattr(reservoirs, f) for f in _RES_FIELDS])
     if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):

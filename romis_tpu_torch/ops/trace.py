@@ -20,6 +20,13 @@ Bound on the H100: compute, ~30 flops per ray-triangle test; the triangle
 columns are a shared-memory broadcast, so device memory sees only rays in
 and hits out (~40 B per pixel for the closest hit, 29 B per ray for the
 any-hit).
+
+Geometry with a BVH (``ops.bvh.with_bvh``) goes to the BVH walk kernels
+instead (``ops/walk.py``): the closest hit to kernel 18, the any-hit to
+kernel 20 when 2 to 16 rays per pixel share one walk, else to kernel 19 (the
+reference's rule, ``ops/intersect.py:154-162``). The soup kernels hold at
+most ``MAX_SOUP_TRIS`` triangles; a larger soup without a BVH raises,
+naming ``with_bvh``.
 """
 
 from __future__ import annotations
@@ -29,16 +36,26 @@ import math
 import torch
 
 from ..core.types import Rays
-from . import _build
+from . import _build, walk
 from .intersect import intersect_any, intersect_closest, reeval_tuv
 
 # The soup the reference kernel holds on chip (pallas_trace.MAX_SMEM_TRIS);
-# larger scenes go through the paged BVH, which is not ported yet.
+# larger scenes go through a BVH.
 MAX_SOUP_TRIS = 2048
 
 
+def check_soup(geometry, name: str) -> None:
+    """Raise where the soup kernels cannot take ``geometry``."""
+    n_tris = geometry.tri_cols.shape[1]
+    if n_tris > MAX_SOUP_TRIS:
+        raise ValueError(f"{name}: {n_tris} triangles exceed the soup "
+                         f"kernel's {MAX_SOUP_TRIS}; attach a BVH with "
+                         "ops.bvh.with_bvh")
+
+
 def closest_hit_plain(rays: Rays, geometry, t_max: float = math.inf):
-    """The plain version: the block scan of ``ops/intersect.py``."""
+    """The plain version: the block scan of ``ops/intersect.py`` (the plain
+    BVH traversal for BVH geometry)."""
     tm = None
     if not math.isinf(t_max):
         tm = torch.full(rays.hw, t_max, device=rays.origin.device)
@@ -48,15 +65,15 @@ def closest_hit_plain(rays: Rays, geometry, t_max: float = math.inf):
 def _closest_hit_forward(rays: Rays, geometry, t_max: float):
     if not rays.origin.is_cuda:
         return closest_hit_plain(rays, geometry, t_max)
+    if geometry.bvh is not None:
+        return walk.closest_hit_bvh(rays, geometry, t_max)
     h, w = rays.hw
     _build.check(rays.origin, "rays.origin", torch.float32, (3, h, w))
     _build.check(rays.direction, "rays.direction", torch.float32, (3, h, w))
     cols = geometry.tri_cols
     _build.check(cols, "tri_cols", torch.float32)
+    check_soup(geometry, "closest_hit")
     n_tris = cols.shape[1]
-    if n_tris > MAX_SOUP_TRIS:
-        raise ValueError(f"closest_hit: {n_tris} triangles exceed the soup "
-                         f"kernel's {MAX_SOUP_TRIS}")
     dev = rays.origin.device
     t = torch.empty((h, w), dtype=torch.float32, device=dev)
     tri = torch.empty((h, w), dtype=torch.int32, device=dev)
@@ -99,7 +116,8 @@ class _ClosestHit(torch.autograd.Function):
 
 def closest_hit(rays: Rays, geometry, t_max: float = math.inf):
     """Closest hit of rays [3, H, W] → (t, tri int32, u, v), each [H, W];
-    differentiable in the rays and in ``geometry.v0/e1/e2``."""
+    differentiable in the rays and in ``geometry.v0/e1/e2`` (the backward
+    re-evaluates the selected triangles, so a BVH does not enter it)."""
     inputs = (rays.origin, rays.direction, geometry.v0, geometry.e1,
               geometry.e2)
     if torch.is_grad_enabled() and any(a.requires_grad for a in inputs):
@@ -111,7 +129,8 @@ closest_hit.launches = 0
 
 
 def any_hit_plain(origins, dirs, t_max, geometry) -> torch.Tensor:
-    """The plain version: the block scan ``ops.intersect.intersect_any``."""
+    """The plain version: the block scan ``ops.intersect.intersect_any``
+    (the plain BVH traversal for BVH geometry)."""
     return intersect_any(origins, dirs, t_max, geometry)
 
 
@@ -121,6 +140,11 @@ def any_hit(origins, dirs, t_max, geometry) -> torch.Tensor:
     → bool [..., H, W]; the leading axes are kept."""
     if not origins.is_cuda:
         return any_hit_plain(origins, dirs, t_max, geometry)
+    if geometry.bvh is not None:
+        rays_per_pixel = math.prod(origins.shape[:-3])
+        if 2 <= rays_per_pixel <= walk.K_MAX:
+            return walk.any_hit_bvh_k(origins, dirs, t_max, geometry)
+        return walk.any_hit_bvh(origins, dirs, t_max, geometry)
     lead = tuple(origins.shape[:-3])
     h, w = origins.shape[-2:]
     if origins.shape[-3] != 3 or tuple(t_max.shape) != lead + (h, w):
@@ -134,10 +158,8 @@ def any_hit(origins, dirs, t_max, geometry) -> torch.Tensor:
     _build.check(tm, "t_max", torch.float32)
     cols = geometry.tri_cols
     _build.check(cols, "tri_cols", torch.float32)
+    check_soup(geometry, "any_hit")
     n_tris = cols.shape[1]
-    if n_tris > MAX_SOUP_TRIS:
-        raise ValueError(f"any_hit: {n_tris} triangles exceed the soup "
-                         f"kernel's {MAX_SOUP_TRIS}")
     out = torch.empty(lead + (h, w), dtype=torch.bool, device=o.device)
     if out.numel():
         _build.launch("romis_any_hit", o.data_ptr(), d.data_ptr(),

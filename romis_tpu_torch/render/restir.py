@@ -7,7 +7,10 @@ initial visibility check (any-hit, kernel 6), temporal reuse with
 M-clamping (plain tensor code; with ``temporal_reprojection`` the
 predecessor is fetched by the halo offset gather, kernel 9), the spatial
 passes (biased: kernel 5; unbiased: kernel 11), the final shade (kernel 4)
-and tone mapping. Still refused, naming the slice that brings it: the
+and tone mapping. On geometry with a BVH (``ops.bvh.with_bvh``, any scene
+size) the same ``ops`` entries walk the tree: the closest hit is kernel
+18, the initial check's K shadow rays per pixel kernel 20 (kernel 19 for
+K = 1), the final shade kernel 21. Still refused, naming the slice that brings it: the
 unbiased combine with ``spatial_reuse_visibility_check`` (Z-count
 occlusion).
 

@@ -22,9 +22,14 @@ The sweep's plain version is the reference's XLA formulation of one
 iteration, whose pieces are here (``shade_neighbourhood``,
 ``balance_heuristic_weights``, ``rmis_sample_contrib``) and in
 ``render.romis``; ``ops.mis.mis_iteration_plain`` gathers the
-neighbourhood and calls them. Refused, naming the slice that brings them:
-scenes above the soup kernels' 2048 triangles (the paged BVH and its
-``ext_vis`` visibility, slice 6) and the MIS gradient formulation
+neighbourhood and calls them. On geometry with a BVH (``ops.bvh.with_bvh``,
+any scene size) the sweep runs in its ``ext_vis`` mode, as the reference's
+does above its soup kernels' triangles: per iteration ``mis_ext_vis``
+gathers the neighbours' sample positions (``ops.halo_gather``) and traces
+the D1·K shadow rays of every pixel in one batch (``ops.any_hit``: kernel
+20, the shared BVH walk), and the sweep reads those visibility planes. A
+soup above the soup kernels' 2048 triangles without a BVH is refused,
+naming ``with_bvh``; so is the MIS gradient formulation
 (``surrogate_resampling_grad``, slice 7).
 """
 
@@ -36,7 +41,8 @@ from ..core.camera import CameraParams, generate_rays
 from ..core.features import Features, MISWeight
 from ..core.types import ShadeCtx
 from ..ops.mis import (
-    MAX_NEIGHBOURS, pack_mis_reservoirs, resolve_neighbour_ctx,
+    MAX_NEIGHBOURS, mis_pack_planes, pack_mis_reservoirs,
+    resolve_neighbour_ctx,
 )
 from ..ops.shade import pack_center_ctx
 from ..ops.shading import (
@@ -82,10 +88,12 @@ def _comps(nb):
             c[:, :, 0], c[:, :, 1], c[:, :, 2])  # [D1, K, H, W] each
 
 
-def shade_neighbourhood(ctx: ShadeCtx, nb, geometry, features: Features):
+def shade_neighbourhood(ctx: ShadeCtx, nb, geometry, features: Features,
+                        vis=None):
     """Every neighbourhood sample (fields [D1, K, ..., H, W]) at the
     receiver → (f: the visible shade, 3 planes [D1, K, H, W], shadow rays by
-    the plain block scan; the receiver's p̂, the norm of the unshadowed
+    the plain block scan or traversal unless their visibility ``vis``
+    [D1, K, H, W] is given; the receiver's p̂, the norm of the unshadowed
     shade)."""
     from ..ops.intersect import intersect_any
 
@@ -93,7 +101,8 @@ def shade_neighbourhood(ctx: ShadeCtx, nb, geometry, features: Features):
     sq = rgb[0] * rgb[0] + rgb[1] * rgb[1] + rgb[2] * rgb[2]
     ok = sq > 1e-30
     p_recv = torch.where(ok, torch.sqrt(torch.where(ok, sq, 1.0)), 0.0)
-    vis = visibility(ctx.position, nb.pos, geometry, intersect_any)
+    if vis is None:
+        vis = visibility(ctx.position, nb.pos, geometry, intersect_any)
     return [torch.where(vis, c, 0.0) for c in rgb], p_recv
 
 
@@ -120,11 +129,11 @@ def samples(nb):
 
 
 def rmis_sample_contrib(ctx: ShadeCtx, get_j, nb, geometry,
-                        features: Features, balance: bool):
+                        features: Features, balance: bool, vis=None):
     """One R-MIS iteration's contribution Σ_{d,k} w·W·f / K → [3, H, W]
     (render.cpp:92-112), summed in the sweep's order."""
     d1, k = nb.pos.shape[:2]
-    f, p_recv = shade_neighbourhood(ctx, nb, geometry, features)
+    f, p_recv = shade_neighbourhood(ctx, nb, geometry, features, vis)
     if balance:
         mis_w = balance_heuristic_weights(get_j, nb, p_recv, features)
     else:
@@ -154,11 +163,10 @@ def check_mis(features: Features, geometry, ops: FrameOps) -> None:
             "R-MIS / R-OMIS with surrogate_resampling_grad is the MIS "
             "gradient formulation (gather_nb_records, slim_ctx_stream), "
             "ported in slice 7")
-    if geometry.tri_cols.shape[1] > MAX_SOUP_TRIS:
-        raise NotImplementedError(
-            f"R-MIS / R-OMIS above {MAX_SOUP_TRIS} triangles needs the paged "
-            "BVH and the sweep's ext_vis visibility (mis_ext_vis), ported in "
-            "slice 6")
+    if geometry.bvh is None and geometry.tri_cols.shape[1] > MAX_SOUP_TRIS:
+        raise ValueError(
+            f"R-MIS / R-OMIS above {MAX_SOUP_TRIS} triangles traces its "
+            "shadow rays through a BVH: attach one with ops.bvh.with_bvh")
     if not 1 <= features.num_neighbours_to_sample <= MAX_NEIGHBOURS:
         raise ValueError(f"R-MIS / R-OMIS: D = "
                          f"{features.num_neighbours_to_sample} outside "
@@ -194,6 +202,39 @@ def iteration_packs(generator, ctx: ShadeCtx, lights, num_lights: int,
         yield pack_mis_reservoirs(res, romis), 0
 
 
+def mis_ext_vis(ctx: ShadeCtx, pos_planes: torch.Tensor, offs: torch.Tensor,
+                geometry, k: int, ops: FrameOps = KERNELS) -> torch.Tensor:
+    """Visibility planes [D1·K, H, W] (1.0 = visible) for the sweep's
+    ``ext_vis`` mode (reference ``rmis.mis_ext_vis``): the neighbours'
+    sample positions through the per-pixel offsets (``ops.halo_gather``),
+    then every pixel's D1·K shadow rays from the receiver in one batch
+    (``ops.any_hit``; ``ops.wrs.visibility``, with the coincident-pair
+    escape). ``pos_planes`` = an iteration block's pos planes [3K, H, W]
+    (the ``pack_mis_reservoirs`` order)."""
+    d = offs.shape[0] // 2
+    h, w = pos_planes.shape[-2:]
+    nbr_pos = ops.halo_gather(pos_planes, offs[:d], offs[d:])  # [D, 3K, ..]
+    targets = torch.cat([pos_planes[None], nbr_pos]).reshape(d + 1, k, 3, h,
+                                                             w)
+    vis = visibility(ctx.position, targets, geometry, ops.any_hit)
+    return vis.reshape((d + 1) * k, h, w).float()
+
+
+def sweep(ops: FrameOps, ctx: ShadeCtx, cen, pack, block: int, offs,
+          geometry, mode: str, num_lights: int, features: Features, **kw):
+    """One ``ops.mis_iteration`` on iteration block ``block`` of ``pack``,
+    in the ``ext_vis`` mode (``mis_ext_vis`` first) for geometry with a
+    BVH."""
+    k = features.num_samples_in_reservoir
+    if geometry.bvh is not None:
+        c_res = mis_pack_planes(mode, k)
+        kw["ext_vis"] = mis_ext_vis(
+            ctx, pack[block * c_res:block * c_res + 3 * k], offs, geometry, k,
+            ops)
+    return ops.mis_iteration(cen, pack, offs, geometry, k, mode, num_lights,
+                             features, it_block=block, **kw)
+
+
 def neighbourhood(generator, cam: CameraParams, geometry, height: int,
                   width: int, features: Features, ops: FrameOps, inject,
                   noise):
@@ -224,7 +265,6 @@ def render_rmis(generator, cam: CameraParams, geometry, lights,
     nbr_noise, ris_u = (None, None) if noise is None else noise
     ctx, cen, offs = neighbourhood(generator, cam, geometry, height, width,
                                    features, ops, inject, nbr_noise)
-    k = features.num_samples_in_reservoir
     balance = features.mis_weight_rmis == MISWeight.BALANCE
     mode = "rmis_balance" if balance else "rmis_equal"
     nbr_ctx = resolve_neighbour_ctx(cen, offs, ops.halo_gather) \
@@ -233,9 +273,8 @@ def render_rmis(generator, cam: CameraParams, geometry, lights,
     for pack, block in iteration_packs(generator, ctx, lights, num_lights,
                                        geometry, features, False, ops,
                                        inject, ris_u):
-        acc = acc + ops.mis_iteration(cen, pack, offs, geometry, k, mode,
-                                      num_lights, features, nbr_ctx=nbr_ctx,
-                                      it_block=block)
+        acc = acc + sweep(ops, ctx, cen, pack, block, offs, geometry, mode,
+                          num_lights, features, nbr_ctx=nbr_ctx)
     color = acc / features.max_iterations_mis
     if features.enable_tone_mapping:
         color = exposure_tone_mapping(color, features)

@@ -19,8 +19,9 @@ K/(D+1), the reference's fix of its integer division (render.cpp:139).
 
 The frame runs as ``render.rmis`` does, with the R-OMIS sweep: kernel 17
 accumulates A's upper triangle and b (and the progressive sum) per
-iteration; ``solve_alpha`` stays plain tensor code between iterations, as
-in the reference. The sweep's plain version is ``romis_iteration_terms``
+iteration (on geometry with a BVH in its ``ext_vis`` mode,
+``render.rmis.sweep``); ``solve_alpha`` stays plain tensor code between
+iterations, as in the reference. The sweep's plain version is ``romis_iteration_terms``
 on the gathered neighbourhood (``ops.mis.mis_iteration_plain``).
 """
 
@@ -36,7 +37,7 @@ from ..ops.shading import exposure_tone_mapping
 from .restir import KERNELS, FrameOps
 from .rmis import (
     FLT_MIN, check_mis, iteration_packs, neighbour_phat, neighbourhood,
-    samples, shade_neighbourhood,
+    samples, shade_neighbourhood, sweep,
 )
 
 
@@ -155,11 +156,13 @@ def romis_ab_from_colvec(nb, colvec, f, alphas):
 
 
 def romis_iteration_terms(ctx, get_j, nb, alphas, lane_counts,
-                          num_lights: int, geometry, features: Features):
+                          num_lights: int, geometry, features: Features,
+                          vis=None):
     """One R-OMIS iteration from the gathered neighbourhood (fields
     [D1, K, ..., H, W]: pos, color, w_sum, chosen_w) → the sweep's
-    outputs (see ``romis_ab_from_colvec``)."""
-    f, p_recv = shade_neighbourhood(ctx, nb, geometry, features)
+    outputs (see ``romis_ab_from_colvec``); ``vis`` [D1, K, H, W] as in
+    ``render.rmis.shade_neighbourhood``."""
+    f, p_recv = shade_neighbourhood(ctx, nb, geometry, features, vis)
     colvec = _colvec_for_samples(get_j, nb, p_recv, lane_counts, num_lights,
                                  features)
     return romis_ab_from_colvec(nb, colvec, f, alphas)
@@ -195,10 +198,10 @@ def render_romis(generator, cam: CameraParams, geometry, lights,
                                  b_vec.reshape(3, d1, height, width))
         if progressive:
             final = final + alphas.sum(dim=1)
-        outs = ops.mis_iteration(
-            cen, pack, offs, geometry, k, "romis", num_lights, features,
-            nbr_ctx=nbr_ctx, alphas=alphas.reshape(3 * d1, height, width)
-            if progressive else None, it_block=block)
+        outs = sweep(ops, ctx, cen, pack, block, offs, geometry, "romis",
+                     num_lights, features, nbr_ctx=nbr_ctx,
+                     alphas=alphas.reshape(3 * d1, height, width)
+                     if progressive else None)
         a_up = a_up + outs[0]
         b_vec = b_vec + outs[1]
         if progressive:

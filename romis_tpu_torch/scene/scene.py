@@ -12,6 +12,11 @@ as tensors. Packed row tables:
 ``repack_rows`` builds them from the columns with ``torch.cat``, so they
 are differentiable in the columns (``diff.grad.apply_params`` relies on
 this); the kernels read them as plain contiguous tables.
+
+Procedural scenes: ``flagship_scene`` (the Cornell Nightclub's stand-in)
+and ``torus_field`` (the large scene, 24,202 triangles at n = 5, the
+stand-in for the reference's monkey field; render it through a BVH,
+``ops.bvh.with_bvh``).
 """
 
 from __future__ import annotations
@@ -58,6 +63,10 @@ class Geometry:
     tri_cols: torch.Tensor  # [10, T]
     attr_rows: torch.Tensor  # [T, 24]
     mat_rows: torch.Tensor  # [M, 8]
+    # Optional acceleration structure (ops/bvh.BVH, attached by
+    # ops.bvh.with_bvh): every trace entry point then walks the tree
+    # instead of scanning the soup.
+    bvh: object = None
 
     @property
     def num_tris(self) -> int:
@@ -243,6 +252,107 @@ def flagship_scene(device=None) -> Scene:
     return Scene(geometry=build_geometry([quad], device),
                  lights=b.build(device), num_lights=len(b),
                  name="procedural_nightclub")
+
+
+TORUS_SEGMENTS = 22  # 22 x 22 quads: 968 triangles per torus
+TORUS_RADII = (1.0, 0.4)  # ring, tube
+TORUS_TILT_DEG = 45.0  # about X, so that each torus shadows itself
+FIELD_SPACING = 2.2  # the reference's _instance_grid spacing
+
+
+def torus_mesh():
+    """The field's torus, TORUS_SEGMENTS² quads, as numpy arrays
+    (positions [V, 3], normals [V, 3], texcoords [V, 2], triangles [T, 3]
+    int32), centred and scaled into the unit ball as the OBJ loader's
+    ``center_and_normalize`` scales, then tilted about X."""
+    segments, (major, minor) = TORUS_SEGMENTS, TORUS_RADII
+    a = 2.0 * np.pi * np.arange(segments) / segments
+    u, v = np.meshgrid(a, a, indexing="ij")  # around the axis, the tube
+    ring = major + minor * np.cos(v)
+    pos = np.stack([ring * np.cos(u), minor * np.sin(v), ring * np.sin(u)],
+                   -1).reshape(-1, 3)
+    nrm = np.stack([np.cos(v) * np.cos(u), np.sin(v), np.cos(v) * np.sin(u)],
+                   -1).reshape(-1, 3)
+    pos = pos - pos.mean(axis=0)
+    pos = pos / np.max(np.linalg.norm(pos, axis=-1))
+    c, s = np.cos(np.radians(TORUS_TILT_DEG)), np.sin(np.radians(
+        TORUS_TILT_DEG))
+    rot = np.array([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]])
+    i, j = np.meshgrid(np.arange(segments), np.arange(segments),
+                       indexing="ij")
+    i1, j1 = (i + 1) % segments, (j + 1) % segments
+    q00, q10 = i * segments + j, i1 * segments + j
+    q01, q11 = i * segments + j1, i1 * segments + j1
+    tris = np.stack([np.stack([q00, q01, q11], -1),
+                     np.stack([q00, q11, q10], -1)], 2).reshape(-1, 3)
+    uv = np.stack([u, v], -1).reshape(-1, 2) / (2.0 * np.pi)
+    return ((pos @ rot.T).astype(np.float32),
+            (nrm @ rot.T).astype(np.float32), uv.astype(np.float32),
+            tris.astype(np.int32))
+
+
+def torus_field_submeshes(n: int = 5) -> list[SubMesh]:
+    """The n x n torus field's submeshes: one torus per cell of the
+    reference ``_instance_grid`` (spacing 2.2 on the XZ plane), then the
+    ground quad under the grid, which shares the torus material as the
+    monkey field's quad shares the monkey's."""
+    pos, nrm, uv, tris = torus_mesh()
+    mat = Material(kd=(0.75, 0.55, 0.35), ks=(0.25, 0.25, 0.25),
+                   shininess=32.0)
+    half = (n - 1) / 2.0
+    out = []
+    for gi in range(n):
+        for gj in range(n):
+            off = np.asarray([(gi - half) * FIELD_SPACING, 0.0,
+                              (gj - half) * FIELD_SPACING], np.float32)
+            out.append(SubMesh(positions=pos + off, normals=nrm,
+                               texcoords=uv, triangles=tris, material=mat))
+    ext = 1.4 * n
+    out.append(SubMesh(
+        positions=np.asarray([[-ext, -0.8, -ext], [ext, -0.8, -ext],
+                              [ext, -0.8, ext], [-ext, -0.8, ext]],
+                             np.float32),
+        normals=np.tile(np.asarray([[0, 1, 0]], np.float32), (4, 1)),
+        texcoords=np.zeros((4, 2), np.float32),
+        triangles=np.asarray([[0, 1, 2], [0, 2, 3]], np.int32),
+        material=mat))
+    return out
+
+
+def torus_field_lights(builder: LightListBuilder,
+                       n: int = 5) -> LightListBuilder:
+    """The monkey field's lights: a parallelogram sky light of radiance 40
+    above the grid and two point lights at opposite corners."""
+    ext = 1.4 * n
+    b = builder
+    b.add_parallelogram((-0.3 * n, 1.5 * n, -0.3 * n), (0.6 * n, 0, 0),
+                        (0, 0, 0.6 * n), (40.0, 40.0, 40.0),
+                        (40.0, 40.0, 40.0), (40.0, 40.0, 40.0),
+                        (40.0, 40.0, 40.0))
+    b.add_point((-ext, 2.0, -ext), (30, 30, 30))
+    b.add_point((ext, 2.0, ext), (30, 30, 30))
+    return b
+
+
+def torus_field(n: int = 5, device=None) -> Scene:
+    """The procedural large scene: an n x n field of tori (968 triangles
+    each) on a ground quad, n·n·968 + 2 triangles (24,202 at n = 5, the
+    reference's monkey field's count), lit as ``load_monkey_field`` lights
+    its field. It stands in for the monkey field, whose OBJ asset is not in
+    the repository; attach a BVH with ``ops.bvh.with_bvh``."""
+    b = torus_field_lights(LightListBuilder(), n)
+    return Scene(geometry=build_geometry(torus_field_submeshes(n), device),
+                 lights=b.build(device), num_lights=len(b),
+                 name=f"torus_field_{n}x{n}")
+
+
+def torus_field_camera(height: int, width: int, device=None):
+    """The large-scene camera of the reference's bench.py config 6."""
+    from ..core.camera import make_camera
+
+    return make_camera(look_at=(0, 0, 0), rotation_deg=(25, 30, 0),
+                       distance=11.0, fov_deg=50, resolution=(height, width),
+                       device=device)
 
 
 def flagship_camera(height: int, width: int, device=None):

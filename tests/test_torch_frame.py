@@ -342,6 +342,23 @@ def test_port_imports_and_renders_without_jax(tmp_path):
                          ray_trace_mode=RayTraceMode.ROMIS)
         img, state = render_frame(gen, cam, scene, 8, 8, feats)
         assert state is None and bool(torch.isfinite(img).all())
+
+        # A scene above the soup kernels' 2048 triangles through a BVH
+        # built by the port's own copy of the SAH builder.
+        from romis_tpu_torch.ops.bvh import with_bvh
+        from romis_tpu_torch.scene.scene import (
+            torus_field, torus_field_camera,
+        )
+        field = torus_field(2, "cpu")
+        field.geometry = with_bvh(field.geometry)
+        assert field.geometry.num_tris > 2048
+        feats = Features(initial_light_samples=8)
+        img, state = render_frame(gen, torus_field_camera(8, 8, "cpu"),
+                                  field, 8, 8, feats)
+        assert bool(torch.isfinite(img).all())
+        import os
+        if os.path.exists("/proc/self/maps"):  # no JAX-package library
+            assert "libromis_native" not in open("/proc/self/maps").read()
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "flax", "romis_tpu")]
         assert not bad, bad

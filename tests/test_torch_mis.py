@@ -374,18 +374,18 @@ def test_return_alphas():
 
 @pytest.mark.parametrize("later", ["surrogate", "large_scene"])
 def test_later_slices_refuse(later):
-    """The MIS gradient formulation (slice 7) and scenes above the soup
-    kernels' 2048 triangles (paged BVH, ext_vis; slice 6) refuse, naming
-    their slice."""
+    """The MIS gradient formulation refuses, naming its slice (7); a soup
+    above the soup kernels' 2048 triangles without a BVH refuses, naming
+    ``with_bvh`` (with one it renders: ``test_torch_large_mis.py``)."""
     feats = port_features(FEATS.replace(ray_trace_mode=RayTraceMode.RMIS))
     scene, cam = flagship_scene("cpu"), flagship_camera(4, 4, "cpu")
     if later == "surrogate":
         feats = feats.replace(surrogate_resampling_grad=True)
-        match = "slice 7"
+        error, match = NotImplementedError, "slice 7"
     else:
         soup = build_geometry([random_soup(np.random.default_rng(0), 2100)],
                               "cpu")
         scene = replace(scene, geometry=soup)
-        match = "slice 6"
-    with pytest.raises(NotImplementedError, match=match):
+        error, match = ValueError, "with_bvh"
+    with pytest.raises(error, match=match):
         render_frame(torch.Generator(), cam, scene, 4, 4, feats)

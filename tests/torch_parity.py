@@ -167,3 +167,38 @@ def port_state(jax_state, cam):
     return TemporalState(reservoirs=port_reservoirs(jax_state.reservoirs),
                          ctx=port_ctx(jax_state.ctx), cam=cam,
                          has_prev=bool(jax_state.has_prev))
+
+
+def jax_torus_field(n):
+    """The port's procedural torus field (``scene.torus_field``) built by
+    the JAX package from the same numpy meshes and light calls → a JAX
+    Scene (no BVH yet)."""
+    from romis_tpu.scene.lights import LightListBuilder as JaxLights
+    from romis_tpu_torch.scene.scene import (
+        torus_field_lights, torus_field_submeshes,
+    )
+
+    subs = [SubMesh(positions=m.positions, normals=m.normals,
+                    texcoords=m.texcoords, triangles=m.triangles,
+                    material=Material(kd=m.material.kd, ks=m.material.ks,
+                                      shininess=m.material.shininess))
+            for m in torus_field_submeshes(n)]
+    lights = torus_field_lights(JaxLights(), n)
+    return JaxScene(geometry=jax_build_geometry(subs), lights=lights.build(),
+                    num_lights=len(lights.rows))
+
+
+def port_bvh_scene(jax_scene):
+    """A JAX Scene whose geometry carries a BVH (``with_bvh``) → the port's
+    Scene with the same permuted geometry and the same tree."""
+    import dataclasses
+
+    from romis_tpu_torch.convert import bvh_from_numpy
+
+    scene = port_scene(jax_scene)
+    b = jax_scene.geometry.bvh
+    bvh = bvh_from_numpy({f: np.asarray(getattr(b, f)) for f in (
+        "bmin_x", "bmin_y", "bmin_z", "bmax_x", "bmax_y", "bmax_z",
+        "miss_link", "leaf_first", "leaf_count")}, device="cpu")
+    return dataclasses.replace(
+        scene, geometry=dataclasses.replace(scene.geometry, bvh=bvh))
