@@ -99,16 +99,23 @@ struct Receiver {
   float kd[3], ks[3];
   float shin;
   bool valid;
+  bool unshaded;  // Features.enable_shading=False: the colour is kd
 };
 
 // ops/shading.phong_shade_planes: unshadowed Phong of the light sample
 // (l, c) at the receiver → o[3], 0 for a light behind the surface or an
 // invalid receiver. (vx, vy, vz) is the receiver's unit view vector,
-// hoisted by the caller exactly as the plain version computes it.
+// hoisted by the caller exactly as the plain version computes it. In the
+// unshaded mode the colour is kd whatever the sample, the light's side and
+// the receiver's validity (the plain version's enable_shading=False).
 __device__ __forceinline__ void phong_rgb(const Receiver& r, float vx,
                                           float vy, float vz, float lx,
                                           float ly, float lz, float cr,
                                           float cg, float cb, float (&o)[3]) {
+  if (r.unshaded) {
+    for (int c = 0; c < 3; ++c) o[c] = r.kd[c];
+    return;
+  }
   const float tox = lx - r.px, toy = ly - r.py, toz = lz - r.pz;
   const float dist2 = tox * tox + toy * toy + toz * toz;
   const float dist = sqrtf(fmaxf(dist2, 1e-24f));

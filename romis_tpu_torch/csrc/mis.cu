@@ -32,7 +32,10 @@
 // traced beforehand by the BVH walk (kernel 20). R-OMIS is templated on D1 so that
 // colvec, A and b live in registers; the R-MIS modes loop over j at run
 // time. The reads of ctx.shininess are per pixel (no scene-wide
-// specialisation).
+// specialisation). With the unshaded flag (Features.enable_shading=False)
+// every shade is the receiver's kd and every p-hat the norm of a kd
+// (Receiver::unshaded), so every ray with a sample off the receiver is
+// traced.
 //
 // Bound: compute, D1*K Phong evaluations at the receiver and, for balance
 // and R-OMIS, D*D1*K more under the neighbours' contexts (one powf each),
@@ -55,6 +58,7 @@ struct MisArgs {
   const float* ext_vis;  // [D1 * K, N] visibility planes (1 = visible) or null
   const float* cols;    // [10, T] triangle columns (null with ext_vis)
   int n_tris, h, w, d1, k, s, num_lights;
+  bool unshaded;
   float* out0;  // contribution [3, N] or A upper [D1(D1+1)/2, N]
   float* out1;  // b [3 * D1, N]
   float* out2;  // progressive sum [3, N] or null
@@ -71,8 +75,9 @@ __device__ __forceinline__ long long member_pixel(const MisArgs& a, long long n,
 }
 
 __device__ __forceinline__ Receiver load_receiver(const float* cen, long long n,
-                                                  long long p) {
+                                                  long long p, bool unshaded) {
   Receiver r;
+  r.unshaded = unshaded;
   r.px = cen[p]; r.py = cen[n + p]; r.pz = cen[2 * n + p];
   r.nx = cen[3 * n + p]; r.ny = cen[4 * n + p]; r.nz = cen[5 * n + p];
   r.ox = cen[6 * n + p]; r.oy = cen[7 * n + p]; r.oz = cen[8 * n + p];
@@ -91,6 +96,7 @@ __device__ __forceinline__ Receiver load_neighbour(const MisArgs& a, long long n
                                                    int j) {
   const float* c = a.nbr + static_cast<long long>(14 * (j - 1)) * n + p;
   Receiver r;
+  r.unshaded = a.unshaded;
   r.px = c[0]; r.py = c[n]; r.pz = c[2 * n];
   r.nx = c[3 * n]; r.ny = c[4 * n]; r.nz = c[5 * n];
   r.ox = rc.ox; r.oy = rc.oy; r.oz = rc.oz;
@@ -165,14 +171,15 @@ __device__ unsigned long long occlusion_mask(const MisArgs& a, long long n,
         if (a.ext_vis[b * n + p] < 0.5f) occ |= 1ull << b;
     return occ;
   }
-  if (in_range && rc.valid) {
+  if (in_range && (a.unshaded || rc.valid)) {
     for (int d = 0; d < a.d1; ++d) {
       const long long q = member_pixel(a, n, p, y, x, d);
       for (int lane = 0; lane < a.k; ++lane) {
         const float lx = a.res[(3 * lane) * n + q], ly = a.res[(3 * lane + 1) * n + q],
                     lz = a.res[(3 * lane + 2) * n + q];
         const ShadowRay ray = shadow_ray(rc, lx, ly, lz);
-        if (light_dot_nl(rc, lx, ly, lz) >= 0.0f && ray.dist > kShadowEpsilon)
+        if ((a.unshaded || light_dot_nl(rc, lx, ly, lz) >= 0.0f) &&
+            ray.dist > kShadowEpsilon)
           pending |= 1ull << (d * a.k + lane);
       }
     }
@@ -229,7 +236,7 @@ rmis_kernel(MisArgs a) {
   const int y = in_range ? static_cast<int>(p / a.w) : 0;
   const int x = in_range ? static_cast<int>(p - static_cast<long long>(y) * a.w) : 0;
   Receiver rc{};
-  if (in_range) rc = load_receiver(a.cen, n, p);
+  if (in_range) rc = load_receiver(a.cen, n, p, a.unshaded);
   const unsigned long long occ = occlusion_mask(a, n, in_range, p, y, x, rc, s);
   if (!in_range) return;
   float vx, vy, vz;
@@ -268,7 +275,7 @@ romis_kernel(MisArgs a) {
   const int y = in_range ? static_cast<int>(p / a.w) : 0;
   const int x = in_range ? static_cast<int>(p - static_cast<long long>(y) * a.w) : 0;
   Receiver rc{};
-  if (in_range) rc = load_receiver(a.cen, n, p);
+  if (in_range) rc = load_receiver(a.cen, n, p, a.unshaded);
   const unsigned long long occ = occlusion_mask(a, n, in_range, p, y, x, rc, s);
   if (!in_range) return;
   float vx, vy, vz;
@@ -372,11 +379,11 @@ extern "C" int romis_mis_iteration(const float* cen, const float* res, const int
                                    const float* ext_vis, const float* cols,
                                    int n_tris, int h, int w,
                                    int d1, int k, int s, int num_lights, int mode,
-                                   float* out0, float* out1, float* out2,
-                                   cudaStream_t stream) {
+                                   int unshaded, float* out0, float* out1,
+                                   float* out2, cudaStream_t stream) {
   using namespace romis;
   const MisArgs a{cen, res, offs, nbr, alphas, ext_vis, cols, n_tris, h, w, d1,
-                  k, s, num_lights, out0, out1, out2};
+                  k, s, num_lights, unshaded != 0, out0, out1, out2};
   const long long n = static_cast<long long>(h) * w;
   if (d1 * k > 64) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == kRmisEqual) {

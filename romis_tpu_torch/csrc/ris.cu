@@ -46,6 +46,10 @@
 // planes) or [pos 3K | color 3K | w_sum K | chosen_w K] (R-OMIS, 8K), so
 // no per-iteration repack follows. Same compute bound, iters times over;
 // 17 planes in, iters x 7K or 8K out.
+//
+// Every mode takes the unshaded flag (Features.enable_shading=False): the
+// target p-hat of a candidate is then the norm of the receiver's kd
+// (Receiver::unshaded, phong_rgb), as in the plain version.
 #include "common.cuh"
 
 namespace romis {
@@ -62,7 +66,7 @@ ris_kernel(const float* __restrict__ ctx, long long n,
            const float* __restrict__ rows, int n_rows, int num_lights, int s,
            int k, uint32_t key0, uint32_t key1,
            const float* __restrict__ uniforms, float* __restrict__ out,
-           int iters, bool romis) {
+           int iters, bool romis, bool unshaded) {
   constexpr bool kReplay = kMode == kReplayMode;
   constexpr int kUniforms = kReplay ? 5 : 4;
   extern __shared__ float s_rows[];
@@ -84,6 +88,7 @@ ris_kernel(const float* __restrict__ ctx, long long n,
   }
   r.shin = ctx[15 * n + p];
   r.valid = ctx[16 * n + p] > 0.5f;
+  r.unshaded = unshaded;
   // Unit view vector, per pixel (hoisted out of the candidate loop).
   const float vx0 = r.ox - r.px, vy0 = r.oy - r.py, vz0 = r.oz - r.pz;
   const float vinv = 1.0f / fmaxf(safe_norm3(vx0, vy0, vz0), 1e-20f);
@@ -210,7 +215,7 @@ template <int kMode>
 int launch_ris(const float* ctx, long long n, const float* rows, int n_rows,
                int num_lights, int s, int k, unsigned long long seed,
                const float* uniforms, float* out, int iters, bool romis,
-               cudaStream_t stream) {
+               bool unshaded, cudaStream_t stream) {
   using namespace romis;
   const uint32_t key0 = static_cast<uint32_t>(seed);
   const uint32_t key1 = static_cast<uint32_t>(seed >> 32);
@@ -223,11 +228,11 @@ int launch_ris(const float* ctx, long long n, const float* rows, int n_rows,
     }
     ris_kernel<true, kMode><<<blocks_for(n), kThreads, smem, stream>>>(
         ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out,
-        iters, romis);
+        iters, romis, unshaded);
   } else {
     ris_kernel<false, kMode><<<blocks_for(n), kThreads, 0, stream>>>(
         ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out,
-        iters, romis);
+        iters, romis, unshaded);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -237,25 +242,27 @@ int launch_ris(const float* ctx, long long n, const float* rows, int n_rows,
 extern "C" int romis_ris(const float* ctx, long long n, const float* rows,
                          int n_rows, int num_lights, int s, int k,
                          unsigned long long seed, const float* uniforms,
-                         float* out, cudaStream_t stream) {
+                         float* out, int unshaded, cudaStream_t stream) {
   return launch_ris<romis::kCanonical>(ctx, n, rows, n_rows, num_lights, s, k,
-                                       seed, uniforms, out, 1, false, stream);
+                                       seed, uniforms, out, 1, false,
+                                       unshaded != 0, stream);
 }
 
 extern "C" int romis_ris_replay(const float* ctx, long long n, const float* rows,
                                 int n_rows, int num_lights, int s, int k,
                                 unsigned long long seed, const float* uniforms,
-                                float* out, cudaStream_t stream) {
+                                float* out, int unshaded, cudaStream_t stream) {
   return launch_ris<romis::kReplayMode>(ctx, n, rows, n_rows, num_lights, s,
                                         k, seed, uniforms, out, 1, false,
-                                        stream);
+                                        unshaded != 0, stream);
 }
 
 extern "C" int romis_ris_mis(const float* ctx, long long n, const float* rows,
                              int n_rows, int num_lights, int s, int k,
                              unsigned long long seed, const float* uniforms,
                              float* out, int iters, int romis_pack,
-                             cudaStream_t stream) {
+                             int unshaded, cudaStream_t stream) {
   return launch_ris<romis::kMis>(ctx, n, rows, n_rows, num_lights, s, k, seed,
-                                 uniforms, out, iters, romis_pack != 0, stream);
+                                 uniforms, out, iters, romis_pack != 0,
+                                 unshaded != 0, stream);
 }

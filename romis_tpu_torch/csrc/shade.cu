@@ -24,6 +24,11 @@
 // of the soup loop, for scenes of any size. Its plain version is the same
 // final_shade_plain, whose visibility then walks the tree
 // (ops/traverse.bvh_any). Bound: the box and triangle tests of the walk.
+//
+// Both modes take the unshaded flag (Features.enable_shading=False): the
+// shade of every lane is then kd, whatever the light's side and the
+// receiver's validity (ops/shading.phong_shade), so every lane with W != 0
+// traces its shadow ray.
 #include "walk.cuh"
 
 namespace romis {
@@ -33,7 +38,7 @@ template <int K, bool kBvh>
 __global__ void __launch_bounds__(kThreads)
 final_shade_kernel(const float* __restrict__ ctx, const float* __restrict__ res,
                    long long n, const float4* __restrict__ nodes,
-                   const float* __restrict__ cols, int n_tris,
+                   const float* __restrict__ cols, int n_tris, bool unshaded,
                    float* __restrict__ out) {
   constexpr int k = K;
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -76,8 +81,8 @@ final_shade_kernel(const float* __restrict__ ctx, const float* __restrict__ res,
     const float dist = sqrtf(fmaxf(tox * tox + toy * toy + toz * toz, 1e-24f));
     const float lmax = fmaxf(dist, 1e-20f);
     const float dot_nl = nx * (tox / lmax) + ny * (toy / lmax) + nz * (toz / lmax);
-    pending[lane] = valid && dot_nl >= 0.0f && big_w != 0.0f &&
-                    vdist > kShadowEpsilon;
+    pending[lane] = (unshaded || (valid && dot_nl >= 0.0f)) &&
+                    big_w != 0.0f && vdist > kShadowEpsilon;
   }
 
   if constexpr (kBvh) {
@@ -141,12 +146,13 @@ final_shade_kernel(const float* __restrict__ ctx, const float* __restrict__ res,
     const float cos_t = (rx0 * rinv) * vx + (ry0 * rinv) * vy + (rz0 * rinv) * vz;
     const float spec_pow = cos_t > 0.0f ? powf(fmaxf(cos_t, 1e-12f), shin) : 0.0f;
     const float falloff = dist < kZeroEpsilon ? 1.0f : dist;
-    const bool lit = valid && dot_nl >= 0.0f && !occluded[lane];
+    const bool lit = (unshaded || (valid && dot_nl >= 0.0f)) && !occluded[lane];
     for (int c = 0; c < 3; ++c) {
       const float col = res[(3 * k + 3 * lane + c) * n + p];
       const float kd = ctx[(9 + c) * n + p], ks = ctx[(12 + c) * n + p];
-      const float o = (scrub(col * kd * dot_nl) + scrub(col * ks * spec_pow)) /
-                      (falloff * falloff);
+      const float o = unshaded ? kd
+                               : (scrub(col * kd * dot_nl) + scrub(col * ks * spec_pow)) /
+                                     (falloff * falloff);
       acc[c] = acc[c] + (lit ? o : 0.0f) * big_w;
     }
   }
@@ -156,15 +162,15 @@ final_shade_kernel(const float* __restrict__ ctx, const float* __restrict__ res,
 
 template <bool kBvh>
 int launch_shade(const float* ctx, const float* res, long long n, int k,
-                 const float* nodes, const float* cols, int n_tris, float* out,
-                 cudaStream_t stream) {
+                 const float* nodes, const float* cols, int n_tris, bool unshaded,
+                 float* out, cudaStream_t stream) {
   const int grid = blocks_for(n);
   const float4* nd = reinterpret_cast<const float4*>(nodes);
   switch (k) {
-    case 1: final_shade_kernel<1, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, out); break;
-    case 2: final_shade_kernel<2, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, out); break;
-    case 3: final_shade_kernel<3, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, out); break;
-    case 4: final_shade_kernel<4, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, out); break;
+    case 1: final_shade_kernel<1, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, unshaded, out); break;
+    case 2: final_shade_kernel<2, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, unshaded, out); break;
+    case 3: final_shade_kernel<3, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, unshaded, out); break;
+    case 4: final_shade_kernel<4, kBvh><<<grid, kThreads, 0, stream>>>(ctx, res, n, nd, cols, n_tris, unshaded, out); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -174,15 +180,17 @@ int launch_shade(const float* ctx, const float* res, long long n, int k,
 
 extern "C" int romis_final_shade(const float* ctx, const float* res,
                                  long long n, int k, const float* cols,
-                                 int n_tris, float* out, cudaStream_t stream) {
-  return romis::launch_shade<false>(ctx, res, n, k, nullptr, cols, n_tris, out,
-                                    stream);
+                                 int n_tris, int unshaded, float* out,
+                                 cudaStream_t stream) {
+  return romis::launch_shade<false>(ctx, res, n, k, nullptr, cols, n_tris,
+                                    unshaded != 0, out, stream);
 }
 
 extern "C" int romis_final_shade_bvh(const float* ctx, const float* res,
                                      long long n, int k, const float* nodes,
-                                     const float* cols, int n_tris, float* out,
+                                     const float* cols, int n_tris,
+                                     int unshaded, float* out,
                                      cudaStream_t stream) {
-  return romis::launch_shade<true>(ctx, res, n, k, nodes, cols, n_tris, out,
-                                   stream);
+  return romis::launch_shade<true>(ctx, res, n, k, nodes, cols, n_tris,
+                                   unshaded != 0, out, stream);
 }

@@ -20,6 +20,19 @@
 // The TPU kernel shares dy along each row of a 128-wide tile (its row
 // resolve is a one-hot matmul); here both offsets are per pixel.
 //
+// The unbiased kernel's vis_check mode (pallas_spatial.py's vis_check,
+// Features.spatial_reuse_visibility_check) also writes what the caller
+// needs to take the occluded inputs out of Z, in a [2K + 3R + RK, N] block:
+// Z before visibility (K), p-hat of the winner at the receiver (K), each
+// neighbour's resolved surface position (3R) and each (neighbour, lane)'s
+// m·[p-hat_n(winner) > 0] (RK). The positions come from here because the
+// offsets are drawn here. The caller traces the (R+1)·K rays (kernel 7 on a
+// soup, the BVH walk otherwise) and re-derives W (ops/spatial.py).
+//
+// Both passes take the unshaded flag (Features.enable_shading=False): every
+// target p-hat is then the norm of the evaluating context's kd
+// (Receiver::unshaded, phong_rgb).
+//
 // Random numbers: the injected offsets [2, R, N] and Gumbel noise
 // [R+1, K, N] (the plain version's own draws, so the two agree exactly), or
 // Philox4x32-10 keyed by a 64-bit key read from device memory, counter
@@ -51,7 +64,9 @@ struct PassArgs {
   uint32_t tag;
   const int* offs;      // [2, R, N] or null
   const float* gumbel;  // [R+1, K, N] or null
+  bool unshaded;
   float* out;           // [10K, N]
+  float* vis;           // vis_check: [2K + 3R + RK, N], or null
 };
 
 struct Lane {
@@ -59,8 +74,10 @@ struct Lane {
 };
 
 __device__ __forceinline__ Receiver load_receiver(const float* __restrict__ cen,
-                                                  long long n, long long p) {
+                                                  long long n, long long p,
+                                                  bool unshaded) {
   Receiver r;
+  r.unshaded = unshaded;
   r.px = cen[p]; r.py = cen[n + p]; r.pz = cen[2 * n + p];
   r.nx = cen[3 * n + p]; r.ny = cen[4 * n + p]; r.nz = cen[5 * n + p];
   r.ox = cen[6 * n + p]; r.oy = cen[7 * n + p]; r.oz = cen[8 * n + p];
@@ -167,7 +184,7 @@ spatial_pass_kernel(const PassArgs a) {
   if (i >= a.h || j >= a.w) return;
   const long long n = static_cast<long long>(a.h) * a.w;
   const long long p = static_cast<long long>(i) * a.w + j;
-  const Receiver r = load_receiver(a.cen, n, p);
+  const Receiver r = load_receiver(a.cen, n, p, a.unshaded);
   float vx, vy, vz;
   unit_view(r, vx, vy, vz);
   const float recv_depth = a.cen[16 * n + p];
@@ -237,7 +254,7 @@ spatial_pass_kernel(const PassArgs a) {
     for (int s = 0; s < kMaxNbr; ++s) {
       if (s < nn) {
         const long long q = qs[s];
-        const Receiver rn = load_receiver(a.cen, n, q);
+        const Receiver rn = load_receiver(a.cen, n, q, a.unshaded);
         float nvx, nvy, nvz;
         unit_view(rn, nvx, nvy, nvz);
 #pragma unroll
@@ -245,7 +262,14 @@ spatial_pass_kernel(const PassArgs a) {
           const float* sl = L[l].sel;
           const float pn = target_pdf(rn, nvx, nvy, nvz, sl[0], sl[1], sl[2], sl[3], sl[4], sl[5]);
           const float mn = a.res[(7 * K + l) * n + q];
-          z[l] = z[l] + (pn > 0.0f ? mn : 0.0f);
+          const float mf = pn > 0.0f ? mn : 0.0f;
+          z[l] = z[l] + mf;
+          if (a.vis != nullptr) a.vis[(2 * K + 3 * nn + s * K + l) * n + p] = mf;
+        }
+        if (a.vis != nullptr) {
+          a.vis[(2 * K + 3 * s) * n + p] = rn.px;
+          a.vis[(2 * K + 3 * s + 1) * n + p] = rn.py;
+          a.vis[(2 * K + 3 * s + 2) * n + p] = rn.pz;
         }
       }
     }
@@ -253,6 +277,10 @@ spatial_pass_kernel(const PassArgs a) {
     for (int l = 0; l < K; ++l) {
       const float ms = a.res[(7 * K + l) * n + p];
       denom_m[l] = z[l] + (L[l].sel_ph > 0.0f ? ms : 0.0f);
+      if (a.vis != nullptr) {
+        a.vis[l * n + p] = denom_m[l];
+        a.vis[(K + l) * n + p] = L[l].sel_ph;
+      }
     }
   }
 
@@ -290,13 +318,16 @@ extern "C" int romis_spatial_pass(const float* res, const float* gates,
                                   int n_nbr, int radius, int unbiased,
                                   const long long* key, unsigned int tag,
                                   const int* offs, const float* gumbel,
-                                  float* out, cudaStream_t stream) {
+                                  int unshaded, float* out, float* vis,
+                                  cudaStream_t stream) {
   using namespace romis;
   if (unbiased && n_nbr > kMaxNbr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!unbiased && vis != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (!unbiased && gates == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if ((offs == nullptr) != (gumbel == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (offs == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const PassArgs a{res, gates, cen, h, w, n_nbr, radius, key, tag, offs, gumbel, out};
+  const PassArgs a{res, gates, cen, h, w, n_nbr, radius, key, tag, offs, gumbel,
+                   unshaded != 0, out, vis};
   const bool ub = unbiased != 0;
   switch (k) {
     case 1: return static_cast<int>(launch_pass<1>(a, ub, stream));

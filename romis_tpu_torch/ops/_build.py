@@ -50,12 +50,12 @@ SIGNATURES = {
     # table, n_rows, n_cols, idx, n_idx, out, stream
     "romis_gather_rows": (_P, _I, _I, _P, _LL, _P, _P),
     # ctx17, n_pix, light_rows, n_rows, num_lights, s, k, seed, uniforms,
-    # out, stream
-    "romis_ris": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _P),
+    # out, unshaded, stream
+    "romis_ris": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _P),
     # the same arguments; out holds the 7K replay-record planes
-    "romis_ris_replay": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _P),
-    # ctx18, res, n_pix, k, tri_cols, n_tris, out, stream
-    "romis_final_shade": (_P, _P, _LL, _I, _P, _I, _P, _P),
+    "romis_ris_replay": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _P),
+    # ctx18, res, n_pix, k, tri_cols, n_tris, unshaded, out, stream
+    "romis_final_shade": (_P, _P, _LL, _I, _P, _I, _I, _P, _P),
     # origins, dirs, t_max, n_pix, n_rays, tri_cols, n_tris, out, stream
     "romis_any_hit": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
     # planes, c, h, w, dy, dx, n_out, out, stream
@@ -64,16 +64,18 @@ SIGNATURES = {
     "romis_halo_scatter": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
     # ct, n_cols, idx, n_idx, n_rows, out, stream
     "romis_scatter_rows_add": (_P, _I, _P, _LL, _I, _P, _P),
-    # the same arguments, then iters, romis; out holds iters pack blocks
-    "romis_ris_mis": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _I, _P),
+    # the same arguments, then iters, romis, unshaded; out holds iters
+    # pack blocks
+    "romis_ris_mis": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _I, _I,
+                      _P),
     # gates, h, w, d, radius, two_classes, prefer_similar, same_geom,
     # depth_frac, normal_cos, key, tag, scores, s_out, p_out, cnt, stream
     "romis_neighbour_select": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
                                _U, _P, _P, _P, _P, _P),
     # cen, res, offs, nbr, alphas, ext_vis, tri_cols, n_tris, h, w, d1, k,
-    # s, num_lights, mode, out0, out1, out2, stream
+    # s, num_lights, mode, unshaded, out0, out1, out2, stream
     "romis_mis_iteration": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _P, _P, _P, _P),
+                            _I, _I, _I, _I, _P, _P, _P, _P),
     # o, d, n_pix, nodes, tri_cols, n_tris, t_max, t, tri, u, v, stream
     "romis_bvh_closest": (_P, _P, _LL, _P, _P, _I, _F, _P, _P, _P, _P, _P),
     # origins, dirs, t_max, n_pix, n_rays, nodes, tri_cols, n_tris, out,
@@ -81,12 +83,15 @@ SIGNATURES = {
     "romis_bvh_any": (_P, _P, _P, _LL, _LL, _P, _P, _I, _P, _P),
     # origins, dirs, t_max, n_pix, s, nodes, tri_cols, n_tris, out, stream
     "romis_bvh_any_k": (_P, _P, _P, _LL, _I, _P, _P, _I, _P, _P),
-    # ctx18, res, n_pix, k, nodes, tri_cols, n_tris, out, stream
-    "romis_final_shade_bvh": (_P, _P, _LL, _I, _P, _P, _I, _P, _P),
+    # ctx18, res, n_pix, k, nodes, tri_cols, n_tris, unshaded, out, stream
+    "romis_final_shade_bvh": (_P, _P, _LL, _I, _P, _P, _I, _I, _P, _P),
     # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,
-    # gumbel, out, stream
+    # gumbel, unshaded, out, vis_check block, stream
     "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,
-                           _P, _P, _P),
+                           _P, _I, _P, _P, _P),
+    # origins, targets, mask, n_pix, n_origins, k, tri_cols, n_tris, eps,
+    # out, stream
+    "romis_zcount_occ": (_P, _P, _P, _LL, _I, _I, _P, _I, _F, _P, _P),
 }
 
 

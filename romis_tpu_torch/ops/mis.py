@@ -37,6 +37,10 @@ sample sums written out in the kernel's order (d-major, then lane), so the
 two round alike; the receiver's p̂ is the norm of its shade planes, as in
 the reference kernel.
 
+The kernel has the unshaded mode of ``Features(enable_shading=False)``:
+every shade is the receiver's kd and every p̂ the norm of a kd, as the plain
+formulation computes them, so every shadow ray is traced.
+
 Bound on the H100: operations, in every mode (narrowly for equal
 weights), with a ``powf``, a division or a square root counted at its
 instruction cost: D1·K Phong evaluations per pixel at the receiver and,
@@ -179,10 +183,6 @@ def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
                                    mode, num_lights, features, nbr_ctx,
                                    alphas, it_block, ext_vis)
     _check_mode(mode, nbr_ctx, alphas)
-    if not features.enable_shading:
-        raise NotImplementedError(
-            "the MIS sweep kernel computes Phong shading; the unshaded "
-            "(enable_shading=False) sweep has no kernel yet")
     d = offs.shape[0] // 2
     d1 = d + 1
     h, w = cen_ctx.shape[-2:]
@@ -240,7 +240,7 @@ def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
                       block.data_ptr(), offs.data_ptr(), nbr_ptr, al_ptr,
                       vis_ptr, None if cols is None else cols.data_ptr(),
                       n_tris, h, w, d1, k, s, num_lights, MODES.index(mode),
-                      *ptrs)
+                      int(not features.enable_shading), *ptrs)
         mis_iteration.launches += 1
     return outs[0] if not romis else tuple(outs)
 

@@ -20,6 +20,10 @@ R-MIS / R-OMIS frame in one launch, written straight into the sweep's pack
 RIS per iteration then the pack, is ``gen_mis_reservoir_planes_plain``.
 The TPU's compact coordinate pack is not ported.
 
+Every mode has the unshaded mode of ``Features(enable_shading=False)``: the
+target p̂ is the norm of the receiver's kd, as the plain versions compute
+it (``ops.shading.phong_shade_planes``).
+
 Bound on the H100: compute, S Phong evaluations (one ``powf`` each) per
 pixel with the whole reservoir state in registers; device memory sees 17
 context planes in and 10K reservoir planes out.
@@ -101,7 +105,7 @@ def gen_canonical_samples_ris(ctx: ShadeCtx, lights, num_lights: int,
     if h * w:
         _build.launch("romis_ris", packed.data_ptr(), h * w, rows.data_ptr(),
                       rows.shape[0], num_lights, s, k, seed, u_ptr,
-                      out.data_ptr())
+                      out.data_ptr(), int(not features.enable_shading))
         gen_canonical_samples_ris.launches += 1
     return unpack_reservoir_planes(out, k)
 
@@ -138,7 +142,7 @@ def gen_canonical_replay(ctx: ShadeCtx, lights, num_lights: int,
     if h * w:
         _build.launch("romis_ris_replay", packed.data_ptr(), h * w,
                       rows.data_ptr(), rows.shape[0], num_lights, s, k, seed,
-                      u_ptr, out.data_ptr())
+                      u_ptr, out.data_ptr(), int(not features.enable_shading))
         gen_canonical_replay.launches += 1
     return out[:, 0], (out[:, 1], out[:, 2], out[:, 3]), \
         (out[:, 4], out[:, 5], out[:, 6])
@@ -193,7 +197,8 @@ def gen_mis_reservoir_planes(ctx: ShadeCtx, lights, num_lights: int,
     if h * w and iterations:
         _build.launch("romis_ris_mis", packed.data_ptr(), h * w,
                       rows.data_ptr(), rows.shape[0], num_lights, s, k, seed,
-                      u_ptr, out.data_ptr(), iterations, int(romis))
+                      u_ptr, out.data_ptr(), iterations, int(romis),
+                      int(not features.enable_shading))
         gen_mis_reservoir_planes.launches += 1
     return out
 

@@ -23,6 +23,11 @@ walk, ``csrc/walk.cuh``). Its plain version is the same
 ``final_shade_plain``, whose visibility then walks the tree
 (``ops.traverse.bvh_any``). ``final_shade_fused`` dispatches on
 ``geometry.bvh`` (the reference's ``restir.py:571-579``).
+
+Both kernels have the unshaded mode of ``Features(enable_shading=False)``:
+each lane's shade is kd, as ``phong_shade`` returns it then, so every lane
+with W != 0 traces its shadow ray. (The reference's own final shade falls
+back to XLA for that flag; here the kernels run it.)
 """
 
 from __future__ import annotations
@@ -75,10 +80,6 @@ def _packed(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
             features: Features):
     """The kernels' inputs, checked → (ctx [18, H, W], reservoirs
     [10K, H, W], tri_cols, K, output [3, H, W])."""
-    if not features.enable_shading:
-        raise NotImplementedError(
-            "the final-shade kernel computes Phong shading; the unshaded "
-            "(enable_shading=False) final shade has no kernel yet")
     h, w = ctx.depth_t.shape[-2:]
     k = reservoirs.k
     if not 1 <= k <= MAX_LANES:
@@ -107,7 +108,8 @@ def final_shade_bvh(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     if out.numel():
         _build.launch("romis_final_shade_bvh", cp.data_ptr(), rp.data_ptr(),
                       out[0].numel(), k, nodes.data_ptr(), cols.data_ptr(),
-                      cols.shape[1], out.data_ptr())
+                      cols.shape[1], int(not features.enable_shading),
+                      out.data_ptr())
         final_shade_bvh.launches += 1
     return out
 
@@ -126,7 +128,7 @@ def _final_shade_forward(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     if out.numel():
         _build.launch("romis_final_shade", cp.data_ptr(), rp.data_ptr(),
                       out[0].numel(), k, cols.data_ptr(), cols.shape[1],
-                      out.data_ptr())
+                      int(not features.enable_shading), out.data_ptr())
         final_shade_fused.launches += 1
     return out
 

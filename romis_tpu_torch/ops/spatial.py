@@ -24,10 +24,25 @@ identically. Without it, the plain version draws them from ``generator``
 and the kernel from Philox keyed by ``key`` (a device int64 tensor from
 ``philox_key``: no host synchronisation), with the pass index in the
 counter. Whether a frame runs these passes at all is
-``render.restir.spatial_reuse``'s choice: with ``fused_resampling`` on
-CUDA tensors (the reference's Pallas-on-TPU gate); otherwise it gathers
-through ``halo_offset_gather`` (or coherent slices) and combines with
-differentiable tensor code.
+``render.restir.spatial_reuse``'s choice: with ``fused_resampling`` and
+``fused_spatial_gather`` on CUDA tensors (the reference's Pallas-on-TPU
+gate); otherwise it gathers through ``halo_offset_gather`` (or coherent
+slices) and combines with differentiable tensor code.
+
+Kernel 11's ``vis_check`` mode (``Features.spatial_reuse_visibility_check``,
+the reference's ``vis_check``) also writes Z before visibility, p̂ of the
+winner, the neighbours' resolved positions and each (neighbour, lane)'s
+m·[p̂_n(winner) > 0]. ``spatial_pass_unbiased_fused`` then traces the
+(R+1)·K Z rays (kernel 7, ``ops.trace.zcount_occ``, on a soup; on geometry
+with a BVH ``ops.wrs.visibility_from`` through ``ops.trace.any_hit``, i.e.
+the walk kernels 20 or 19), takes the occluded inputs' terms out of Z and
+re-derives W (``z_visibility``, the reference's
+``pallas_spatial.py:1084-1112``). ``spatial_pass_unbiased_vis_plain`` is
+the plain form of the mode's planes.
+
+Both pass kernels have the unshaded mode of
+``Features(enable_shading=False)``: every p̂ is the norm of the evaluating
+context's kd.
 
 Kernel 10 (``csrc/halo.cu``, ``halo_offset_scatter``) replaces
 ``_offset_scatter_kernel``: the transpose of the clamped gather, and the
@@ -36,10 +51,11 @@ reach the gathered planes); its plain version is ``index_add_``.
 
 Bound on the H100: the passes are compute-bound, (R+1)·K target-PDF
 evaluations with one ``powf`` each per pixel (2·R·K more for the unbiased
-Z); the neighbour reads stay within ±radius and are served mostly by L1
-and L2. The halo gather is bound by device-memory bandwidth, the scatter
-by bandwidth and atomics (D inputs land on a source pixel on average; the
-clamped border pixels take more).
+Z; the vis_check mode writes 2K + 3R + RK planes more); the neighbour
+reads stay within ±radius and are served mostly by L1 and L2. The halo
+gather is bound by device-memory bandwidth, the scatter by bandwidth and
+atomics (D inputs land on a source pixel on average; the clamped border
+pixels take more).
 """
 
 from __future__ import annotations
@@ -57,6 +73,12 @@ MAX_LANES = 4  # the pass kernels are instantiated for K = 1..4
 MAX_UNBIASED_NEIGHBOURS = 8  # the unbiased kernel keeps R offsets in registers
 # Philox counter tags of the pass kernels (RIS uses tag 0).
 _TAG_BIASED, _TAG_UNBIASED = 0x5350, 0x5351
+
+
+def vis_check_planes(k: int, n_nbr: int) -> int:
+    """Planes of the vis_check block: Z before visibility (K), p̂ of the
+    winner (K), the neighbours' positions (3R), their m·[p̂ > 0] (R·K)."""
+    return 2 * k + 3 * n_nbr + n_nbr * k
 
 
 def pack_gates(ctx: ShadeCtx) -> torch.Tensor:
@@ -287,13 +309,87 @@ def spatial_pass_unbiased_plain(res_planes: torch.Tensor,
     return pack_reservoir_planes(out)
 
 
+def spatial_pass_unbiased_vis_plain(res_planes: torch.Tensor,
+                                    cen_ctx: torch.Tensor, k: int,
+                                    n_nbr: int, radius: int,
+                                    features: Features, generator=None,
+                                    key=None, pass_index: int = 0,
+                                    inject=None):
+    """The plain form of kernel 11's vis_check mode → (planes [10K, H, W],
+    W from Z before visibility; the block [vis_check_planes, H, W]), the
+    kernel's arithmetic for p̂ (``target_pdf_planes``) and its order of
+    summation for Z."""
+    from ..render.restir import spatial_pass
+    from .shading import target_pdf_planes
+
+    h, w = res_planes.shape[-2:]
+    offs, gumbel = _noise(generator, inject, n_nbr, k, radius, h, w)
+    nbr, g = _gather_neighbours(res_planes, cen_ctx, k, offs)
+    ctx, nctx = unpack_center_ctx(cen_ctx), unpack_center_ctx(g)
+    f = features.replace(unbiased_combination=True,
+                         spatial_reuse_visibility_check=False)
+    out = spatial_pass(ctx, unpack_reservoir_planes(res_planes, k), nbr,
+                       nctx, f, gumbel)
+    comps = [out.pos[:, c] for c in range(3)] + [out.color[:, c]
+                                                 for c in range(3)]
+    p_star = target_pdf_planes(ctx, *comps, f)  # [K, H, W]
+    z = torch.zeros_like(p_star)
+    mf = []
+    for s in range(n_nbr):
+        ctx_s = ShadeCtx(**{fld: getattr(nctx, fld)[s] for fld in (
+            "valid", "position", "normal", "view_origin", "kd", "ks",
+            "shininess", "geom_id", "depth_t")})
+        mf.append(torch.where(target_pdf_planes(ctx_s, *comps, f) > 0.0,
+                              nbr.m[s], 0.0))
+        z = z + mf[-1]
+    mf = torch.stack(mf)  # [R, K, H, W]
+    z = z + torch.where(p_star > 0.0, res_planes[7 * k:8 * k], 0.0)
+    block = torch.cat([z, p_star, g[:, 0:3].reshape(3 * n_nbr, h, w),
+                       mf.reshape(n_nbr * k, h, w)])
+    return pack_reservoir_planes(out), block
+
+
+def z_visibility(planes: torch.Tensor, block: torch.Tensor,
+                 res_planes: torch.Tensor, cen_ctx: torch.Tensor, geometry,
+                 k: int, n_nbr: int):
+    """Kernel 11's vis_check outputs → the pass's planes with W re-derived
+    from Z with visibility: the (R+1)·K rays from the receiver and the
+    neighbours to the winners, masked by p̂* > 0 (self) and m·[p̂ > 0] > 0
+    (neighbours), through ``ops.trace.zcount_occ`` (kernel 7) on a soup, or
+    ``ops.wrs.visibility_from`` through ``ops.trace.any_hit`` on geometry
+    with a BVH; then the occluded inputs' terms come out of Z (the
+    reference's ``pallas_spatial.py:1084-1112``)."""
+    from .trace import any_hit, zcount_occ
+    from .wrs import SHADOW_RAY_EPSILON, visibility_from
+
+    h, w = planes.shape[-2:]
+    z_phat, p_star = block[:k], block[k:2 * k]
+    nbr_pos = block[2 * k:2 * k + 3 * n_nbr].reshape(n_nbr, 3, h, w)
+    nbr_mf = block[2 * k + 3 * n_nbr:].reshape(n_nbr, k, h, w)
+    win_pos = planes[:3 * k].reshape(k, 3, h, w)
+    origins = torch.cat([cen_ctx[None, 0:3], nbr_pos])  # [R+1, 3, H, W]
+    if geometry.bvh is None:
+        mask = torch.cat([(p_star > 0.0)[None], nbr_mf > 0.0])
+        vis = ~zcount_occ(origins, win_pos, geometry, SHADOW_RAY_EPSILON,
+                          mask)
+    else:
+        vis = visibility_from(origins[:, None], win_pos[None], geometry,
+                              any_hit)
+    self_term = torch.where((p_star > 0.0) & ~vis[0],
+                            res_planes[7 * k:8 * k], 0.0)
+    nbr_terms = torch.where(~vis[1:], nbr_mf, 0.0)
+    z = z_phat - self_term - nbr_terms.sum(dim=0)
+    w_sum = planes[6 * k:7 * k]
+    cond = (p_star > 0.0) & (z > 0.0)
+    big_w = torch.where(cond, w_sum / torch.where(cond, p_star * z, 1.0),
+                        0.0)
+    return torch.cat([planes[:8 * k], big_w, planes[9 * k:]])
+
+
 def _launch_pass(name, wrapper, res_planes, gates, cen_ctx, k, n_nbr,
-                 radius, features, key, pass_index, inject, unbiased):
+                 radius, features, key, pass_index, inject, unbiased,
+                 vis_check=False):
     h, w = cen_ctx.shape[-2:]
-    if not features.enable_shading:
-        raise NotImplementedError(
-            "the spatial pass kernels compute Phong target PDFs; the "
-            "unshaded (enable_shading=False) pass has no kernel yet")
     if not 1 <= k <= MAX_LANES:
         raise ValueError(f"{name}: K={k} outside 1..{MAX_LANES}")
     if unbiased and n_nbr > MAX_UNBIASED_NEIGHBOURS:
@@ -320,14 +416,18 @@ def _launch_pass(name, wrapper, res_planes, gates, cen_ctx, k, n_nbr,
         pass_index & 0xFFFF)
     out = torch.empty((10 * k, h, w), dtype=torch.float32,
                       device=res_planes.device)
+    vis = torch.empty((vis_check_planes(k, n_nbr), h, w),
+                      dtype=torch.float32, device=res_planes.device) \
+        if vis_check else None
     if h * w:
         _build.launch("romis_spatial_pass", res_planes.data_ptr(),
                       None if gates is None else gates.data_ptr(),
                       cen_ctx.data_ptr(), h, w, k, n_nbr, radius,
                       int(unbiased), key_ptr, tag, o_ptr, g_ptr,
-                      out.data_ptr())
+                      int(not features.enable_shading), out.data_ptr(),
+                      None if vis is None else vis.data_ptr())
         wrapper.launches += 1
-    return out
+    return out if vis is None else (out, vis)
 
 
 def spatial_pass_fused(res_planes: torch.Tensor, gates: torch.Tensor,
@@ -352,24 +452,47 @@ def spatial_pass_fused(res_planes: torch.Tensor, gates: torch.Tensor,
 spatial_pass_fused.launches = 0
 
 
+def spatial_pass_unbiased_vis(res_planes: torch.Tensor,
+                              cen_ctx: torch.Tensor, k: int, n_nbr: int,
+                              radius: int, features: Features,
+                              generator=None, key=None, pass_index: int = 0,
+                              inject=None):
+    """Kernel 11's vis_check mode alone → (planes [10K, H, W], W from Z
+    before visibility; the block [vis_check_planes, H, W]); the plain form
+    for CPU tensors. ``spatial_pass_unbiased_fused`` finishes the pass."""
+    if not res_planes.is_cuda:
+        return spatial_pass_unbiased_vis_plain(res_planes, cen_ctx, k, n_nbr,
+                                               radius, features, generator,
+                                               key, pass_index, inject)
+    return _launch_pass("spatial_pass_unbiased", spatial_pass_unbiased_fused,
+                        res_planes, None, cen_ctx, k, n_nbr, radius, features,
+                        key, pass_index, inject, True, vis_check=True)
+
+
 def spatial_pass_unbiased_fused(res_planes: torch.Tensor,
                                 cen_ctx: torch.Tensor, k: int, n_nbr: int,
                                 radius: int, features: Features,
                                 generator=None, key=None, pass_index: int = 0,
-                                inject=None) -> torch.Tensor:
-    """One unbiased spatial-reuse pass (no visibility in Z): res_planes
-    [10K, H, W], cen_ctx [18, H, W] (the receiver and the neighbours'
-    contexts) → a fresh [10K, H, W]. Kernel 11 for CUDA tensors, the plain
-    version for CPU tensors."""
+                                inject=None, geometry=None) -> torch.Tensor:
+    """One unbiased spatial-reuse pass: res_planes [10K, H, W], cen_ctx
+    [18, H, W] (the receiver and the neighbours' contexts) → a fresh
+    [10K, H, W]. With ``spatial_reuse_visibility_check`` Z counts only the
+    inputs that see the winner, traced against ``geometry``. Kernel 11 for
+    CUDA tensors (its vis_check mode, then kernel 7 or the BVH walk, then
+    ``z_visibility``), the plain version for CPU tensors."""
     if not res_planes.is_cuda:
         return spatial_pass_unbiased_plain(res_planes, cen_ctx, k, n_nbr,
                                            radius, features, generator, key,
-                                           pass_index, inject)
+                                           pass_index, inject, geometry)
     if features.spatial_reuse_visibility_check:
-        raise NotImplementedError(
-            "the unbiased pass with spatial_reuse_visibility_check needs the "
-            "Z-count occlusion kernel (pallas_zcount_occ), ported in a later "
-            "slice")
+        if geometry is None:
+            raise ValueError("spatial_pass_unbiased_fused: the visibility "
+                             "check traces the Z rays; pass geometry")
+        planes, block = spatial_pass_unbiased_vis(
+            res_planes, cen_ctx, k, n_nbr, radius, features, key=key,
+            pass_index=pass_index, inject=inject)
+        return z_visibility(planes, block, res_planes, cen_ctx, geometry, k,
+                            n_nbr)
     return _launch_pass("spatial_pass_unbiased", spatial_pass_unbiased_fused,
                         res_planes, None, cen_ctx, k, n_nbr, radius, features,
                         key, pass_index, inject, True)

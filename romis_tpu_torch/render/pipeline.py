@@ -1,7 +1,11 @@
 """Render-mode dispatch: ReSTIR, R-MIS or R-OMIS (reference
-``romis_tpu/render/pipeline.py``)."""
+``romis_tpu/render/pipeline.py``), and the per-render Features provenance
+JSON (the reference's cereal archive, render.cpp:282-288)."""
 
 from __future__ import annotations
+
+import datetime
+import os
 
 import torch
 
@@ -48,3 +52,14 @@ def render_frame(generator, cam: CameraParams, scene, height: int, width: int,
 def save_image(path: str, image: torch.Tensor) -> None:
     """Write an [H, W, 3] image tensor as BMP or PNG (by extension)."""
     write_image(path, image.detach().float().cpu().numpy())
+
+
+def write_provenance(features: Features, out_dir: str) -> str:
+    """A timestamped ``Features.to_json()`` dump in ``out_dir`` → its
+    path."""
+    os.makedirs(out_dir, exist_ok=True)
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+    path = os.path.join(out_dir, f"{stamp}.json")
+    with open(path, "w") as f:
+        f.write(features.to_json())
+    return path

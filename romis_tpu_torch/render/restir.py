@@ -6,13 +6,16 @@ materials (kernel 2, twice), canonical RIS (kernel 3) with the optional
 initial visibility check (any-hit, kernel 6), temporal reuse with
 M-clamping (plain tensor code; with ``temporal_reprojection`` the
 predecessor is fetched by the halo offset gather, kernel 9), the spatial
-passes (biased: kernel 5; unbiased: kernel 11), the final shade (kernel 4)
-and tone mapping. On geometry with a BVH (``ops.bvh.with_bvh``, any scene
-size) the same ``ops`` entries walk the tree: the closest hit is kernel
-18, the initial check's K shadow rays per pixel kernel 20 (kernel 19 for
-K = 1), the final shade kernel 21. Still refused, naming the slice that brings it: the
-unbiased combine with ``spatial_reuse_visibility_check`` (Z-count
-occlusion).
+passes (biased: kernel 5; unbiased: kernel 11, and with
+``spatial_reuse_visibility_check`` its vis_check mode and the Z-count
+occlusion, kernel 7), the final shade (kernel 4) and tone mapping. On
+geometry with a BVH (``ops.bvh.with_bvh``, any scene size) the same ``ops``
+entries walk the tree: the closest hit is kernel 18, the initial check's K
+shadow rays per pixel kernel 20 (kernel 19 for K = 1), the visibility
+check's Z rays kernel 20 (kernel 19 above 16 rays a pixel), the final
+shade kernel 21. With ``fused_spatial_gather=False`` the spatial passes
+take the gather-then-combine route (the halo gather, kernel 9, then tensor
+code), as the reference's do.
 
 The frame is differentiable in the scene's tables (``diff.grad``). The
 closest hit, the row and halo gathers and the final shade carry
@@ -114,6 +117,13 @@ def _fused(features: Features, t: torch.Tensor) -> bool:
     """The reference's gate for the fused resampling kernels (Pallas on a
     TPU): ``fused_resampling`` and CUDA tensors."""
     return features.fused_resampling and t.is_cuda
+
+
+def _fused_spatial(features: Features, t: torch.Tensor) -> bool:
+    """The reference's gate for the fused spatial passes: ``_fused`` and
+    ``fused_spatial_gather`` (``romis_tpu/render/restir.py:344-349,
+    366-371``)."""
+    return _fused(features, t) and features.fused_spatial_gather
 
 
 @dataclass
@@ -344,14 +354,16 @@ def spatial_reuse(generator, ctx: ShadeCtx, reservoirs: Reservoirs,
     for the surrogate combine, its second race's noise) replaces the draws.
 
     The branches follow the reference's order. Fused (CUDA tensors with
-    ``fused_resampling``): the pass kernels, with the state in the
-    [10K, H, W] plane layout across the passes. Replay ``records``
+    ``fused_resampling`` and ``fused_spatial_gather``): the pass kernels,
+    with the state in the [10K, H, W] plane layout across the passes; the
+    unbiased pass traces its Z rays against ``geometry`` when the
+    visibility check is on. Replay ``records``
     [K, 3, H, W] (returns (Reservoirs, records)): every gathered plane
     detached except big_w, the winners re-derived from ``lights``.
     Otherwise the differentiable gather (``coherent_gather`` or
     ``ops.halo_gather``) and ``spatial_pass``."""
     k = features.num_samples_in_reservoir
-    if _fused(features, reservoirs.w_sum):
+    if _fused_spatial(features, reservoirs.w_sum):
         r = features.num_neighbours_to_sample
         radius = features.spatial_resample_radius
         key = None if inject is not None else spatial.philox_key(generator)
@@ -364,7 +376,8 @@ def spatial_reuse(generator, ctx: ShadeCtx, reservoirs: Reservoirs,
                          inject=None if inject is None else inject[p][:2])
             if features.unbiased_combination:
                 res_planes = ops.spatial_pass_unbiased(
-                    res_planes, cen, k, r, radius, features, **noise)
+                    res_planes, cen, k, r, radius, features,
+                    geometry=geometry, **noise)
             else:
                 res_planes = ops.spatial_pass(res_planes, gates, cen, k, r,
                                               radius, features, **noise)
@@ -406,16 +419,6 @@ def final_shade(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     return ops.final_shade(ctx, reservoirs, geometry, features)
 
 
-def _check_slice(features: Features) -> None:
-    """Refuse the option whose kernel belongs to a later slice."""
-    if (features.spatial_reuse and features.unbiased_combination
-            and features.spatial_reuse_visibility_check):
-        raise NotImplementedError(
-            "Features(spatial_reuse_visibility_check=True) with the unbiased "
-            "combine needs the Z-count occlusion kernel (pallas_zcount_occ), "
-            "ported in the next slice")
-
-
 def render_restir_frame(generator, cam: CameraParams, geometry, lights,
                         num_lights: int, height: int, width: int,
                         features: Features, prev: TemporalState,
@@ -431,7 +434,6 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
     (offsets [2, R, H, W] ([2, R] with ``coherent_spatial_offsets``),
     Gumbel [R+1, K, H, W][, the surrogate's second Gumbel])); it is None on
     the main path."""
-    _check_slice(features)
     k = features.num_samples_in_reservoir
     ris_u, temporal_g, spatial_inject = (None, None, None) if noise is None \
         else (tuple(noise) + (None,))[:3]

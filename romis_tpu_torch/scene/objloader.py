@@ -182,3 +182,32 @@ def load_obj(path: str, center_and_normalize: bool = False) -> list[SubMesh]:
             m.positions = (m.positions - center) / max_d
 
     return out
+
+
+def write_obj(path: str, submeshes: list[SubMesh]) -> None:
+    """Write submeshes as an OBJ file and its MTL beside it (``<stem>.mtl``),
+    one material per submesh, so that ``load_obj`` gives them back: the
+    same submeshes, positions, normals and texcoords to the float32 bit
+    (9 significant digits)."""
+    stem = os.path.splitext(path)[0]
+    mtl = stem + ".mtl"
+    with open(mtl, "w") as f:
+        for i, sm in enumerate(submeshes):
+            m = sm.material
+            f.write(f"newmtl m{i}\n"
+                    f"Kd {' '.join(f'{v:.9g}' for v in m.kd)}\n"
+                    f"Ks {' '.join(f'{v:.9g}' for v in m.ks)}\n"
+                    f"Ns {m.shininess:.9g}\nd {m.transparency:.9g}\n")
+    lines = [f"mtllib {os.path.basename(mtl)}\n"]
+    base = 1
+    for i, sm in enumerate(submeshes):
+        lines += [f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in sm.positions]
+        lines += [f"vn {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in sm.normals]
+        lines += [f"vt {u:.9g} {v:.9g}\n" for u, v in sm.texcoords]
+        lines.append(f"usemtl m{i}\n")
+        lines += ["f " + " ".join(f"{base + j}/{base + j}/{base + j}"
+                                  for j in tri) + "\n"
+                  for tri in sm.triangles]
+        base += len(sm.positions)
+    with open(path, "w") as f:
+        f.writelines(lines)

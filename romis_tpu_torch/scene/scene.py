@@ -16,18 +16,22 @@ this); the kernels read them as plain contiguous tables.
 Procedural scenes: ``flagship_scene`` (the Cornell Nightclub's stand-in)
 and ``torus_field`` (the large scene, 24,202 triangles at n = 5, the
 stand-in for the reference's monkey field; render it through a BVH,
-``ops.bvh.with_bvh``).
+``ops.bvh.with_bvh``). Scenes from OBJ files: ``load_prebuilt`` (the
+reference's named scenes with their lights, from the data directory),
+``load_scene_from_file`` and ``load_monkey_field``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from .objloader import Material, SubMesh
+from .objloader import Material, SubMesh, load_obj
 
 from .lights import LightListBuilder, LightTable, regular_light_grid
 
@@ -364,3 +368,117 @@ def flagship_camera(height: int, width: int, device=None):
                        rotation_deg=(10.3, 30.0, 0.0), distance=25.0,
                        fov_deg=30.0, resolution=(height, width),
                        device=device)
+
+
+# ---------------------------------------------------------------------------
+# Scenes from OBJ files (reference ``romis_tpu/scene/scene.py:255-388``)
+# ---------------------------------------------------------------------------
+
+def default_data_dir() -> str | None:
+    """The directory of the OBJ assets: ``ROMIS_DATA_DIR``, else ``data/``
+    at the repository root, where it exists."""
+    for cand in (os.environ.get("ROMIS_DATA_DIR"),
+                 os.path.join(os.path.dirname(__file__), "..", "..", "data")):
+        if cand and os.path.isdir(cand):
+            return cand
+    return None
+
+
+# Name → (OBJ file, center and normalize), reference loadScenePrebuilt.
+_PREBUILT = {
+    "single_triangle": ("triangle.obj", False),
+    "cube": ("cube.obj", False),
+    "cube_textured": ("cube-textured.obj", False),
+    "cornell_box": ("CornellBox-Mirror-Rotated.obj", True),
+    "cornell_box_parallelogram_light": ("CornellBox-Mirror-Rotated.obj", True),
+    "cornell_nightclub": ("cornell-nightclub.obj", False),
+    "monkey": ("monkey.obj", True),
+}
+
+
+def _instance_grid(submeshes: list[SubMesh], n: int,
+                   spacing: float = FIELD_SPACING) -> list[SubMesh]:
+    """The submeshes replicated over an n x n grid on the XZ plane."""
+    out = []
+    half = (n - 1) / 2.0
+    for gi in range(n):
+        for gj in range(n):
+            off = np.asarray([(gi - half) * spacing, 0.0,
+                              (gj - half) * spacing], np.float32)
+            for sm in submeshes:
+                out.append(dataclasses.replace(sm,
+                                               positions=sm.positions + off))
+    return out
+
+
+def _data_dir(data_dir: str | None) -> str:
+    data_dir = data_dir or default_data_dir()
+    if data_dir is None:
+        raise FileNotFoundError("no data directory found; set ROMIS_DATA_DIR")
+    return data_dir
+
+
+def load_monkey_field(n: int = 5, data_dir: str | None = None,
+                      device=None) -> Scene:
+    """An n x n grid of monkeys (n·n·500 + 2 triangles) on a ground quad,
+    under a parallelogram sky light and 2 point lights: the reference's
+    large-scene workload (render it through a BVH, ``ops.bvh.with_bvh``)."""
+    submeshes = load_obj(os.path.join(_data_dir(data_dir), "monkey.obj"),
+                         center_and_normalize=True)
+    submeshes = _instance_grid(submeshes, n)
+    ext = 1.4 * n
+    submeshes.append(dataclasses.replace(
+        submeshes[0],
+        positions=np.asarray([[-ext, -0.8, -ext], [ext, -0.8, -ext],
+                              [ext, -0.8, ext], [-ext, -0.8, ext]],
+                             np.float32),
+        normals=np.tile(np.asarray([[0, 1, 0]], np.float32), (4, 1)),
+        texcoords=np.zeros((4, 2), np.float32),
+        triangles=np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)))
+    lights = torus_field_lights(LightListBuilder(), n)
+    return Scene(geometry=build_geometry(submeshes, device),
+                 lights=lights.build(device), num_lights=len(lights),
+                 name=f"monkey_field_{n}x{n}")
+
+
+def load_prebuilt(name: str, data_dir: str | None = None,
+                  device=None) -> Scene:
+    """A reference scene by name (reference loadScenePrebuilt,
+    src/scene/scene.cpp:68-132) with its hard-coded lights."""
+    obj, center = _PREBUILT[name]
+    submeshes = load_obj(os.path.join(_data_dir(data_dir), obj),
+                         center_and_normalize=center)
+    lights = LightListBuilder()
+    if name == "single_triangle":
+        submeshes[0].material.kd = (1.0, 1.0, 1.0)  # as the reference does
+        lights.add_point((-1, 1, -1), (1, 1, 1))
+    elif name == "cube":
+        lights.add_segment((1.5, 0.5, -0.6), (-1, 0.5, -0.5),
+                           (0.9, 0.2, 0.1), (0.2, 1, 0.3))
+    elif name == "cube_textured":
+        lights.add_point((-1.0, 1.5, -1.0), (1, 1, 1))
+    elif name == "cornell_box":
+        lights.add_point((0, 0.58, 0), (1, 1, 1))
+    elif name == "cornell_box_parallelogram_light":
+        lights.add_parallelogram(
+            (-0.2, 0.5, 0), (0.4, 0, 0), (0.0, 0.0, 0.4),
+            (1.0, 1.0, 1.0), (0.5, 0.5, 0.5), (0.5, 0.5, 0.5), (1.0, 1.0, 1.0))
+    elif name == "cornell_nightclub":
+        nightclub_lights(lights)
+    elif name == "monkey":
+        lights.add_point((-1, 1, -1), (1, 1, 1))
+        lights.add_point((1, -1, -1), (1, 1, 1))
+    return Scene(geometry=build_geometry(submeshes, device),
+                 lights=lights.build(device), num_lights=len(lights),
+                 name=name)
+
+
+def load_scene_from_file(path: str, lights: LightListBuilder,
+                         center_and_normalize: bool = False,
+                         device=None) -> Scene:
+    """An OBJ file under the given lights (reference loadSceneFromFile,
+    src/scene/scene.cpp:134-140)."""
+    submeshes = load_obj(path, center_and_normalize=center_and_normalize)
+    return Scene(geometry=build_geometry(submeshes, device),
+                 lights=lights.build(device), num_lights=len(lights),
+                 name=os.path.splitext(os.path.basename(path))[0])

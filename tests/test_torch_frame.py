@@ -2,11 +2,12 @@
 frames that carry the temporal state, with every random draw injected:
 without spatial reuse, with the reference defaults (config 5), and along an
 animated camera path with reprojection, the unbiased combine and the
-initial visibility check; the Z-count option of a later slice refusing, and
-the gradient-path options that used to refuse rendering as JAX does; the
+initial visibility check; the unbiased combine's Z-count visibility check
+and the gradient-path options, which used to refuse, rendering as JAX does; the
 R-MIS and R-OMIS modes rendering through render_frame; the port's own
 Features and its default device; and the port importing, rendering and
-taking a gradient step without JAX or the JAX package."""
+taking a gradient step, a visibility-checked frame and a CLI run without
+JAX or the JAX package."""
 
 import subprocess
 import sys
@@ -211,21 +212,10 @@ def _renders_as_jax(flags, entry):
 @pytest.mark.parametrize("entry", ["frame", "animation"])
 @pytest.mark.parametrize("flags,match", LATER, ids=[m for _, m in LATER])
 def test_later_slices_refuse(flags, match, entry):
-    """The unbiased combine's Z-count visibility still refuses, naming its
-    option; the gradient-path options, which refused before their slice,
-    now render and match JAX."""
-    if match != "spatial_reuse_visibility_check":
-        _renders_as_jax(flags, entry)
-        return
-    feats = port_features(Features(**flags))
-    scene, cam = flagship_scene("cpu"), flagship_camera(4, 4, "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        if entry == "frame":
-            render_frame(torch.Generator(), cam, scene, 4, 4, feats)
-        else:
-            render_animation(torch.Generator(), stack_cameras([cam, cam]),
-                             scene.geometry, scene.lights, scene.num_lights,
-                             4, 4, feats)
+    """The options that refused before their slice (the unbiased combine's
+    Z-count visibility, the gradient-path options) now render and match
+    JAX."""
+    _renders_as_jax(flags, entry)
 
 
 def test_biased_visibility_check_is_not_refused():
@@ -356,6 +346,30 @@ def test_port_imports_and_renders_without_jax(tmp_path):
         img, state = render_frame(gen, torus_field_camera(8, 8, "cpu"),
                                   field, 8, 8, feats)
         assert bool(torch.isfinite(img).all())
+
+        # The unbiased combine with the Z-count visibility check.
+        feats = Features(initial_light_samples=8, unbiased_combination=True,
+                         spatial_reuse_visibility_check=True)
+        img, state = render_frame(gen, cam, scene, 8, 8, feats)
+        assert bool(torch.isfinite(img).all())
+
+        # The app: a TOML config and an OBJ scene through the CLI.
+        from pathlib import Path
+        from romis_tpu_torch import cli
+        from romis_tpu_torch.scene.objloader import write_obj
+        from romis_tpu_torch.scene.scene import torus_field_submeshes
+        out = Path(sys.argv[1]).parent
+        write_obj(str(out / "torus.obj"), torus_field_submeshes(1))
+        (out / "cfg.toml").write_text(
+            '[features]\\ninitial_light_samples = 4\\n'
+            '[[lights]]\\ntype = "point"\\nposition = [0, 3, 0]\\n'
+            'color = [5, 5, 5]\\n[[cameras]]\\nlook_at = [0, 0, 0]\\n'
+            'distance_from_look_at = 4.0\\n')
+        assert cli.main(["--device", "cpu", "--config", str(out / "cfg.toml"),
+                         "--scene", str(out / "torus.obj"), "--size", "8",
+                         "6", "--frames", "2", "--out",
+                         str(out / "cli")]) == 0
+        assert len(list((out / "cli").glob("torus_*_cam_0.png"))) == 1
         import os
         if os.path.exists("/proc/self/maps"):  # no JAX-package library
             assert "libromis_native" not in open("/proc/self/maps").read()
