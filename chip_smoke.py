@@ -55,7 +55,23 @@ GPU.
    Phong: the RIS, replay and MIS RIS, both spatial passes, the sweep in
    its four modes, the final shade and its BVH mode, at 1080p with the
    tolerances above.
-4. Twenty main paths, each at 1920x1080, once through the kernels and
+   Then slice 7's two kernels, which the reference reaches on no frame
+   path, through their op-level entries: kernel 8 (the Plücker any-hit,
+   ``ops.trace.any_hit_plucker``) against its plain version, the same bool
+   on every ray, and against kernel 6 (Möller–Trumbore) on the same rays,
+   at most PLUCKER_MT_SHARE of them apart: the K = 2 shadow rays of the
+   flagship's 1080p frame, of the one-torus soup's 1080p frame (970
+   triangles, TORUS_CAM) and of the 2048-triangle soup at 480x270; kernel
+   12 (the neighbour gather, ``ops.spatial.neighbour_gather``) on config
+   5's pack (C = 10K + 19 = 39 planes: a coordinate plane, the reservoirs,
+   the 18 context planes; R = 5, r = 10) at 1080p, bit-exact on injected
+   offsets, and on its Philox stream: every offset in the clamped window,
+   every plane at the offset the coordinate plane records (the plain
+   version at the recovered offsets bit-exact), the offsets equal to the
+   plain Philox draw's (``neighbour_offsets``), each of the 2r + 1 values
+   of dy and of dx within NBR_SHARE_REL of 1/(2r + 1) over the interior
+   pixels, and dx not shared down columns (as the TPU kernel shares it).
+4. Twenty-three main paths, each at 1920x1080, once through the kernels and
    once through the plain versions, with the launch counters set to 0 just
    before and read just after the kernels' run:
    - slice 1: ``Features(spatial_reuse=False)``, 2 frames;
@@ -102,6 +118,13 @@ GPU.
      attaches the BVH), 4 frames at 1920x1080 with a checkpoint, then 2 and
      a resume to 4: the two final images bit-identical, and each image's
      mean within FRAME_REL of the same frames through render_animation.
+   - slice 7: ``large_grad`` (``make_grad_fn`` on the 5x5 torus field
+     with its BVH, the tree as built, grad_surrogate's features, 2 steps
+     from one forward frame: kernels 18, 21 and the shade backward's K-ray
+     walk 20), its plain comparison at 480x270 on injected noise; and the
+     op paths ``plucker_op`` (kernel 8 on the torus soup's 1080p shadow
+     rays) and ``neighbour_gather_op`` (kernel 12 on config 5's pack, pass
+     indices 0 and 1), 2 calls each.
    Every pixel is finite, the last images' means (the losses) agree within
    2 %, the launch counters rose by exactly the per-frame (per-step) counts
    in PATHS, and every gradient leaf is finite, reaches the image where it
@@ -125,6 +148,13 @@ GPU.
    tests, and SHADOW_OPS per traced ray. The BVH kernels' bound counts the box
    and triangle tests that the plain traversal made on the same rays and
    tree (BOX_OPS and MT_OPS each, and each ray's three reciprocals).
+   Kernel 8 is timed beside kernel 6 on the torus soup's 1080p shadow rays
+   (its bound: the triangle tests this run's rays make up to their first
+   occluder, PLUCKER_OPS each), with ``torch.matmul`` of the [5T, 16]
+   constants by the [16, N] rays as the library column, labelled "product
+   only" (it computes no sign test); kernel 12 on its Philox stream, with
+   one advanced-indexing gather at the clamped coordinates as the library
+   call.
 
 Any failed check raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table.
@@ -217,6 +247,15 @@ BOX_OPS = 22  # one slab test: 6 subtractions, 6 multiplies, 10 min/max
 # the two window products and six compares).
 MT_ORIGIN_OPS = 17
 MT_RAY_OPS = 37
+# Kernel 8: five 10-term products (10 multiplies, 9 adds) and the sign
+# test (6 compares, the straddle's add, multiply and compare, 2 logic) per
+# ray-triangle test; D and M = p0 x D once per ray.
+PLUCKER_OPS = 5 * 19 + 11
+PLUCKER_RAY_OPS = 12
+PLUCKER_MT_SHARE = 1e-3  # kernel 8 vs kernel 6, the reference's budget
+MATMUL_CHUNK = 1 << 18  # rays per torch.matmul of the "product only" call
+COORD = 4096  # kernel 12's coordinate plane y·4096 + x, exact in float32
+NBR_SHARE_REL = 0.01  # each offset value's share, relative to 1/(2r+1)
 LARGE_N, LARGE_TRIS = 5, 24202  # the torus field: n x n tori of 968
 LH, LW = 270, 480  # the large MIS paths' plain comparison
 SKY_PLANES = 17  # kernel 19's many-plane case (above the K-ray walk's 16)
@@ -227,7 +266,8 @@ KERNELS = ("closest_hit", "gather_rows", "ris", "final_shade",
            "spatial_pass", "spatial_pass_unbiased", "halo_gather", "any_hit",
            "scatter_rows_add", "halo_scatter", "ris_replay",
            "neighbour_select", "mis_ris", "mis_iteration", "bvh_closest_hit",
-           "bvh_any_hit", "bvh_any_hit_k", "bvh_final_shade", "zcount_occ")
+           "bvh_any_hit", "bvh_any_hit_k", "bvh_final_shade", "zcount_occ",
+           "any_hit_plucker", "neighbour_gather")
 SOURCES = {
     "closest_hit": ("romis_tpu_torch/csrc/trace.cu",
                     "romis_tpu/ops/pallas_trace.py:465"),
@@ -267,6 +307,10 @@ SOURCES = {
                         "romis_tpu/ops/pallas_shade.py:275"),
     "zcount_occ": ("romis_tpu_torch/csrc/zcount.cu",
                    "romis_tpu/ops/pallas_trace.py:665"),
+    "any_hit_plucker": ("romis_tpu_torch/csrc/plucker.cu",
+                        "romis_tpu/ops/pallas_trace.py:371"),
+    "neighbour_gather": ("romis_tpu_torch/csrc/nbrgather.cu",
+                         "romis_tpu/ops/pallas_spatial.py:145"),
 }
 # Launches per frame (per gradient step) of each main path. A gradient
 # step's row gathers: hit attributes and materials, the closest hit's
@@ -331,13 +375,25 @@ PATHS.update({
     "large_vischeck": dict(_LARGE, bvh_any_hit_k=2, **_VIS),
     "cli": dict(_LARGE, bvh_any_hit_k=2, **_VIS),
 })
+# Slice 7: the gradient step on the BVH field (kernels 18 and 21 forward,
+# the shade backward's shadow rays through the K-ray walk 20), and the op
+# paths of kernels 8 and 12, one launch a call.
+PATHS.update({
+    "large_grad": {"bvh_closest_hit": 1, "gather_rows": 9, "ris_replay": 1,
+                   "bvh_final_shade": 1, "bvh_any_hit_k": 1,
+                   "scatter_rows_add": 8},
+    "plucker_op": {"any_hit_plucker": 1},
+    "neighbour_gather_op": {"neighbour_gather": 1},
+})
 FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "grad_surrogate": 2,
           "grad_per_pixel": 2, "romis": 2, "romis_progressive": 2,
           "rmis_equal": 2, "rmis_balance": 2, "large_config5": 2,
           "large_animated": 2, "large_k1": 2, "large_romis": 2,
           "large_rmis_equal": 2, "config5_gather": 2, "unshaded": 2,
-          "vischeck": 2, "vischeck_torus": 2, "large_vischeck": 2, "cli": 4}
-GRAD_PATHS = ("grad_surrogate", "grad_per_pixel")
+          "vischeck": 2, "vischeck_torus": 2, "large_vischeck": 2, "cli": 4,
+          "large_grad": 2, "plucker_op": 2, "neighbour_gather_op": 2}
+GRAD_PATHS = ("grad_surrogate", "grad_per_pixel", "large_grad")
+OP_PATHS = ("plucker_op", "neighbour_gather_op")
 MIS_PATHS = ("romis", "romis_progressive", "rmis_equal", "rmis_balance",
              "large_romis", "large_rmis_equal")
 # ReSTIR paths whose plain run is at LH x LW on injected noise.
@@ -509,7 +565,9 @@ def main() -> None:
                 "bvh_any_hit": walk.any_hit_bvh,
                 "bvh_any_hit_k": walk.any_hit_bvh_k,
                 "bvh_final_shade": shade.final_shade_bvh,
-                "zcount_occ": trace.zcount_occ}
+                "zcount_occ": trace.zcount_occ,
+                "any_hit_plucker": trace.any_hit_plucker,
+                "neighbour_gather": spatial.neighbour_gather}
 
     # ---- 3. each kernel against its plain version ----
     feats = Features()
@@ -1373,6 +1431,109 @@ def main() -> None:
         packs_u[True], (H, W), f=ufeats))
     del packs_u, res_u
 
+    # ---- slice 7: kernels 8 and 12 through their op-level entries ----
+    # Kernel 8 on the K = 2 shadow rays of three frames: the flagship's,
+    # the one-torus soup's (970 triangles) and the 2048-triangle soup's.
+    torus1 = torus_field(1, dev)
+    require(torus1.geometry.tri_cols.shape[1] <= trace.MAX_SOUP_TRIS
+            and torus1.geometry.bvh is None, "one-torus soup")
+    tcam = make_camera(resolution=(H, W), device=dev, **TORUS_CAM)
+    _, tctx = restir.trace_primary(generate_rays(tcam, H, W),
+                                   torus1.geometry, feats, restir.KERNELS)
+    tshadow = shadow_rays(tctx, ris.gen_canonical_samples_ris(
+        tctx, torus1.lights, torus1.num_lights, feats, generator=gen))
+    sshadow = shadow_rays(soup_ctx_s, gen_canonical_samples_plain(
+        soup_ctx_s, scene.lights, scene.num_lights, feats, generator=gen))
+
+    def check_plucker(label, c, rays_, geometry):
+        """Kernel 8 against its plain version (the same bool on every ray)
+        and against kernel 6 on the rays of the pixels that hit (a missed
+        pixel's ray runs from the camera to the light sample's default, a
+        point on the ground plane: it ends on a triangle, where the two
+        tests round either way) → the plain version's triangle tests."""
+        cnt = {}
+        cmat = trace.plucker_matrix(geometry)
+        occ_k = trace.any_hit_plucker(*rays_, geometry, cmat)
+        occ_p = trace.any_hit_plucker_plain(*rays_, geometry, cmat,
+                                            counts=cnt)
+        occ_6 = trace.any_hit(*rays_, geometry)
+        torch.cuda.synchronize()
+        exact = torch.equal(occ_k, occ_p)
+        valid = c.valid.expand(occ_k.shape)
+        apart = (occ_k != occ_6)[valid].float().mean().item()
+        print(f"check any_hit_plucker[{label}]: rays {occ_k.numel()}, "
+              f"triangles {geometry.tri_cols.shape[1]}, occluded "
+              f"{occ_p.float().mean().item():.4f}, the same bool on every "
+              f"ray {exact}; vs kernel 6 (Moller-Trumbore) {apart:.2e} of "
+              f"the hit pixels' {valid.sum().item()} rays apart "
+              f"({(occ_k != occ_6)[valid].sum().item()}; "
+              f"{(occ_k != occ_6).sum().item()} of all rays); triangle "
+              f"tests per ray {cnt['tests'].float().mean().item():.1f}")
+        require(exact, f"any_hit_plucker {label}: kernel 8 and its plain "
+                f"version differ on {(occ_k != occ_p).sum().item()} rays")
+        require(apart <= PLUCKER_MT_SHARE,
+                f"any_hit_plucker {label}: {apart} of the rays apart from "
+                f"kernel 6")
+        return cnt
+
+    check_plucker("flagship 1080p", ctx, shadow_rays(ctx, res_main),
+                  scene.geometry)
+    plucker_counts = check_plucker("torus soup 1080p", tctx, tshadow,
+                                   torus1.geometry)
+    check_plucker("soup2048 480x270", soup_ctx_s, sshadow, soup)
+    errs["any_hit_plucker"] = 0.0  # the checks above require the same bools
+    del sshadow
+
+    # Kernel 12 on config 5's pack: plane 0 holds each pixel's coordinate
+    # y·COORD + x, then the K reservoirs and the 18 context planes.
+    ys = torch.arange(H, device=dev)[:, None]
+    xs = torch.arange(W, device=dev)[None, :]
+    gpack = torch.cat([(ys * COORD + xs).float()[None], res_planes,
+                       cen]).contiguous()
+    require(gpack.shape[0] == 10 * k + 19, f"pack of {gpack.shape[0]}")
+    inj = spatial.spatial_noise(gen, n_nbr, 1, radius, H, W)[0]
+    g_k = spatial.neighbour_gather(gpack, n_nbr, radius, offsets=inj)
+    g_p = spatial.neighbour_gather_plain(gpack, inj)
+    torch.cuda.synchronize()
+    exact = torch.equal(g_k, g_p)
+    print(f"check neighbour_gather[injected]: planes {gpack.shape[0]}, R="
+          f"{n_nbr}, r={radius}, bit-exact {exact}")
+    require(exact, "neighbour_gather on injected offsets is not bit-exact")
+    gkey = spatial.philox_key(gen)
+    g_k = spatial.neighbour_gather(gpack, n_nbr, radius, key=gkey,
+                                   pass_index=1)
+    src = g_k[:, 0].long()  # [R, H, W]
+    sy, sx = src // COORD, src % COORD
+    rec = torch.stack([sy - ys, sx - xs]).int()
+    in_win = bool(((sy >= (ys - radius).clamp_min(0))
+                   & (sy <= (ys + radius).clamp_max(H - 1))
+                   & (sx >= (xs - radius).clamp_min(0))
+                   & (sx <= (xs + radius).clamp_max(W - 1))).all())
+    at_rec = torch.equal(g_k, spatial.neighbour_gather_plain(gpack, rec))
+    drawn = spatial.neighbour_offsets(gkey, 1, n_nbr, radius, H, W)
+    stream = torch.equal(g_k, spatial.neighbour_gather_plain(gpack, drawn))
+    inner = rec[:, :, radius:H - radius, radius:W - radius]
+    side = 2 * radius + 1
+    share_err = max(
+        (torch.bincount((inner[a] + radius).reshape(-1), minlength=side)
+         .double() * side / inner[a].numel() - 1.0).abs().max().item()
+        for a in range(2))
+    col_same = (inner[1, :, 1:] == inner[1, :, :-1]).float().mean().item()
+    print(f"check neighbour_gather[philox]: every offset in the clamped "
+          f"window {in_win}, every plane at the recovered offsets (bit-exact) "
+          f"{at_rec}, offsets equal to the plain Philox draw {stream}; over "
+          f"the interior each of the {side} values of dy and dx within "
+          f"{share_err:.2e} of 1/{side} (relative), dx equal to the pixel "
+          f"above's on {col_same:.4f} of the pixels")
+    require(in_win and at_rec and stream,
+            "neighbour_gather Philox: offsets or planes")
+    require(share_err <= NBR_SHARE_REL, f"neighbour_gather: shares "
+            f"{share_err}")
+    require(col_same <= 2.0 / side, f"neighbour_gather: dx shared down "
+            f"columns ({col_same})")
+    errs["neighbour_gather"] = 0.0  # bit-exact above
+    del g_k, g_p, src, sy, sx, rec, drawn, inner
+
     # ---- 4. the main paths through the entry points ----
     path_feats = {
         "slice1": Features(spatial_reuse=False),
@@ -1403,11 +1564,6 @@ def main() -> None:
         "vischeck_torus": vfeats,
         "large_vischeck": vfeats,
     })
-    # The one-torus field as a soup (970 triangles, no BVH).
-    torus1 = torus_field(1, dev)
-    require(torus1.geometry.tri_cols.shape[1] <= trace.MAX_SOUP_TRIS
-            and torus1.geometry.bvh is None, "one-torus soup")
-    tcam = make_camera(resolution=(H, W), device=dev, **TORUS_CAM)
     cam_path = interpolate_cameras(
         cam, make_camera(look_at=(2.57, 1.23, -1.35),
                          rotation_deg=(10.3, 30.0 + PAN_DEG
@@ -1469,8 +1625,33 @@ def main() -> None:
         return img, state
 
     launches = {n: 0 for n in KERNELS}
+    # The op paths of kernels 8 and 12: their entries, as a caller calls
+    # them (the reference reaches neither on a frame path).
+    op_calls = {
+        "plucker_op": lambda i: trace.any_hit_plucker(*tshadow,
+                                                      torus1.geometry),
+        "neighbour_gather_op": lambda i: spatial.neighbour_gather(
+            gpack, n_nbr, radius, key=gkey, pass_index=i),
+    }
+    for path in OP_PATHS:
+        for fn in wrappers.values():
+            fn.launches = 0
+        outs = [op_calls[path](i) for i in range(FRAMES[path])]
+        torch.cuda.synchronize()
+        got = {n: fn.launches for n, fn in wrappers.items()}
+        expect = {n: PATHS[path].get(n, 0) * FRAMES[path] for n in KERNELS}
+        print(f"path {path}: launches over {FRAMES[path]} calls "
+              f"{ {n: c for n, c in got.items() if c} }")
+        require(got == expect, f"{path}: launch counts {got} != {expect}")
+        for n in KERNELS:
+            launches[n] += got[n]
+        require(all(torch.equal(o_, outs[0]) for o_ in outs)
+                if path == "plucker_op" else not torch.equal(*outs),
+                f"{path}: calls {'differ' if path == 'plucker_op' else 'equal'}")
+        del outs
     for path, per_frame in PATHS.items():
-        if path in GRAD_PATHS or path in MIS_PATHS or path == "cli":
+        if (path in GRAD_PATHS or path in MIS_PATHS or path in OP_PATHS
+                or path == "cli"):
             continue
         for fn in wrappers.values():
             fn.launches = 0
@@ -1623,7 +1804,8 @@ def main() -> None:
     del imgs_r, csc
 
     # The gradient paths: make_grad_fn from one forward frame's state,
-    # against a target rendered with the light colours x 0.8.
+    # against a target rendered with the light colours x 0.8; large_grad
+    # on the 5x5 torus field with its BVH (the tree as built).
     grad_feats = {
         "grad_surrogate": Features(enable_tone_mapping=False,
                                    surrogate_resampling_grad=True),
@@ -1631,45 +1813,60 @@ def main() -> None:
                                    surrogate_resampling_grad=True,
                                    exact_gradients=True),
     }
-    params = extract_params(scene.geometry, scene.lights)
-    dim = replace(params, **{f: getattr(params, f) * 0.8 for f in (
-        "light_c0", "light_c1", "light_c2", "light_c3")})
+    grad_feats["large_grad"] = grad_feats["grad_surrogate"]
 
-    def grad_setup(path):
-        """(features, prev state, target image, one step's injected noise)."""
+    def grad_setup(path, hw=(H, W)):
+        """(features, scene, camera, params, prev state, target image, one
+        step's injected noise) of a gradient path at hw."""
         f = grad_feats[path]
+        h_, w_ = hw
+        sc, c = (large, torus_field_camera(h_, w_, dev)) \
+            if path == "large_grad" else (scene, flagship_camera(h_, w_, dev))
+        p = extract_params(sc.geometry, sc.lights)
+        dim = replace(p, **{n: getattr(p, n) * 0.8 for n in (
+            "light_c0", "light_c1", "light_c2", "light_c3")})
         g = torch.Generator(device=dev).manual_seed(11)
-        args = (cam, scene.geometry, scene.lights, scene.num_lights, H, W, f)
+        args = (c, sc.geometry, sc.lights, sc.num_lights, h_, w_, f)
         with torch.no_grad():
             _, prev = render_with_params(
-                params, g, *args, restir.initial_temporal_state(H, W, k, cam))
+                p, g, *args, restir.initial_temporal_state(h_, w_, k, c))
             target, _ = render_with_params(dim, g, *args, prev)
-        shape = (2, n_nbr, H, W) if f.exact_gradients else (2, n_nbr)
-        noise = (replay_uniforms(g, s, k, H, W),
-                 gumbel_noise(g, (2, k, H, W)),
+        shape = (2, n_nbr, h_, w_) if f.exact_gradients else (2, n_nbr)
+        noise = (replay_uniforms(g, s, k, h_, w_),
+                 gumbel_noise(g, (2, k, h_, w_)),
                  [(torch.randint(-radius, radius + 1, shape, generator=g,
                                  device=dev, dtype=torch.int32),
-                   gumbel_noise(g, (n_nbr + 1, k, H, W)),
-                   gumbel_noise(g, (n_nbr + 1, k, H, W)))
+                   gumbel_noise(g, (n_nbr + 1, k, h_, w_)),
+                   gumbel_noise(g, (n_nbr + 1, k, h_, w_)))
                   for _ in range(f.spatial_resampling_passes)])
-        return f, prev, target, noise
+        return f, sc, c, p, prev, target, noise
+
+    def grad_fn(path, sc, hw, ops=restir.KERNELS):
+        return make_grad_fn(sc.geometry, sc.lights, sc.num_lights, *hw,
+                            grad_feats[path], ops=ops)
 
     grad_reach = ("light_c0", "light_v0", "mat_kd", "tri_v0")
     for path in GRAD_PATHS:
-        f, prev, target, noise = grad_setup(path)
-        fn_k = make_grad_fn(scene.geometry, scene.lights, scene.num_lights,
-                            H, W, f)
-        fn_p = make_grad_fn(scene.geometry, scene.lights, scene.num_lights,
-                            H, W, f, ops=restir.PLAIN)
+        f, sc, c, p, prev, target, noise = grad_setup(path)
+        fn_k = grad_fn(path, sc, (H, W))
         for fn in wrappers.values():
             fn.launches = 0
-        loss_k, g_k = fn_k(params, target, None, cam, prev, noise)
-        loss_k2, g_k2 = fn_k(params, target,
+        loss_k, g_k = fn_k(p, target, None, c, prev, noise)
+        loss_k2, g_k2 = fn_k(p, target,
                              torch.Generator(device=dev).manual_seed(12),
-                             cam, prev)
+                             c, prev)
         torch.cuda.synchronize()
         got = {n: fn.launches for n, fn in wrappers.items()}
-        loss_p, g_p = fn_p(params, target, None, cam, prev, noise)
+        hw = (H, W)
+        if path == "large_grad":
+            # The plain step at 480x270 (the plain traversal walks the
+            # tree in lockstep), against the kernels' on the same noise.
+            hw = (LH, LW)
+            f, sc, c, p, prev, target, noise = grad_setup(path, hw)
+            loss_k, g_k = grad_fn(path, sc, hw)(p, target, None, c, prev,
+                                                noise)
+        loss_p, g_p = grad_fn(path, sc, hw, restir.PLAIN)(
+            p, target, None, c, prev, noise)
         torch.cuda.synchronize()
         expect = {n: PATHS[path].get(n, 0) * FRAMES[path] for n in KERNELS}
         print(f"path {path}: launches over {FRAMES[path]} steps "
@@ -1678,8 +1875,8 @@ def main() -> None:
         for n in KERNELS:
             launches[n] += got[n]
         lk, lp, lk2 = loss_k.item(), loss_p.item(), loss_k2.item()
-        print(f"path {path}: loss {lk:.8g} (kernels) vs {lp:.8g} (plain), "
-              f"Philox step {lk2:.8g}")
+        print(f"path {path}: loss {lk:.8g} (kernels) vs {lp:.8g} (plain) at "
+              f"{hw[1]}x{hw[0]}, Philox step {lk2:.8g} at {W}x{H}")
         require(all(map(math.isfinite, (lk, lp, lk2))) and lk > 0,
                 f"{path}: loss")
         require(abs(lk - lp) <= FRAME_REL * abs(lp), f"{path}: losses differ")
@@ -1700,6 +1897,7 @@ def main() -> None:
                 require(scale > 0 and a2.abs().max().item() > 0,
                         f"{path}: no gradient reaches {leaf}")
         print(f"path {path}: worst gradient leaf err / max |g| {worst:.2e}")
+        del g_k, g_k2, g_p, prev, target, noise
 
     # R-MIS / R-OMIS: frame 1 on injected noise (the selection's score
     # planes, every iteration's RIS uniforms), frame 2 on the Philox
@@ -1780,7 +1978,7 @@ def main() -> None:
         return run
 
     for path in PATHS:
-        if path in GRAD_PATHS or path == "cli":
+        if path in GRAD_PATHS or path in OP_PATHS or path == "cli":
             continue
         if path.startswith("large_") and path in MIS_PATHS \
                 or path in SMALL_PLAIN:
@@ -1843,31 +2041,34 @@ def main() -> None:
         profile_frames(path, 3)
 
     for path in GRAD_PATHS:
-        f, prev, target, _ = grad_setup(path)
+        # The plain large step at 480x270 (lockstep traversal), like its
+        # comparison above.
+        hw_p = (LH, LW) if path == "large_grad" else (H, W)
+        setups = {hw: grad_setup(path, hw) for hw in {(H, W), hw_p}}
 
-        def grad_step(ops):
-            fn = make_grad_fn(scene.geometry, scene.lights, scene.num_lights,
-                              H, W, f, ops=ops)
+        def grad_step(ops, hw):
+            f, sc, c, p, prev, target, _ = setups[hw]
+            fn = grad_fn(path, sc, hw, ops)
             g = torch.Generator(device=dev).manual_seed(5)
-            return lambda: fn(params, target, g, cam, prev)
+            return lambda: fn(p, target, g, c, prev)
 
-        def forward_frame(ops):
+        def forward_frame(ops, hw):
+            f, sc, c, p, prev, _, _ = setups[hw]
             g = torch.Generator(device=dev).manual_seed(5)
 
             def run():
                 with torch.no_grad():
-                    render_with_params(params, g, cam, scene.geometry,
-                                       scene.lights, scene.num_lights, H, W,
-                                       f, prev, ops=ops)
+                    render_with_params(p, g, c, sc.geometry, sc.lights,
+                                       sc.num_lights, *hw, f, prev, ops=ops)
             return run
 
-        s_k, s_p = ab_ms(torch, grad_step(restir.KERNELS),
-                         grad_step(restir.PLAIN), 3, 1)
-        f_k, f_p = ab_ms(torch, forward_frame(restir.KERNELS),
-                         forward_frame(restir.PLAIN), 5, 2)
+        s_k, s_p = ab_ms(torch, grad_step(restir.KERNELS, (H, W)),
+                         grad_step(restir.PLAIN, hw_p), 3, 1)
+        f_k, f_p = ab_ms(torch, forward_frame(restir.KERNELS, (H, W)),
+                         forward_frame(restir.PLAIN, hw_p), 5, 2)
         peaks = []
-        for ops in (restir.KERNELS, restir.PLAIN):
-            step = grad_step(ops)
+        for ops, hw in ((restir.KERNELS, (H, W)), (restir.PLAIN, hw_p)):
+            step = grad_step(ops, hw)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -1875,13 +2076,15 @@ def main() -> None:
             torch.cuda.synchronize()
             peaks.append((torch.cuda.max_memory_allocated(), base))
         (pk, bk), (pp, bp) = peaks
+        at_p = "" if hw_p == (H, W) else f" at {LW}x{LH}"
         print(f"time grad[{path}]: {s_k:.3f} ms/step kernels, {s_p:.3f} "
-              f"ms/step plain; forward frame {f_k:.3f} ms kernels, "
-              f"{f_p:.3f} ms plain [{card}]")
+              f"ms/step plain{at_p}; forward frame {f_k:.3f} ms kernels, "
+              f"{f_p:.3f} ms plain{at_p} [{card}]")
         print(f"memory grad[{path}]: peak {pk / 2**30:.3f} GiB kernels "
               f"({(pk - bk) / 2**30:.3f} above the {bk / 2**30:.3f} GiB "
-              f"held before the step), {pp / 2**30:.3f} GiB plain "
+              f"held before the step), {pp / 2**30:.3f} GiB plain{at_p} "
               f"({(pp - bp) / 2**30:.3f} above) [{card}]")
+        del setups
 
     uni = torch.rand((sk, 4, k, H, W), generator=gen, device=dev)
     o, d, tm = shadow_rays(ctx, res_main)
@@ -2064,6 +2267,34 @@ def main() -> None:
         geometry=torus1.geometry), 10)
     print(f"time vis-check pass (kernel 11 + kernel 7 + Z subtraction, torus "
           f"soup 1080p): {ms:.4f} ms [{card}]")
+    # Kernel 8 on the torus soup's 1080p shadow rays, beside its plain
+    # version and beside kernel 6 on the same rays (and on the flagship's).
+    tgeo = torus1.geometry
+    tcmat = trace.plucker_matrix(tgeo)
+    timings["any_hit_plucker"] = ab_ms(
+        torch, lambda: trace.any_hit_plucker(*tshadow, tgeo, tcmat),
+        lambda: trace.any_hit_plucker_plain(*tshadow, tgeo, tcmat), 10, 1)
+    fcmat = trace.plucker_matrix(scene.geometry)
+    for label, rays_, geo_, cm_ in (
+            ("torus soup 1080p, 970 triangles", tshadow, tgeo, tcmat),
+            ("flagship 1080p, 2 triangles", (o, d, tm), scene.geometry,
+             fcmat)):
+        m8, m6 = ab_ms(torch, lambda: trace.any_hit_plucker(*rays_, geo_,
+                                                            cm_),
+                       lambda: trace.any_hit(*rays_, geo_), 10, 10)
+        print(f"time any_hit_plucker vs any_hit (kernel 8 vs kernel 6, the "
+              f"same rays; {label}): {m8:.4f} ms vs {m6:.4f} ms, ratio "
+              f"{m8 / m6:.2f} [{card}]")
+    # Kernel 12 on config 5's pack: its Philox stream (the plain version
+    # draws the same offsets with neighbour_offsets), and injected offsets.
+    timings["neighbour_gather"] = ab_ms(
+        torch, lambda: spatial.neighbour_gather(gpack, n_nbr, radius,
+                                                key=gkey, pass_index=1),
+        lambda: spatial.neighbour_gather_plain(gpack, spatial.neighbour_offsets(
+            gkey, 1, n_nbr, radius, H, W)), 20, 5)
+    ms = cuda_ms(torch, lambda: spatial.neighbour_gather(
+        gpack, n_nbr, radius, offsets=inj), 20)
+    print(f"time neighbour_gather (injected offsets): {ms:.4f} ms [{card}]")
     for n, (km, pm) in timings.items():
         print(f"time {n}: {km:.4f} ms kernel, {pm:.4f} ms plain [{card}]")
 
@@ -2081,6 +2312,24 @@ def main() -> None:
     q_flat = (torch.clamp(rows_i + sdy.long(), 0, H - 1) * W
               + torch.clamp(cols_i + sdx.long(), 0, W - 1)).reshape(-1)
     hs_src = halo_ct.movedim(1, 0).reshape(k, -1).contiguous()
+    # Kernel 12's: the pack at the clamped coordinates of the same draws.
+    g_dy, g_dx = spatial.clamped_offsets(spatial.neighbour_offsets(
+        gkey, 1, n_nbr, radius, H, W), H, W)
+    g_ny = (rows_i + g_dy.long()).contiguous()
+    g_nx = (cols_i + g_dx.long()).contiguous()
+    # Kernel 8's product alone: the [5T, 16] constants by the [16, N] ray
+    # vectors R = [D, M, p0, 1, 0...] (no sign test), in chunks of rays.
+    t_o, t_d, t_tm = tshadow
+    t_big_d = t_tm[:, None] * t_d
+    rvec = torch.cat([t_big_d, torch.linalg.cross(t_o, t_big_d, dim=1), t_o,
+                      torch.ones_like(t_tm)[:, None],
+                      torch.zeros((t_o.shape[0], 6, H, W), device=dev)],
+                     dim=1).transpose(0, 1).reshape(16, -1).contiguous()
+
+    def plucker_product():
+        for a in range(0, rvec.shape[1], MATMUL_CHUNK):
+            torch.matmul(tcmat, rvec[:, a:a + MATMUL_CHUNK])
+
     library = {
         "gather_rows": cuda_ms(
             torch, lambda: torch.index_select(attr, 0, idx_l), 20),
@@ -2092,9 +2341,19 @@ def main() -> None:
         "halo_scatter": cuda_ms(
             torch, lambda: torch.zeros((k, H * W), device=dev).index_add_(
                 1, q_flat, hs_src), 20),
+        "neighbour_gather": cuda_ms(
+            torch, lambda: gpack[:, g_ny, g_nx], 20),
     }
     for n, ms in library.items():
         print(f"time {n} (one PyTorch call): {ms:.4f} ms [{card}]")
+    # No PyTorch call computes kernel 8's function (its library column
+    # stays null); the product alone is timed beside it.
+    ms = cuda_ms(torch, plucker_product, 3)
+    print(f"time any_hit_plucker product only (torch.matmul [5T, 16] x "
+          f"[16, N], T={tgeo.tri_cols.shape[1]}, N={rvec.shape[1]}, in "
+          f"chunks of {MATMUL_CHUNK} rays, no sign test): {ms:.4f} ms "
+          f"[{card}]")
+    del rvec, g_ny, g_nx
 
     # Bounds of the timed calls, from this run's shapes: bytes read once
     # and written once (4 B a plane element), float32 operations.
@@ -2183,8 +2442,21 @@ def main() -> None:
         hw * (4 * 3 * (r1 + k) + 2 * r1 * k),
         tests.amax(dim=1).sum().item() * MT_ORIGIN_OPS
         + tests.sum().item() * MT_RAY_OPS + tests.numel() * SHADOW_OPS)
+    # Kernel 8: the tests the torus soup's shadow rays make up to their
+    # first occluder (its plain version counts them), a set-up per ray;
+    # 7 floats in and a byte out per ray, the constants once. Kernel 12 on
+    # Philox: the C planes read once, R·C written, a Philox call and two
+    # uniforms per neighbour.
+    tests8 = plucker_counts["tests"]
+    bounds["any_hit_plucker"] = bound(
+        tests8.numel() * 29 + tcmat.numel() * 4,
+        tests8.sum().item() * PLUCKER_OPS + tests8.numel() * PLUCKER_RAY_OPS)
+    bounds["neighbour_gather"] = bound(
+        hw * 4 * gpack.shape[0] * (1 + n_nbr),
+        hw * n_nbr * (PHILOX_OPS + 2 * UNIFORM_OPS))
     for n in ("bvh_closest_hit", "bvh_any_hit", "bvh_any_hit_k",
-              "bvh_final_shade", "zcount_occ"):
+              "bvh_final_shade", "zcount_occ", "any_hit_plucker",
+              "neighbour_gather"):
         print(f"bound {n}: {bounds[n][0]:.4f} ms ({bounds[n][1]})")
     inject = spatial.spatial_noise(gen, n_nbr, k, radius, H, W)
     for label, (kernel_fn, _) in pass_fns.items():

@@ -184,4 +184,11 @@ __device__ __forceinline__ float u01(uint32_t bits) {
   return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
 }
 
+// A uniform offset in [-radius, radius] from 32 random bits (the spatial
+// passes' and the neighbour gather's draws).
+__device__ __forceinline__ int offset_from(uint32_t bits, int radius) {
+  const int span = 2 * radius + 1;
+  return min(static_cast<int>(u01(bits) * static_cast<float>(span)), 2 * radius) - radius;
+}
+
 }  // namespace romis

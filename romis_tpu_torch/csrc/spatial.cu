@@ -98,11 +98,6 @@ __device__ __forceinline__ void unit_view(const Receiver& r, float& vx,
   vx = x0 * inv; vy = y0 * inv; vz = z0 * inv;
 }
 
-__device__ __forceinline__ int offset_from(uint32_t bits, int radius) {
-  const int span = 2 * radius + 1;
-  return min(static_cast<int>(u01(bits) * static_cast<float>(span)), 2 * radius) - radius;
-}
-
 // ops/wrs.gumbel_noise of one uniform.
 __device__ __forceinline__ float gumbel_from(uint32_t bits) {
   return -logf(-logf(fmaxf(u01(bits), 1e-37f)));

@@ -12,7 +12,8 @@ On CUDA tensors every kernel of the frame runs forward, and the backward
 goes through the kernels' re-evaluation and scatter backwards: the closest
 hit (re-evaluated from its selected triangle), the row gathers (kernel 13,
 the scatter-add), the halo gathers of per-pixel offsets (kernel 10), and
-the final shade (its shadow rays traced again by kernel 6). The resampling
+the final shade (its shadow rays traced again by kernel 6, or on geometry
+with a BVH by the walk kernels through ``ops.trace.any_hit``). The resampling
 phases run their differentiable formulation (``fused_resampling=False``):
 with ``surrogate_resampling_grad`` the detached replay RIS (kernel 14) and
 the winner-replay combines.
@@ -117,14 +118,17 @@ def make_grad_fn(geometry, lights, num_lights: int, height: int, width: int,
     """The value and gradient of the L2 loss with respect to SceneParams:
     ``fn(params, target, generator, cam, prev, noise=None)`` → (loss,
     SceneParams of gradients, zeros where a parameter does not reach the
-    image). Geometry with a BVH is refused: a vertex update would leave
-    the tree's boxes stale."""
-    if geometry.bvh is not None:
-        raise NotImplementedError(
-            "gradients on geometry with a BVH: a vertex update leaves the "
-            "tree's boxes stale, and the reference tests no gradient through "
-            "a BVH scene; they come with the gradient slice of the port, "
-            "slice 7 (with the MIS gradients)")
+    image).
+
+    Geometry with a BVH (``ops.bvh.with_bvh``) is taken as the reference
+    takes it: the tree stays as it was built. The forward traces through
+    it (on CUDA the walk kernels 18, 20 and 21); the backward re-evaluates
+    the triangles the forward selected, and the shade's backward traces its
+    shadow rays through the same tree. ``apply_params`` rebuilds the packed
+    tables from the parameters but not the boxes, so parameters far from
+    the ones the tree was built for miss hits the boxes no longer cover; a
+    caller who moves vertices far rebuilds the tree with
+    ``ops.bvh.with_bvh``."""
 
     def value_and_grad(params: SceneParams, target, generator, cam,
                        prev: TemporalState, noise=None):

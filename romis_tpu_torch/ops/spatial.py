@@ -49,13 +49,25 @@ Kernel 10 (``csrc/halo.cu``, ``halo_offset_scatter``) replaces
 backward of ``halo_offset_gather`` (an autograd Function, so gradients
 reach the gathered planes); its plain version is ``index_add_``.
 
+Kernel 12 (``csrc/nbrgather.cu``, ``neighbour_gather``) replaces
+``_gather_kernel``: the planes of R random neighbours per pixel, offsets
+drawn in the kernel (Philox, counter tag 0x5352) or given. The reference
+reaches it on no frame path (``restir.py:487-499`` lies behind its two
+fused pass branches), so the port's entry is the op alone. The TPU kernel
+shares dx down each column of its tile; the port draws dy and dx per pixel.
+Its plain version is the clamped gather at the offsets, and
+``neighbour_offsets`` draws the kernel's Philox offsets in PyTorch
+(``philox4x32_10``), so the CPU path and the kernel agree bit for bit on
+both.
+
 Bound on the H100: the passes are compute-bound, (R+1)·K target-PDF
 evaluations with one ``powf`` each per pixel (2·R·K more for the unbiased
 Z; the vis_check mode writes 2K + 3R + RK planes more); the neighbour
 reads stay within ±radius and are served mostly by L1 and L2. The halo
 gather is bound by device-memory bandwidth, the scatter by bandwidth and
 atomics (D inputs land on a source pixel on average; the clamped border
-pixels take more).
+pixels take more); the neighbour gather by bandwidth too, R·C planes
+written for C read.
 """
 
 from __future__ import annotations
@@ -71,8 +83,9 @@ from . import _build
 
 MAX_LANES = 4  # the pass kernels are instantiated for K = 1..4
 MAX_UNBIASED_NEIGHBOURS = 8  # the unbiased kernel keeps R offsets in registers
-# Philox counter tags of the pass kernels (RIS uses tag 0).
-_TAG_BIASED, _TAG_UNBIASED = 0x5350, 0x5351
+# Philox counter tags of the pass kernels and the neighbour gather (RIS
+# uses tag 0).
+_TAG_BIASED, _TAG_UNBIASED, _TAG_GATHER = 0x5350, 0x5351, 0x5352
 
 
 def vis_check_planes(k: int, n_nbr: int) -> int:
@@ -238,6 +251,114 @@ def halo_offset_gather(planes: torch.Tensor, dy: torch.Tensor,
 
 
 halo_offset_gather.launches = 0
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(high, low) 32-bit words of m·x for a 32-bit constant m and int64
+    words x < 2^32; x is split in 16-bit halves so nothing overflows int64."""
+    a = m * (x & 0xFFFF)
+    b = m * (x >> 16)
+    lo = a + ((b & 0xFFFF) << 16)
+    return ((b >> 16) + (lo >> 32)) & _MASK32, lo & _MASK32
+
+
+def philox4x32_10(ctr, k0, k1):
+    """Philox4x32-10 on int64 tensors holding 32-bit words, word for word
+    ``csrc/common.cuh``'s ``philox4x32_10`` → its four output words."""
+    x, y, z, w = ctr
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, x)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, z)
+        x, y, z, w = hi1 ^ y ^ k0, lo1, hi0 ^ w ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & _MASK32
+        k1 = (k1 + 0xBB67AE85) & _MASK32
+    return x, y, z, w
+
+
+def _offset_from(bits: torch.Tensor, radius: int) -> torch.Tensor:
+    """``common.cuh``'s ``offset_from``: the top 24 bits as a float in
+    [0, 1), scaled to 2r + 1 cells in float32 → int32 in [-r, r]."""
+    u = (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
+    return torch.clamp_max((u * float(2 * radius + 1)).to(torch.int32),
+                           2 * radius) - radius
+
+
+def neighbour_offsets(key: torch.Tensor, pass_index: int, n_nbr: int,
+                      radius: int, height: int, width: int) -> torch.Tensor:
+    """The offsets kernel 12 draws with ``key``, drawn here in PyTorch →
+    [2, R, H, W] int32, uniform on [-radius, radius] (``spatial_noise``'s
+    layout): Philox4x32-10 at counter (neighbour, pixel, pixel >> 32, tag),
+    its first word dy, its second dx."""
+    dev = key.device
+    p = torch.arange(height * width, dtype=torch.int64, device=dev)[None]
+    nb = torch.arange(n_nbr, dtype=torch.int64, device=dev)[:, None]
+    tag = (_TAG_GATHER << 16) | (pass_index & 0xFFFF)
+    k = key.to(torch.int64)
+    x, y, _, _ = philox4x32_10(
+        (nb.expand(n_nbr, height * width), (p & _MASK32).expand(n_nbr, -1),
+         (p >> 32).expand(n_nbr, -1),
+         torch.full((n_nbr, height * width), tag, dtype=torch.int64,
+                    device=dev)),
+        k & _MASK32, (k >> 32) & _MASK32)
+    return torch.stack([_offset_from(x, radius), _offset_from(y, radius)]
+                       ).reshape(2, n_nbr, height, width)
+
+
+def neighbour_gather_plain(planes: torch.Tensor,
+                           offsets: torch.Tensor) -> torch.Tensor:
+    """The plain version of kernel 12: the clamped gather at ``offsets``
+    [2, R, H, W] → [R, C, H, W]."""
+    _, h, w = planes.shape
+    return halo_offset_gather_plain(planes, *clamped_offsets(offsets, h, w))
+
+
+def neighbour_gather(planes: torch.Tensor, n_nbr: int, radius: int,
+                     key=None, pass_index: int = 0,
+                     offsets=None) -> torch.Tensor:
+    """The planes of R random neighbours (the reference's
+    ``spatial_neighbour_gather_pallas``): planes [C, H, W] f32 →
+    [R, C, H, W], neighbour n of pixel (i, j) at (clamp(i + dy), clamp(j +
+    dx)) with (dy, dx) uniform on [-radius, radius]^2, drawn per pixel and
+    shared by the C planes. ``offsets`` [2, R, H, W] int (``spatial_noise``'s
+    draws) are used as given; without them the offsets come from Philox
+    keyed by ``key`` (``philox_key``) with the pass index in the counter,
+    the same draws as ``neighbour_offsets``. The reference reaches its
+    kernel on no frame path, and the port adds none: this is the op alone.
+    Kernel 12 for CUDA tensors, the plain version for CPU tensors."""
+    c, h, w = planes.shape
+    if offsets is None and key is None:
+        raise ValueError("neighbour_gather: needs a Philox key or offsets")
+    if radius < 0:
+        raise ValueError(f"neighbour_gather: radius {radius} < 0")
+    if not planes.is_cuda:
+        if offsets is None:
+            offsets = neighbour_offsets(key, pass_index, n_nbr, radius, h, w)
+        return neighbour_gather_plain(planes, offsets)
+    planes = planes.contiguous()
+    _build.check(planes, "planes", torch.float32)
+    o_ptr = key_ptr = None
+    if offsets is not None:
+        offs = offsets.to(torch.int32).contiguous()
+        _build.check(offs, "offsets", torch.int32, (2, n_nbr, h, w))
+        o_ptr = offs.data_ptr()
+    else:
+        _build.check(key, "key", torch.int64, (1,))
+        key_ptr = key.data_ptr()
+    out = torch.empty((n_nbr, c, h, w), dtype=torch.float32,
+                      device=planes.device)
+    if out.numel():
+        _build.launch("romis_neighbour_gather", planes.data_ptr(), c, h, w,
+                      n_nbr, radius, o_ptr, key_ptr,
+                      (_TAG_GATHER << 16) | (pass_index & 0xFFFF),
+                      out.data_ptr())
+        neighbour_gather.launches += 1
+    return out
+
+
+neighbour_gather.launches = 0
 
 
 def _noise(generator, inject, n_nbr, k, radius, h, w):

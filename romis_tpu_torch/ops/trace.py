@@ -31,6 +31,17 @@ rays go through ``ops.wrs.visibility_from`` and the walk kernels instead
 (the reference's rule). Bound: operations, (R+1)·K ray-triangle tests per
 pixel up to each ray's first hit.
 
+Kernel 8 (``csrc/plucker.cu``, ``any_hit_plucker``) replaces the Pallas
+``_any_mxu_kernel``: ``any_hit``'s occlusion by another algebra, the
+Plücker sign test of each segment against five rows of side constants per
+triangle (``plucker_matrix``). The reference keeps it as a measured
+negative result that no frame calls, and so does the port: its entry is
+the op alone. Its plain version ``any_hit_plucker_plain`` sums the five
+products in the kernel's order, so the two give the same bool; against
+Möller–Trumbore they differ only on rays at a sign boundary. Bound:
+operations, five 10-term products per ray-triangle test up to the first
+hit.
+
 Geometry with a BVH (``ops.bvh.with_bvh``) goes to the BVH walk kernels
 instead (``ops/walk.py``): the closest hit to kernel 18, the any-hit to
 kernel 20 when 2 to 16 rays per pixel share one walk, else to kernel 19 (the
@@ -288,3 +299,130 @@ def zcount_occ(origins, targets, geometry, eps: float = 1e-3,
 
 
 zcount_occ.launches = 0
+
+
+def _cross_rows(p, q):
+    """p × q of [T, 3] rows, each product rounded before the difference."""
+    return torch.stack([p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1],
+                        p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2],
+                        p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]], dim=1)
+
+
+def plucker_matrix(geometry) -> torch.Tensor:
+    """[5T, 16] side constants of kernel 8 (the reference's
+    ``pallas_trace.plucker_matrix``, built here with torch on the geometry's
+    device): for the segment p0 → p0 + D, R = [D, M = p0 × D, p0, 1, 0...],
+    rows [0, 3T) give the three Plücker edge sides [m_e, d_e]·R, rows
+    [3T, 4T) the plane value s0 = n·p0 − n·a, rows [4T, 5T) ds = n·D.
+    Inactive triangles get all-zero rows, which never occlude."""
+    v0, e1, e2 = geometry.v0, geometry.e1, geometry.e2
+    act = geometry.active.to(v0.dtype)[:, None]
+    t = v0.shape[0]
+    a, b, c = v0, v0 + e1, v0 + e2
+    rows = torch.zeros((5 * t, 16), dtype=torch.float32, device=v0.device)
+    for k, (p, q) in enumerate(((a, b), (b, c), (c, a))):
+        rows[k * t:(k + 1) * t, 0:3] = _cross_rows(p, q) * act
+        rows[k * t:(k + 1) * t, 3:6] = (q - p) * act
+    n = _cross_rows(e1, e2)
+    na = n * a
+    rows[3 * t:4 * t, 6:9] = n * act
+    rows[3 * t:4 * t, 9:10] = -((na[:, 0:1] + na[:, 1:2]) + na[:, 2:3]) * act
+    rows[4 * t:5 * t, 0:3] = n * act
+    return rows
+
+
+# R's components in the order of C's columns: D, M, p0, 1.
+_R_TERMS = 10
+
+
+def _plucker_rays(origins, dirs, t_max):
+    """The [10, ...] ray vectors R = [D, M, p0, 1] with D = t_max·d and
+    M = p0 × D, each component as the kernel computes it."""
+    d = dirs.expand(origins.shape)
+    ox, oy, oz = (origins[..., c, :, :] for c in range(3))
+    bx, by, bz = (t_max * d[..., c, :, :] for c in range(3))
+    return torch.stack([bx, by, bz, oy * bz - oz * by, oz * bx - ox * bz,
+                        ox * by - oy * bx, ox, oy, oz,
+                        torch.ones_like(ox)])
+
+
+def any_hit_plucker_plain(origins, dirs, t_max, geometry, cmat=None,
+                          counts=None) -> torch.Tensor:
+    """The plain version of kernel 8: the five 10-term products of every
+    ray with every triangle's rows of ``plucker_matrix``, summed left to
+    right as the kernel sums them (no matmul: its order of summation is not
+    fixed), then the sign test, a block of triangles at a time. With a
+    ``counts`` dict it also records the triangles kernel 8 tests (each ray
+    tests them in order up to its first occluding one):
+    ``counts["tests"]`` [..., H, W] int64."""
+    c = plucker_matrix(geometry) if cmat is None else cmat
+    n = c.shape[0] // 5
+    c = c.reshape(5, n, 16)[:, :, :_R_TERMS]
+    r = _plucker_rays(origins, dirs, t_max).reshape(_R_TERMS, 1, -1)
+    occluded = torch.zeros(r.shape[-1], dtype=torch.bool,
+                           device=origins.device)
+    first = torch.full(occluded.shape, n, dtype=torch.int64,
+                       device=origins.device)
+    block = _pick_block(r.shape[-1], n)
+    for base in range(0, n, block):
+        cb = c[:, base:base + block, :, None]  # [5, B, 10, 1]
+        sides = []
+        for row in range(5):
+            acc = cb[row, :, 0] * r[0]
+            for j in range(1, _R_TERMS):
+                acc = acc + cb[row, :, j] * r[j]
+            sides.append(acc)  # [B, rays]
+        e0, e1, e2, s0, ds = sides
+        same = (((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0))
+                | ((e0 <= 0.0) & (e1 <= 0.0) & (e2 <= 0.0)))
+        hit = same & (s0 * (s0 + ds) < 0.0)
+        if counts is not None:
+            first = torch.where(~occluded & hit.any(dim=0),
+                                base + hit.int().argmax(dim=0), first)
+        occluded = occluded | hit.any(dim=0)
+    if counts is not None:
+        counts["tests"] = torch.where(occluded, first + 1, n).reshape(
+            t_max.shape)
+    return occluded.reshape(t_max.shape)
+
+
+def any_hit_plucker(origins, dirs, t_max, geometry,
+                    cmat=None) -> torch.Tensor:
+    """Occlusion by the Plücker sign test (the reference's
+    ``pallas_any_mxu``), ``any_hit``'s contract: origins [..., 3, H, W],
+    dirs broadcastable to them, t_max [..., H, W] → bool [..., H, W], True
+    where the segment p0 → p0 + t_max·d crosses an active triangle; the
+    leading axes are kept. ``cmat`` is ``plucker_matrix(geometry)``, built
+    here when not given. Soup only, at most ``MAX_SOUP_TRIS`` triangles on
+    the card. Kernel 8 for CUDA tensors, the plain version for CPU
+    tensors."""
+    if geometry.bvh is not None:
+        raise ValueError("any_hit_plucker: kernel 8 tests a soup; geometry "
+                         "with a BVH takes any_hit")
+    lead = tuple(origins.shape[:-3])
+    h, w = origins.shape[-2:]
+    if origins.shape[-3] != 3 or tuple(t_max.shape) != lead + (h, w):
+        raise ValueError(f"any_hit_plucker: origins {tuple(origins.shape)} "
+                         f"and t_max {tuple(t_max.shape)} do not match")
+    if not origins.is_cuda:
+        return any_hit_plucker_plain(origins, dirs, t_max, geometry, cmat)
+    check_soup(geometry, "any_hit_plucker")
+    c = plucker_matrix(geometry) if cmat is None else cmat
+    n_tris = geometry.tri_cols.shape[1]
+    _build.check(c, "cmat", torch.float32, (5 * n_tris, 16))
+    o = origins.contiguous()
+    d = dirs.expand(origins.shape).contiguous()
+    tm = t_max.contiguous()
+    _build.check(o, "origins", torch.float32)
+    _build.check(d, "dirs", torch.float32)
+    _build.check(tm, "t_max", torch.float32)
+    out = torch.empty(lead + (h, w), dtype=torch.bool, device=o.device)
+    if out.numel():
+        _build.launch("romis_any_hit_plucker", o.data_ptr(), d.data_ptr(),
+                      tm.data_ptr(), h * w, out.numel(), c.data_ptr(),
+                      n_tris, out.data_ptr())
+        any_hit_plucker.launches += 1
+    return out
+
+
+any_hit_plucker.launches = 0

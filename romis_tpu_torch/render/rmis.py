@@ -30,7 +30,7 @@ the D1·K shadow rays of every pixel in one batch (``ops.any_hit``: kernel
 20, the shared BVH walk), and the sweep reads those visibility planes. A
 soup above the soup kernels' 2048 triangles without a BVH is refused,
 naming ``with_bvh``; so is the MIS gradient formulation
-(``surrogate_resampling_grad``, slice 7).
+(``surrogate_resampling_grad``), not ported yet.
 """
 
 from __future__ import annotations
@@ -162,7 +162,7 @@ def check_mis(features: Features, geometry, ops: FrameOps) -> None:
         raise NotImplementedError(
             "R-MIS / R-OMIS with surrogate_resampling_grad is the MIS "
             "gradient formulation (gather_nb_records, slim_ctx_stream), "
-            "ported in slice 7")
+            "not ported yet")
     if geometry.bvh is None and geometry.tri_cols.shape[1] > MAX_SOUP_TRIS:
         raise ValueError(
             f"R-MIS / R-OMIS above {MAX_SOUP_TRIS} triangles traces its "

@@ -346,6 +346,27 @@ def test_port_imports_and_renders_without_jax(tmp_path):
         img, state = render_frame(gen, torus_field_camera(8, 8, "cpu"),
                                   field, 8, 8, feats)
         assert bool(torch.isfinite(img).all())
+        # The gradient step on the same BVH geometry (the tree as built).
+        from romis_tpu_torch.render.restir import initial_temporal_state
+        fcam = torus_field_camera(4, 4, "cpu")
+        fn = make_grad_fn(field.geometry, field.lights, field.num_lights, 4,
+                          4, Features(initial_light_samples=8,
+                                      enable_tone_mapping=False))
+        loss, grads = fn(extract_params(field.geometry, field.lights),
+                         torch.zeros(4, 4, 3), gen, fcam,
+                         initial_temporal_state(4, 4, 2, fcam))
+        assert all(bool(torch.isfinite(g).all()) for g in grads.leaves())
+
+        # The op-level entries of kernels 8 and 12.
+        from romis_tpu_torch.ops.spatial import neighbour_gather, philox_key
+        from romis_tpu_torch.ops.trace import any_hit_plucker
+        o = torch.tensor([0.0, 1.0, 0.0])[:, None, None].expand(3, 2, 2)
+        d = torch.tensor([0.0, -1.0, 0.0])[:, None, None].expand(3, 2, 2)
+        assert any_hit_plucker(o, d, torch.full((2, 2), 10.0),
+                               scene.geometry).all()
+        g = neighbour_gather(torch.rand((4, 6, 8)), 3, 2,
+                             key=philox_key(gen))
+        assert g.shape == (3, 4, 6, 8)
 
         # The unbiased combine with the Z-count visibility check.
         feats = Features(initial_light_samples=8, unbiased_combination=True,

@@ -381,7 +381,7 @@ def test_later_slices_refuse(later):
     scene, cam = flagship_scene("cpu"), flagship_camera(4, 4, "cpu")
     if later == "surrogate":
         feats = feats.replace(surrogate_resampling_grad=True)
-        error, match = NotImplementedError, "slice 7"
+        error, match = NotImplementedError, "not ported yet"
     else:
         soup = build_geometry([random_soup(np.random.default_rng(0), 2100)],
                               "cpu")
