@@ -59,7 +59,9 @@ GPU.
    path, through their op-level entries: kernel 8 (the Plücker any-hit,
    ``ops.trace.any_hit_plucker``) against its plain version, the same bool
    on every ray, and against kernel 6 (Möller–Trumbore) on the same rays,
-   at most PLUCKER_MT_SHARE of them apart: the K = 2 shadow rays of the
+   at most PLUCKER_MT_SHARE of the hit pixels' rays apart (and of all
+   rays but on the flagship, whose missed pixels' rays end on the ground):
+   the K = 2 shadow rays of the
    flagship's 1080p frame, of the one-torus soup's 1080p frame (970
    triangles, TORUS_CAM) and of the 2048-triangle soup at 480x270; kernel
    12 (the neighbour gather, ``ops.spatial.neighbour_gather``) on config
@@ -150,7 +152,8 @@ GPU.
    tree (BOX_OPS and MT_OPS each, and each ray's three reciprocals).
    Kernel 8 is timed beside kernel 6 on the torus soup's 1080p shadow rays
    (its bound: the triangle tests this run's rays make up to their first
-   occluder, PLUCKER_OPS each), with ``torch.matmul`` of the [5T, 16]
+   occluder, PLUCKER_OPS each, the table built inside the timed call as
+   the entry builds it), with ``torch.matmul`` of the [5T, 16]
    constants by the [16, N] rays as the library column, labelled "product
    only" (it computes no sign test); kernel 12 on its Philox stream, with
    one advanced-indexing gather at the clamped coordinates as the library
@@ -247,10 +250,12 @@ BOX_OPS = 22  # one slab test: 6 subtractions, 6 multiplies, 10 min/max
 # the two window products and six compares).
 MT_ORIGIN_OPS = 17
 MT_RAY_OPS = 37
-# Kernel 8: five 10-term products (10 multiplies, 9 adds) and the sign
-# test (6 compares, the straddle's add, multiply and compare, 2 logic) per
-# ray-triangle test; D and M = p0 x D once per ray.
-PLUCKER_OPS = 5 * 19 + 11
+# Kernel 8: the non-zero terms of the five products (three 6-term edge
+# sides, the 4-term plane value, the 3-term n.D: a multiply a term and an
+# add between terms) and the sign test (6 compares, the straddle's add,
+# multiply and compare, 2 logic) per ray-triangle test; D and M = p0 x D
+# once per ray.
+PLUCKER_OPS = 3 * 11 + 7 + 5 + 11
 PLUCKER_RAY_OPS = 12
 PLUCKER_MT_SHARE = 1e-3  # kernel 8 vs kernel 6, the reference's budget
 MATMUL_CHUNK = 1 << 18  # rays per torch.matmul of the "product only" call
@@ -1445,22 +1450,22 @@ def main() -> None:
     sshadow = shadow_rays(soup_ctx_s, gen_canonical_samples_plain(
         soup_ctx_s, scene.lights, scene.num_lights, feats, generator=gen))
 
-    def check_plucker(label, c, rays_, geometry):
+    def check_plucker(label, c, rays_, geometry, all_rays):
         """Kernel 8 against its plain version (the same bool on every ray)
-        and against kernel 6 on the rays of the pixels that hit (a missed
-        pixel's ray runs from the camera to the light sample's default, a
-        point on the ground plane: it ends on a triangle, where the two
-        tests round either way) → the plain version's triangle tests."""
+        and against kernel 6 on the rays of the pixels that hit and, with
+        ``all_rays``, on every ray (on the flagship a missed pixel's ray
+        runs from the camera to the light sample's default, a point on the
+        ground plane: it ends on a triangle, where the two tests round
+        either way) → the plain version's triangle tests."""
         cnt = {}
-        cmat = trace.plucker_matrix(geometry)
-        occ_k = trace.any_hit_plucker(*rays_, geometry, cmat)
-        occ_p = trace.any_hit_plucker_plain(*rays_, geometry, cmat,
-                                            counts=cnt)
+        occ_k = trace.any_hit_plucker(*rays_, geometry)
+        occ_p = trace.any_hit_plucker_plain(*rays_, geometry, counts=cnt)
         occ_6 = trace.any_hit(*rays_, geometry)
         torch.cuda.synchronize()
         exact = torch.equal(occ_k, occ_p)
         valid = c.valid.expand(occ_k.shape)
         apart = (occ_k != occ_6)[valid].float().mean().item()
+        apart_all = (occ_k != occ_6).float().mean().item()
         print(f"check any_hit_plucker[{label}]: rays {occ_k.numel()}, "
               f"triangles {geometry.tri_cols.shape[1]}, occluded "
               f"{occ_p.float().mean().item():.4f}, the same bool on every "
@@ -1472,15 +1477,18 @@ def main() -> None:
         require(exact, f"any_hit_plucker {label}: kernel 8 and its plain "
                 f"version differ on {(occ_k != occ_p).sum().item()} rays")
         require(apart <= PLUCKER_MT_SHARE,
-                f"any_hit_plucker {label}: {apart} of the rays apart from "
-                f"kernel 6")
+                f"any_hit_plucker {label}: {apart} of the hit pixels' rays "
+                f"apart from kernel 6")
+        require(not all_rays or apart_all <= PLUCKER_MT_SHARE,
+                f"any_hit_plucker {label}: {apart_all} of all rays apart "
+                f"from kernel 6")
         return cnt
 
     check_plucker("flagship 1080p", ctx, shadow_rays(ctx, res_main),
-                  scene.geometry)
+                  scene.geometry, False)
     plucker_counts = check_plucker("torus soup 1080p", tctx, tshadow,
-                                   torus1.geometry)
-    check_plucker("soup2048 480x270", soup_ctx_s, sshadow, soup)
+                                   torus1.geometry, True)
+    check_plucker("soup2048 480x270", soup_ctx_s, sshadow, soup, True)
     errs["any_hit_plucker"] = 0.0  # the checks above require the same bools
     del sshadow
 
@@ -2270,21 +2278,20 @@ def main() -> None:
     # Kernel 8 on the torus soup's 1080p shadow rays, beside its plain
     # version and beside kernel 6 on the same rays (and on the flagship's).
     tgeo = torus1.geometry
-    tcmat = trace.plucker_matrix(tgeo)
     timings["any_hit_plucker"] = ab_ms(
-        torch, lambda: trace.any_hit_plucker(*tshadow, tgeo, tcmat),
-        lambda: trace.any_hit_plucker_plain(*tshadow, tgeo, tcmat), 10, 1)
-    fcmat = trace.plucker_matrix(scene.geometry)
-    for label, rays_, geo_, cm_ in (
-            ("torus soup 1080p, 970 triangles", tshadow, tgeo, tcmat),
-            ("flagship 1080p, 2 triangles", (o, d, tm), scene.geometry,
-             fcmat)):
-        m8, m6 = ab_ms(torch, lambda: trace.any_hit_plucker(*rays_, geo_,
-                                                            cm_),
+        torch, lambda: trace.any_hit_plucker(*tshadow, tgeo),
+        lambda: trace.any_hit_plucker_plain(*tshadow, tgeo), 10, 1)
+    for label, rays_, geo_ in (
+            ("torus soup 1080p, 970 triangles", tshadow, tgeo),
+            ("flagship 1080p, 2 triangles", (o, d, tm), scene.geometry)):
+        m8, m6 = ab_ms(torch, lambda: trace.any_hit_plucker(*rays_, geo_),
                        lambda: trace.any_hit(*rays_, geo_), 10, 10)
         print(f"time any_hit_plucker vs any_hit (kernel 8 vs kernel 6, the "
               f"same rays; {label}): {m8:.4f} ms vs {m6:.4f} ms, ratio "
               f"{m8 / m6:.2f} [{card}]")
+        ms = cuda_ms(torch, lambda: trace.plucker_matrix(geo_), 10)
+        print(f"time plucker_matrix (the table any_hit_plucker builds in "
+              f"each call; {label}): {ms:.4f} ms [{card}]")
     # Kernel 12 on config 5's pack: its Philox stream (the plain version
     # draws the same offsets with neighbour_offsets), and injected offsets.
     timings["neighbour_gather"] = ab_ms(
@@ -2320,6 +2327,7 @@ def main() -> None:
     # Kernel 8's product alone: the [5T, 16] constants by the [16, N] ray
     # vectors R = [D, M, p0, 1, 0...] (no sign test), in chunks of rays.
     t_o, t_d, t_tm = tshadow
+    tcmat = trace.plucker_matrix(tgeo)
     t_big_d = t_tm[:, None] * t_d
     rvec = torch.cat([t_big_d, torch.linalg.cross(t_o, t_big_d, dim=1), t_o,
                       torch.ones_like(t_tm)[:, None],
@@ -2444,12 +2452,13 @@ def main() -> None:
         + tests.sum().item() * MT_RAY_OPS + tests.numel() * SHADOW_OPS)
     # Kernel 8: the tests the torus soup's shadow rays make up to their
     # first occluder (its plain version counts them), a set-up per ray;
-    # 7 floats in and a byte out per ray, the constants once. Kernel 12 on
+    # 7 floats in and a byte out per ray, the triangles' v0, e1, e2 and
+    # active flag once. Kernel 12 on
     # Philox: the C planes read once, R·C written, a Philox call and two
     # uniforms per neighbour.
     tests8 = plucker_counts["tests"]
     bounds["any_hit_plucker"] = bound(
-        tests8.numel() * 29 + tcmat.numel() * 4,
+        tests8.numel() * 29 + tgeo.v0.shape[0] * (3 * 3 * 4 + 1),
         tests8.sum().item() * PLUCKER_OPS + tests8.numel() * PLUCKER_RAY_OPS)
     bounds["neighbour_gather"] = bound(
         hw * 4 * gpack.shape[0] * (1 + n_nbr),

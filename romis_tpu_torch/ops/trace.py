@@ -36,11 +36,14 @@ Kernel 8 (``csrc/plucker.cu``, ``any_hit_plucker``) replaces the Pallas
 Plücker sign test of each segment against five rows of side constants per
 triangle (``plucker_matrix``). The reference keeps it as a measured
 negative result that no frame calls, and so does the port: its entry is
-the op alone. Its plain version ``any_hit_plucker_plain`` sums the five
-products in the kernel's order, so the two give the same bool; against
-Möller–Trumbore they differ only on rays at a sign boundary. Bound:
-operations, five 10-term products per ray-triangle test up to the first
-hit.
+the op alone. Each row of the table has at most six non-zero columns
+(``PLUCKER_COLS``); the kernel and its plain version ``any_hit_plucker_plain``
+sum only those, in the same order, so the two give the same bool. Leaving
+out a term that is exactly zero changes no finite side but the sign of a
+zero, which no test reads, so the bools are those of the full 10-term
+products. Against Möller–Trumbore they differ only on rays at a sign
+boundary. Bound: operations, the non-zero terms of the five products per
+ray-triangle test up to the first hit.
 
 Geometry with a BVH (``ops.bvh.with_bvh``) goes to the BVH walk kernels
 instead (``ops/walk.py``): the closest hit to kernel 18, the any-hit to
@@ -302,10 +305,10 @@ zcount_occ.launches = 0
 
 
 def _cross_rows(p, q):
-    """p × q of [T, 3] rows, each product rounded before the difference."""
-    return torch.stack([p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1],
-                        p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2],
-                        p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]], dim=1)
+    """p × q of [..., 3] rows, each product rounded before the difference."""
+    return torch.stack([p[..., 1] * q[..., 2] - p[..., 2] * q[..., 1],
+                        p[..., 2] * q[..., 0] - p[..., 0] * q[..., 2],
+                        p[..., 0] * q[..., 1] - p[..., 1] * q[..., 0]], dim=-1)
 
 
 def plucker_matrix(geometry) -> torch.Tensor:
@@ -314,25 +317,30 @@ def plucker_matrix(geometry) -> torch.Tensor:
     device): for the segment p0 → p0 + D, R = [D, M = p0 × D, p0, 1, 0...],
     rows [0, 3T) give the three Plücker edge sides [m_e, d_e]·R, rows
     [3T, 4T) the plane value s0 = n·p0 − n·a, rows [4T, 5T) ds = n·D.
-    Inactive triangles get all-zero rows, which never occlude."""
+    Inactive triangles get all-zero rows, which never occlude. The three
+    edges are built as one batch, to keep the launches of a call few."""
     v0, e1, e2 = geometry.v0, geometry.e1, geometry.e2
-    act = geometry.active.to(v0.dtype)[:, None]
     t = v0.shape[0]
     a, b, c = v0, v0 + e1, v0 + e2
-    rows = torch.zeros((5 * t, 16), dtype=torch.float32, device=v0.device)
-    for k, (p, q) in enumerate(((a, b), (b, c), (c, a))):
-        rows[k * t:(k + 1) * t, 0:3] = _cross_rows(p, q) * act
-        rows[k * t:(k + 1) * t, 3:6] = (q - p) * act
+    p, q = torch.stack([a, b, c]), torch.stack([b, c, a])  # [3, T, 3]
     n = _cross_rows(e1, e2)
     na = n * a
-    rows[3 * t:4 * t, 6:9] = n * act
-    rows[3 * t:4 * t, 9:10] = -((na[:, 0:1] + na[:, 1:2]) + na[:, 2:3]) * act
-    rows[4 * t:5 * t, 0:3] = n * act
-    return rows
+    zeros = v0.new_zeros((t, 16))
+    rows = torch.cat([
+        torch.cat([_cross_rows(p, q), q - p,
+                   zeros[None, :, :10].expand(3, t, 10)], dim=2).reshape(3 * t, 16),
+        torch.cat([zeros[:, :6], n, -((na[:, 0:1] + na[:, 1:2]) + na[:, 2:3]),
+                   zeros[:, :6]], dim=1),
+        torch.cat([n, zeros[:, :13]], dim=1)])
+    return rows * geometry.active.to(v0.dtype).repeat(5)[:, None]
 
 
 # R's components in the order of C's columns: D, M, p0, 1.
 _R_TERMS = 10
+# The columns [lo, hi) that can be non-zero in each of a triangle's five
+# rows of ``plucker_matrix``: the edge rows [m_e, d_e] pair with D and M,
+# the plane row [n, −n·a] with p0 and 1, the n·D row with D.
+PLUCKER_COLS = ((0, 6), (0, 6), (0, 6), (6, 10), (0, 3))
 
 
 def _plucker_rays(origins, dirs, t_max):
@@ -346,18 +354,18 @@ def _plucker_rays(origins, dirs, t_max):
                         torch.ones_like(ox)])
 
 
-def any_hit_plucker_plain(origins, dirs, t_max, geometry, cmat=None,
+def any_hit_plucker_plain(origins, dirs, t_max, geometry,
                           counts=None) -> torch.Tensor:
-    """The plain version of kernel 8: the five 10-term products of every
-    ray with every triangle's rows of ``plucker_matrix``, summed left to
-    right as the kernel sums them (no matmul: its order of summation is not
-    fixed), then the sign test, a block of triangles at a time. With a
-    ``counts`` dict it also records the triangles kernel 8 tests (each ray
-    tests them in order up to its first occluding one):
-    ``counts["tests"]`` [..., H, W] int64."""
-    c = plucker_matrix(geometry) if cmat is None else cmat
+    """The plain version of kernel 8: the five products of every ray with
+    every triangle's rows of ``plucker_matrix``, each over the row's
+    ``PLUCKER_COLS`` summed left to right as the kernel sums them (no
+    matmul: its order of summation is not fixed), then the sign test, a
+    block of triangles at a time. With a ``counts`` dict it also records
+    the triangles kernel 8 tests (each ray tests them in order up to its
+    first occluding one): ``counts["tests"]`` [..., H, W] int64."""
+    c = plucker_matrix(geometry)
     n = c.shape[0] // 5
-    c = c.reshape(5, n, 16)[:, :, :_R_TERMS]
+    c = c.reshape(5, n, 16)
     r = _plucker_rays(origins, dirs, t_max).reshape(_R_TERMS, 1, -1)
     occluded = torch.zeros(r.shape[-1], dtype=torch.bool,
                            device=origins.device)
@@ -365,11 +373,11 @@ def any_hit_plucker_plain(origins, dirs, t_max, geometry, cmat=None,
                        device=origins.device)
     block = _pick_block(r.shape[-1], n)
     for base in range(0, n, block):
-        cb = c[:, base:base + block, :, None]  # [5, B, 10, 1]
+        cb = c[:, base:base + block, :, None]  # [5, B, 16, 1]
         sides = []
-        for row in range(5):
-            acc = cb[row, :, 0] * r[0]
-            for j in range(1, _R_TERMS):
+        for row, (lo, hi) in enumerate(PLUCKER_COLS):
+            acc = cb[row, :, lo] * r[lo]
+            for j in range(lo + 1, hi):
                 acc = acc + cb[row, :, j] * r[j]
             sides.append(acc)  # [B, rays]
         e0, e1, e2, s0, ds = sides
@@ -386,16 +394,15 @@ def any_hit_plucker_plain(origins, dirs, t_max, geometry, cmat=None,
     return occluded.reshape(t_max.shape)
 
 
-def any_hit_plucker(origins, dirs, t_max, geometry,
-                    cmat=None) -> torch.Tensor:
+def any_hit_plucker(origins, dirs, t_max, geometry) -> torch.Tensor:
     """Occlusion by the Plücker sign test (the reference's
     ``pallas_any_mxu``), ``any_hit``'s contract: origins [..., 3, H, W],
     dirs broadcastable to them, t_max [..., H, W] → bool [..., H, W], True
     where the segment p0 → p0 + t_max·d crosses an active triangle; the
-    leading axes are kept. ``cmat`` is ``plucker_matrix(geometry)``, built
-    here when not given. Soup only, at most ``MAX_SOUP_TRIS`` triangles on
-    the card. Kernel 8 for CUDA tensors, the plain version for CPU
-    tensors."""
+    leading axes are kept. The side constants (``plucker_matrix``) are
+    built from the geometry on every call, as the reference builds them.
+    Soup only, at most ``MAX_SOUP_TRIS`` triangles on the card. Kernel 8
+    for CUDA tensors, the plain version for CPU tensors."""
     if geometry.bvh is not None:
         raise ValueError("any_hit_plucker: kernel 8 tests a soup; geometry "
                          "with a BVH takes any_hit")
@@ -405,11 +412,9 @@ def any_hit_plucker(origins, dirs, t_max, geometry,
         raise ValueError(f"any_hit_plucker: origins {tuple(origins.shape)} "
                          f"and t_max {tuple(t_max.shape)} do not match")
     if not origins.is_cuda:
-        return any_hit_plucker_plain(origins, dirs, t_max, geometry, cmat)
+        return any_hit_plucker_plain(origins, dirs, t_max, geometry)
     check_soup(geometry, "any_hit_plucker")
-    c = plucker_matrix(geometry) if cmat is None else cmat
-    n_tris = geometry.tri_cols.shape[1]
-    _build.check(c, "cmat", torch.float32, (5 * n_tris, 16))
+    c = plucker_matrix(geometry)
     o = origins.contiguous()
     d = dirs.expand(origins.shape).contiguous()
     tm = t_max.contiguous()
@@ -420,7 +425,7 @@ def any_hit_plucker(origins, dirs, t_max, geometry,
     if out.numel():
         _build.launch("romis_any_hit_plucker", o.data_ptr(), d.data_ptr(),
                       tm.data_ptr(), h * w, out.numel(), c.data_ptr(),
-                      n_tris, out.data_ptr())
+                      c.shape[0] // 5, out.data_ptr())
         any_hit_plucker.launches += 1
     return out
 

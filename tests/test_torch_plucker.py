@@ -99,6 +99,34 @@ def test_plucker_matrix_matches_the_reference():
                                       np.asarray(jax_plucker_matrix(jg)))
 
 
+@pytest.mark.parametrize("name", ["soup", "torus"])
+def test_non_zero_columns_give_the_full_products_bools(name):
+    """Every column outside a row's ``PLUCKER_COLS`` is zero, and the full
+    10-term products summed left to right give the same bool on every ray
+    as the plain version, which sums only those columns."""
+    _, geometry = _geometries(name)
+    o, d, tm = (torch.from_numpy(a) for a in _segments(8))
+    c = trace.plucker_matrix(geometry)
+    n = c.shape[0] // 5
+    c = c.reshape(5, n, 16)
+    for row, (lo, hi) in enumerate(trace.PLUCKER_COLS):
+        assert not c[row, :, :lo].any() and not c[row, :, hi:].any()
+    r = trace._plucker_rays(o, d, tm).reshape(10, 1, -1)
+    sides = []
+    for row in range(5):
+        acc = c[row, :, 0, None] * r[0]
+        for j in range(1, 10):
+            acc = acc + c[row, :, j, None] * r[j]
+        sides.append(acc)
+    e0, e1, e2, s0, ds = sides
+    same = (((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0))
+            | ((e0 <= 0.0) & (e1 <= 0.0) & (e2 <= 0.0)))
+    full = (same & (s0 * (s0 + ds) < 0.0)).any(dim=0).reshape(tm.shape)
+    got = trace.any_hit_plucker_plain(o, d, tm, geometry)
+    assert torch.equal(got, full)
+    assert 0.05 < got.float().mean() < 0.95
+
+
 def test_inactive_triangle_never_occludes():
     """Rays through the centroids of the soup's triangles, each segment
     crossing its own triangle's plane: occluded while the triangles are
