@@ -15,7 +15,10 @@ GPU.
    passes on injected noise (exact) and on their own random streams (means
    within 1 %). Then the gradient step's kernels: the row scatter-add into
    the light table, the material table (every index the same row) and the
-   soup's packed vertices; the halo scatter at D=5, C=2; the replay RIS on
+   soup's packed vertices; the halo scatter at D=5, C=2 on offsets within
+   ±10, on the smooth field of a large camera shift (every source beyond
+   the kernel's margin) and on offsets clamped at all four borders, each
+   with its share of sources beyond the margin; the replay RIS on
    injected uniforms (records exact) and on Philox; and one
    ``torch.autograd.grad`` through each autograd wrapper (row gather, halo
    gather, closest hit, final shade) against autograd of the plain
@@ -35,9 +38,11 @@ GPU.
    24,202 triangles, the monkey field's count; the SAH tree built by the
    port's own host builder), with the rays of its 1080p frame: the closest
    hit (kernel 18), the any-hit with one walk per ray (19) on the frame's
-   shadow rays with 1 and with 17 planes, the shared K-ray walk (20) with
-   S = 2 (the shadow rays of the K lanes) and S = 12 (the ext_vis rays of
-   one MIS iteration), the BVH final shade (21), the sweep's ext_vis mode in
+   shadow rays with 1 and with 17 planes, the K-ray any-hit (20, a walk per
+   ray with a pixel's S rays side by side) with S = 2 (the shadow rays of
+   the K lanes), 4 and 16 (sky rays) and 12 (the ext_vis rays of one MIS
+   iteration; also against kernel 19 on the same rays), the plain bool on
+   every ray, the BVH final shade (21), the sweep's ext_vis mode in
    its four modes; and a cross-check with no plain version in it: the
    2048-triangle soup with a BVH attached, kernel 18 against the soup's
    closest hit (kernel 1: the same t and hit attributes) and kernel 20
@@ -48,8 +53,10 @@ GPU.
    occlusion) against its plain version, the same bool on every ray, at
    1080p on the Z rays of a vis_check pass on the flagship scene and on the
    2048-triangle soup at 480x270 with and without a mask and with
-   coincident pairs; the whole vis-check pass (kernel 11, kernel 7, the Z
-   subtraction) against the plain unbiased pass with visibility_from (W
+   coincident pairs; kernel 20 on the Z rays of a vis_check pass on the
+   5x5 torus field (the plain bool on every ray); the whole vis-check pass
+   (kernel 11, kernel 7, the Z subtraction) against the plain unbiased
+   pass with visibility_from (W
    within the pass tolerance on MIN_AGREE of the lanes); and the unshaded
    mode (Features(enable_shading=False)) of every kernel that evaluates
    Phong: the RIS, replay and MIS RIS, both spatial passes, the sweep in
@@ -498,7 +505,7 @@ def main() -> None:
     from romis_tpu_torch.ops.traverse import bvh_any, bvh_closest
     from romis_tpu_torch.ops.wrs import (
         gen_canonical_replay_plain, gen_canonical_samples_plain, gumbel_noise,
-        replay_uniforms, visibility,
+        replay_uniforms, visibility, visibility_from,
     )
     from romis_tpu_torch.render import restir
     from romis_tpu_torch.render.animation import (
@@ -846,22 +853,43 @@ def main() -> None:
     errs["scatter_rows_add"] = max(check_scatter(label, *case)
                                    for label, case in scatter_cases.items())
 
-    # Halo scatter: the per-pixel path's big_w cotangents (D = R = 5,
-    # C = K = 2) at clamped offsets within ±radius.
+    # Halo scatter (kernel 10): the per-pixel path's big_w cotangents
+    # (D = R = 5, C = K = 2) at clamped offsets within ±radius; the smooth
+    # field of a large camera shift (every source beyond the kernel's
+    # margin: its device-memory branch); raw offsets of up to ±5000, which
+    # the scatter clamps onto all four borders.
     halo_ct = torch.randn((n_nbr, k, H, W), generator=gen, device=dev)
     sdy, sdx = spatial.clamped_offsets(torch.randint(
         -radius, radius + 1, (2, n_nbr, H, W), generator=gen, device=dev,
         dtype=torch.int32), H, W)
-    hs_k = spatial.halo_offset_scatter(halo_ct, sdy, sdx)
-    hs_p = spatial.halo_offset_scatter_plain(halo_ct, sdy, sdx)
-    hs_mag = spatial.halo_offset_scatter_plain(halo_ct.abs(), sdy,
-                                               sdx).clamp_min(1e-30)
-    torch.cuda.synchronize()
-    hs_rel = ((hs_k - hs_p).abs() / hs_mag).max().item()
-    print(f"check halo_scatter: D={n_nbr}, C={k}, max err / sum|ct| "
-          f"{hs_rel:.2e}")
-    require(hs_rel <= HALO_SCATTER_REL, f"halo scatter: {hs_rel}")
-    errs["halo_scatter"] = (hs_k - hs_p).abs().max().item()
+    ys_i = torch.arange(H, device=dev)[:, None]
+    xs_i = torch.arange(W, device=dev)[None, :]
+    shift_dy = torch.full((n_nbr, H, W), 37, dtype=torch.int32, device=dev)
+    shift_dx = (-53 + 3 * torch.sin(xs_i / 50.0 + ys_i / 70.0)).int() \
+        .expand(n_nbr, H, W).contiguous()
+    border_dy, border_dx = torch.randint(
+        -5000, 5001, (2, n_nbr, H, W), generator=gen, device=dev,
+        dtype=torch.int32)
+    errs["halo_scatter"] = 0.0
+    for label, (hdy, hdx) in {
+            f"±{radius}": (sdy, sdx), "camera shift (37, -53)": (shift_dy,
+                                                                 shift_dx),
+            "±5000, clamped at the borders": (border_dy, border_dx)}.items():
+        hs_k = spatial.halo_offset_scatter(halo_ct, hdy, hdx)
+        hs_p = spatial.halo_offset_scatter_plain(halo_ct, hdy, hdx)
+        hs_mag = spatial.halo_offset_scatter_plain(halo_ct.abs(), hdy,
+                                                   hdx).clamp_min(1e-30)
+        torch.cuda.synchronize()
+        hs_rel = ((hs_k - hs_p).abs() / hs_mag).max().item()
+        far = spatial.beyond_margin(hdy, hdx).float().mean().item()
+        print(f"check halo_scatter[{label}]: D={n_nbr}, C={k}, max err / "
+              f"sum|ct| {hs_rel:.2e}, sources beyond the margin "
+              f"{far:.4f}")
+        require(hs_rel <= HALO_SCATTER_REL, f"halo scatter {label}: "
+                f"{hs_rel}")
+        errs["halo_scatter"] = max(errs["halo_scatter"],
+                                   (hs_k - hs_p).abs().max().item())
+    del hs_k, hs_p, hs_mag, shift_dy, shift_dx, border_dy, border_dx
 
     # Replay RIS: injected uniforms (records exact), then Philox.
     def check_replay(c, label, f=feats):
@@ -1189,9 +1217,11 @@ def main() -> None:
                                          large.num_lights, feats,
                                          generator=gen)
 
-    def vis_rays(position, targets):
+    def vis_rays(position, targets, own_origins=False):
         """The shadow rays ops.wrs.visibility traces from ``position`` to
-        ``targets`` [..., 3, H, W] → (origins, directions, t_max)."""
+        ``targets`` [..., 3, H, W] (``visibility_from``'s with
+        ``own_origins``: an origin per sample) → (origins, directions,
+        t_max)."""
         got = {}
 
         def grab(o, d, tm, _g):
@@ -1199,21 +1229,27 @@ def main() -> None:
                            tm.contiguous())
             return torch.zeros(tm.shape, dtype=torch.bool, device=dev)
 
-        visibility(position, targets, lgeo, grab)
+        (visibility_from if own_origins else visibility)(position, targets,
+                                                         lgeo, grab)
         return got["rays"]
 
-    def check_walk_any(label, fn, rays_):
+    def check_walk_any(label, fn, rays_, exact=False):
+        """Kernel 19 or 20 against the plain traversal on the same rays
+        (kernel 20 with ``exact``: the same bool on every ray)."""
         cnt = {}
         occ_k = fn(*rays_, lgeo)
         occ_p = bvh_any(*rays_, lgeo, lgeo.bvh, counts=cnt)
         torch.cuda.synchronize()
         same = (occ_k == occ_p).float().mean().item()
+        bit = bool(torch.equal(occ_k, occ_p))
         print(f"check {label}: rays {occ_k.numel()}, occluded "
               f"{occ_p.float().mean().item():.4f}, agree {same:.6f}, "
-              f"bit-exact {bool(torch.equal(occ_k, occ_p))}, box / triangle "
+              f"bit-exact {bit}, box / triangle "
               f"tests per ray {cnt['box'].float().mean().item():.2f} / "
               f"{cnt['tri'].float().mean().item():.2f}")
         require(same >= MIN_AGREE, f"{label}: agree {same}")
+        require(bit or not exact, f"{label}: not the plain bool on every "
+                f"ray")
         return 1.0 - same, cnt
 
     lshadow = vis_rays(lctx.position, lres.pos)  # the K = 2 lanes
@@ -1229,9 +1265,14 @@ def main() -> None:
     err17, _ = check_walk_any(f"bvh_any_hit[torus5x5, {SKY_PLANES} planes]",
                               walk.any_hit_bvh, sky_rays)
     errs["bvh_any_hit"] = max(errs["bvh_any_hit"], err17)
-    del sky_rays
     errs["bvh_any_hit_k"], walk_counts["bvh_any_hit_k2"] = check_walk_any(
-        "bvh_any_hit_k[torus5x5, S=2]", walk.any_hit_bvh_k, lshadow)
+        "bvh_any_hit_k[torus5x5, S=2]", walk.any_hit_bvh_k, lshadow, True)
+    for s_ in (4, 16):  # the first S planes of the sky rays
+        err_s, _ = check_walk_any(
+            f"bvh_any_hit_k[torus5x5, S={s_} sky rays]", walk.any_hit_bvh_k,
+            tuple(a[:s_] for a in sky_rays), True)
+        errs["bvh_any_hit_k"] = max(errs["bvh_any_hit_k"], err_s)
+    del sky_rays
     # S = 12: one MIS iteration's ext_vis rays (D1 = 6 members x K = 2).
     lny, lnx = select_neighbour_indices(gen, lctx, H, W, feats,
                                         select=nbrsel.neighbour_select)
@@ -1245,8 +1286,14 @@ def main() -> None:
     ext_rays = vis_rays(lctx.position, ext_targets)
     err12, walk_counts["bvh_any_hit_k"] = check_walk_any(
         "bvh_any_hit_k[torus5x5, S=12 ext_vis rays]", walk.any_hit_bvh_k,
-        ext_rays)
+        ext_rays, True)
     errs["bvh_any_hit_k"] = max(errs["bvh_any_hit_k"], err12)
+    occ19 = walk.any_hit_bvh(*ext_rays, lgeo)
+    same19 = torch.equal(occ19, walk.any_hit_bvh_k(*ext_rays, lgeo))
+    print(f"check bvh_any_hit_k vs bvh_any_hit (kernel 20 vs kernel 19, the "
+          f"12 ext_vis planes): the same bool on every ray {same19}")
+    require(same19, "kernel 20 and kernel 19 differ on the ext_vis rays")
+    del occ19
     errs["bvh_final_shade"] = check_shade(lctx, lres, lgeo, "torus5x5 BVH")
     lpack_r = ris.gen_mis_reservoir_planes(lctx, large.lights,
                                            large.num_lights, feats, 1, False,
@@ -1411,6 +1458,19 @@ def main() -> None:
     check_vis_mode(res_s, cen_s, "soup2048 480x270")
     check_vis_pass(res_s, cen_s, soup, "soup2048 480x270")
     errs["zcount_occ"] = 0.0  # the checks above require the same bools
+    # (c) Kernel 20 on the Z rays of a vis_check pass on the 5x5 torus field
+    # (large_vischeck's: (R+1)·K = 12 rays a pixel from R+1 origins), the
+    # plain traversal's bool on every ray.
+    lcen_v = shade.pack_center_ctx(lctx)
+    lpl, lblk = spatial.spatial_pass_unbiased_vis(
+        pack_reservoir_planes(lres), lcen_v, k, n_nbr, radius, vfeats,
+        generator=gen, key=spatial.philox_key(gen))
+    lzo, lzt, _ = z_rays(lpl, lblk, lcen_v)
+    err_z, _ = check_walk_any(
+        "bvh_any_hit_k[torus5x5, large_vischeck's Z rays, S=12]",
+        walk.any_hit_bvh_k, vis_rays(lzo[:, None], lzt[None], True), True)
+    errs["bvh_any_hit_k"] = max(errs["bvh_any_hit_k"], err_z)
+    del lpl, lblk, lzo, lzt
 
     # The unshaded mode of every kernel that evaluates Phong.
     ufeats = feats.replace(enable_shading=False)
@@ -2197,15 +2257,19 @@ def main() -> None:
     timings["bvh_any_hit_k"] = ab_ms(
         torch, lambda: walk.any_hit_bvh_k(*ext_rays, lgeo),
         lambda: bvh_any(*ext_rays, lgeo, lgeo.bvh), 20, 1)
-    ms = cuda_ms(torch, lambda: walk.any_hit_bvh(*ext_rays, lgeo), 20)
-    print(f"time bvh_any_hit[12 planes, the S=12 ext_vis rays]: {ms:.4f} ms "
-          f"[{card}]")
+    # Kernel 20 beside kernel 19 on the same rays, in turns (19, 20, 20,
+    # 19): the 12 ext_vis planes and the S = 2 shadow rays.
+    for label, rays_ in (("12 planes, the S=12 ext_vis rays", ext_rays),
+                         ("2 planes, the S=2 rays", lshadow)):
+        m20, m19 = ab_ms(torch, lambda: walk.any_hit_bvh_k(*rays_, lgeo),
+                         lambda: walk.any_hit_bvh(*rays_, lgeo), 20, 20)
+        print(f"time bvh_any_hit_k vs bvh_any_hit[{label}]: kernel 20 "
+              f"{m20:.4f} ms, kernel 19 {m19:.4f} ms, ratio "
+              f"{m20 / m19:.3f} [{card}]")
     ms = ab_ms(torch, lambda: walk.any_hit_bvh_k(*lshadow, lgeo),
                lambda: bvh_any(*lshadow, lgeo, lgeo.bvh), 20, 1)
     print(f"time bvh_any_hit_k[S=2]: {ms[0]:.4f} ms kernel, {ms[1]:.4f} ms "
           f"plain [{card}]")
-    ms = cuda_ms(torch, lambda: walk.any_hit_bvh(*lshadow, lgeo), 20)
-    print(f"time bvh_any_hit[2 planes, the S=2 rays]: {ms:.4f} ms [{card}]")
     del ext_rays
     timings["bvh_final_shade"] = ab_ms(
         torch, lambda: shade.final_shade_bvh(lctx, lres, lgeo, feats),

@@ -14,16 +14,37 @@
 // Kernel 18: one thread per primary ray; the running best t prunes.
 // Kernel 19: one thread per ray of the flattened leading axes (rays
 //   [S, 3, N], t_max [S, N], out [S, N] bool), stopping at the first hit.
-// Kernel 20: one thread per pixel walks the tree once for its S <= 16 rays
-//   (the K lanes of the initial check, the D1*K rays of the MIS ext_vis
-//   batch), the still-unoccluded rays in a bit mask; each ray has its own
-//   origin (wrs.visibility pushes it along its own direction).
+// Kernel 20: the S <= 16 rays of each pixel (the K lanes of the initial
+//   check, the D1*K rays of the MIS ext_vis batch, the (R+1)*K Z rays of
+//   the visibility check), each with its own origin (wrs.visibility pushes
+//   it along its own direction).
 //
 // Bound: operations, the box and triangle tests the walk makes (about 22
 // operations a box test, one Moller-Trumbore test a triangle); device
 // memory sees only rays in and hits out (40 B a closest-hit ray, 29 B an
 // any-hit ray). Ray indices are 64-bit: 12 x 1080 x 1920 rays go into one
 // launch.
+//
+// What holds a walk back on the H100 is latency: every step is a dependent
+// node load, so the card needs many walks in flight (occupancy), and each
+// leaf triangle costs loads. The TPU's kernel 20 shares ONE walk between a
+// pixel's S rays to amortise its page DMAs; on this card that union walk
+// visits every node any of the S rays needs (S rays going to S different
+// light samples), runs up to S slab tests a node serially, and holds 10 S
+// floats of ray state a thread (166 registers at S = 12): it lost to the
+// per-ray walk of kernel 19. Kernel 20 is therefore a walk per ray: one
+// thread per ray, 40 registers whatever S, with a pixel's S rays in
+// adjacent lanes (their origins nearly coincide, so a warp shares the top
+// of the tree in L1), and its leaf triangles read as 48-byte records (three
+// float4, ops/walk.tri_records) instead of ten floats from ten [10, T]
+// columns. Each ray's walk is ops/traverse.bvh_any's, operation for
+// operation (--fmad=false), so its bool is the plain traversal's; for a
+// fixed t_max the any-hit bool is the OR over the triangles of every leaf
+// whose box and ancestors' boxes the ray passes, so it depends neither on
+// the order of the visits nor on where a ray stops. A lane-per-ray walk of
+// one shared cursor a pixel (the TPU's union walk with its S-loop made
+// parallel, __any_sync over the group) was measured against it in the same
+// call and lost (PERF.md).
 #include "walk.cuh"
 
 namespace romis {
@@ -71,47 +92,54 @@ bvh_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
                ? 1 : 0;
 }
 
-// S is the instantiated width (2, 4, 8, 12 or 16); the s_real <= S rays of
-// the call are live, the rest never traced.
-template <int S>
-__global__ void __launch_bounds__(kWalkThreads)
-bvh_any_k_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                 const float* __restrict__ t_max, long long n_pix, int s_real,
-                 const float4* __restrict__ nodes,
-                 const float* __restrict__ cols, int n_tris,
-                 unsigned char* __restrict__ out) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n_pix) return;
-  float ox[S], oy[S], oz[S], dx[S], dy[S], dz[S], tm[S];
-  unsigned live = 0u;
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const bool real = s < s_real;
-    const long long base = static_cast<long long>(s) * 3 * n_pix + p;
-    ox[s] = real ? o[base] : 0.f;
-    oy[s] = real ? o[base + n_pix] : 0.f;
-    oz[s] = real ? o[base + 2 * n_pix] : 0.f;
-    dx[s] = real ? d[base] : 0.f;
-    dy[s] = real ? d[base + n_pix] : 0.f;
-    dz[s] = real ? d[base + 2 * n_pix] : 0.f;
-    tm[s] = real ? t_max[static_cast<long long>(s) * n_pix + p] : 0.f;
-    if (real) live |= 1u << s;
-  }
-  const unsigned occ = walk_any<S>(nodes, cols, n_tris, ox, oy, oz, dx, dy,
-                                   dz, tm, live);
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-    if (s < s_real) out[static_cast<long long>(s) * n_pix + p] = (occ >> s) & 1u;
+// Kernel 20's triangles: ops/walk.tri_records, [T, 12] floats a triangle
+// (v0 xyz | e1 xyz | e2 xyz | active | 0 0), read as three float4 from one
+// 48-byte record instead of ten floats from ten [10, T] columns.
+__device__ __forceinline__ Tri load_tri_rec(const float4* __restrict__ recs,
+                                            int i) {
+  const float4 a = __ldg(recs + 3 * i), b = __ldg(recs + 3 * i + 1),
+               c = __ldg(recs + 3 * i + 2);
+  return Tri{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y > 0.0f};
 }
 
-template <int S>
-int launch_any_k(const float* o, const float* d, const float* t_max,
-                 long long n_pix, int s_real, const float4* nodes,
-                 const float* cols, int n_tris, unsigned char* out,
-                 cudaStream_t stream) {
-  bvh_any_k_kernel<S><<<walk_blocks(n_pix), kWalkThreads, 0, stream>>>(
-      o, d, t_max, n_pix, s_real, nodes, cols, n_tris, out);
-  return static_cast<int>(cudaGetLastError());
+// Kernel 20: one thread per ray, a pixel's S rays in adjacent lanes (ray
+// p * S + s of the launch is ray s of pixel p), each walking the tree alone
+// and stopping at its first hit.
+__global__ void __launch_bounds__(kWalkThreads)
+bvh_any_k_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ t_max, long long n_pix, int s_n,
+                 const float4* __restrict__ nodes,
+                 const float4* __restrict__ recs,
+                 unsigned char* __restrict__ out) {
+  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n_pix * s_n) return;
+  const long long p = r / s_n;
+  const long long s = r - p * s_n;
+  const long long base = s * 3 * n_pix + p;
+  const float ox = o[base], oy = o[base + n_pix], oz = o[base + 2 * n_pix];
+  const float dx = d[base], dy = d[base + n_pix], dz = d[base + 2 * n_pix];
+  const float tm = t_max[s * n_pix + p];
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  bool occ = false;
+  int cursor = 0;
+  while (cursor >= 0 && !occ) {
+    const Node n = load_node(nodes, cursor);
+    const bool hit = slab_hit(n, ox, oy, oz, ix, iy, iz, tm);
+    const int leaf = n.leaf();
+    if (hit && leaf != 0) {
+      const int first = leaf >> kLeafCountBits;
+      const int count = leaf & ((1 << kLeafCountBits) - 1);
+      for (int j = 0; j < count && !occ; ++j) {
+        float t, u, v;
+        occ = mt_tri(ox, oy, oz, dx, dy, dz, load_tri_rec(recs, first + j), t,
+                     u, v) && t < tm;
+      }
+      cursor = n.miss();
+    } else {
+      cursor = hit ? cursor + 1 : n.miss();
+    }
+  }
+  out[s * n_pix + p] = occ ? 1 : 0;
 }
 
 }  // namespace romis
@@ -140,15 +168,12 @@ extern "C" int romis_bvh_any(const float* o, const float* d, const float* t_max,
 
 extern "C" int romis_bvh_any_k(const float* o, const float* d, const float* t_max,
                                long long n_pix, int s, const float* nodes,
-                               const float* cols, int n_tris, unsigned char* out,
+                               const float* recs, unsigned char* out,
                                cudaStream_t stream) {
   using namespace romis;
-  const float4* nd = reinterpret_cast<const float4*>(nodes);
-  if (s < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (s <= 2) return launch_any_k<2>(o, d, t_max, n_pix, s, nd, cols, n_tris, out, stream);
-  if (s <= 4) return launch_any_k<4>(o, d, t_max, n_pix, s, nd, cols, n_tris, out, stream);
-  if (s <= 8) return launch_any_k<8>(o, d, t_max, n_pix, s, nd, cols, n_tris, out, stream);
-  if (s <= 12) return launch_any_k<12>(o, d, t_max, n_pix, s, nd, cols, n_tris, out, stream);
-  if (s <= 16) return launch_any_k<16>(o, d, t_max, n_pix, s, nd, cols, n_tris, out, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (s < 1 || s > 16) return static_cast<int>(cudaErrorInvalidValue);
+  bvh_any_k_kernel<<<walk_blocks(n_pix * s), kWalkThreads, 0, stream>>>(
+      o, d, t_max, n_pix, s, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(recs), out);
+  return static_cast<int>(cudaGetLastError());
 }

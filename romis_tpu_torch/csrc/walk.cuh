@@ -1,5 +1,7 @@
 // The threaded BVH walk on the device, shared by kernels 18-20 (walk.cu)
-// and the BVH final shade (kernel 21, shade.cu).
+// and the BVH final shade (kernel 21, shade.cu): the node record, the slab
+// test, the closest-hit walk (18) and the S-ray shared walk walk_any
+// (kernel 19 with S = 1, kernel 21 with its K lanes).
 //
 // The tree is ops/bvh.py's DFS-preorder skip-link layout: node i's record is
 // 8 words, read as two float4 through the read-only cache, bmin xyz | bmax x

@@ -60,8 +60,8 @@ SIGNATURES = {
     "romis_any_hit": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
     # planes, c, h, w, dy, dx, n_out, out, stream
     "romis_halo_gather": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
-    # ct, c, h, w, dy, dx, n_in, out, stream
-    "romis_halo_scatter": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
+    # ct, d, c, h, w, dy, dx, out (zero-filled), stream
+    "romis_halo_scatter": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     # ct, n_cols, idx, n_idx, n_rows, out, stream
     "romis_scatter_rows_add": (_P, _I, _P, _LL, _I, _P, _P),
     # the same arguments, then iters, romis, unshaded; out holds iters
@@ -81,8 +81,9 @@ SIGNATURES = {
     # origins, dirs, t_max, n_pix, n_rays, nodes, tri_cols, n_tris, out,
     # stream
     "romis_bvh_any": (_P, _P, _P, _LL, _LL, _P, _P, _I, _P, _P),
-    # origins, dirs, t_max, n_pix, s, nodes, tri_cols, n_tris, out, stream
-    "romis_bvh_any_k": (_P, _P, _P, _LL, _I, _P, _P, _I, _P, _P),
+    # origins, dirs, t_max, n_pix, s, nodes, tri_records [T, 12], out,
+    # stream
+    "romis_bvh_any_k": (_P, _P, _P, _LL, _I, _P, _P, _P, _P),
     # ctx18, res, n_pix, k, nodes, tri_cols, n_tris, unshaded, out, stream
     "romis_final_shade_bvh": (_P, _P, _LL, _I, _P, _P, _I, _I, _P, _P),
     # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,

@@ -45,9 +45,21 @@ Both pass kernels have the unshaded mode of
 context's kd.
 
 Kernel 10 (``csrc/halo.cu``, ``halo_offset_scatter``) replaces
-``_offset_scatter_kernel``: the transpose of the clamped gather, and the
-backward of ``halo_offset_gather`` (an autograd Function, so gradients
-reach the gathered planes); its plain version is ``index_add_``.
+``_offset_scatter_kernel`` (the TPU's (2r+1)² masked shifts a tile, radius
+≤ 64): the transpose of the clamped gather, and the backward of
+``halo_offset_gather`` (an autograd Function, so gradients reach the
+gathered planes), for offsets that may be any integer; its plain version
+is ``index_add_``. A thread per source adding into device memory, as
+``index_add_`` does, waits on the L2's atomic units (D·C·H·W float atomics
+on C·H·W addresses), far above the bytes it must move. The kernel keeps
+those adds on chip: a block takes a 16×32 tile of sources, loads their
+offsets and cotangents together, adds each source whose clamped target
+lies within ``HALO_SCATTER_MARGIN`` of it into a shared-memory window (the
+tile ± the margin), and adds the window to the output once. A source whose
+target lies beyond the margin (``beyond_margin``: large camera shifts,
+offsets clamped from outside the image) goes straight to device memory
+with an atomic; the kernel finds these sources itself, without asking the
+host for the largest offset.
 
 Kernel 12 (``csrc/nbrgather.cu``, ``neighbour_gather``) replaces
 ``_gather_kernel``: the planes of R random neighbours per pixel, offsets
@@ -64,10 +76,9 @@ Bound on the H100: the passes are compute-bound, (R+1)·K target-PDF
 evaluations with one ``powf`` each per pixel (2·R·K more for the unbiased
 Z; the vis_check mode writes 2K + 3R + RK planes more); the neighbour
 reads stay within ±radius and are served mostly by L1 and L2. The halo
-gather is bound by device-memory bandwidth, the scatter by bandwidth and
-atomics (D inputs land on a source pixel on average; the clamped border
-pixels take more); the neighbour gather by bandwidth too, R·C planes
-written for C read.
+gather is bound by device-memory bandwidth, the scatter by bandwidth once
+its adds stay in shared memory (above); the neighbour gather by bandwidth
+too, R·C planes written for C read.
 """
 
 from __future__ import annotations
@@ -83,6 +94,9 @@ from . import _build
 
 MAX_LANES = 4  # the pass kernels are instantiated for K = 1..4
 MAX_UNBIASED_NEIGHBOURS = 8  # the unbiased kernel keeps R offsets in registers
+# Kernel 10's accumulator window: its source tile +- this many pixels
+# (csrc/halo.cu kMargin); a source whose target lies further is "far".
+HALO_SCATTER_MARGIN = 16
 # Philox counter tags of the pass kernels and the neighbour gather (RIS
 # uses tag 0).
 _TAG_BIASED, _TAG_UNBIASED, _TAG_GATHER = 0x5350, 0x5351, 0x5352
@@ -214,16 +228,31 @@ def halo_offset_scatter(ct: torch.Tensor, dy: torch.Tensor,
                          f"{d} gathered copies")
     ctc = ct.contiguous()
     _build.check(ctc, "ct", torch.float32)
+    if h * w >= 2 ** 31:
+        raise ValueError(f"halo_offset_scatter: {h}x{w} pixels exceed "
+                         f"32-bit indexing")
     out = torch.zeros((c, h, w), dtype=torch.float32, device=ct.device)
     if ctc.numel():
-        _build.launch("romis_halo_scatter", ctc.data_ptr(), c, h, w,
-                      dyi.data_ptr(), dxi.data_ptr(), d * h * w,
-                      out.data_ptr())
+        _build.launch("romis_halo_scatter", ctc.data_ptr(), d, c, h, w,
+                      dyi.data_ptr(), dxi.data_ptr(), out.data_ptr())
         halo_offset_scatter.launches += 1
     return out
 
 
 halo_offset_scatter.launches = 0
+
+
+def beyond_margin(dy: torch.Tensor, dx: torch.Tensor,
+                  margin: int = HALO_SCATTER_MARGIN) -> torch.Tensor:
+    """The sources kernel 10 adds straight into device memory: those whose
+    clamped target lies more than ``margin`` pixels from them in y or in x.
+    dy/dx [D, H, W] int → bool [D, H, W]."""
+    h, w = dy.shape[-2:]
+    rows = torch.arange(h, device=dy.device)[:, None]
+    cols = torch.arange(w, device=dy.device)[None, :]
+    ty = torch.clamp(rows + dy.long(), 0, h - 1)
+    tx = torch.clamp(cols + dx.long(), 0, w - 1)
+    return ((ty - rows).abs() > margin) | ((tx - cols).abs() > margin)
 
 
 class _HaloGather(torch.autograd.Function):

@@ -13,10 +13,10 @@ and leaf triangles through the read-only cache:
   its running best t;
 - kernel 19 (``any_hit_bvh``): one thread per ray, stopping at the first
   hit;
-- kernel 20 (``any_hit_bvh_k``): one thread per pixel walks the tree once
-  for its S <= 16 rays (each with its own origin), entering a node if any
-  still-unoccluded ray's slab test passes and testing a leaf's triangles
-  against the rays whose own test passes there.
+- kernel 20 (``any_hit_bvh_k``): the S <= 16 rays of each pixel, a thread
+  per ray with the pixel's S rays in adjacent lanes, each stopping at its
+  first hit; its leaf triangles come as 48-byte records
+  (``tri_records``, built from the columns in each call).
 Their plain versions are ``ops.traverse.bvh_closest`` and ``bvh_any``,
 whose walk the kernels repeat step for step, so they agree hit for hit.
 
@@ -26,8 +26,20 @@ reference's rule for the any-hit (``ops/intersect.py:154-162``): 2 <= S <=
 anything else to kernel 19.
 
 Bound on the H100: operations, the walk's box tests (about 22 operations
-each) and triangle tests (one Möller–Trumbore each); device memory sees the
-rays in and the hits out (40 B a closest-hit ray, 29 B an any-hit ray).
+each) and triangle tests (one Möller–Trumbore each); device memory sees
+the rays in and the hits out (40 B a closest-hit ray, 29 B an any-hit ray).
+What holds a walk back is latency: each step is a dependent node load, so
+occupancy decides how many walks hide it. The TPU's kernel 20 shares one
+walk between a pixel's S rays to amortise its page DMAs; on this card that
+union walk visits every node any of the S rays needs, runs the S slab
+tests of a node one after another and holds 10·S floats of ray state a
+thread, and it lost to the per-ray walk. Kernel 20 walks each ray alone
+(40 registers at any S) and reads a leaf's triangles as three float4 each
+instead of ten scattered floats. A ray's walk is the plain one operation
+for operation, and for a fixed t_max the any-hit bool is the OR over the
+triangles of every leaf whose box (and its ancestors') the ray passes, so
+it depends neither on the order of visits nor on where the ray stops: the
+kernel gives the plain traversal's bool on every ray.
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ from ..core.types import Rays
 from . import _build
 from .traverse import bvh_any, bvh_closest
 
-K_MAX = 16  # rays per pixel of one shared walk (PAGED_ANY_K_MAX)
+K_MAX = 16  # rays per pixel kernel 20 takes (the reference's PAGED_ANY_K_MAX)
 
 
 def checked_tree(geometry):
@@ -87,6 +99,12 @@ def closest_hit_bvh(rays: Rays, geometry, t_max: float = math.inf):
 closest_hit_bvh.launches = 0
 
 
+def tri_records(cols: torch.Tensor) -> torch.Tensor:
+    """The [10, T] triangle columns as kernel 20 reads them: [T, 12], a
+    48-byte record a triangle (v0 xyz | e1 xyz | e2 xyz | active | 0 0)."""
+    return torch.nn.functional.pad(cols.t(), (0, 2)).contiguous()
+
+
 def _any_args(origins, dirs, t_max, name):
     lead = tuple(origins.shape[:-3])
     h, w = origins.shape[-2:]
@@ -123,10 +141,10 @@ any_hit_bvh.launches = 0
 
 
 def any_hit_bvh_k(origins, dirs, t_max, geometry) -> torch.Tensor:
-    """Occlusion of S = prod(leading axes) <= 16 rays per pixel sharing one
-    walk: origins [..., 3, H, W], dirs broadcastable to them, t_max
-    [..., H, W] → bool [..., H, W]. Kernel 20 for CUDA tensors, the plain
-    traversal for CPU tensors."""
+    """Occlusion of S = prod(leading axes) <= 16 rays per pixel, a walk per
+    ray with a pixel's rays side by side: origins [..., 3, H, W], dirs
+    broadcastable to them, t_max [..., H, W] → bool [..., H, W]. Kernel 20
+    for CUDA tensors, the plain traversal for CPU tensors."""
     if not origins.is_cuda:
         return bvh_any(origins, dirs, t_max, geometry, geometry.bvh)
     o, d, tm, shape, n_pix = _any_args(origins, dirs, t_max, "any_hit_bvh_k")
@@ -137,9 +155,10 @@ def any_hit_bvh_k(origins, dirs, t_max, geometry) -> torch.Tensor:
     nodes, cols = checked_tree(geometry)
     out = torch.empty(shape, dtype=torch.bool, device=o.device)
     if n_pix:
+        recs = tri_records(cols)
         _build.launch("romis_bvh_any_k", o.data_ptr(), d.data_ptr(),
                       tm.data_ptr(), n_pix, s, nodes.data_ptr(),
-                      cols.data_ptr(), cols.shape[1], out.data_ptr())
+                      recs.data_ptr(), out.data_ptr())
         any_hit_bvh_k.launches += 1
     return out
 
