@@ -149,12 +149,26 @@ GPU.
    where one PyTorch call computes the same function, that call; then
    ``torch.profiler`` over 3 R-OMIS frames, a large config-5 frame, a
    large R-OMIS frame and the three vis-check paths (device busy and idle
-   share, kernels per frame, the top kernels by device time). Kernel 7 is
-   timed on the Z rays of the 1080p vis-check pass on the one-torus soup,
-   its plain version at 480x270; its bound counts the triangle tests this
-   run's rays make up to their first hit (the plain version counts them),
-   MT_RAY_OPS each, an origin set-up (MT_ORIGIN_OPS) per triangle an origin
-   tests, and SHADOW_OPS per traced ray. The BVH kernels' bound counts the box
+   share, kernels per frame, the top kernels by device time). Kernel 17 is
+   timed in its four frame modes (R-OMIS, progressive, equal, balance) on
+   the flagship and in its ext_vis R-OMIS on the torus field, each printed
+   beside its own bound (the table's row is R-OMIS). Kernel 7 is
+   timed on the Z rays of the 1080p vis-check pass on the one-torus soup
+   (its blocks built beforehand, as once a soup; the build is timed
+   alone), its plain version at 480x270. Its table bound counts the tests
+   that the cull needs on the same rays, those of the walk with the box
+   alone deciding (``ops.trace.zcount_occ_culled`` with ``guard=False``,
+   the plain model of the kernel's cull): BOX_OPS a box test, MT_RAY_OPS a
+   triangle test, MT_ORIGIN_OPS an origin set-up, SHADOW_OPS and three
+   reciprocals a traced ray. The near-parallel guard that keeps the
+   kernel's cull exact is counted apart (GUARD_OPS, GUARD_CONE_OPS and
+   GUARD_TRI_OPS, from the guarded model's counts) and printed on a line
+   of its own; a second bound, printed beside the first, counts the plain
+   version's tests up to each ray's first hit (the yardstick of the
+   unculled designs).
+   Kernel 7 is also held to its plain version on random, grazing, edge-on
+   and edge-crossing rays (``hard_z_rays``), where the guard decides, and
+   kernel 17 at D = 4 as well as 5. The BVH kernels' bound counts the box
    and triangle tests that the plain traversal made on the same rays and
    tree (BOX_OPS and MT_OPS each, and each ray's three reciprocals).
    Kernel 8 is timed beside kernel 6 on the torus soup's 1080p shadow rays
@@ -257,6 +271,11 @@ BOX_OPS = 22  # one slab test: 6 subtractions, 6 multiplies, 10 min/max
 # the two window products and six compares).
 MT_ORIGIN_OPS = 17
 MT_RAY_OPS = 37
+# Kernel 7's near-parallel guard where a box test fails: the reach bound
+# (3 subtractions, 3 absolutes, 4 adds, a compare), then a 3-term product
+# and two compares for each cone of a pair of triangles, a 3-term product
+# and a compare for each normal tried.
+GUARD_OPS, GUARD_CONE_OPS, GUARD_TRI_OPS = 11, 8, 7
 # Kernel 8: the non-zero terms of the five products (three 6-term edge
 # sides, the 4-term plane value, the 3-term n.D: a multiply a term and an
 # add between terms) and the sign test (6 compares, the straddle's add,
@@ -479,7 +498,57 @@ def random_soup(n_tris: int, center, half: float, seed: int):
                                      shininess=20.0))
 
 
+HARD_RAY_KINDS = ("random", "grazing", "edge_on", "edge")
+
+
+def hard_z_rays(rng, kind, cols, r1=3, k=2, h=6, w=16):
+    """Z rays where kernel 7's cull is hardest, from a soup's columns
+    [10, T] (numpy) → float32 origins [R+1, 3, H, W] and targets
+    [K, 3, H, W]: ``random`` in the scene's box; ``grazing`` and
+    ``edge_on`` through a point P of a random triangle's plane near it,
+    along an in-plane direction, the ends ±delta off the plane (delta from
+    1e-7 to 1e-3, or 0); ``edge`` through a point on a random triangle's
+    edge or vertex."""
+    import numpy as np
+
+    act = np.flatnonzero(cols[9] > 0.0)
+    if kind == "random":
+        lo = cols[0:3, act].min(axis=1) - 0.3
+        hi = cols[0:3, act].max(axis=1) + 0.3
+        o = rng.uniform(lo[None, :, None, None], hi[None, :, None, None],
+                        (r1, 3, h, w))
+        t = rng.uniform(lo[None, :, None, None], hi[None, :, None, None],
+                        (k, 3, h, w))
+        return o.astype(np.float32), t.astype(np.float32)
+    j = rng.choice(act, (h, w))
+    v0, e1, e2 = (cols[3 * i:3 * i + 3, j] for i in range(3))  # [3, h, w]
+    if kind == "edge":
+        a = rng.choice([0.0, 1.0, rng.uniform()], (h, w))
+        on_e2 = rng.uniform(size=(h, w)) < 0.5
+        p = v0 + np.where(on_e2, a * e2, a * e1)
+        d = rng.normal(size=(3, h, w))
+        u = d / np.linalg.norm(d, axis=0)
+        nrm = np.zeros_like(u)
+        delta = np.zeros((h, w))
+    else:
+        a, b = rng.uniform(-0.5, 1.5, (2, h, w))
+        p = v0 + a * e1 + b * e2
+        nrm = np.cross(e1, e2, axis=0)
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=0), 1e-12)
+        u = rng.normal(size=(3, h, w))
+        u -= (u * nrm).sum(axis=0) * nrm  # in the plane
+        u /= np.maximum(np.linalg.norm(u, axis=0), 1e-12)
+        delta = (np.zeros((h, w)) if kind == "edge_on" else
+                 10.0 ** rng.uniform(-7, -3, (h, w)))
+    s_o = rng.uniform(0.2, 2.0, (r1, 1, h, w))
+    s_t = rng.uniform(0.2, 2.0, (k, 1, h, w))
+    o = p[None] - s_o * u[None] + delta * nrm[None]
+    t = p[None] + s_t * u[None] - delta * nrm[None]
+    return o.astype(np.float32), t.astype(np.float32)
+
+
 def main() -> None:
+    import numpy as np
     import torch
 
     # ---- 1. the device ----
@@ -1148,7 +1217,7 @@ def main() -> None:
         cen_ = shade.pack_center_ctx(c)
         nbr_ = mis.resolve_neighbour_ctx(cen_, offs_,
                                          spatial.halo_offset_gather_plain)
-        d1 = n_nbr + 1
+        d1 = f.num_neighbours_to_sample + 1
         al = torch.rand((3 * d1, h_, w_), generator=gen, device=dev) - 0.5
         ext = {}
         if geometry.bvh is not None:
@@ -1184,6 +1253,11 @@ def main() -> None:
 
     errs["mis_iteration"] = check_sweep("flagship", ctx, scene.geometry,
                                         packs[False], packs[True], (H, W))
+    # D = 4 (D1 = 5): the last chunk of the kernel's stage is partial in
+    # every mode (3 members a chunk for R-OMIS, 2 for balance).
+    errs["mis_iteration"] = max(errs["mis_iteration"], check_sweep(
+        "flagship, D = 4", ctx, scene.geometry, packs[False], packs[True],
+        (H, W), f=Features(num_neighbours_to_sample=4)))
     hs, ws = H // 4, W // 4
     soup_cam = flagship_camera(hs, ws, dev)
     _, soup_ctx_s = restir.trace_primary(generate_rays(soup_cam, hs, ws),
@@ -1502,6 +1576,28 @@ def main() -> None:
     torus1 = torus_field(1, dev)
     require(torus1.geometry.tri_cols.shape[1] <= trace.MAX_SOUP_TRIS
             and torus1.geometry.bvh is None, "one-torus soup")
+    # Kernel 7 where its cull's near-parallel guard decides: random,
+    # grazing, edge-on and edge-crossing rays (hard_z_rays) on the one-torus
+    # soup and the 2048-triangle soup, masked and not, against the plain
+    # version; the box-only walk (ops.trace.zcount_occ_culled with
+    # guard=False) shows on how many of them the box alone would be wrong.
+    for g_label, g_ in (("torus soup", torus1.geometry),
+                        ("soup2048", soup)):
+        cols_np = g_.tri_cols.cpu().numpy()
+        for i, kind in enumerate(HARD_RAY_KINDS):
+            rng = np.random.default_rng(90 + i)
+            o_, t_ = (torch.from_numpy(a).to(dev) for a in hard_z_rays(
+                rng, kind, cols_np, n_nbr + 1, k, 64, 128))
+            m_ = torch.from_numpy(rng.uniform(
+                size=(n_nbr + 1, k, 64, 128)) > 0.3).to(dev)
+            for mm, lab in ((None, "no mask"), (m_, "mask")):
+                check_zcount(o_, t_, mm, g_, f"{g_label}, {kind} rays, {lab}")
+                wrong = (trace.zcount_occ_culled(
+                    o_, t_, g_, SHADOW_RAY_EPSILON, mm, guard=False)
+                    != trace.zcount_occ_plain(o_, t_, g_, SHADOW_RAY_EPSILON,
+                                              mm)).sum().item()
+                print(f"check zcount_occ[{g_label}, {kind} rays, {lab}]: "
+                      f"the box alone would be wrong on {wrong} rays")
     tcam = make_camera(resolution=(H, W), device=dev, **TORUS_CAM)
     _, tctx = restir.trace_primary(generate_rays(tcam, H, W),
                                    torus1.geometry, feats, restir.KERNELS)
@@ -2229,21 +2325,22 @@ def main() -> None:
     offs_t = mis_offsets(ny_t, nx_t)
     nbr_t = mis.resolve_neighbour_ctx(cen, offs_t)
     d1 = n_nbr + 1
-    sweep_args = dict(romis=("romis", packs[True], nbr_t),
-                      rmis_equal=("rmis_equal", packs[False], None),
-                      rmis_balance=("rmis_balance", packs[False], nbr_t))
-    for label, (m, pack, nbr_) in sweep_args.items():
-        ms = ab_ms(
+    al_t = torch.rand((3 * d1, H, W), generator=gen, device=dev) - 0.5
+    sweep_args = dict(romis=("romis", packs[True], nbr_t, None),
+                      romis_prog=("romis", packs[True], nbr_t, al_t),
+                      rmis_equal=("rmis_equal", packs[False], None, None),
+                      rmis_balance=("rmis_balance", packs[False], nbr_t,
+                                    None))
+    sweep_ms = {}  # each mode's times, printed beside its bound below
+    for label, (m, pack, nbr_, al_) in sweep_args.items():
+        sweep_ms[label] = ab_ms(
             torch, lambda: mis.mis_iteration(
                 cen, pack, offs_t, scene.geometry, k, m, scene.num_lights,
-                feats, nbr_ctx=nbr_),
+                feats, nbr_ctx=nbr_, alphas=al_),
             lambda: mis.mis_iteration_plain(
                 cen, pack, offs_t, scene.geometry, k, m, scene.num_lights,
-                feats, nbr_ctx=nbr_), 20, 3)
-        print(f"time mis_iteration[{label}]: {ms[0]:.4f} ms kernel, "
-              f"{ms[1]:.4f} ms plain [{card}]")
-        if label == "romis":
-            timings["mis_iteration"] = ms
+                feats, nbr_ctx=nbr_, alphas=al_), 20, 3)
+    timings["mis_iteration"] = sweep_ms["romis"]
     # The BVH kernels at the 1080p torus-field frame's shapes: primary rays,
     # one plane of shadow rays (19), the 12 ext_vis rays per pixel (20), the
     # final shade (21); the ext_vis sweep (R-OMIS) beside them.
@@ -2277,15 +2374,13 @@ def main() -> None:
     lcen = shade.pack_center_ctx(lctx)
     lnbr = mis.resolve_neighbour_ctx(lcen, loffs)
     lext = mis_ext_vis(lctx, lpos, loffs, lgeo, k)
-    ms = ab_ms(
+    sweep_ms["ext_vis romis, torus5x5"] = ab_ms(
         torch, lambda: mis.mis_iteration(
             lcen, lpack, loffs, lgeo, k, "romis", large.num_lights, feats,
             nbr_ctx=lnbr, ext_vis=lext),
         lambda: mis.mis_iteration_plain(
             lcen, lpack, loffs, lgeo, k, "romis", large.num_lights, feats,
             nbr_ctx=lnbr, ext_vis=lext), 20, 3)
-    print(f"time mis_iteration[ext_vis romis, torus5x5]: {ms[0]:.4f} ms "
-          f"kernel, {ms[1]:.4f} ms plain [{card}]")
     ms = cuda_ms(torch, lambda: mis_ext_vis(lctx, lpos, loffs, lgeo, k), 20)
     print(f"time mis_ext_vis (halo gather + kernel 20, 12 rays/pixel): "
           f"{ms:.4f} ms [{card}]")
@@ -2321,6 +2416,35 @@ def main() -> None:
           f"{zc['tests'][zc['tests'] > 0].float().mean().item():.1f} of "
           f"{int(torus1.geometry.active.sum())}")
     require(same_t, "zcount_occ torus 1080p: kernel 7 and plain differ")
+    # The culled walk's tests on the same rays (the plain model of kernel
+    # 7's cull, which gives the same bool): with the near-parallel guard,
+    # which the design adds, and with the box alone deciding, the walk
+    # the cull needs (its tests give kernel 7's table bound).
+    zcc, zcb = {}, {}
+    require(torch.equal(occ_t, trace.zcount_occ_culled(
+        zo_t, zt_t, torus1.geometry, SHADOW_RAY_EPSILON, zm_t, zcc)),
+        "zcount_occ torus 1080p: the culled model and plain differ")
+    box_alone = trace.zcount_occ_culled(
+        zo_t, zt_t, torus1.geometry, SHADOW_RAY_EPSILON, zm_t, zcb,
+        guard=False)
+    traced_t = zc["tests"] > 0
+    print(f"check zcount_occ culled walk [torus soup 1080p]: the plain "
+          f"bool on every ray; per traced ray "
+          f"{zcc['box'][traced_t].float().mean().item():.1f} box tests, "
+          f"{zcc['guard'][traced_t].float().mean().item():.1f} blocks "
+          f"guarded ({zcc['guard_cone'][traced_t].float().mean().item():.1f}"
+          f" cone and {zcc['guard_tri'][traced_t].float().mean().item():.1f}"
+          f" normal products), "
+          f"{zcc['tri'][traced_t].float().mean().item():.1f} "
+          f"triangle tests (plain "
+          f"{zc['tests'][traced_t].float().mean().item():.1f}); the box "
+          f"alone: {zcb['box'][traced_t].float().mean().item():.1f} box and "
+          f"{zcb['tri'][traced_t].float().mean().item():.1f} triangle "
+          f"tests, wrong on {(box_alone != occ_t).sum().item()} rays")
+    ms = cuda_ms(torch, lambda: trace.build_zcount_blocks(
+        torus1.geometry.tri_cols), 10)
+    print(f"time zcount_blocks (kernel 7's blocks, built once a soup; "
+          f"torus soup): {ms:.4f} ms [{card}]")
     timings["zcount_occ"] = (
         cuda_ms(torch, lambda: trace.zcount_occ(
             zo_t, zt_t, torus1.geometry, SHADOW_RAY_EPSILON, zm_t), 10),
@@ -2510,10 +2634,63 @@ def main() -> None:
     # and output once.
     tests = zc["tests"]
     r1 = n_nbr + 1
-    bounds["zcount_occ"] = bound(
-        hw * (4 * 3 * (r1 + k) + 2 * r1 * k),
-        tests.amax(dim=1).sum().item() * MT_ORIGIN_OPS
+    z_bytes = hw * (4 * 3 * (r1 + k) + 2 * r1 * k)
+    plain_tests_bound = bound(
+        z_bytes, tests.amax(dim=1).sum().item() * MT_ORIGIN_OPS
         + tests.sum().item() * MT_RAY_OPS + tests.numel() * SHADOW_OPS)
+    # Kernel 7 culls: its table bound counts the tests the cull needs on
+    # the same rays, those of the walk with the box alone deciding (box
+    # tests, triangle tests, origin set-ups), each traced ray's set-up and
+    # reciprocals, and the soup's columns and boxes read once. The
+    # near-parallel guard, which keeps the cull exact, is work of this
+    # design and is printed apart.
+    z_cols = trace.zcount_blocks(torus1.geometry)[0].shape[1]
+    bounds["zcount_occ"] = bound(
+        z_bytes + 4 * (10 * z_cols + 6 * z_cols // trace.ZCOUNT_BLOCK),
+        zcb["box"].sum().item() * BOX_OPS
+        + zcb["tri"].sum().item() * MT_RAY_OPS
+        + zcb["origin"].sum().item() * MT_ORIGIN_OPS
+        + tests.numel() * SHADOW_OPS
+        + traced_t.sum().item() * 3 * (SFU_OPS + 1))  # fast reciprocals
+    guard_ops = (zcc["guard"].sum().item() * GUARD_OPS
+                 + zcc["guard_cone"].sum().item() * GUARD_CONE_OPS
+                 + zcc["guard_tri"].sum().item() * GUARD_TRI_OPS)
+    print(f"bound zcount_occ, the plain version's tests (unculled): "
+          f"{plain_tests_bound[0]:.4f} ms ({plain_tests_bound[1]}); the "
+          f"culled walk's: {bounds['zcount_occ'][0]:.4f} ms "
+          f"({bounds['zcount_occ'][1]})")
+    print(f"bound zcount_occ, the near-parallel guard alone (not in the "
+          f"bound): {guard_ops:.4e} operations, "
+          f"{1e3 * guard_ops / FP32_OPS_S:.4f} ms at the float peak")
+    # Kernel 17 in each mode at the flagship's shapes (the R-OMIS bound is
+    # the table's), and the ext_vis R-OMIS on the torus field (no rays
+    # traced; its visibility planes read).
+    trace_ops = live_rays * (n_t * MT_OPS + SHADOW_OPS)
+    sweep_in = hw * 4 * (18 + 2 * n_nbr)
+    sweep_bounds = {
+        "romis": bounds["mis_iteration"],
+        "romis_prog": bound(
+            sweep_in + hw * 4 * (8 * k + 14 * n_nbr + 3 * d1 + n_up + 3 * d1
+                                 + 3),
+            hw * d1 * k * (d1 * (PHONG_OPS + COLVEC_OPS) + 2 * n_up
+                           + 6 * d1 + DIV_OPS + 6 * d1 + DIV_OPS + 12)
+            + trace_ops),
+        "rmis_equal": bound(sweep_in + hw * 4 * (7 * k + 3),
+                            hw * d1 * k * (PHONG_OPS + 8) + trace_ops),
+        "rmis_balance": bound(
+            sweep_in + hw * 4 * (7 * k + 14 * n_nbr + 3),
+            hw * d1 * k * (d1 * PHONG_OPS + d1 + DIV_OPS + 8) + trace_ops),
+        "ext_vis romis, torus5x5": bound(
+            sweep_in + hw * 4 * (8 * k + 14 * n_nbr + d1 * k + n_up
+                                 + 3 * d1),
+            hw * d1 * k * (d1 * (PHONG_OPS + COLVEC_OPS) + 2 * n_up
+                           + 6 * d1 + DIV_OPS)),
+    }
+    for label, (k_ms, p_ms) in sweep_ms.items():
+        b_ms, b_by = sweep_bounds[label]
+        print(f"time mis_iteration[{label}]: {k_ms:.4f} ms kernel, "
+              f"{p_ms:.4f} ms plain, bound {b_ms:.4f} ms ({b_by}), "
+              f"{k_ms / b_ms:.2f}x the bound [{card}]")
     # Kernel 8: the tests the torus soup's shadow rays make up to their
     # first occluder (its plain version counts them), a set-up per ray;
     # 7 floats in and a byte out per ray, the triangles' v0, e1, e2 and

@@ -90,9 +90,10 @@ SIGNATURES = {
     # gumbel, unshaded, out, vis_check block, stream
     "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,
                            _P, _I, _P, _P, _P),
-    # origins, targets, mask, n_pix, n_origins, k, tri_cols, n_tris, eps,
-    # out, stream
-    "romis_zcount_occ": (_P, _P, _P, _LL, _I, _I, _P, _I, _F, _P, _P),
+    # origins, targets, mask, h, w, n_origins, k, tri_cols (block-ordered),
+    # boxes, normals, n_tris, eps, out, stream
+    "romis_zcount_occ": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P,
+                         _P),
     # origins, dirs, t_max, n_pix, n_rays, cmat [5T, 16], n_tris, out, stream
     "romis_any_hit_plucker": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
     # planes, c, h, w, n_nbr, radius, offs, key, tag, out, stream

@@ -23,9 +23,15 @@ block); their contexts pre-gathered once per frame
 
 Kernel 17 (``csrc/mis.cu``, ``mis_iteration``) replaces the Pallas
 ``_mis_kernel``: one thread per pixel reads the neighbour reservoirs at its
-offsets straight from the pack, traces the D1·K shadow rays against the
-soup staged in shared memory, and keeps the whole (j, d, k) sweep and the
-accumulators in registers. Its ``ext_vis`` mode (the reference's, for
+offsets straight from the pack (each member pixel found once, as a 32-bit
+in-plane index: the wrapper refuses H·W ≥ 2^31) and traces the D1·K
+shadow rays against the soup staged in shared memory. It
+evaluates technique-major over chunks of the neighbourhood (3 members for
+R-OMIS, 2 for balance): a chunk's samples go into a per-thread stage in
+shared memory, each neighbour j's context, unit view and weights are read
+once a chunk, p̂_j of the chunk's samples is staged (the R-OMIS colvec, or
+the balance p̂), and a pass per sample forms scale, ŵ and the A / b (or
+contribution) updates in the plain version's order. Its ``ext_vis`` mode (the reference's, for
 geometry with a BVH) reads the visibility of the D1·K rays from planes
 [D1·K, H, W] traced beforehand (``render.rmis.mis_ext_vis``, one batch
 through the BVH walk) instead of tracing the soup; the planes already hold
@@ -47,6 +53,14 @@ instruction cost: D1·K Phong evaluations per pixel at the receiver and,
 for the balance heuristic and R-OMIS, D·D1·K more under the neighbours'
 contexts, plus the shadow rays' triangle tests; device memory sees 18 +
 C_res + 2D (+ 14D, + 3D1) planes in and 3 (or 21 + 18 + 3 at D = 5) out.
+Every multiply-add is two instructions (``--fmad=false``, for bit-equality
+with the plain version). The earlier, sample-major design reloaded each
+neighbour's 14 context planes and recomputed its view for every sample
+(840 floats a pixel where 70 are distinct) and held the R-OMIS
+accumulators across all of it (229 registers at D1 = 6). The chunk size
+trades the stage's shared memory, which bounds the warps an SM holds,
+against reloads of the contexts; the registers and times of both designs
+and of each chunk size are in ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -189,6 +203,9 @@ def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
     if not 1 <= k <= MAX_LANES or not 1 <= d <= MAX_NEIGHBOURS:
         raise ValueError(f"mis_iteration: K={k}, D={d} outside "
                          f"1..{MAX_LANES}, 1..{MAX_NEIGHBOURS}")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"mis_iteration: {h}x{w} pixels exceed 32-bit "
+                         "indexing")
     s = features.initial_light_samples
     c_res = mis_pack_planes(mode, k)
     if res_planes.dim() != 3 or tuple(res_planes.shape[1:]) != (h, w):

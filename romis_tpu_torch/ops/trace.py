@@ -28,8 +28,18 @@ reference's division-free Möller–Trumbore, whose origin terms are shared by
 the K rays of an origin. Its plain version is ``zcount_occ_plain``, the same
 operations in the same order as a block scan; on geometry with a BVH the Z
 rays go through ``ops.wrs.visibility_from`` and the walk kernels instead
-(the reference's rule). Bound: operations, (R+1)·K ray-triangle tests per
-pixel up to each ray's first hit.
+(the reference's rule). Bound: operations, the ray-triangle tests. The
+kernel culls as the TPU kernel did: ``zcount_blocks`` orders the
+soup (by the Morton code of its triangles' boxes where that gives smaller
+boxes than the input order) and gives each block of ``ZCOUNT_BLOCK``
+triangles a grown box, once per soup; a pending ray tests a block's box
+over its window before the block's triangles and stops at its first hit,
+and a near-parallel guard keeps the blocks whose triangles the plain
+test's rounding could accept though the box misses them. The soup and the
+blocks are staged into shared memory once a thread block for all R+1
+origins. ``zcount_occ_culled`` is a plain model of that walk: the same
+bool as ``zcount_occ_plain`` on every ray, and the box, guard, triangle
+and origin tests the kernel makes (the bound after the cull).
 
 Kernel 8 (``csrc/plucker.cu``, ``any_hit_plucker``) replaces the Pallas
 ``_any_mxu_kernel``: ``any_hit``'s occlusion by another algebra, the
@@ -261,6 +271,308 @@ def zcount_occ_plain(origins, targets, geometry, eps: float = 1e-3,
     return occluded
 
 
+ZCOUNT_BLOCK = 16  # triangles a box of kernel 7 (csrc/zcount.cu kZBlock)
+# A block's box grows by this share of its largest side (zcount_blocks).
+ZCOUNT_GROW = 0.05
+# A pair of triangles whose unit normals lie farther apart than this chord
+# gets no cone: its two normals are tried at once (zcount_blocks).
+ZCOUNT_CONE = 0.1
+_U = 2.0 ** -24  # float32's unit roundoff
+
+
+def _spread_bits(q: torch.Tensor) -> torch.Tensor:
+    """10-bit integers → their bits 3 apart (a Morton code's axis)."""
+    q = (q | (q << 16)) & 0x030000FF
+    q = (q | (q << 8)) & 0x0300F00F
+    q = (q | (q << 4)) & 0x030C30C3
+    return (q | (q << 2)) & 0x09249249
+
+
+@torch.no_grad()
+def _blocks(cols: torch.Tensor, order: bool):
+    """zcount_blocks in the Morton (``order``) or the input order."""
+    cols = cols.detach()
+    t = cols.shape[1]
+    if t == 0:
+        return cols, cols.new_zeros((13, 0)), cols.new_zeros((5, 0))
+    act = cols[9] > 0.0
+    v0 = cols[0:3]
+    v1, v2 = v0 + cols[3:6], v0 + cols[6:9]
+    lo = torch.minimum(torch.minimum(v0, v1), v2)
+    hi = torch.maximum(torch.maximum(v0, v1), v2)
+    inf = float("inf")
+    if order:
+        s_lo = torch.where(act, lo, inf).amin(dim=1, keepdim=True)
+        s_hi = torch.where(act, hi, -inf).amax(dim=1, keepdim=True)
+        span = torch.nan_to_num(s_hi - s_lo, nan=1.0, posinf=1.0,
+                                neginf=1.0).clamp_min(1e-30)
+        rel = torch.nan_to_num(((lo + hi) * 0.5 - s_lo) / span)
+        q = (rel * 1023.0).clamp(0.0, 1023.0).to(torch.int64)
+        key = ((_spread_bits(q[0]) << 2) | (_spread_bits(q[1]) << 1)
+               | _spread_bits(q[2]))
+        perm = torch.argsort(torch.where(act, key, 1 << 31), stable=True)
+        cols, lo, hi, act = cols[:, perm], lo[:, perm], hi[:, perm], act[perm]
+    pad = (-t) % ZCOUNT_BLOCK
+    if pad:
+        cols, lo, hi = (torch.nn.functional.pad(a, (0, pad))
+                        for a in (cols, lo, hi))
+        act = torch.cat([act, act.new_zeros(pad)])
+    nb = (t + pad) // ZCOUNT_BLOCK
+    b_lo = torch.where(act, lo, inf).reshape(3, nb, ZCOUNT_BLOCK).amin(-1)
+    b_hi = torch.where(act, hi, -inf).reshape(3, nb, ZCOUNT_BLOCK).amax(-1)
+    full = act.reshape(nb, ZCOUNT_BLOCK).any(-1)
+    big = torch.where(act, torch.maximum(lo.abs(), hi.abs()), 0.0).amax()
+    side = torch.where(full, (b_hi - b_lo).amax(0), 0.0)
+    grow = 1e-4 + 1e-5 * big + ZCOUNT_GROW * side
+    b_lo = torch.where(full, b_lo - grow, 1e30)
+    b_hi = torch.where(full, b_hi + grow, 1e30)
+    # The near-parallel guard (zcount_blocks): per block the centre, three
+    # L1 half-diagonals and the growth over 8u; per triangle its unit
+    # normal times sin(theta) times the block's growth over 64u; per pair
+    # of triangles the cone of their unit normals.
+    centre = (b_lo + b_hi) * 0.5
+    s3 = 1.5 * (b_hi - b_lo).sum(0)
+    g_over = torch.where(full, grow / (8.0 * _U), inf)
+    e1, e2 = cols[3:6], cols[6:9]
+    cross = torch.linalg.cross(e1, e2, dim=0)
+    den = torch.linalg.vector_norm(e1, dim=0) * torch.linalg.vector_norm(
+        e2, dim=0)
+    area = torch.linalg.vector_norm(cross, dim=0)
+    scale = (grow / (64.0 * _U)).repeat_interleave(ZCOUNT_BLOCK)
+    live = act & (den > 0.0)  # a zero edge makes det 0: never a hit
+    nrm = torch.where(live, cross / torch.where(live, den, 1.0) * scale, inf)
+    # The pairs' cones: axis a, radius rho (the chord to the farther of
+    # the two sign-aligned unit normals) and iota, the larger 1/|m| → the
+    # float4 (a / iota, rho / iota): a ray with |d·a| / iota - rho / iota
+    # above its reach is near-parallel to neither triangle.
+    ok = live & (area > 0.0)
+    unit = cross / torch.where(ok, area, 1.0)
+    inv_m = torch.where(ok, den / torch.where(ok, area, 1.0) / scale, 0.0)
+    u0, u1 = unit[:, 0::2], unit[:, 1::2]
+    ok0, ok1 = ok[0::2], ok[1::2]
+    flip = torch.where((u0 * u1).sum(0) < 0.0, -1.0, 1.0)
+    u1 = u1 * flip
+    axis = torch.where(ok0 & ok1, u0 + u1, torch.where(ok0, u0, u1))
+    axis = axis / torch.linalg.vector_norm(axis, dim=0).clamp_min(1e-30)
+    rho = torch.maximum(
+        torch.where(ok0, torch.linalg.vector_norm(u0 - axis, dim=0), 0.0),
+        torch.where(ok1, torch.linalg.vector_norm(u1 - axis, dim=0), 0.0))
+    iota = torch.maximum(inv_m[0::2], inv_m[1::2])
+    any_ok = ok0 | ok1
+    # No cone (radius inf: each normal is tried) for a pair with a live
+    # triangle of no area, or whose two planes are far apart (a soup's).
+    bad = (live & ~ok).reshape(-1, 2).any(1) | (rho > ZCOUNT_CONE)
+    cone = torch.cat([torch.where(any_ok, axis / torch.where(
+        any_ok, iota, 1.0), 0.0), torch.where(
+        any_ok, (rho + 1e-5) / torch.where(any_ok, iota, 1.0),
+        -inf)[None]]).T
+    cone[bad, 3] = inf
+    guard = torch.cat([nrm, cone.reshape(2, -1)])
+    slot = torch.arange(1, ZCOUNT_BLOCK + 1, device=cols.device)
+    end = torch.where(act.reshape(nb, ZCOUNT_BLOCK), slot, 0).amax(-1)
+    # A block whose pairs mostly lack a cone defers its guard (kernel 7
+    # runs it only for the rays its walk leaves unoccluded).
+    pairs_live = (act[0::2] | act[1::2]).reshape(nb, -1)
+    no_cone = (bad & any_ok).reshape(nb, -1)
+    defer = no_cone.sum(-1) * 2 > pairs_live.sum(-1)
+    boxes = torch.cat([b_lo, b_hi, centre, s3[None], g_over[None],
+                       end.to(cols.dtype)[None], defer.to(cols.dtype)[None]])
+    return cols.contiguous(), boxes.contiguous(), guard.contiguous()
+
+
+def _box_area(boxes: torch.Tensor) -> torch.Tensor:
+    """The summed surface area of the boxes (0 for a block no window
+    reaches): a ray spread uniformly meets a box in proportion to it."""
+    x, y, z = boxes[3:6] - boxes[:3]
+    return (2.0 * (x * y + y * z + z * x)).sum()
+
+
+def zcount_blocks(geometry, order: bool | None = None):
+    """Kernel 7's cull: the soup's columns [10, T] in the Morton order of
+    the triangles' box centres (``order=True``), in the input order
+    (``False``) or, by default, in whichever of the two gives the blocks'
+    boxes the smaller summed surface area (the order a mesh is written in
+    keeps a strip of neighbours together; a shuffled soup needs the sort),
+    padded with inactive triangles to a multiple of ``ZCOUNT_BLOCK`` →
+    (cols [10, T'], boxes [13, T'/ZCOUNT_BLOCK], guard [5, T']).
+
+    A block's box (rows 0-5: min xyz, max xyz) holds its active triangles'
+    corners (v0, v0 + e1, v0 + e2), grown by g = 1e-4 + 1e-5 of the soup's
+    largest coordinate + ``ZCOUNT_GROW`` of the block's largest side; a
+    block with no active triangle gets a degenerate box at 1e30 that no
+    window reaches. A ray that misses the box by g misses every triangle
+    of the block, but the plain test's rounding may still accept a
+    triangle the ray is nearly parallel to (its errors grow as
+    1/|cos|): in float32 the exact crossing of the plane lies within
+    ~23u·L / (sin θ·|cos|) of what the test accepts, u = 2^-24, L the
+    origin's distance to the triangle + its edge + the window, θ the
+    triangle's corner angle. So a block may only be skipped when, for
+    each of its triangles, |d·m| > L, m = its unit normal·sin θ·g / 64u
+    (``normals``; inactive: inf), L bounded from the block's centre (rows
+    6-8) and three L1 half-diagonals (row 9) as |o - c|₁ + row 9 + dist,
+    and when L < g / 8u (row 10), which keeps the slab test's own rounding
+    below g / 2. Tensor operations on the columns' device, no host sync,
+    and outside autograd (the blocks only cull). The default is kept on
+    the geometry (``Geometry.zcount``) with the columns tensor it was
+    built from, and rebuilt if the geometry's columns are another tensor
+    or were written to; ``build_zcount_blocks`` builds it afresh."""
+    cols = geometry.tri_cols
+    if order is not None:
+        return _blocks(cols, order)
+    kept = geometry.zcount
+    if kept is not None and kept[0] is cols and kept[1] == cols._version:
+        return kept[2]
+    out = build_zcount_blocks(cols)
+    geometry.zcount = (cols, cols._version, out)
+    return out
+
+
+def build_zcount_blocks(cols: torch.Tensor):
+    """``zcount_blocks``' default of the columns [10, T], not kept."""
+    m, i = _blocks(cols, True), _blocks(cols, False)
+    morton = _box_area(m[1]) < _box_area(i[1])
+    return tuple(torch.where(morton, a, b) for a, b in zip(m, i))
+
+
+def _inv_dir(c: torch.Tensor) -> torch.Tensor:
+    """A slab test's reciprocal: zero components become a huge slope."""
+    return torch.where(c < 0.0, -1.0, 1.0) / torch.clamp_min(c.abs(), 1e-20)
+
+
+def zcount_occ_culled(origins, targets, geometry, eps: float = 1e-3,
+                      mask=None, counts=None, order: bool | None = None,
+                      lazy: bool | None = None,
+                      guard: bool = True) -> torch.Tensor:
+    """A plain model of kernel 7's culled walk: the blocks of
+    ``zcount_blocks`` in order, a pending ray's slab test of each block's
+    box over its window [0, dist], then the block's triangles in order
+    with ``zcount_occ_plain``'s arithmetic, each ray stopping at its first
+    hit. Where a box test fails, the near-parallel guard over the block's
+    triangles may still keep the block: at once, or in a second pass over
+    the blocks for the rays the walk left unoccluded (every block with
+    ``lazy``, none without; by default the blocks ``zcount_blocks`` flags,
+    as the kernel does). Its bool is
+    ``zcount_occ_plain``'s on every ray (a block is only dropped where no
+    triangle of it can accept the ray). With a ``counts`` dict it records
+    the tests the kernel makes (one lane's own rays, the per-lane mode):
+    ``box``, ``guard`` (blocks whose box failed and were guarded),
+    ``guard_cone`` and ``guard_tri`` (the cone and normal products of
+    their guard) and ``tri`` [R+1, K, H, W] per ray, ``origin`` [R+1, H, W]
+    the origin set-ups (a triangle of a block that some ray of the origin
+    tests). With ``guard=False`` the box alone decides (the walk the cull
+    itself needs; its bool may then miss a hit on a near-parallel ray)."""
+    cols, boxes, guard_data = zcount_blocks(geometry, order)
+    defer = ([bool(lazy)] * boxes.shape[1] if lazy is not None
+             else (boxes[12] > 0.5).tolist())
+    nrm, cones = guard_data[:3], guard_data[3:].reshape(-1, 4)
+    dx, dy, dz, dist = _zcount_rays(origins, targets, mask)
+    r1, k, h, w = dist.shape
+    dev = origins.device
+    o = [origins[:, None, c].expand(r1, k, h, w).reshape(-1) for c in range(3)]
+    d = [a.reshape(-1) for a in (dx, dy, dz)]
+    inv = [_inv_dir(a) for a in d]
+    dist = dist.reshape(-1)
+    pending = dist > eps
+    occluded = torch.zeros_like(pending)
+    n = {name: torch.zeros(dist.shape, dtype=torch.int64, device=dev)
+         for name in ("box", "tri", "guard", "guard_tri", "guard_cone")}
+    n_origin = torch.zeros(r1 * h * w, dtype=torch.int64, device=dev)
+    ray_origin = (torch.arange(dist.numel(), device=dev) // (k * h * w)
+                  * (h * w) + torch.arange(dist.numel(), device=dev) % (h * w))
+
+    def box_ok(b, idx):
+        n["box"][idx] += 1
+        ox, oy, oz = (a[idx] for a in o)
+        t = [(boxes[c, b] - oc) * ic[idx] for c, oc, ic in
+             ((0, ox, inv[0]), (1, oy, inv[1]), (2, oz, inv[2]))]
+        t1 = [(boxes[3 + c, b] - oc) * ic[idx] for c, oc, ic in
+              ((0, ox, inv[0]), (1, oy, inv[1]), (2, oz, inv[2]))]
+        tn = torch.maximum(torch.maximum(torch.minimum(t[0], t1[0]),
+                                         torch.minimum(t[1], t1[1])),
+                           torch.minimum(t[2], t1[2]))
+        tf = torch.minimum(torch.minimum(torch.maximum(t[0], t1[0]),
+                                         torch.maximum(t[1], t1[1])),
+                           torch.maximum(t[2], t1[2]))
+        return (tf >= tn) & (tf >= 0.0) & (tn <= dist[idx])
+
+    def guard_keeps(b, idx):
+        """The near-parallel guard of block b for the rays idx (their box
+        test failed): kept where some triangle's rounding could reach the
+        ray; a pair's cone first, then the pair's two normals."""
+        n["guard"][idx] += 1
+        ox, oy, oz = (a[idx] for a in o)
+        reach = ((ox - boxes[6, b]).abs() + (oy - boxes[7, b]).abs()
+                 + (oz - boxes[8, b]).abs() + boxes[9, b] + dist[idx])
+        near = reach >= boxes[10, b]
+        di = [a[idx] for a in d]
+        for q in range(ZCOUNT_BLOCK // 2):
+            c = cones[b * ZCOUNT_BLOCK // 2 + q]
+            pair = ~near
+            if c[3] < 1e30:
+                n["guard_cone"][idx[pair]] += 1
+                pair &= ~((di[0] * c[0] + di[1] * c[1] + di[2] * c[2]).abs()
+                          - c[3] > reach)
+            n["guard_tri"][idx[pair]] += 2
+            for j in range(b * ZCOUNT_BLOCK + 2 * q,
+                           b * ZCOUNT_BLOCK + 2 * q + 2):
+                near |= pair & ((di[0] * nrm[0, j] + di[1] * nrm[1, j]
+                                 + di[2] * nrm[2, j]).abs() <= reach)
+        return near
+
+    def test(b, live):
+        """The triangles of block b against the rays ``live``."""
+        if live.numel() == 0:
+            return
+        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, act = \
+            cols[:, b * ZCOUNT_BLOCK:(b + 1) * ZCOUNT_BLOCK, None]
+        ox, oy, oz = (a[live] for a in o)
+        rdx, rdy, rdz = (a[live] for a in d)
+        tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        e2q = e2x * qx + e2y * qy + e2z * qz
+        px = rdy * e2z - rdz * e2y
+        py = rdz * e2x - rdx * e2z
+        pz = rdx * e2y - rdy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        ua = (tx * px + ty * py + tz * pz) * det
+        va = (rdx * qx + rdy * qy + rdz * qz) * det
+        ta = e2q * det
+        aa = det * det
+        hit = ((aa > 1e-18) & (ua >= 0.0) & (va >= 0.0) & (ua + va <= aa)
+               & (ta > eps * aa) & (ta < dist[live] * aa) & (act > 0.0))
+        any_hit_ = hit.any(dim=0)
+        tested = torch.cumsum((act[:, 0] > 0.0).to(torch.int64), 0)
+        tests = torch.where(any_hit_, tested[hit.int().argmax(dim=0)],
+                            tested[-1])
+        n["tri"][live] += tests
+        n_origin.add_(torch.zeros_like(n_origin).scatter_reduce_(
+            0, ray_origin[live], tests, "amax"))
+        done = live[any_hit_]
+        occluded[done] = True
+        pending[done] = False
+
+    for b in range(boxes.shape[1]):
+        idx = pending.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            break
+        ok = box_ok(b, idx)
+        if guard and not defer[b]:
+            ok[~ok] = guard_keeps(b, idx[~ok])
+        test(b, idx[ok])
+    for b in (b for b in range(boxes.shape[1]) if guard and defer[b]):
+        idx = pending.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            break
+        cand = idx[~box_ok(b, idx)]
+        test(b, cand[guard_keeps(b, cand)])
+    if counts is not None:
+        counts.update({name: v.reshape(r1, k, h, w) for name, v in n.items()})
+        counts["origin"] = n_origin.reshape(r1, h, w)
+    return occluded.reshape(r1, k, h, w)
+
+
 def zcount_occ(origins, targets, geometry, eps: float = 1e-3,
                mask=None) -> torch.Tensor:
     """The Z-count occlusion of the unbiased pass (the reference's
@@ -269,7 +581,8 @@ def zcount_occ(origins, targets, geometry, eps: float = 1e-3,
     mask [R+1, K, H, W] → bool [R+1, K, H, W], True where a triangle lies at
     t in (eps, dist) from the unshifted origin toward the target
     (``ops.wrs.visibility_from``'s occlusion; dist <= eps and masked-off
-    rays are never occluded). Kernel 7 for CUDA tensors on a soup, the
+    rays are never occluded). Kernel 7 for CUDA tensors on a soup (its
+    blocks from ``zcount_blocks``, built at the soup's first call), the
     plain version for CPU tensors."""
     if not origins.is_cuda:
         return zcount_occ_plain(origins, targets, geometry, eps, mask)
@@ -278,25 +591,29 @@ def zcount_occ(origins, targets, geometry, eps: float = 1e-3,
                          "a BVH takes the Z rays through visibility_from")
     r1, k = origins.shape[0], targets.shape[0]
     h, w = origins.shape[-2:]
+    if not 1 <= k <= 4 or not 1 <= r1 <= 9:
+        raise ValueError(f"zcount_occ: K={k}, R+1={r1} outside 1..4, 1..9")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"zcount_occ: {h}x{w} pixels exceed 32-bit "
+                         "indexing")
     o = origins.contiguous()
     tg = targets.contiguous()
     _build.check(o, "origins", torch.float32, (r1, 3, h, w))
     _build.check(tg, "targets", torch.float32, (k, 3, h, w))
-    if not 1 <= k <= 4 or not 1 <= r1 <= 9:
-        raise ValueError(f"zcount_occ: K={k}, R+1={r1} outside 1..4, 1..9")
     m_ptr = None
     if mask is not None:
         m = mask.contiguous()
         _build.check(m, "mask", torch.bool, (r1, k, h, w))
         m_ptr = m.data_ptr()
-    cols = geometry.tri_cols
-    _build.check(cols, "tri_cols", torch.float32)
+    _build.check(geometry.tri_cols, "tri_cols", torch.float32)
     check_soup(geometry, "zcount_occ")
+    cols, boxes, guard = zcount_blocks(geometry)
     out = torch.empty((r1, k, h, w), dtype=torch.bool, device=o.device)
     if out.numel():
         _build.launch("romis_zcount_occ", o.data_ptr(), tg.data_ptr(), m_ptr,
-                      h * w, r1, k, cols.data_ptr(), cols.shape[1],
-                      float(eps), out.data_ptr())
+                      h, w, r1, k, cols.data_ptr(), boxes.data_ptr(),
+                      guard.data_ptr(), cols.shape[1], float(eps),
+                      out.data_ptr())
         zcount_occ.launches += 1
     return out
 

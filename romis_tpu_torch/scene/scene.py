@@ -71,6 +71,10 @@ class Geometry:
     # ops.bvh.with_bvh): every trace entry point then walks the tree
     # instead of scanning the soup.
     bvh: object = None
+    # Kernel 7's blocks of the soup (ops.trace.zcount_blocks), built at its
+    # first Z-count call and kept with the columns tensor they came from.
+    zcount: object = dataclasses.field(default=None, repr=False,
+                                       compare=False)
 
     @property
     def num_tris(self) -> int:

@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
-"""Kernels 10 and 20 of this tree beside those of another tree (the parent
-commit), in one call on one NVIDIA GPU, at the shapes of ``chip_smoke.py``.
+"""Kernels of this tree beside those of another tree (the parent commit), in
+one call on one NVIDIA GPU, at the shapes of ``chip_smoke.py``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
-    python3 scripts/torch_ab_kernels.py --parent build/parent
+    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 17,7]
 
 Both trees' kernel libraries are built (the parent's with its own
-``ops/_build.py``, into its own ``build/``), and the two kernels are called
-through their C entry points on the same tensors, in turns (parent, this
-tree, this tree, parent):
-- kernel 10, the halo offset scatter, at D = 5, C = 2, 1920x1080: random
+``ops/_build.py``, into its own ``build/``), the registers and spill stores
+of the compared kernels are printed from both builds' ``-Xptxas -v`` logs,
+and the kernels are called on the same tensors, in turns (parent, this
+tree, this tree, parent). ``--kernels`` picks the sections (default 17,7):
+- 17, the R-MIS / R-OMIS sweep, at 1920x1080 on the flagship (D = 5,
+  K = 2): R-OMIS, progressive R-OMIS, equal and balance weights on the
+  iteration-0 packs and a SIMILAR selection, and the ext_vis R-OMIS on
+  the 5x5 torus field; outputs bit-equal to the parent's. Then the frames
+  ``romis``, ``romis_progressive``, ``rmis_balance`` and ``large_romis``
+  with either tree's kernel 17;
+- 7, the Z-count any-hit, on the Z rays of a vis_check pass at 1080p on
+  the one-torus soup (970 triangles) and on the flagship, and on the
+  2048-triangle soup's rays at 480x270 (chip_smoke's); the same bool on
+  every ray as the parent's. This tree's kernel also with the soup in
+  Morton and in input order (the package takes the one with the smaller
+  boxes), each on blocks built once (``scripts/torch_sweep_zcount_micro.py``
+  times the kernel's other variants); the block build alone, and
+  the culled walk's tests (``ops.trace.zcount_occ_culled``) beside the
+  plain version's. Then the ``vischeck_torus`` frame with either tree's
+  kernel 7;
+- 10, the halo offset scatter, at D = 5, C = 2, 1920x1080: random
   offsets within ±10 (the per-pixel gradient path's), the smooth field of
   a camera shift, a field beyond the kernel's margin (±40) and offsets
   clamped at all four borders; beside ``index_add_`` on the same inputs;
-- kernel 20, the K-ray BVH any-hit, on the 5x5 torus field (24,202
-  triangles) at 1080p: the S = 2 shadow rays of the K lanes and the S = 12
-  ext_vis rays of one R-OMIS iteration; beside kernel 19 (a walk per ray)
-  on the same rays, and on the 12 planes also beside kernel 20's walk
-  launched plane by plane (S = 1: kernel 19's ray layout);
-- the ``large_romis`` and ``large_vischeck`` frames with kernel 20 from
-  either tree (``walk.any_hit_bvh_k`` swapped), in turns.
-The two trees' kernel 20 give the same bool on every ray, and their
-kernel 10 agree within ``chip_smoke.HALO_SCATTER_REL`` of the summed
-|cotangents|. The last line is one JSON object of the times (ms).
+- 20, the K-ray BVH any-hit, on the 5x5 torus field (24,202 triangles) at
+  1080p: the S = 2 shadow rays of the K lanes and the S = 12 ext_vis rays
+  of one R-OMIS iteration; beside kernel 19 (a walk per ray) on the same
+  rays, and on the 12 planes also beside kernel 20's walk launched plane
+  by plane (S = 1: kernel 19's ray layout); then the ``large_romis`` and
+  ``large_vischeck`` frames with kernel 20 from either tree.
+The last line is one JSON object of the times (ms).
 """
 
 from __future__ import annotations
@@ -67,49 +81,29 @@ def ptxas_lines(log: Path, names) -> list[str]:
     return out
 
 
-def main() -> None:
-    import torch
+class Ctx:
+    """What the sections share: torch, the device, the card line, the
+    parent's library, a generator, the results."""
 
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, required=True,
-                    help="root of the other tree (e.g. build/parent)")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        chip_smoke.fail("torch.cuda.is_available() is False")
-    from romis_tpu_torch import Features, RayTraceMode
-    from romis_tpu_torch.core.camera import generate_rays
-    from romis_tpu_torch.ops import _build, nbrsel, ris, spatial, walk
-    from romis_tpu_torch.ops.bvh import with_bvh
-    from romis_tpu_torch.ops.traverse import bvh_any
-    from romis_tpu_torch.ops.wrs import visibility
-    from romis_tpu_torch.render import restir
-    from romis_tpu_torch.render.neighbours import select_neighbour_indices
-    from romis_tpu_torch.render.pipeline import render_frame
-    from romis_tpu_torch.render.rmis import mis_offsets
-    from romis_tpu_torch.scene.scene import torus_field, torus_field_camera
+    def __init__(self, torch, parent_lib, card):
+        self.torch, self.plib, self.card = torch, parent_lib, card
+        self.dev = torch.device("cuda", 0)
+        self.gen = torch.Generator(device=self.dev).manual_seed(8)
+        self.ms = {}
 
-    card = chip_smoke.card_line()
-    print(card)
-    parent = load_build(args.parent.resolve())
-    with ThreadPoolExecutor(2) as pool:  # both builds at once
-        jobs = [pool.submit(_build.build), pool.submit(parent.build)]
-        for j in jobs:
-            j.result()
-    plib = parent.library()
-    for label, log in (("this tree", _build.BUILD_DIR / "build.log"),
-                       ("parent", parent.BUILD_DIR / "build.log")):
-        for line in ptxas_lines(log, ("halo_scatter", "bvh_any_k")):
-            print(f"ptxas {label}: {line}")
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(8)
-
-    def call(fn, *a):
-        err = fn(*a, torch.cuda.current_stream().cuda_stream)
+    def call(self, fn, *a):
+        """A C entry of the parent's library on the current stream."""
+        err = fn(*a, self.torch.cuda.current_stream().cuda_stream)
         if err != 0:
             chip_smoke.fail(f"{fn.__name__}: CUDA error {err}")
 
-    ms, rate = {}, chip_smoke.ab_ms
-    # ---- kernel 10 ----
+
+def section_10(c: Ctx) -> None:
+    torch, dev, gen, card, plib, ms = (c.torch, c.dev, c.gen, c.card, c.plib,
+                                       c.ms)
+    call, rate = c.call, chip_smoke.ab_ms
+    from romis_tpu_torch.ops import spatial
+
     n_nbr, k, radius = 5, 2, 10
     ct = torch.randn((n_nbr, k, H, W), generator=gen, device=dev)
     rows = torch.arange(H, device=dev)[:, None]
@@ -166,7 +160,25 @@ def main() -> None:
                                             index_add=lib_ms, far=far)
     del ct
 
-    # ---- kernel 20 ----
+
+
+def section_20(c: Ctx) -> None:
+    torch, dev, gen, card, plib, ms = (c.torch, c.dev, c.gen, c.card, c.plib,
+                                       c.ms)
+    call, rate = c.call, chip_smoke.ab_ms
+    from romis_tpu_torch import Features, RayTraceMode
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.ops import nbrsel, ris, spatial, walk
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.ops.traverse import bvh_any
+    from romis_tpu_torch.ops.wrs import visibility
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.render.neighbours import select_neighbour_indices
+    from romis_tpu_torch.render.pipeline import render_frame
+    from romis_tpu_torch.render.rmis import mis_offsets
+    from romis_tpu_torch.scene.scene import torus_field, torus_field_camera
+
+    n_nbr, k = 5, 2
     feats = Features()
     large = torus_field(5, dev)
     large.geometry = with_bvh(large.geometry)
@@ -262,7 +274,318 @@ def main() -> None:
         print(f"time frame[{path}]: {new:.3f} ms/frame with this tree's "
               f"kernel 20, {old:.3f} with the parent's [{card}]")
         ms[f"frame[{path}]"] = dict(change=new, parent=old)
-    print(json.dumps({"card": card, "ms": ms}))
+
+
+def parent_launch(c: Ctx, fn):
+    """``fn`` with the parent's library behind ``_build.launch``: a C entry
+    whose signature the two trees share runs the parent's kernel."""
+    from romis_tpu_torch.ops import _build
+
+    def run(*a, **kw):
+        saved = _build.library
+        _build.library = lambda: c.plib
+        try:
+            return fn(*a, **kw)
+        finally:
+            _build.library = saved
+    return run
+
+
+def section_17(c: Ctx) -> None:
+    """Kernel 17 in its four frame modes on the flagship and its ext_vis
+    R-OMIS on the torus field, then the MIS frames with either tree's."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from dataclasses import replace
+
+    from romis_tpu_torch import (
+        Features, MISWeight, NeighbourSelectionStrategy, RayTraceMode,
+    )
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.ops import mis, nbrsel, ris, shade, spatial
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.render.neighbours import select_neighbour_indices
+    from romis_tpu_torch.render.pipeline import render_frame
+    from romis_tpu_torch.render.rmis import mis_ext_vis, mis_offsets
+    from romis_tpu_torch.scene.scene import (
+        flagship_camera, flagship_scene, torus_field, torus_field_camera,
+    )
+
+    feats = Features()
+    k = feats.num_samples_in_reservoir
+    parent_mis = parent_launch(c, mis.mis_iteration)
+
+    def sweep_inputs(scene, cam):
+        _, ctx = restir.trace_primary(generate_rays(cam, H, W),
+                                      scene.geometry, feats, restir.KERNELS)
+        ny, nx = select_neighbour_indices(gen, ctx, H, W, feats,
+                                          select=nbrsel.neighbour_select)
+        offs = mis_offsets(ny, nx)
+        cen = shade.pack_center_ctx(ctx)
+        packs = {rp: ris.gen_mis_reservoir_planes(
+            ctx, scene.lights, scene.num_lights, feats, 1, rp, generator=gen)
+            for rp in (False, True)}
+        return ctx, offs, cen, mis.resolve_neighbour_ctx(cen, offs), packs
+
+    def compare(label, *args, **kw):
+        mine = mis.mis_iteration(*args, **kw)
+        theirs = parent_mis(*args, **kw)
+        mine = mine if isinstance(mine, tuple) else (mine,)
+        theirs = theirs if isinstance(theirs, tuple) else (theirs,)
+        same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+        chip_smoke.require(same, f"kernel 17 {label}: outputs differ from "
+                           "the parent's")
+        new, old = chip_smoke.ab_ms(torch, lambda: mis.mis_iteration(
+            *args, **kw), lambda: parent_mis(*args, **kw), 20, 20)
+        print(f"time mis_iteration[{label}]: {new:.4f} ms this tree, "
+              f"{old:.4f} ms parent ({old / new:.2f}x); bit-equal to the "
+              f"parent's [{card}]")
+        ms[f"mis_iteration[{label}]"] = dict(change=new, parent=old)
+
+    scene = flagship_scene(dev)
+    ctx, offs, cen, nbr, packs = sweep_inputs(scene, flagship_camera(H, W,
+                                                                     dev))
+    d1 = offs.shape[0] // 2 + 1
+    al = torch.rand((3 * d1, H, W), generator=gen, device=dev) - 0.5
+    for label, mode, kw in (
+            ("romis", "romis", dict(nbr_ctx=nbr)),
+            ("romis_prog", "romis", dict(nbr_ctx=nbr, alphas=al)),
+            ("rmis_equal", "rmis_equal", {}),
+            ("rmis_balance", "rmis_balance", dict(nbr_ctx=nbr))):
+        compare(label, cen, packs[mode == "romis"], offs, scene.geometry, k,
+                mode, scene.num_lights, feats, **kw)
+    del ctx, offs, cen, nbr, packs, al
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    lctx, loffs, lcen, lnbr, lpacks = sweep_inputs(
+        large, torus_field_camera(H, W, dev))
+    lext = mis_ext_vis(lctx, lpacks[True][:3 * k], loffs, large.geometry, k)
+    compare("ext_vis romis, torus5x5", lcen, lpacks[True], loffs,
+            large.geometry, k, "romis", large.num_lights, feats,
+            nbr_ctx=lnbr, ext_vis=lext)
+    del lctx, loffs, lcen, lnbr, lpacks, lext
+
+    paths = {
+        "romis": (scene, flagship_camera(H, W, dev),
+                  Features(ray_trace_mode=RayTraceMode.ROMIS)),
+        "romis_progressive": (scene, flagship_camera(H, W, dev), Features(
+            ray_trace_mode=RayTraceMode.ROMIS, use_progressive_romis=True)),
+        "rmis_balance": (scene, flagship_camera(H, W, dev), Features(
+            ray_trace_mode=RayTraceMode.RMIS,
+            mis_weight_rmis=MISWeight.BALANCE,
+            neighbour_selection_strategy=(
+                NeighbourSelectionStrategy.EQUAL_SIMILAR_DISSIMILAR))),
+        "large_romis": (large, torus_field_camera(H, W, dev),
+                        Features(ray_trace_mode=RayTraceMode.ROMIS)),
+    }
+    theirs_ops = replace(restir.KERNELS, mis_iteration=parent_mis)
+    for path, (sc, cam, f) in paths.items():
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        def frame(ops):
+            return lambda: render_frame(g, cam, sc, H, W, f, ops=ops)
+
+        new, old = chip_smoke.ab_ms(torch, frame(restir.KERNELS),
+                                    frame(theirs_ops), 5, 5)
+        print(f"time frame[{path}]: {new:.3f} ms/frame with this tree's "
+              f"kernel 17, {old:.3f} with the parent's [{card}]")
+        ms[f"frame[{path}]"] = dict(change=new, parent=old)
+
+
+def section_7(c: Ctx) -> None:
+    """Kernel 7 on the torus soup's, the flagship's and the 2048-triangle
+    soup's Z rays, in both orders; then ``vischeck_torus`` with either
+    tree's kernel 7."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays, make_camera
+    from romis_tpu_torch.core.types import pack_reservoir_planes
+    from romis_tpu_torch.ops import _build, ris, shade, spatial, trace
+    from romis_tpu_torch.ops.wrs import SHADOW_RAY_EPSILON as EPS
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.render.pipeline import render_frame
+    from romis_tpu_torch.scene.scene import (
+        build_geometry, flagship_camera, flagship_scene, torus_field,
+    )
+
+    feats = Features()
+    vfeats = Features(unbiased_combination=True,
+                      spatial_reuse_visibility_check=True)
+    k, n_nbr = feats.num_samples_in_reservoir, feats.num_neighbours_to_sample
+    radius = feats.spatial_resample_radius
+
+    def parent_z(o, t, geometry, eps=EPS, mask=None):
+        """The parent's kernel 7 (its C entry: every triangle of the soup
+        per pending ray), called as its wrapper called it."""
+        r1, kk = o.shape[0], t.shape[0]
+        h, w = o.shape[-2:]
+        o, t = o.contiguous(), t.contiguous()
+        m = None if mask is None else mask.contiguous()
+        cols = geometry.tri_cols
+        out = torch.empty((r1, kk, h, w), dtype=torch.bool, device=dev)
+        c.call(c.plib.romis_zcount_occ, o.data_ptr(), t.data_ptr(),
+               None if m is None else m.data_ptr(), h * w, r1, kk,
+               cols.data_ptr(), cols.shape[1], float(eps), out.data_ptr())
+        return out
+
+    def in_order(order):
+        """This tree's kernel 7 on blocks built once in ``order`` (True
+        Morton, False the input order)."""
+        built = {}
+
+        def run(o, t, geometry, eps=EPS, mask=None):
+            if id(geometry) not in built:
+                built[id(geometry)] = trace.zcount_blocks(geometry, order)
+            cols, boxes, nrm = built[id(geometry)]
+            r1, kk = o.shape[0], t.shape[0]
+            h, w = o.shape[-2:]
+            out = torch.empty((r1, kk, h, w), dtype=torch.bool, device=dev)
+            _build.launch("romis_zcount_occ", o.data_ptr(), t.data_ptr(),
+                          None if mask is None else mask.data_ptr(), h, w,
+                          r1, kk, cols.data_ptr(), boxes.data_ptr(),
+                          nrm.data_ptr(), cols.shape[1], float(eps),
+                          out.data_ptr())
+            return out
+        return run
+
+    def z_rays(scene, cam, h, w):
+        """The Z rays of one vis_check pass, as chip_smoke builds them."""
+        _, ctx = restir.trace_primary(generate_rays(cam, h, w),
+                                      scene.geometry, feats, restir.KERNELS)
+        rp = pack_reservoir_planes(ris.gen_canonical_samples_ris(
+            ctx, scene.lights, scene.num_lights, feats, generator=gen))
+        cen = shade.pack_center_ctx(ctx)
+        pl, blk = spatial.spatial_pass_unbiased_vis(
+            rp, cen, k, n_nbr, radius, vfeats, generator=gen,
+            key=spatial.philox_key(gen))
+        nbr_pos = blk[2 * k:2 * k + 3 * n_nbr].reshape(n_nbr, 3, h, w)
+        mf = blk[2 * k + 3 * n_nbr:].reshape(n_nbr, k, h, w)
+        return (torch.cat([cen[None, 0:3], nbr_pos]).contiguous(),
+                pl[:3 * k].reshape(k, 3, h, w).contiguous(),
+                torch.cat([(blk[k:2 * k] > 0.0)[None], mf > 0.0]).contiguous(),
+                ctx)
+
+    torus1 = torus_field(1, dev)
+    tcam = make_camera(resolution=(H, W), device=dev, **chip_smoke.TORUS_CAM)
+    flag = flagship_scene(dev)
+    soup = build_geometry([chip_smoke.random_soup(
+        chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)
+    hs, ws = H // 4, W // 4
+    _, sctx = restir.trace_primary(generate_rays(flagship_camera(hs, ws, dev),
+                                                 hs, ws), soup, feats,
+                                   restir.PLAIN)
+    so = sctx.position
+    zo = torch.cat([so[None], so[None] + 0.5 * torch.randn(
+        (n_nbr, 3, hs, ws), generator=gen, device=dev)]).contiguous()
+    zt = ris.gen_mis_reservoir_planes_plain(
+        sctx, flag.lights, flag.num_lights, feats, 1, False,
+        generator=gen)[:3 * k].reshape(k, 3, hs, ws).contiguous()
+    zm = (torch.rand((n_nbr + 1, k, hs, ws), generator=gen, device=dev)
+          > 0.3).contiguous()
+    cases = {
+        "torus soup 1080p": (*z_rays(torus1, tcam, H, W)[:3],
+                             torus1.geometry),
+        "flagship 1080p": (*z_rays(flag, flagship_camera(H, W, dev), H,
+                                   W)[:3], flag.geometry),
+        "soup2048 480x270, mask": (zo, zt, zm, soup),
+        "soup2048 480x270, no mask": (zo, zt, None, soup),
+    }
+    for label, (o, t, m, geo) in cases.items():
+        ref = parent_z(o, t, geo, EPS, m)
+        runs = {"Morton order": in_order(True),
+                "input order": in_order(False),
+                "package": trace.zcount_occ}
+        for name, fn in runs.items():
+            got = fn(o, t, geo, EPS, m)
+            chip_smoke.require(torch.equal(got, ref), f"kernel 7 {label} "
+                               f"{name}: bools differ from the parent's")
+        row = {}
+        new, old = chip_smoke.ab_ms(torch, lambda: trace.zcount_occ(
+            o, t, geo, EPS, m), lambda: parent_z(o, t, geo, EPS, m), 10, 10)
+        row.update(change=new, parent=old)
+        for name, fn in runs.items():
+            if name != "package":
+                row[name] = chip_smoke.cuda_ms(torch, lambda: fn(
+                    o, t, geo, EPS, m), 10)
+        row["box build"] = chip_smoke.cuda_ms(
+            torch, lambda: trace.build_zcount_blocks(geo.tri_cols), 10)
+        cnt, pc = {}, {}
+        if "1080p" not in label or label.startswith("torus"):
+            culled = trace.zcount_occ_culled(o, t, geo, EPS, m, cnt)
+            plain = trace.zcount_occ_plain(o, t, geo, EPS, m, counts=pc)
+            chip_smoke.require(torch.equal(culled, ref) and torch.equal(
+                plain, ref), f"kernel 7 {label}: plain or culled model "
+                "differ")
+            traced = (pc["tests"] > 0).sum().item()
+            row.update(traced=traced, plain_tests=pc["tests"].sum().item(),
+                       box_tests=cnt["box"].sum().item(),
+                       guarded_blocks=cnt["guard"].sum().item(),
+                       cone_products=cnt["guard_cone"].sum().item(),
+                       normal_products=cnt["guard_tri"].sum().item(),
+                       tri_tests=cnt["tri"].sum().item(),
+                       origin_setups=cnt["origin"].sum().item())
+        print(f"time zcount_occ[{label}]: {new:.4f} ms this tree, "
+              f"{old:.4f} ms parent ({old / new:.2f}x); the same bool on "
+              f"every ray as the parent's; {json.dumps(row)} [{card}]")
+        ms[f"zcount_occ[{label}]"] = row
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    mine_z = trace.zcount_occ
+
+    def frame(z):
+        def run():
+            trace.zcount_occ = z
+            try:
+                render_frame(g, tcam, torus1, H, W, vfeats)
+            finally:
+                trace.zcount_occ = mine_z
+        return run
+
+    new, old = chip_smoke.ab_ms(torch, frame(mine_z), frame(parent_z), 5, 5)
+    print(f"time frame[vischeck_torus]: {new:.3f} ms/frame with this tree's "
+          f"kernel 7, {old:.3f} with the parent's [{card}]")
+    ms["frame[vischeck_torus]"] = dict(change=new, parent=old)
+
+
+SECTIONS = {"17": (section_17, ("romis_kernel", "rmis_kernel")),
+            "7": (section_7, ("zcount_kernel",)),
+            "10": (section_10, ("halo_scatter",)),
+            "20": (section_20, ("bvh_any_k",))}
+
+
+def main() -> None:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, required=True,
+                    help="root of the other tree (e.g. build/parent)")
+    ap.add_argument("--kernels", default="17,7",
+                    help="comma-separated sections: 17, 7, 10, 20")
+    args = ap.parse_args()
+    picked = args.kernels.split(",")
+    if not torch.cuda.is_available():
+        chip_smoke.fail("torch.cuda.is_available() is False")
+    if any(p not in SECTIONS for p in picked):
+        chip_smoke.fail(f"--kernels {args.kernels}: pick from {list(SECTIONS)}")
+    from romis_tpu_torch.ops import _build
+
+    card = chip_smoke.card_line()
+    print(card)
+    parent = load_build(args.parent.resolve())
+    with ThreadPoolExecutor(2) as pool:  # both builds at once
+        jobs = [pool.submit(_build.build), pool.submit(parent.build)]
+        for j in jobs:
+            j.result()
+    names = sum((SECTIONS[p][1] for p in picked), ())
+    for label, log in (("this tree", _build.BUILD_DIR / "build.log"),
+                       ("parent", parent.BUILD_DIR / "build.log")):
+        for line in ptxas_lines(log, names):
+            print(f"ptxas {label}: {line}")
+    c = Ctx(torch, parent.library(), card)
+    for p in picked:
+        SECTIONS[p][0](c)
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "ms": c.ms}))
 
 
 if __name__ == "__main__":
