@@ -147,8 +147,9 @@ GPU.
    and its float32 operations over 67 TFLOP/s, special functions, Philox
    and divisions at their instruction cost, from this run's shapes) and,
    where one PyTorch call computes the same function, that call; then
-   ``torch.profiler`` over 3 R-OMIS frames, a large config-5 frame, a
-   large R-OMIS frame and the three vis-check paths (device busy and idle
+   ``torch.profiler`` over 3 R-OMIS frames, the 4 animated frames, a
+   large config-5 frame, a large R-OMIS frame and the three vis-check
+   paths (device busy and idle
    share, kernels per frame, the top kernels by device time). Kernel 17 is
    timed in its four frame modes (R-OMIS, progressive, equal, balance) on
    the flagship and in its ext_vis R-OMIS on the torus field, each printed
@@ -168,7 +169,13 @@ GPU.
    unculled designs).
    Kernel 7 is also held to its plain version on random, grazing, edge-on
    and edge-crossing rays (``hard_z_rays``), where the guard decides, and
-   kernel 17 at D = 4 as well as 5. The BVH kernels' bound counts the box
+   kernel 17 at D = 4 as well as 5. Kernel 16's bound counts the work of
+   its filtered race on this run's Philox stream in SIMILAR
+   (``filtered_race``): each cell's Philox word and key test, the gates of
+   the cells it gates (SEL_GATE_OPS, and DIV_OPS where the depth gate's
+   products leave the bool to the division), the logarithms of the cells
+   it scores. Kernel 11's counts its planes in and out; its records'
+   traffic is printed on its sector line. The BVH kernels' bound counts the box
    and triangle tests that the plain traversal made on the same rays and
    tree (BOX_OPS and MT_OPS each, and each ray's three reciprocals).
    Kernel 8 is timed beside kernel 6 on the torus soup's 1080p shadow rays
@@ -262,6 +269,12 @@ RACE_OPS = LOG_OPS + DIV_OPS  # the replay's second race
 STREAM_OPS = DRAW_OPS + 2 * GUMBEL_OPS + DIV_OPS  # one spatial-pass
 #   stream's Philox offsets and race noise (K = 2), its depth gate
 GATE_OPS = 14 + DIV_OPS  # one box cell of the selection: gates, race test
+SEL_GATE_OPS = 17  # one gated cell of the filtered race: the geometry
+#   compare, the depth's max, two products and four compares (the depth
+#   gate where they decide it; DIV_OPS more where they do not), the normal's
+#   dot product and compare, the class select
+KEY_OPS = 3 * INT_OPS  # the filtered race's key: shift, compare, select
+VIEW_OPS = 10 + SQRT_OPS + DIV_OPS  # a unit view vector (kernel 11's record)
 COLVEC_OPS = 10 + 2 * DIV_OPS  # one technique's mock weight, reciprocal
 SHADOW_OPS = 20 + SQRT_OPS + 3 * DIV_OPS  # one shadow ray's set-up
 BOX_OPS = 22  # one slab test: 6 subtractions, 6 multiplies, 10 min/max
@@ -545,6 +558,111 @@ def hard_z_rays(rng, kind, cols, r1=3, k=2, h=6, w=16):
     o = p[None] - s_o * u[None] + delta * nrm[None]
     t = p[None] + s_t * u[None] - delta * nrm[None]
     return o.astype(np.float32), t.astype(np.float32)
+
+
+def filtered_race(gates, d: int, radius: int, two_classes: bool,
+                  prefer_similar: bool, same_geom: bool, depth_frac: float,
+                  normal_cos: float, keys, scores, counts: dict):
+    """Kernel 16's filtered race (Philox mode) in PyTorch, cell by cell in
+    the walk's order and vectorised over the pixels, for the work it needs:
+    keys [(2r+1)^2-1, H, W] (24-bit, ``nbrsel.selection_keys``) and scores
+    non-decreasing in the key → the plain version's outputs on those
+    scores. A key race per class keeps the D largest composite keys
+    (class << 24 | key, the class 1 for the preferred one; the key alone
+    with two classes); a cell whose composite key is not above the D-th
+    largest is not scored, and in one class not gated while even its
+    preferred composite key could not pass. ``counts`` receives per pixel
+    [H, W] int64 the cells "scored" (their logarithms), "gated" (their
+    similarity gates) and "divided" (gated cells of the same geometry whose
+    depth gate the kernel's two products leave to the division)."""
+    import numpy as np
+    import torch
+
+    from romis_tpu_torch.ops import nbrsel
+
+    _, h, w = gates.shape
+    dev = gates.device
+    offs = nbrsel.box_offsets(radius)
+    side = 2 * radius + 1
+    pref = 1 << nbrsel.KEY_BITS
+    f32 = np.float32
+    dfrac = torch.tensor(depth_frac, dtype=torch.float32, device=dev)
+    ncos = torch.tensor(normal_cos, dtype=torch.float32, device=dev)
+    # csrc/nbrsel.cu's depth_factors: (1 -+ f)(1 +- 2^-20) in double, then
+    # rounded to float; outside 0 <= f < 0.5 every cell divides.
+    m = 1.0 / (1 << 20)
+    f = float(f32(depth_frac))
+    fac = ([float(f32(v)) for v in ((1 - f) * (1 + m), (1 + f) * (1 - m),
+                                    (1 - f) * (1 - m), (1 + f) * (1 + m))]
+           if 0.0 <= f < 0.5 else None)
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = torch.arange(w, device=dev)[None, :]
+    gpad = torch.nn.functional.pad(gates, (radius, radius, radius, radius))
+    n_cls = 2 if two_classes else 1
+    s = torch.full((n_cls, d, h, w), -torch.inf, device=dev)
+    p = torch.full((n_cls, d, h, w), -1, dtype=torch.int32, device=dev)
+    kr = torch.full((n_cls, d, h, w), -1, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((2, h, w), dtype=torch.int32, device=dev)
+    scored, gated, divided = (torch.zeros((h, w), dtype=torch.int64,
+                                          device=dev) for _ in range(3))
+
+    for o in range(len(offs)):
+        dy, dx = int(offs[o, 0]), int(offs[o, 1])
+        in_b = ((rows + dy >= 0) & (rows + dy < h) & (cols + dx >= 0)
+                & (cols + dx < w))
+        nb = gpad[:, radius + dy:radius + dy + h, radius + dx:radius + dx + w]
+        sim = nbrsel._similar(gates, nb, same_geom, dfrac, ncos)
+        key = keys[o].to(torch.int64)
+        g = scores[o]
+        if two_classes:
+            cnt[0] += (in_b & sim).int()
+            cnt[1] += (in_b & ~sim).int()
+            c = (~sim).long()  # the race the cell is in
+            last = torch.where(sim, kr[0, d - 1], kr[1, d - 1])
+            ck, score = key, g
+        else:
+            in_b = in_b & ((pref | key) > kr[0, d - 1])
+            cls = sim if prefer_similar else ~sim
+            c = torch.zeros_like(key)
+            last = kr[0, d - 1]
+            ck = torch.where(cls, pref | key, key)
+            score = g + cls.float() * nbrsel.CLASS_OFFSET
+        gated += in_b
+        dd = torch.clamp_min(nb[1], 1e-20)
+        decided = torch.zeros_like(in_b)
+        if fac is not None:
+            cd = gates[1]
+            decided = (dd < 1e30) & (
+                ((cd >= dd * fac[0]) & (cd <= dd * fac[1]))
+                | (cd < dd * fac[2]) | (cd > dd * fac[3]))
+        geo = (nb[0] == gates[0]) if same_geom else torch.ones_like(in_b)
+        divided += in_b & geo & ~decided
+        enter = in_b & (ck > last)
+        scored += enter
+        pack = torch.full((h, w), (dy + radius) * side + (dx + radius),
+                          dtype=torch.int32, device=dev)
+        for ci in range(n_cls):
+            mine = enter & (c == ci)
+            kc = ck  # the key race: the D largest composite keys, descending
+            for i in range(d):
+                take = mine & (kc > kr[ci, i])
+                t = kr[ci, i].clone()
+                kr[ci, i] = torch.where(take, kc, t)
+                kc = torch.where(take, t, kc)
+            mine = mine & (score > s[ci, d - 1])
+            cs, cp = score, pack  # the race: ties to the earlier offset
+            for i in range(d):
+                take = mine & ((cs > s[ci, i])
+                               | ((cs == s[ci, i]) & (cp < p[ci, i])))
+                ts, tp = s[ci, i].clone(), p[ci, i].clone()
+                s[ci, i] = torch.where(take, cs, ts)
+                p[ci, i] = torch.where(take, cp, tp)
+                cs = torch.where(take, ts, cs)
+                cp = torch.where(take, tp, cp)
+    counts.update(scored=scored, gated=gated, divided=divided)
+    if two_classes:
+        return s[0], p[0], s[1], p[1], cnt
+    return s[0], p[0]
 
 
 def main() -> None:
@@ -835,8 +953,13 @@ def main() -> None:
 
     pass_fns = pass_pair(feats)
 
-    def check_pass(label, kernel_fn, plain_fn):
+    def check_pass(label, kernel_fn, plain_fn, offsets=None, philox=True):
+        """The pass on injected noise (``offsets`` replacing the drawn
+        ones, where given) against its plain version, then on Philox
+        against the plain version's own stream."""
         inject = spatial.spatial_noise(gen, n_nbr, k, radius, H, W)
+        if offsets is not None:
+            inject = (offsets, inject[1])
         o_k = unpack_reservoir_planes(kernel_fn(inject=inject), k)
         o_p = unpack_reservoir_planes(plain_fn(inject=inject), k)
         torch.cuda.synchronize()
@@ -861,6 +984,8 @@ def main() -> None:
         require(bw_rel <= PASS_BIG_W_RTOL, f"{label}: big_w {bw_rel}")
         err = max((o_k.w_sum - o_p.w_sum).abs().max().item(),
                   (o_k.big_w - o_p.big_w).abs()[win].max().item())
+        if not philox:
+            return err
         # Philox mode against the plain version's own draws.
         key = spatial.philox_key(gen)
         p_k = unpack_reservoir_planes(kernel_fn(generator=gen, key=key), k)
@@ -883,6 +1008,21 @@ def main() -> None:
 
     for label, (kernel_fn, plain_fn) in pass_fns.items():
         errs[label] = check_pass(label, kernel_fn, plain_fn)
+    # Kernel 11 reads its neighbours from records: on zero offsets (every
+    # neighbour the pixel itself), then at a radius of 40 (injected offsets
+    # within +-40, then its Philox stream at that radius), held as above.
+    zero = torch.zeros((2, n_nbr, H, W), dtype=torch.int32, device=dev)
+    p40 = (lambda **kw: spatial.spatial_pass_unbiased_fused(
+        res_planes, cen, k, n_nbr, 40, feats, **kw),
+        lambda **kw: spatial.spatial_pass_unbiased_plain(
+            res_planes, cen, k, n_nbr, 40, feats, **kw))
+    errs["spatial_pass_unbiased"] = max(
+        errs["spatial_pass_unbiased"],
+        check_pass("spatial_pass_unbiased[zero offsets]",
+                   *pass_fns["spatial_pass_unbiased"], zero, False),
+        check_pass("spatial_pass_unbiased[radius 40]", *p40,
+                   spatial.spatial_noise(gen, n_nbr, k, 40, H, W)[0]))
+    del zero
 
     # The gradient step's kernels. Row scatter-add: the light table
     # (4 M lane indices over 512 rows), the material table (every pixel on
@@ -1103,8 +1243,21 @@ def main() -> None:
         return torch.where(top >= nbrsel.CLASS_OFFSET / 2,
                            top - nbrsel.CLASS_OFFSET, top).mean().item()
 
+    # The filtered race skips a cell by its key, which is exact only if the
+    # kernel's compiled Gumbel score is non-decreasing in the key: its own
+    # function on all 2^24 keys.
+    table = nbrsel.gumbel_table()
+    down = int((table[1:] < table[:-1]).sum().item())
+    print(f"check neighbour_select[gumbel table]: the kernel's score of all "
+          f"{table.numel()} keys: {torch.unique(table).numel()} levels, "
+          f"from {table[0].item():.6f} to {table[-1].item():.6f}, "
+          f"{down} keys scored below the key before them")
+    require(bool(torch.all(table[1:] >= table[:-1])),
+            f"selection: the compiled score decreases at {down} keys")
+    del table
     sel_scores = nbrsel.selection_noise(gen, radius, H, W)
     errs["neighbour_select"] = 0.0
+    sel_work = {}  # the filtered race's cells on the main path's stream
     for label, (two, prefer) in strategies.items():
         o_k = nbrsel.neighbour_select(sel_gates, n_nbr, radius, two, prefer,
                                       *sel_args, scores=sel_scores)
@@ -1128,6 +1281,33 @@ def main() -> None:
         key = spatial.philox_key(gen)
         p_k = nbrsel.neighbour_select(sel_gates, n_nbr, radius, two, prefer,
                                       *sel_args, generator=gen, key=key)
+        # Slot for slot against the plain version fed the kernel's own
+        # uniforms: its keys rebuilt with the plain Philox, through
+        # torch.log (which may differ from the kernel's logf by an ulp).
+        keys = nbrsel.selection_keys(key, radius, H, W)
+        own = nbrsel.gumbel_of_keys(keys)
+        p_own = nbrsel.neighbour_select_plain(sel_gates, n_nbr, radius, two,
+                                              prefer, *sel_args, scores=own)
+        same = (slots(p_k).sort(dim=0).values == slots(p_own).sort(
+            dim=0).values).all(dim=0).float().mean().item()
+        exact = all(torch.equal(a, b) for a, b in zip(p_k, p_own))
+        cnt_w = {}
+        model = filtered_race(sel_gates, n_nbr, radius, two, prefer,
+                              *sel_args, keys, own, cnt_w)
+        model_exact = all(torch.equal(a, b) for a, b in zip(model, p_own))
+        print(f"check neighbour_select[{label}, philox]: pixels with the "
+              f"same slots as the plain version on the kernel's own "
+              f"uniforms {same:.6f}, all outputs bit-exact {exact}; the "
+              f"filtered race's model bit-exact {model_exact}, per pixel "
+              f"{cnt_w['scored'].float().mean().item():.3f} cells scored, "
+              f"{cnt_w['gated'].float().mean().item():.3f} gated, "
+              f"{cnt_w['divided'].float().mean().item():.4f} divided")
+        require(same >= MIN_AGREE, f"selection {label}: Philox slots {same}")
+        if two:
+            require(torch.equal(p_k[4], p_own[4]),
+                    f"selection {label}: Philox counts")
+        sel_work[label] = {n_: v.sum().item() for n_, v in cnt_w.items()}
+        del keys, own, p_own, model
         p_p = nbrsel.neighbour_select_plain(sel_gates, n_nbr, radius, two,
                                             prefer, *sel_args, generator=gen)
         p_p2 = nbrsel.neighbour_select_plain(sel_gates, n_nbr, radius, two,
@@ -2199,6 +2379,7 @@ def main() -> None:
                   f"{key_[:70]}")
 
     profile_frames("romis", 3)
+    profile_frames("animated", FRAMES["animated"])
     profile_frames("large_config5", 5)
     profile_frames("large_romis", 2)
     for path in ("vischeck", "vischeck_torus", "large_vischeck"):
@@ -2572,21 +2753,29 @@ def main() -> None:
         "halo_gather": bound(hw * 4 * (2 * halo_planes.shape[0] + 2), 0),
         "spatial_pass": bound(hw * 4 * (20 * k + 5 + 18), hw * (n_nbr + 1)
                               * (STREAM_OPS + k * (PHONG_OPS + LOG_OPS))),
+        # The race's (R+1)·K and the Z sweep's R·K target PDFs and a unit
+        # view a pixel; the planes in and out (the records' traffic is on
+        # the sector line below).
         "spatial_pass_unbiased": bound(
-            hw * 4 * (20 * k + 18), hw * (n_nbr + 1) * (STREAM_OPS + k
-                                                         * LOG_OPS)
-            + hw * k * (3 * n_nbr + 1) * PHONG_OPS),
+            hw * 4 * (20 * k + 18),
+            hw * (n_nbr + 1) * (STREAM_OPS + k * LOG_OPS)
+            + hw * k * (2 * n_nbr + 1) * PHONG_OPS + hw * VIEW_OPS),
         "scatter_rows_add": bound(l_ct.numel() * 4 + l_idx.numel() * 4
                                   + l_rows * l_ct.shape[0] * 4, l_ct.numel()),
         "halo_scatter": bound(halo_ct.numel() * 4 + sdy.numel() * 8
                               + k * hw * 4, halo_ct.numel()),
         "ris_replay": bound(hw * 4 * (17 + sk * 5 * k + 7 * k),
                             hw * s * (CANDIDATE_OPS + RACE_OPS)),
-        # SIMILAR on Philox: a Philox call for every 4 cells, a Gumbel score
-        # and the gates for every cell.
-        "neighbour_select": bound(hw * 4 * (5 + 2 * n_nbr + 2), hw * n_off
-                                  * (PHILOX_OPS / 4 + GUMBEL_OPS
-                                     + GATE_OPS)),
+        # SIMILAR on Philox: a Philox call for every 4 cells and the key
+        # test for every cell; the gates for each cell the filtered race
+        # gates, the division for those the products leave to it, a Gumbel
+        # score for each cell it scores (counted on this run's stream).
+        "neighbour_select": bound(
+            hw * 4 * (5 + 2 * n_nbr + 2),
+            hw * n_off * (PHILOX_OPS / 4 + KEY_OPS)
+            + sel_work["similar"]["gated"] * SEL_GATE_OPS
+            + sel_work["similar"]["divided"] * DIV_OPS
+            + sel_work["similar"]["scored"] * GUMBEL_OPS),
         "mis_ris": bound(hw * 4 * (17 + it_n * 8 * k),
                          hw * it_n * s * (CANDIDATE_OPS + DRAW_OPS)),
         # One R-OMIS direct iteration: per sample, p-hat and colvec under
@@ -2712,6 +2901,40 @@ def main() -> None:
     for label, (kernel_fn, _) in pass_fns.items():
         ms = cuda_ms(torch, lambda: kernel_fn(inject=inject), 10)
         print(f"time {label} (injected noise): {ms:.4f} ms [{card}]")
+    # Kernels 16 and 11 as their earlier designs were bounded: a
+    # Gumbel score for every cell; 3R+1 target PDFs a lane, no records.
+    old_bounds = {
+        "neighbour_select": bound(hw * 4 * (5 + 2 * n_nbr + 2), hw * n_off
+                                  * (PHILOX_OPS / 4 + GUMBEL_OPS
+                                     + GATE_OPS)),
+        "spatial_pass_unbiased": bound(
+            hw * 4 * (20 * k + 18), hw * (n_nbr + 1) * (STREAM_OPS + k
+                                                         * LOG_OPS)
+            + hw * k * (3 * n_nbr + 1) * PHONG_OPS)}
+    sw = sel_work["similar"]
+    print(f"bound neighbour_select: {bounds['neighbour_select'][0]:.4f} ms "
+          f"({bounds['neighbour_select'][1]}; per pixel {n_off} cells' "
+          f"Philox and key test, {sw['gated'] / hw:.3f} cells gated, "
+          f"{sw['divided'] / hw:.4f} of them divided, {sw['scored'] / hw:.3f} "
+          f"scored); before the filter {old_bounds['neighbour_select'][0]:.4f}"
+          f" ms")
+    # Sectors a pixel's neighbour reads touch (32 B each; the offsets are
+    # random, so no two lanes of a warp share one): the planes, one a float
+    # (8K reservoir floats, the 17 context and K m floats of a neighbour),
+    # against the two records (the m it sweeps kept from the race).
+    sec_planes = n_nbr * (8 * k + 17 + k)
+    sec_records = n_nbr * (-(-8 * k * 4 // 32) + -(-spatial.CTX_RECORD
+                                                   * 4 // 32))
+    b11, old11 = bounds["spatial_pass_unbiased"], old_bounds[
+        "spatial_pass_unbiased"]
+    rec_bytes = hw * 4 * 2 * (8 * k + spatial.CTX_RECORD)
+    print(f"bound spatial_pass_unbiased: {b11[0]:.4f} ms ({b11[1]}); as "
+          f"first counted {old11[0]:.4f} ms; neighbour sectors a pixel "
+          f"{sec_planes} in planes ({sec_planes * 32 * hw / 1e9:.2f} GB a "
+          f"call), {sec_records} in records ({sec_records * 32 * hw / 1e9:.2f}"
+          f" GB); the records written and read back once "
+          f"{rec_bytes / 1e9:.3f} GB ({1e3 * rec_bytes / HBM_BYTES_S:.4f} ms "
+          f"at the memory rate)")
     ms = cuda_ms(torch, lambda: spatial.halo_offset_gather(
         halo_planes, rand_dy, rand_dx), 20)
     print(f"time halo_gather (random offsets): {ms:.4f} ms [{card}]")

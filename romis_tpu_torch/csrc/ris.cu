@@ -23,7 +23,8 @@
 // romis_tpu/ops/pallas_ris.py gen_canonical_replay_pallas (the same
 // _ris_kernel with replay=True): the detached candidate loop of the
 // winner-replay surrogate gradient (ops/wrs.gen_canonical_surrogate). It
-// runs TWO independent races per lane over the same candidates and writes
+// runs TWO independent races per lane over the same candidates (Gumbel-max
+// in log space, as the plain version, so the records are exact) and writes
 // only their replay records, 7 planes per lane in the reference's order
 // (w_sum, idx1, u1, v1, idx2, u2, v2; the light index as a float); the
 // caller re-derives the reservoir differentiably from them. It needs 5
@@ -150,10 +151,17 @@ ris_kernel(const float* __restrict__ ctx, long long n,
         const float score = w > 0.0f ? w / e_clock : -INFINITY;
         w_sum = w_sum + w;
         if (kReplay) {
-          const float e2 = -logf(fmaxf(ur2, 1e-37f)) + 1e-37f;
-          const float score2 = w > 0.0f ? w / e2 : -INFINITY;
-          if (score > best) {
-            best = score;
+          // The plain version's Gumbel-max in log space, operation for
+          // operation: the exponential race w / E picks the same winner in
+          // exact arithmetic but rounds apart on a near tie (1 lane in 4 M
+          // at 1080p on the flagship), and the replay records are exact.
+          const float log_w = logf(fmaxf(w, 1e-37f));
+          const float score1 =
+              w > 0.0f ? log_w + -logf(-logf(fmaxf(ur, 1e-37f)) + 1e-37f) : -INFINITY;
+          const float score2 =
+              w > 0.0f ? log_w + -logf(-logf(fmaxf(ur2, 1e-37f)) + 1e-37f) : -INFINITY;
+          if (score1 > best) {
+            best = score1;
             rec1[0] = static_cast<float>(pick); rec1[1] = u; rec1[2] = v;
           }
           if (score2 > best2) {

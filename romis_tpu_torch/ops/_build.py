@@ -72,6 +72,8 @@ SIGNATURES = {
     # depth_frac, normal_cos, key, tag, scores, s_out, p_out, cnt, stream
     "romis_neighbour_select": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
                                _U, _P, _P, _P, _P, _P),
+    # out [2^24] (kernel 16's Gumbel score of every key), stream
+    "romis_gumbel_table": (_P, _P),
     # cen, res, offs, nbr, alphas, ext_vis, tri_cols, n_tris, h, w, d1, k,
     # s, num_lights, mode, unshaded, out0, out1, out2, stream
     "romis_mis_iteration": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -87,9 +89,10 @@ SIGNATURES = {
     # ctx18, res, n_pix, k, nodes, tri_cols, n_tris, unshaded, out, stream
     "romis_final_shade_bvh": (_P, _P, _LL, _I, _P, _P, _I, _I, _P, _P),
     # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,
-    # gumbel, unshaded, out, vis_check block, stream
+    # gumbel, unshaded, out, vis_check block, and with unbiased the
+    # records [N, 8K] and [N, 16] (scratch), stream
     "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,
-                           _P, _I, _P, _P, _P),
+                           _P, _I, _P, _P, _P, _P, _P),
     # origins, targets, mask, h, w, n_origins, k, tri_cols (block-ordered),
     # boxes, normals, n_tris, eps, out, stream
     "romis_zcount_occ": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P,

@@ -24,16 +24,27 @@ reproduces the plain version's ranking and its ties exactly. Its plain
 version, ``neighbour_select_plain``, is the XLA path's streamed top-D:
 offset blocks of 8, merged by repeated first-maximum extraction.
 
+With Philox noise the kernel races on keys first: a cell's Gumbel score is
+a non-decreasing function of its 24-bit uniform key (``gumbel_of_keys``;
+the card checks the compiled function on all 2^24 keys through
+``gumbel_table``), so a cell whose (class, key) is not above the D-th
+largest so far cannot enter and is skipped before its logarithms, and in
+one class before its gates while even its preferred (class, key) could
+not pass; the cells that pass are scored in rounds across the warp.
+``selection_keys`` rebuilds the kernel's keys for a Philox key
+(Philox4x32-10 at counter (offset / 4, pixel, tag)).
+
 Random numbers: ``scores`` [(2r+1)²-1, H, W], one noise plane per box
 offset in the XLA order (dy-major, dx-minor, (0, 0) skipped), drive both
 versions identically. Without them the plain version draws standard Gumbel
 noise from ``generator`` and the kernel the same distribution from Philox
 keyed by ``key`` (``ops.spatial.philox_key``), counter tag 0x4E53.
 
-Bound on the H100: compute. Each pixel evaluates the gates of (2r+1)²-1
-cells (440 at r = 10) and, with Philox, 2 logarithms per cell; device
-memory sees 5 gate planes in (plus the score planes when injected) and
-2D + (2D + 2) planes out.
+Bound on the H100: compute. Each pixel draws a Philox word for each of
+the (2r+1)²-1 cells (440 at r = 10), evaluates the gates where the race
+needs the class and 2 logarithms per entrant (all cells with injected
+scores, which are read instead); device memory sees 5 gate planes in (plus
+the score planes when injected) and 2D + (2D + 2) planes out.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ CLASS_OFFSET = 1e6  # ranks the preferred class above the other
 MAX_NEIGHBOURS = 8  # the kernel is instantiated for D = 1..8
 BLOCK = 8  # the plain version's offset block (the XLA path's scan step)
 _TAG = 0x4E53
+KEY_BITS = 24  # a uniform's key: the top 24 bits of its Philox word
 
 
 def selection_gates(ctx: ShadeCtx) -> torch.Tensor:
@@ -71,6 +83,54 @@ def selection_noise(generator: torch.Generator, radius: int, height: int,
 
     n_off = (2 * radius + 1) ** 2 - 1
     return gumbel_noise(generator, (n_off, height, width))
+
+
+def selection_keys(key: torch.Tensor, radius: int, height: int,
+                   width: int, chunk: int = 16) -> torch.Tensor:
+    """The 24-bit uniform keys kernel 16 draws with Philox ``key`` →
+    [(2r+1)²-1, H, W] int32, one plane per box offset: word o % 4 of
+    Philox4x32-10 at counter (o // 4, pixel, pixel >> 32, 0x4E53 << 16),
+    shifted right by 8 (``csrc/common.cuh``'s ``u01``). ``chunk`` counter
+    values are drawn at a time."""
+    from .spatial import _MASK32, philox4x32_10
+
+    n_off = (2 * radius + 1) ** 2 - 1
+    n = height * width
+    dev = key.device
+    k = key.to(torch.int64)
+    k0, k1 = k & _MASK32, (k >> 32) & _MASK32
+    pix = torch.arange(n, dtype=torch.int64, device=dev)[None]
+    out = torch.empty((4 * -(-n_off // 4), n), dtype=torch.int32,
+                      device=dev)
+    for c0 in range(0, -(-n_off // 4), chunk):
+        c = torch.arange(c0, min(c0 + chunk, -(-n_off // 4)),
+                         dtype=torch.int64, device=dev)[:, None]
+        shape = (c.shape[0], n)
+        words = philox4x32_10(
+            (c.expand(shape), (pix & _MASK32).expand(shape),
+             (pix >> 32).expand(shape),
+             torch.full(shape, _TAG << 16, dtype=torch.int64, device=dev)),
+            k0, k1)
+        out[4 * c0:4 * c0 + 4 * c.shape[0]] = (
+            torch.stack(words, dim=1).reshape(-1, n) >> 8).to(torch.int32)
+    return out[:n_off].reshape(n_off, height, width)
+
+
+def gumbel_of_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel scores of 24-bit keys, as the kernel computes them
+    (``gumbel_of_key``): -log(-log u), u = key / 2^24 floored at 1e-37,
+    in float32 (``torch.log`` may differ from CUDA's ``logf`` by an
+    ulp)."""
+    u = keys.to(torch.float32) * (1.0 / 16777216.0)
+    return -torch.log(-torch.log(torch.clamp_min(u, 1e-37)))
+
+
+def gumbel_table() -> torch.Tensor:
+    """Kernel 16's own Gumbel score of every 24-bit key on the card →
+    [2^24] f32: its key skip is exact only if this is non-decreasing."""
+    out = torch.empty(1 << KEY_BITS, dtype=torch.float32, device="cuda")
+    _build.launch("romis_gumbel_table", out.data_ptr())
+    return out
 
 
 def _similar(gates: torch.Tensor, nb: torch.Tensor, same_geom: bool,

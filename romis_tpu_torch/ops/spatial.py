@@ -8,7 +8,12 @@ the combine) with the reservoir state in the ``[10K, H, W]`` plane layout
 in and out, so the passes chain without re-packing. Kernel 11 (the same
 source, ``spatial_pass_unbiased_fused``) replaces ``_pass_unbiased_kernel``:
 the race without gates and a second sweep that counts Z at each
-neighbour's own context. Kernel 9 (``csrc/halo.cu``, ``halo_offset_gather``)
+neighbour's own context. Its neighbours are random per pixel, so it reads
+them from pixel-major records that a pre-pass in the same entry writes (a
+lane's reservoir fields together; the context with its unit view, kd and
+ks zero at an invalid pixel), two 64-byte records a neighbour at K = 2
+instead of a 32-byte sector a float; ``pack_records`` is that pre-pass in
+PyTorch, and ``record_buffers`` the scratch the wrapper allocates. Kernel 9 (``csrc/halo.cu``, ``halo_offset_gather``)
 replaces ``_offset_gather_kernel``: planes gathered at exact per-pixel
 offsets, indices clamped into the image.
 
@@ -73,7 +78,7 @@ Its plain version is the clamped gather at the offsets, and
 both.
 
 Bound on the H100: the passes are compute-bound, (R+1)·K target-PDF
-evaluations with one ``powf`` each per pixel (2·R·K more for the unbiased
+evaluations with one ``powf`` each per pixel (R·K more for the unbiased
 Z; the vis_check mode writes 2K + 3R + RK planes more); the neighbour
 reads stay within ±radius and are served mostly by L1 and L2. The halo
 gather is bound by device-memory bandwidth, the scatter by bandwidth once
@@ -536,6 +541,42 @@ def z_visibility(planes: torch.Tensor, block: torch.Tensor,
     return torch.cat([planes[:8 * k], big_w, planes[9 * k:]])
 
 
+CTX_RECORD = 16  # floats of kernel 11's context record
+
+
+def record_buffers(n: int, k: int, device):
+    """Kernel 11's scratch: the reservoir records [N, 8K] and the context
+    records [N, 16] its pre-pass writes (``pack_records``)."""
+    return (torch.empty((n, 8 * k), dtype=torch.float32, device=device),
+            torch.empty((n, CTX_RECORD), dtype=torch.float32, device=device))
+
+
+def pack_records(res_planes: torch.Tensor, cen_ctx: torch.Tensor, k: int,
+                 unshaded: bool = False):
+    """Kernel 11's records in PyTorch, as its pre-pass writes them:
+    res_planes [10K, H, W], cen_ctx [18, H, W] → (reservoir records
+    [H·W, 8K]: a lane's pos 3 | col 3 | m | W, lane after lane; context
+    records [H·W, 16]: position 3 | normal 3 | unit view 3 | kd 3 | ks 3 |
+    shininess, with kd = ks = 0 at an invalid pixel unless
+    ``unshaded``)."""
+    n = res_planes.shape[-1] * res_planes.shape[-2]
+    planes = res_planes.reshape(10 * k, n)
+    rres = torch.cat([torch.cat([planes[3 * l:3 * l + 3],
+                                 planes[3 * k + 3 * l:3 * k + 3 * l + 3],
+                                 planes[7 * k + l:7 * k + l + 1],
+                                 planes[8 * k + l:8 * k + l + 1]])
+                      for l in range(k)]).t().contiguous()
+    c = cen_ctx.reshape(18, n)
+    view = c[6:9] - c[0:3]
+    sq = view[0] * view[0] + view[1] * view[1] + view[2] * view[2]
+    norm = torch.where(sq > 1e-30, torch.sqrt(sq), 0.0)
+    inv = 1.0 / torch.clamp_min(norm, 1e-20)
+    lit = (c[17] > 0.5) | unshaded
+    kdks = torch.where(lit, c[9:15], 0.0)
+    rctx = torch.cat([c[0:6], view * inv, kdks, c[15:16]]).t().contiguous()
+    return rres, rctx
+
+
 def _launch_pass(name, wrapper, res_planes, gates, cen_ctx, k, n_nbr,
                  radius, features, key, pass_index, inject, unbiased,
                  vis_check=False):
@@ -569,13 +610,17 @@ def _launch_pass(name, wrapper, res_planes, gates, cen_ctx, k, n_nbr,
     vis = torch.empty((vis_check_planes(k, n_nbr), h, w),
                       dtype=torch.float32, device=res_planes.device) \
         if vis_check else None
+    rres, rctx = record_buffers(h * w, k, res_planes.device) if unbiased \
+        else (None, None)
     if h * w:
         _build.launch("romis_spatial_pass", res_planes.data_ptr(),
                       None if gates is None else gates.data_ptr(),
                       cen_ctx.data_ptr(), h, w, k, n_nbr, radius,
                       int(unbiased), key_ptr, tag, o_ptr, g_ptr,
                       int(not features.enable_shading), out.data_ptr(),
-                      None if vis is None else vis.data_ptr())
+                      None if vis is None else vis.data_ptr(),
+                      None if rres is None else rres.data_ptr(),
+                      None if rctx is None else rctx.data_ptr())
         wrapper.launches += 1
     return out if vis is None else (out, vis)
 

@@ -3,13 +3,28 @@
 one call on one NVIDIA GPU, at the shapes of ``chip_smoke.py``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
-    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 17,7]
+    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 16,11]
 
 Both trees' kernel libraries are built (the parent's with its own
 ``ops/_build.py``, into its own ``build/``), the registers and spill stores
 of the compared kernels are printed from both builds' ``-Xptxas -v`` logs,
 and the kernels are called on the same tensors, in turns (parent, this
-tree, this tree, parent). ``--kernels`` picks the sections (default 17,7):
+tree, this tree, parent). ``--kernels`` picks the sections (default 16,11):
+- 16, neighbour selection, on the flagship's gates: SIMILAR, DISSIMILAR
+  and two classes, on Philox and on injected scores, D = 5 and 8 at
+  r = 10 (1920x1080) and D = 5 at r = 40 (past the staged window, at
+  270x480); outputs bit-equal to the parent's. Then the frames ``romis``,
+  ``rmis_equal`` and ``large_romis`` with either tree's kernel 16;
+- 11, the unbiased spatial pass, at K = 1, 2 and 4 on Philox and on
+  injected noise (R = 5, r = 10, 1080p): its plain mode and kernel 5 on
+  the flagship, its vis_check mode on the flagship and on the one-torus
+  soup; outputs bit-equal to the parent's. Then the frames ``animated``,
+  ``vischeck_torus`` and ``large_vischeck`` with either tree's kernel 11;
+- 14, the replay RIS, on the flagship's 1080p receivers, on injected
+  uniforms (records equal to the plain version's on every lane; the
+  parent's share printed) and on Philox; then the gradient steps
+  ``grad_surrogate``, ``grad_per_pixel`` and ``large_grad`` with either
+  tree's kernel 14;
 - 17, the R-MIS / R-OMIS sweep, at 1920x1080 on the flagship (D = 5,
   K = 2): R-OMIS, progressive R-OMIS, equal and balance weights on the
   iteration-0 packs and a SIMILAR selection, and the ext_vis R-OMIS on
@@ -547,7 +562,316 @@ def section_7(c: Ctx) -> None:
     ms["frame[vischeck_torus]"] = dict(change=new, parent=old)
 
 
-SECTIONS = {"17": (section_17, ("romis_kernel", "rmis_kernel")),
+class ParentPassLib:
+    """The parent's library as ``_build.launch`` sees it, where this
+    tree's ``romis_spatial_pass`` passes kernel 11's two record buffers
+    that the parent's entry does not take."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name == "romis_spatial_pass":
+            return lambda *a: fn(*a[:16], a[-1])
+        return fn
+
+
+def time_frames(c: Ctx, kernel: str, paths: dict, theirs_ops) -> None:
+    """Frames of ``paths`` (name → (scene, camera or a stacked camera
+    path, features)) with this tree's kernels and with ``theirs_ops``, in
+    turns."""
+    torch, dev, card, ms = c.torch, c.dev, c.card, c.ms
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.render.animation import render_animation
+    from romis_tpu_torch.render.pipeline import render_frame
+
+    for path, (sc, cam, f) in paths.items():
+        g = torch.Generator(device=dev).manual_seed(5)
+
+        n_frames = cam.look_at.shape[0] if cam.look_at.dim() > 1 else 0
+
+        def frame(ops):
+            if n_frames:  # a stacked camera path: its frames, ms a frame
+                return lambda: render_animation(
+                    g, cam, sc.geometry, sc.lights, sc.num_lights, H, W, f,
+                    ops=ops)
+            return lambda: render_frame(g, cam, sc, H, W, f, ops=ops)
+
+        new, old = chip_smoke.ab_ms(torch, frame(restir.KERNELS),
+                                    frame(theirs_ops), 5, 5)
+        if n_frames:
+            new, old = new / n_frames, old / n_frames
+        print(f"time frame[{path}]: {new:.3f} ms/frame with this tree's "
+              f"kernel {kernel}, {old:.3f} with the parent's [{card}]")
+        ms[f"frame[{path}]"] = dict(change=new, parent=old)
+
+
+def section_16(c: Ctx) -> None:
+    """Kernel 16 in its three strategies, Philox and injected, D = 5 and 8
+    at r = 10 (1080p) and D = 5 at r = 40 (past the staged window, at
+    270x480); then the MIS frames with either tree's kernel 16."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    import math
+    from dataclasses import replace
+
+    from romis_tpu_torch import Features, RayTraceMode
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.ops import nbrsel, spatial
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        flagship_camera, flagship_scene, torus_field, torus_field_camera,
+    )
+
+    feats = Features()
+    sel_args = (feats.neighbour_same_geometry,
+                feats.neighbour_max_depth_difference_fraction,
+                math.cos(feats.neighbour_max_normal_angle_difference_radians))
+    parent_sel = parent_launch(c, nbrsel.neighbour_select)
+    scene = flagship_scene(dev)
+    gates = {}
+    for hw in ((H, W), (H // 4, W // 4)):
+        _, ctx = restir.trace_primary(generate_rays(flagship_camera(
+            *hw, dev), *hw), scene.geometry, feats, restir.KERNELS)
+        gates[hw] = nbrsel.selection_gates(ctx).contiguous()
+    for d, radius, hw in ((5, 10, (H, W)), (8, 10, (H, W)),
+                          (5, 40, (H // 4, W // 4))):
+        g = gates[hw]
+        scores = nbrsel.selection_noise(gen, radius, *hw)
+        for label, (two, prefer) in {"similar": (False, True),
+                                     "dissimilar": (False, False),
+                                     "two_classes": (True, True)}.items():
+            key = spatial.philox_key(gen)
+            for noise, kw in (("philox", dict(key=key)),
+                              ("injected", dict(scores=scores))):
+                args = (g, d, radius, two, prefer, *sel_args)
+                mine = nbrsel.neighbour_select(*args, **kw)
+                theirs = parent_sel(*args, **kw)
+                chip_smoke.require(all(torch.equal(a, b) for a, b in zip(
+                    mine, theirs)), f"kernel 16 {label} {noise} D={d} "
+                    f"r={radius}: outputs differ from the parent's")
+                new, old = chip_smoke.ab_ms(
+                    torch, lambda: nbrsel.neighbour_select(*args, **kw),
+                    lambda: parent_sel(*args, **kw), 10, 10)
+                name = (f"neighbour_select[{label}, {noise}, D={d}, "
+                        f"r={radius}, {hw[0]}x{hw[1]}]")
+                print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms "
+                      f"parent ({old / new:.2f}x); bit-equal to the "
+                      f"parent's [{card}]")
+                ms[name] = dict(change=new, parent=old)
+        del scores
+    del gates
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    time_frames(c, "16", {
+        "romis": (scene, flagship_camera(H, W, dev),
+                  Features(ray_trace_mode=RayTraceMode.ROMIS)),
+        "rmis_equal": (scene, flagship_camera(H, W, dev),
+                       Features(ray_trace_mode=RayTraceMode.RMIS)),
+        "large_romis": (large, torus_field_camera(H, W, dev),
+                        Features(ray_trace_mode=RayTraceMode.ROMIS)),
+    }, replace(restir.KERNELS, neighbour_select=parent_sel))
+
+
+def section_11(c: Ctx) -> None:
+    """Kernel 11 at K = 1, 2 and 4, Philox and injected, plain and
+    vis_check modes, and kernel 5 beside it; then the unbiased frames with
+    either tree's kernel 11."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from dataclasses import replace
+
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays, make_camera
+    from romis_tpu_torch.render.animation import interpolate_cameras
+    from romis_tpu_torch.core.types import pack_reservoir_planes
+    from romis_tpu_torch.ops import _build, ris, shade, spatial
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        flagship_camera, flagship_scene, torus_field, torus_field_camera,
+    )
+
+    plib = ParentPassLib(c.plib)
+
+    def parent(fn):
+        def run(*a, **kw):
+            saved = _build.library
+            _build.library = lambda: plib
+            try:
+                return fn(*a, **kw)
+            finally:
+                _build.library = saved
+        return run
+
+    n_nbr, radius = 5, 10
+    vfeats = Features(unbiased_combination=True,
+                      spatial_reuse_visibility_check=True)
+    scene = flagship_scene(dev)
+    torus1 = torus_field(1, dev)
+    tcam = make_camera(resolution=(H, W), device=dev, **chip_smoke.TORUS_CAM)
+    for k in (1, 2, 4):
+        f = Features(num_samples_in_reservoir=k)
+        for sc_name, sc, cam in (("flagship", scene, flagship_camera(H, W,
+                                                                     dev)),
+                                 ("torus soup", torus1, tcam)):
+            _, ctx = restir.trace_primary(generate_rays(cam, H, W),
+                                          sc.geometry, f, restir.KERNELS)
+            rp = pack_reservoir_planes(ris.gen_canonical_samples_ris(
+                ctx, sc.lights, sc.num_lights, f, generator=gen))
+            cen = shade.pack_center_ctx(ctx)
+            gates = spatial.pack_gates(ctx)
+            inject = spatial.spatial_noise(gen, n_nbr, k, radius, H, W)
+            key = spatial.philox_key(gen)
+            for noise, kw in (("philox", dict(key=key)),
+                              ("injected", dict(inject=inject))):
+                runs = {
+                    "kernel 11": lambda fn, kw=kw: fn(
+                        spatial.spatial_pass_unbiased_fused)(
+                        rp, cen, k, n_nbr, radius, f, **kw),
+                    "kernel 11 vis_check": lambda fn, kw=kw: fn(
+                        spatial.spatial_pass_unbiased_vis)(
+                        rp, cen, k, n_nbr, radius, vfeats.replace(
+                            num_samples_in_reservoir=k), **kw),
+                    "kernel 5": lambda fn, kw=kw: fn(
+                        spatial.spatial_pass_fused)(
+                        rp, gates, cen, k, n_nbr, radius, f, **kw),
+                }
+                for label, run in runs.items():
+                    if sc_name == "torus soup" and label != (
+                            "kernel 11 vis_check"):
+                        continue
+                    mine = run(lambda x: x)
+                    theirs = run(parent)
+                    mine = mine if isinstance(mine, tuple) else (mine,)
+                    theirs = theirs if isinstance(theirs, tuple) else (
+                        theirs,)
+                    chip_smoke.require(all(torch.equal(a, b) for a, b in
+                                           zip(mine, theirs)),
+                                       f"{label} K={k} {noise} {sc_name}: "
+                                       "outputs differ from the parent's")
+                    new, old = chip_smoke.ab_ms(
+                        torch, lambda: run(lambda x: x),
+                        lambda: run(parent), 10, 10)
+                    name = f"{label}[K={k}, {noise}, {sc_name}]"
+                    print(f"time {name}: {new:.4f} ms this tree, {old:.4f} "
+                          f"ms parent ({old / new:.2f}x); bit-equal to the "
+                          f"parent's [{card}]")
+                    ms[name] = dict(change=new, parent=old)
+            del rp, cen, gates, inject
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    cam = flagship_camera(H, W, dev)
+    cam_path = interpolate_cameras(cam, make_camera(
+        look_at=(2.57, 1.23, -1.35), rotation_deg=(
+            10.3, 30.0 + chip_smoke.PAN_DEG * 3, 0.0), distance=25.0,
+        fov_deg=30.0, resolution=(H, W), device=dev), 4)
+    time_frames(c, "11", {
+        "animated": (scene, cam_path, Features(
+            temporal_reprojection=True, unbiased_combination=True,
+            initial_samples_visibility_check=True)),
+        "vischeck_torus": (torus1, tcam, vfeats),
+        "large_vischeck": (large, torus_field_camera(H, W, dev), vfeats),
+    }, replace(restir.KERNELS, spatial_pass_unbiased=parent(
+        spatial.spatial_pass_unbiased_fused)))
+
+
+def section_14(c: Ctx) -> None:
+    """Kernel 14, the replay RIS, on the flagship's 1080p receivers: on
+    injected uniforms (this tree's records equal to the plain version's on
+    every lane; the share of lanes where the parent's equal them printed)
+    and on Philox, in turns with the parent's; then the gradient steps
+    that run it with either tree's."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.ops import ris
+    from romis_tpu_torch.ops.wrs import gen_canonical_replay_plain
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import flagship_camera, flagship_scene
+
+    feats = Features()
+    scene = flagship_scene(dev)
+    _, ctx = restir.trace_primary(generate_rays(flagship_camera(H, W, dev),
+                                                H, W), scene.geometry, feats,
+                                  restir.KERNELS)
+    args = (ctx, scene.lights, scene.num_lights, feats)
+    parent_replay = parent_launch(c, ris.gen_canonical_replay)
+    sk = -(-feats.initial_light_samples // feats.num_samples_in_reservoir)
+    uni = torch.rand((sk, 5, feats.num_samples_in_reservoir, H, W),
+                     generator=gen, device=dev)
+
+    def same_records(a, b):
+        return torch.stack([x == y for ra, rb in zip(a[1:], b[1:])
+                            for x, y in zip(ra, rb)]).all(dim=0)
+
+    plain = gen_canonical_replay_plain(*args, uniforms=uni)
+    mine = ris.gen_canonical_replay(*args, uniforms=uni)
+    theirs = parent_replay(*args, uniforms=uni)
+    chip_smoke.require(bool(same_records(mine, plain).all()) and torch.equal(
+        mine[0], plain[0]), "kernel 14: records differ from the plain "
+        "version's")
+    share = same_records(theirs, plain).float().mean().item()
+    for noise, kw in (("uniforms", dict(uniforms=uni)),
+                      ("philox", dict(generator=gen))):
+        new, old = chip_smoke.ab_ms(
+            torch, lambda: ris.gen_canonical_replay(*args, **kw),
+            lambda: parent_replay(*args, **kw), 10, 10)
+        print(f"time ris_replay[{noise}]: {new:.4f} ms this tree, {old:.4f} "
+              f"ms parent; records equal to the plain version's on every "
+              f"lane (the parent's on {share:.7f}) [{card}]")
+        ms[f"ris_replay[{noise}]"] = dict(change=new, parent=old,
+                                          parent_share=share)
+    del uni, plain, mine, theirs, ctx
+    # The gradient steps that run kernel 14, with either tree's, from one
+    # forward frame's state against the light colours x 0.8 (chip_smoke's).
+    from dataclasses import replace
+
+    from romis_tpu_torch.diff.grad import (
+        extract_params, make_grad_fn, render_with_params,
+    )
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.scene.scene import torus_field, torus_field_camera
+
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    gf = Features(enable_tone_mapping=False, surrogate_resampling_grad=True)
+    theirs_ops = replace(restir.KERNELS, ris_replay=parent_replay)
+    for path, (sc, cam, f) in {
+            "grad_surrogate": (scene, flagship_camera(H, W, dev), gf),
+            "grad_per_pixel": (scene, flagship_camera(H, W, dev),
+                               gf.replace(exact_gradients=True)),
+            "large_grad": (large, torus_field_camera(H, W, dev), gf)}.items():
+        prm = extract_params(sc.geometry, sc.lights)
+        dim = replace(prm, **{n: getattr(prm, n) * 0.8 for n in (
+            "light_c0", "light_c1", "light_c2", "light_c3")})
+        g = torch.Generator(device=dev).manual_seed(11)
+        a = (cam, sc.geometry, sc.lights, sc.num_lights, H, W, f)
+        with torch.no_grad():
+            _, prev = render_with_params(
+                prm, g, *a, restir.initial_temporal_state(
+                    H, W, f.num_samples_in_reservoir, cam))
+            target, _ = render_with_params(dim, g, *a, prev)
+
+        def step(ops):
+            fn = make_grad_fn(sc.geometry, sc.lights, sc.num_lights, H, W, f,
+                              ops=ops)
+            gs = torch.Generator(device=dev).manual_seed(5)
+            return lambda: fn(prm, target, gs, cam, prev)
+
+        new, old = chip_smoke.ab_ms(torch, step(restir.KERNELS),
+                                    step(theirs_ops), 5, 5)
+        print(f"time step[{path}]: {new:.3f} ms with this tree's kernel 14, "
+              f"{old:.3f} with the parent's [{card}]")
+        ms[f"step[{path}]"] = dict(change=new, parent=old)
+
+
+SECTIONS = {"16": (section_16, ("nbrsel_kernel",)),
+            "14": (section_14, ("ris_kernel",)),
+            "11": (section_11, ("spatial_pass_kernel",
+                                "spatial_unbiased_kernel",
+                                "records_kernel")),
+            "17": (section_17, ("romis_kernel", "rmis_kernel")),
             "7": (section_7, ("zcount_kernel",)),
             "10": (section_10, ("halo_scatter",)),
             "20": (section_20, ("bvh_any_k",))}
@@ -559,8 +883,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="root of the other tree (e.g. build/parent)")
-    ap.add_argument("--kernels", default="17,7",
-                    help="comma-separated sections: 17, 7, 10, 20")
+    ap.add_argument("--kernels", default="16,11",
+                    help="comma-separated sections: 16, 11, 14, 17, 7, 10, "
+                    "20")
     args = ap.parse_args()
     picked = args.kernels.split(",")
     if not torch.cuda.is_available():

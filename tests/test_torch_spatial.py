@@ -182,3 +182,116 @@ def test_kernel_wrappers_refuse_what_they_cannot_run():
         rp, spatial.pack_gates(ctx), cen, k, 2, 1, PortFeatures(),
         inject=_replay_noise(h, w, k, 2, 1))
     assert out.device.type == "cpu" and out.shape == (10 * k, h, w)
+
+
+def _records_state(seed, h, w, k):
+    """Planes with some invalid pixels and some zero view vectors (the
+    view origin on the surface)."""
+    _, _, res, ctx = _state(seed, h, w, k)
+    rp, cen = pack_reservoir_planes(res), pack_center_ctx(ctx)
+    cen[6:9, 0, :3] = cen[0:3, 0, :3]
+    assert (cen[17] < 0.5).any() and (cen[17] > 0.5).any()
+    return rp, cen
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_records_round_trip(k):
+    """Kernel 11's records hold the planes bit for bit: the reservoir
+    record a lane's pos | col | m | W, the context record's position, normal,
+    shininess and kd, ks where valid (0 where invalid), and the unit view
+    as the plain Phong computes it."""
+    h, w = 5, 7
+    rp, cen = _records_state(2, h, w, k)
+    rres, rctx = spatial.pack_records(rp, cen, k)
+    n = h * w
+    assert rres.shape == (n, 8 * k) and rctx.shape == (n, spatial.CTX_RECORD)
+    planes, c = rp.reshape(10 * k, n), cen.reshape(18, n)
+    lanes = rres.t().reshape(k, 8, n)
+    for l in range(k):
+        assert torch.equal(lanes[l, 0:3], planes[3 * l:3 * l + 3])
+        assert torch.equal(lanes[l, 3:6], planes[3 * k + 3 * l:3 * k + 3 * l
+                                                 + 3])
+        assert torch.equal(lanes[l, 6], planes[7 * k + l])  # m
+        assert torch.equal(lanes[l, 7], planes[8 * k + l])  # W
+    r = rctx.t()
+    assert torch.equal(r[0:6], c[0:6]) and torch.equal(r[15], c[15])
+    valid = c[17] > 0.5
+    assert torch.equal(r[9:15], torch.where(valid, c[9:15], 0.0))
+    v0 = c[6:9] - c[0:3]  # ops/shading.phong_shade_planes' view
+    vsq = v0[0] * v0[0] + v0[1] * v0[1] + v0[2] * v0[2]
+    vok = vsq > 1e-30
+    vn = torch.where(vok, torch.sqrt(torch.where(vok, vsq, 1.0)), 0.0)
+    assert torch.equal(r[6:9], v0 * (1.0 / torch.clamp_min(vn, 1e-20)))
+    assert torch.equal(r[6:9, :3], torch.zeros(3, 3))
+    _, unshaded = spatial.pack_records(rp, cen, k, unshaded=True)
+    assert torch.equal(unshaded.t()[9:15], c[9:15])
+
+
+@pytest.mark.parametrize("shaded", [True, False], ids=["shaded", "unshaded"])
+def test_record_contexts_give_the_plain_pass(shaded):
+    """The context records stand an invalid pixel in as a valid one with
+    kd = ks = 0 when shaded (its Phong is then 0, as the dead receiver's):
+    the plain unbiased pass and its vis_check form on contexts so encoded
+    are bit-equal to those on the planes."""
+    h, w, k, r, radius = 12, 20, 2, 3, 2
+    rp, cen = _records_state(5, h, w, k)
+    _, rctx = spatial.pack_records(rp, cen, k, unshaded=not shaded)
+    enc = cen.clone()
+    enc[9:15] = rctx.t()[9:15].reshape(6, h, w)
+    enc[17] = 1.0
+    feats = PortFeatures(num_samples_in_reservoir=k, num_neighbours_to_sample=r,
+                         spatial_resample_radius=radius,
+                         unbiased_combination=True, enable_shading=shaded)
+    inject = spatial.spatial_noise(torch.Generator().manual_seed(3), r, k,
+                                   radius, h, w)
+    a = spatial.spatial_pass_unbiased_plain(rp, cen, k, r, radius, feats,
+                                            inject=inject)
+    b = spatial.spatial_pass_unbiased_plain(rp, enc, k, r, radius, feats,
+                                            inject=inject)
+    assert torch.equal(a, b)
+    assert (unpack_reservoir_planes(a, k).w_sum > 0).float().mean() > 0.5
+    for x, y in zip(spatial.spatial_pass_unbiased_vis_plain(
+            rp, cen, k, r, radius, feats, inject=inject),
+            spatial.spatial_pass_unbiased_vis_plain(
+                rp, enc, k, r, radius, feats, inject=inject)):
+        assert torch.equal(x, y)
+
+
+class _OnTheCard:
+    """A stand-in plane block on the card: the wrappers check it before
+    they touch its data."""
+
+    is_cuda = True
+    dtype = torch.float32
+    device = "cuda"
+
+    def __init__(self, c, h, w):
+        self.shape = (c, h, w)
+
+    def contiguous(self):
+        return self
+
+    def is_contiguous(self):
+        return True
+
+
+@pytest.mark.parametrize("case", ["k5", "r9", "pixels", "no_noise",
+                                  "vis_no_geometry"])
+def test_unbiased_wrapper_refuses_what_kernel_11_cannot_run(case):
+    """Kernel 11 is built for K = 1..4, at most 8 neighbours, 32-bit pixel
+    indices and a Philox key or injected noise, and its vis_check mode
+    traces against geometry; on the card anything else raises before a
+    launch."""
+    k, n_nbr, hw, kw, match = {
+        "k5": (5, 5, (4, 6), {}, "K=5"),
+        "r9": (2, 9, (4, 6), {}, "neighbours"),
+        "pixels": (2, 5, (46341, 46341), {}, "32-bit"),
+        "no_noise": (2, 5, (4, 6), {}, "Philox key"),
+        "vis_no_geometry": (2, 5, (4, 6), {"vis": True}, "geometry"),
+    }[case]
+    feats = PortFeatures(unbiased_combination=True,
+                         spatial_reuse_visibility_check="vis" in kw)
+    with pytest.raises(ValueError, match=match):
+        spatial.spatial_pass_unbiased_fused(
+            _OnTheCard(10 * k, *hw), _OnTheCard(18, *hw), k, n_nbr, 10,
+            feats)
