@@ -14,8 +14,14 @@ GPU.
    the smooth field of a camera shift; the biased and unbiased spatial
    passes on injected noise (exact) and on their own random streams (means
    within 1 %). Then the gradient step's kernels: the row scatter-add into
-   the light table, the material table (every index the same row) and the
-   soup's packed vertices; the halo scatter at D=5, C=2 on offsets within
+   every table the steps scatter into (``scatter_tables``: the light
+   table's 512 rows, the material table's one row, the triangle table's
+   few rows at C = 9 and at the attribute rows' C = 24) and the soup's
+   packed vertices (later also the torus field's tables: 3 light rows, its
+   material rows, 24,202 triangle rows at C = 9 and 24), each within
+   SCATTER_REL of the plain version and SCATTER_F64_REL of a float64 sum,
+   and timed beside its bound and ``index_add_``; the halo scatter at D=5,
+   C=2 on offsets within
    ±10, on the smooth field of a large camera shift (every source beyond
    the kernel's margin) and on offsets clamped at all four borders, each
    with its share of sources beyond the margin; the replay RIS on
@@ -42,8 +48,9 @@ GPU.
    ray with a pixel's S rays side by side) with S = 2 (the shadow rays of
    the K lanes), 4 and 16 (sky rays) and 12 (the ext_vis rays of one MIS
    iteration; also against kernel 19 on the same rays), the plain bool on
-   every ray, the BVH final shade (21), the sweep's ext_vis mode in
-   its four modes; and a cross-check with no plain version in it: the
+   every ray, the BVH final shade (21; at K = 1, 2 and 4), the sweep's
+   ext_vis mode in its four modes; and a cross-check with no plain
+   version in it: the
    2048-triangle soup with a BVH attached, kernel 18 against the soup's
    closest hit (kernel 1: the same t and hit attributes) and kernel 20
    against the soup's any-hit (kernel 6).
@@ -185,7 +192,15 @@ GPU.
    constants by the [16, N] rays as the library column, labelled "product
    only" (it computes no sign test); kernel 12 on its Philox stream, with
    one advanced-indexing gather at the clamped coordinates as the library
-   call.
+   call. Kernel 6 on the same torus-soup rays is printed beside its bound
+   there: the Moller-Trumbore tests each ray makes up to its first
+   occluder (``ops.trace.any_hit_plain`` counts them). Kernels 3 and 14 are
+   also timed on Philox, the mode of every frame and step, each beside its
+   Philox bound (no uniform planes read; a Philox4x32-10 call and four
+   uniforms a candidate, the replay a second call for its fifth uniform);
+   the table's rows keep their injected-uniform times and bounds. Kernel
+   13 is timed on every table of ``scatter_tables``, each beside its bound
+   and ``index_add_`` (the table's row is the light table).
 
 Any failed check raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table.
@@ -489,6 +504,57 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def scatter_tables(torch, gen, scene, tri, k: int, prefix: str = ""):
+    """Kernel 13's tables in a gradient step on ``scene`` at the shape of
+    ``tri``, the closest-hit triangles [H, W] (-1 on a miss), each (ct,
+    idx, n_rows): the light table (the re-evaluations' K lanes of uniform
+    picks, C = 24), the material table at the hit pixels' materials
+    (C = 8), the packed v0|e1|e2 triangle table at the hit triangles
+    (C = 9), and a table of the attribute rows' width (C = 24) at the same
+    indices, which the step gathers without a gradient."""
+    geo = scene.geometry
+    dev = tri.device
+    h, w = tri.shape
+    hit = tri.clamp_min(0)
+    mat = torch.where(tri >= 0, geo.attr_rows[hit.long(), 15].int(), 0)
+    n_tris = geo.v0.shape[0]
+
+    def ct(c, *lead):
+        return torch.randn((c, *lead, h, w), generator=gen, device=dev)
+
+    return {
+        f"{prefix}lights": (ct(24, k), torch.randint(
+            0, scene.num_lights, (k, h, w), generator=gen, device=dev,
+            dtype=torch.int32), scene.lights.rows.shape[0]),
+        f"{prefix}material": (ct(8), mat, geo.mat_rows.shape[0]),
+        f"{prefix}triangles": (ct(9), hit, n_tris),
+        f"{prefix}attributes": (ct(24), hit, n_tris),
+    }
+
+
+def scatter_rel(torch, out, ct, idx, n_rows):
+    """(max error over the summed |ct| against the plain version, and
+    against a float64 index_add_), per (row, component)."""
+    from romis_tpu_torch.ops.scatter import scatter_rows_add_plain
+
+    o_p = scatter_rows_add_plain(ct, idx, n_rows)
+    o_64 = torch.zeros((n_rows, ct.shape[0]), dtype=torch.float64,
+                       device=ct.device).index_add_(
+        0, idx.reshape(-1).long().clamp(0, n_rows - 1),
+        ct.reshape(ct.shape[0], -1).t().double())
+    mag = scatter_rows_add_plain(ct.abs(), idx,
+                                 n_rows).double().clamp_min(1e-30)
+    return (((out - o_p).abs() / mag).max().item(),
+            ((out.double() - o_64).abs() / mag).max().item())
+
+
+def scatter_bound(ct, idx, n_rows):
+    """Kernel 13's bound: the cotangents and indices read once, the table
+    written once, an add a cotangent."""
+    return bound(ct.numel() * 4 + idx.numel() * 4 + n_rows * ct.shape[0] * 4,
+                 ct.numel())
 
 
 def random_soup(n_tris: int, center, half: float, seed: int):
@@ -1024,41 +1090,36 @@ def main() -> None:
                    spatial.spatial_noise(gen, n_nbr, k, 40, H, W)[0]))
     del zero
 
-    # The gradient step's kernels. Row scatter-add: the light table
-    # (4 M lane indices over 512 rows), the material table (every pixel on
-    # its one row: the contention case) and the packed v0|e1|e2 of the
-    # 2048-triangle soup at its closest-hit triangles.
+    # The gradient step's kernels. Row scatter-add: the step's tables on
+    # the flagship (the light table's 4 M lane indices over 512 rows, the
+    # material table's one row, the hit triangles' few rows at C = 9 and
+    # C = 24), and the packed v0|e1|e2 of the 2048-triangle soup at its
+    # closest-hit triangles; the torus field's below, with its BVH.
     def check_scatter(label, ct, idx, n_rows):
         o_k = scatter.scatter_rows_add(ct, idx, n_rows)
-        o_p = scatter.scatter_rows_add_plain(ct, idx, n_rows)
-        o_64 = torch.zeros((n_rows, ct.shape[0]), dtype=torch.float64,
-                           device=dev).index_add_(
-            0, idx.reshape(-1).long().clamp(0, n_rows - 1),
-            ct.reshape(ct.shape[0], -1).t().double())
-        mag = scatter.scatter_rows_add_plain(ct.abs(), idx,
-                                             n_rows).double().clamp_min(1e-30)
         torch.cuda.synchronize()
-        rel = ((o_k - o_p).abs() / mag).max().item()
-        rel64 = ((o_k.double() - o_64).abs() / mag).max().item()
-        rel_p64 = ((o_p.double() - o_64).abs() / mag).max().item()
-        print(f"check scatter_rows_add[{label}]: rows {n_rows}, indices "
-              f"{idx.numel()}, max err / sum|ct| vs plain {rel:.2e}, vs "
-              f"float64 {rel64:.2e} (plain vs float64 {rel_p64:.2e})")
+        rel, rel64 = scatter_rel(torch, o_k, ct, idx, n_rows)
+        rel_p64 = scatter_rel(torch, scatter.scatter_rows_add_plain(
+            ct, idx, n_rows), ct, idx, n_rows)[1]
+        print(f"check scatter_rows_add[{label}]: rows {n_rows}, columns "
+              f"{ct.shape[0]}, indices {idx.numel()}, max err / sum|ct| vs "
+              f"plain {rel:.2e}, vs float64 {rel64:.2e} (plain vs float64 "
+              f"{rel_p64:.2e}); kernel 13's tile "
+              f"{scatter.scatter_tile(ct.shape[0], n_rows)} (0: device "
+              f"atomics)")
         require(rel <= SCATTER_REL, f"scatter {label}: vs plain {rel}")
         require(rel64 <= SCATTER_F64_REL, f"scatter {label}: vs f64 {rel64}")
-        return (o_k - o_p).abs().max().item()
+        return (o_k - scatter.scatter_rows_add_plain(ct, idx, n_rows)
+                ).abs().max().item()
 
-    light_idx = torch.randint(0, scene.num_lights, (k, H, W), generator=gen,
-                              device=dev, dtype=torch.int32)
-    light_ct = torch.randn((24, k, H, W), generator=gen, device=dev)
-    soup_tri = torch.clamp_min(trace.closest_hit_plain(rays, soup)[1], 0)
-    scatter_cases = {
-        "lights": (light_ct, light_idx, scene.num_lights),
-        "material": (torch.randn((8, H, W), generator=gen, device=dev),
-                     torch.zeros((H, W), dtype=torch.int32, device=dev), 1),
-        "soup2048": (torch.randn((9, H, W), generator=gen, device=dev),
-                     soup_tri, SOUP_TRIS),
-    }
+    scatter_cases = scatter_tables(
+        torch, gen, scene, trace.closest_hit_plain(rays, scene.geometry)[1],
+        k)
+    scatter_cases["soup2048"] = (
+        torch.randn((9, H, W), generator=gen, device=dev),
+        torch.clamp_min(trace.closest_hit_plain(rays, soup)[1], 0),
+        SOUP_TRIS)
+    light_idx = scatter_cases["lights"][1]
     errs["scatter_rows_add"] = max(check_scatter(label, *case)
                                    for label, case in scatter_cases.items())
 
@@ -1549,6 +1610,21 @@ def main() -> None:
     require(same19, "kernel 20 and kernel 19 differ on the ext_vis rays")
     del occ19
     errs["bvh_final_shade"] = check_shade(lctx, lres, lgeo, "torus5x5 BVH")
+    for k_ in (1, 4):  # kernel 21's K = 1 and 4 (a warp of 32 and 8 pixels)
+        f_ = Features(num_samples_in_reservoir=k_)
+        errs["bvh_final_shade"] = max(errs["bvh_final_shade"], check_shade(
+            lctx, ris.gen_canonical_samples_ris(
+                lctx, large.lights, large.num_lights, f_, generator=gen),
+            lgeo, f"torus5x5 BVH, K={k_}", f_))
+    # Kernel 13 on the torus field's tables: its 3 light rows and 26
+    # material rows in shared memory, its 24,208 triangle rows (C = 9, and
+    # the attribute rows' C = 24) in device memory.
+    torus_tables = scatter_tables(
+        torch, gen, large, walk.closest_hit_bvh(lrays, lgeo)[1], k, "torus ")
+    errs["scatter_rows_add"] = max(
+        [errs["scatter_rows_add"]] + [check_scatter(label, *case) for
+                                      label, case in torus_tables.items()])
+    scatter_cases.update(torus_tables)
     lpack_r = ris.gen_mis_reservoir_planes(lctx, large.lights,
                                            large.num_lights, feats, 1, False,
                                            generator=gen)
@@ -2470,10 +2546,18 @@ def main() -> None:
         ms = ab_ms(torch, lambda: scatter.scatter_rows_add(ct, idx_s, n_rows),
                    lambda: scatter.scatter_rows_add_plain(ct, idx_s, n_rows),
                    20, 5)
+        src, flat = ct.reshape(ct.shape[0], -1).t(), idx_s.reshape(-1).long()
+        lib = cuda_ms(torch, lambda: torch.zeros(
+            (n_rows, ct.shape[0]), device=dev).index_add_(0, flat, src), 20)
+        b_ms, b_by = scatter_bound(ct, idx_s, n_rows)
         print(f"time scatter_rows_add[{label}]: {ms[0]:.4f} ms kernel, "
-              f"{ms[1]:.4f} ms plain [{card}]")
+              f"{ms[1]:.4f} ms plain, index_add_ {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {ms[0] / b_ms:.2f}x the bound; "
+              f"{n_rows} rows x {ct.shape[0]}, {idx_s.numel()} indices "
+              f"[{card}]")
         if label == "lights":
             timings["scatter_rows_add"] = ms
+    del src, flat
     timings["halo_scatter"] = ab_ms(
         torch, lambda: spatial.halo_offset_scatter(halo_ct, sdy, sdx),
         lambda: spatial.halo_offset_scatter_plain(halo_ct, sdy, sdx), 20, 5)
@@ -2661,6 +2745,24 @@ def main() -> None:
         ms = cuda_ms(torch, lambda: trace.plucker_matrix(geo_), 10)
         print(f"time plucker_matrix (the table any_hit_plucker builds in "
               f"each call; {label}): {ms:.4f} ms [{card}]")
+        if geo_ is tgeo:
+            m6_torus = m6
+    # Kernel 6's bound on the torus soup's shadow rays: the Moller-Trumbore
+    # tests each ray makes up to its first occluder (its plain version
+    # counts them), the rays in and the bools out, the triangles once.
+    cnt6 = {}
+    occ6 = trace.any_hit_plain(*tshadow, tgeo, counts=cnt6)
+    agree6 = (occ6 == trace.any_hit(*tshadow, tgeo)).float().mean().item()
+    require(agree6 >= MIN_AGREE, f"any_hit torus soup: agree {agree6}")
+    tests6 = cnt6["tests"]
+    b6 = bound(tests6.numel() * 29 + tgeo.tri_cols.numel() * 4,
+               tests6.sum().item() * MT_OPS)
+    print(f"bound any_hit (torus soup 1080p shadow rays, "
+          f"{tests6.float().mean().item():.1f} tests a ray up to its first "
+          f"occluder; the kernel's bool on {agree6:.6f} of them): "
+          f"{b6[0]:.4f} ms ({b6[1]}); kernel 6 {m6_torus:.4f} ms, "
+          f"{m6_torus / b6[0]:.2f}x the bound [{card}]")
+    del occ6, tests6, cnt6
     # Kernel 12 on config 5's pack: its Philox stream (the plain version
     # draws the same offsets with neighbour_offsets), and injected offsets.
     timings["neighbour_gather"] = ab_ms(
@@ -2760,8 +2862,7 @@ def main() -> None:
             hw * 4 * (20 * k + 18),
             hw * (n_nbr + 1) * (STREAM_OPS + k * LOG_OPS)
             + hw * k * (2 * n_nbr + 1) * PHONG_OPS + hw * VIEW_OPS),
-        "scatter_rows_add": bound(l_ct.numel() * 4 + l_idx.numel() * 4
-                                  + l_rows * l_ct.shape[0] * 4, l_ct.numel()),
+        "scatter_rows_add": scatter_bound(l_ct, l_idx, l_rows),
         "halo_scatter": bound(halo_ct.numel() * 4 + sdy.numel() * 8
                               + k * hw * 4, halo_ct.numel()),
         "ris_replay": bound(hw * 4 * (17 + sk * 5 * k + 7 * k),
@@ -2938,12 +3039,24 @@ def main() -> None:
     ms = cuda_ms(torch, lambda: spatial.halo_offset_gather(
         halo_planes, rand_dy, rand_dx), 20)
     print(f"time halo_gather (random offsets): {ms:.4f} ms [{card}]")
-    ms = cuda_ms(torch, lambda: ris.gen_canonical_samples_ris(
-        ctx, scene.lights, scene.num_lights, feats, generator=gen), 10)
-    print(f"time ris (philox): {ms:.4f} ms [{card}]")
-    ms = cuda_ms(torch, lambda: ris.gen_canonical_replay(
-        ctx, scene.lights, scene.num_lights, feats, generator=gen), 10)
-    print(f"time ris_replay (philox): {ms:.4f} ms [{card}]")
+    # Kernels 3 and 14 on Philox, the mode of every frame and step: no
+    # uniform planes read, and a Philox4x32-10 call and four uniforms a
+    # candidate (the replay a second call for its fifth uniform).
+    philox_bounds = {
+        "ris": bound(hw * 4 * (17 + 10 * k),
+                     hw * s * (CANDIDATE_OPS + DRAW_OPS)),
+        "ris_replay": bound(hw * 4 * (17 + 7 * k), hw * s * (
+            CANDIDATE_OPS + RACE_OPS + DRAW_OPS + PHILOX_OPS + UNIFORM_OPS)),
+    }
+    for n_, fn_ in (("ris", ris.gen_canonical_samples_ris),
+                    ("ris_replay", ris.gen_canonical_replay)):
+        ms = cuda_ms(torch, lambda: fn_(ctx, scene.lights, scene.num_lights,
+                                        feats, generator=gen), 10)
+        (b_ms, b_by), (u_ms, u_by) = philox_bounds[n_], bounds[n_]
+        print(f"time {n_} (philox): {ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / ms:.2f} of the bound reached; on injected "
+              f"uniforms {timings[n_][0]:.4f} ms, bound {u_ms:.4f} ms "
+              f"({u_by}) [{card}]")
 
     ms = cuda_ms(torch, lambda: nbrsel.neighbour_select(
         sel_gates, n_nbr, radius, True, True, *sel_args, generator=gen,

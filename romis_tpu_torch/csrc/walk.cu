@@ -83,23 +83,10 @@ bvh_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
   if (r >= n_rays) return;
   const long long si = r / n_pix, p = r - si * n_pix;
   const long long base = si * 3 * n_pix + p;
-  const float ox[1] = {o[base]}, oy[1] = {o[base + n_pix]},
-              oz[1] = {o[base + 2 * n_pix]};
-  const float dx[1] = {d[base]}, dy[1] = {d[base + n_pix]},
-              dz[1] = {d[base + 2 * n_pix]};
-  const float tm[1] = {t_max[r]};
-  out[r] = walk_any<1>(nodes, cols, n_tris, ox, oy, oz, dx, dy, dz, tm, 1u)
+  out[r] = walk_any(nodes, ColTris{cols, n_tris}, o[base], o[base + n_pix],
+                    o[base + 2 * n_pix], d[base], d[base + n_pix],
+                    d[base + 2 * n_pix], t_max[r])
                ? 1 : 0;
-}
-
-// Kernel 20's triangles: ops/walk.tri_records, [T, 12] floats a triangle
-// (v0 xyz | e1 xyz | e2 xyz | active | 0 0), read as three float4 from one
-// 48-byte record instead of ten floats from ten [10, T] columns.
-__device__ __forceinline__ Tri load_tri_rec(const float4* __restrict__ recs,
-                                            int i) {
-  const float4 a = __ldg(recs + 3 * i), b = __ldg(recs + 3 * i + 1),
-               c = __ldg(recs + 3 * i + 2);
-  return Tri{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y > 0.0f};
 }
 
 // Kernel 20: one thread per ray, a pixel's S rays in adjacent lanes (ray
@@ -119,27 +106,8 @@ bvh_any_k_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const float ox = o[base], oy = o[base + n_pix], oz = o[base + 2 * n_pix];
   const float dx = d[base], dy = d[base + n_pix], dz = d[base + 2 * n_pix];
   const float tm = t_max[s * n_pix + p];
-  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-  bool occ = false;
-  int cursor = 0;
-  while (cursor >= 0 && !occ) {
-    const Node n = load_node(nodes, cursor);
-    const bool hit = slab_hit(n, ox, oy, oz, ix, iy, iz, tm);
-    const int leaf = n.leaf();
-    if (hit && leaf != 0) {
-      const int first = leaf >> kLeafCountBits;
-      const int count = leaf & ((1 << kLeafCountBits) - 1);
-      for (int j = 0; j < count && !occ; ++j) {
-        float t, u, v;
-        occ = mt_tri(ox, oy, oz, dx, dy, dz, load_tri_rec(recs, first + j), t,
-                     u, v) && t < tm;
-      }
-      cursor = n.miss();
-    } else {
-      cursor = hit ? cursor + 1 : n.miss();
-    }
-  }
-  out[s * n_pix + p] = occ ? 1 : 0;
+  out[s * n_pix + p] =
+      walk_any(nodes, RecTris{recs}, ox, oy, oz, dx, dy, dz, tm) ? 1 : 0;
 }
 
 }  // namespace romis

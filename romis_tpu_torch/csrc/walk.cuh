@@ -1,7 +1,7 @@
 // The threaded BVH walk on the device, shared by kernels 18-20 (walk.cu)
 // and the BVH final shade (kernel 21, shade.cu): the node record, the slab
-// test, the closest-hit walk (18) and the S-ray shared walk walk_any
-// (kernel 19 with S = 1, kernel 21 with its K lanes).
+// test, the closest-hit walk (18) and the one-ray any-hit walk walk_any
+// (kernels 19, 20 and 21, each ray walking alone).
 //
 // The tree is ops/bvh.py's DFS-preorder skip-link layout: node i's record is
 // 8 words, read as two float4 through the read-only cache, bmin xyz | bmax x
@@ -9,7 +9,8 @@
 // count, 0 for an inner node). A box hit descends to i + 1, a miss or a
 // finished leaf follows miss_link, -1 ends the walk: one cursor and no
 // stack. The leaves' triangles are read from the BVH-ordered [10, T]
-// triangle columns (a leaf is contiguous). A 24k-triangle tree is about 1 MB
+// triangle columns or their 48-byte records (a leaf is contiguous in
+// both). A 24k-triangle tree is about 1 MB
 // of records and 1 MB of triangles, which stay in the 50 MB L2.
 //
 // Every step repeats ops/traverse.py's arithmetic operation for operation
@@ -94,64 +95,56 @@ __device__ __forceinline__ void walk_closest(const float4* __restrict__ nodes,
   }
 }
 
-// Occlusion of S rays sharing one walk (ops/traverse.bvh_any for each):
-// bit s of `live` marks ray s as still to trace. A node is entered if any
-// live ray's slab test passes, and a leaf's triangles are tested against
-// exactly the live rays whose own slab test passes there. A parent's box
-// contains its children's, and the slab test is monotone in the box under
-// rounding, so a ray whose test fails at a node fails below it too: each
-// ray tests exactly the leaves its own walk would reach, and its result is
-// the plain traversal's. A hit removes the ray; the walk ends when none is
-// live. Returns the occluded rays' bits.
-template <int S>
-__device__ __forceinline__ unsigned walk_any(
-    const float4* __restrict__ nodes, const float* __restrict__ cols,
-    int n_tris, const float (&ox)[S], const float (&oy)[S],
-    const float (&oz)[S], const float (&dx)[S], const float (&dy)[S],
-    const float (&dz)[S], const float (&tm)[S], unsigned live) {
-  float ix[S], iy[S], iz[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    ix[s] = inv_dir(dx[s]);
-    iy[s] = inv_dir(dy[s]);
-    iz[s] = inv_dir(dz[s]);
+// A leaf's triangles as the walk reads them: from the [10, T] columns
+// (kernels 18 and 19), or from 48-byte records (kernels 20 and 21;
+// ops/walk.tri_records: v0 xyz | e1 xyz | e2 xyz | active | 0 0, three
+// float4 from one record instead of ten floats from ten columns).
+struct ColTris {
+  const float* __restrict__ cols;
+  int n_tris;
+  __device__ __forceinline__ Tri operator()(int i) const {
+    return load_tri(cols + i, n_tris);
   }
-  unsigned occ = 0u;
+};
+
+struct RecTris {
+  const float4* __restrict__ recs;
+  __device__ __forceinline__ Tri operator()(int i) const {
+    const float4 a = __ldg(recs + 3 * i), b = __ldg(recs + 3 * i + 1),
+                 c = __ldg(recs + 3 * i + 2);
+    return Tri{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y > 0.0f};
+  }
+};
+
+// Occlusion of one ray (ops/traverse.bvh_any): the ray walks the tree
+// alone and stops at its first accepted hit. For a fixed t_max the any-hit
+// bool is the OR over the triangles of every leaf whose box (and its
+// ancestors') the ray passes, so it depends neither on the order of the
+// visits nor on where the walk stops: it is the plain traversal's bool.
+template <class Tris>
+__device__ __forceinline__ bool walk_any(const float4* __restrict__ nodes,
+                                         const Tris& tris, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float tm) {
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  bool occ = false;
   int cursor = 0;
-  while (cursor >= 0 && live != 0u) {
+  while (cursor >= 0 && !occ) {
     const Node n = load_node(nodes, cursor);
-    unsigned enter = 0u;
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      if (((live >> s) & 1u) &&
-          slab_hit(n, ox[s], oy[s], oz[s], ix[s], iy[s], iz[s], tm[s]))
-        enter |= 1u << s;
+    const bool hit = slab_hit(n, ox, oy, oz, ix, iy, iz, tm);
     const int leaf = n.leaf();
-    if (enter == 0u) {
-      cursor = n.miss();
-      continue;
-    }
-    if (leaf == 0) {
-      cursor = cursor + 1;
-      continue;
-    }
-    const int first = leaf >> kLeafCountBits;
-    const int count = leaf & ((1 << kLeafCountBits) - 1);
-    for (int j = 0; j < count && enter != 0u; ++j) {
-      const Tri tr = load_tri(cols + first + j, n_tris);
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
+    if (hit && leaf != 0) {
+      const int first = leaf >> kLeafCountBits;
+      const int count = leaf & ((1 << kLeafCountBits) - 1);
+      for (int j = 0; j < count && !occ; ++j) {
         float t, u, v;
-        if (((enter >> s) & 1u) &&
-            mt_tri(ox[s], oy[s], oz[s], dx[s], dy[s], dz[s], tr, t, u, v) &&
-            t < tm[s]) {
-          occ |= 1u << s;
-          enter &= ~(1u << s);
-          live &= ~(1u << s);
-        }
+        occ = mt_tri(ox, oy, oz, dx, dy, dz, tris(first + j), t, u, v) &&
+              t < tm;
       }
+      cursor = n.miss();
+    } else {
+      cursor = hit ? cursor + 1 : n.miss();
     }
-    cursor = n.miss();
   }
   return occ;
 }

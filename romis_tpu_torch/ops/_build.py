@@ -62,8 +62,9 @@ SIGNATURES = {
     "romis_halo_gather": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
     # ct, d, c, h, w, dy, dx, out (zero-filled), stream
     "romis_halo_scatter": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
-    # ct, n_cols, idx, n_idx, n_rows, out, stream
-    "romis_scatter_rows_add": (_P, _I, _P, _LL, _I, _P, _P),
+    # ct, n_cols, idx, n_idx, n_rows, tile (0: the device-memory path),
+    # columns a warp, out, stream
+    "romis_scatter_rows_add": (_P, _I, _P, _LL, _I, _I, _I, _P, _P),
     # the same arguments, then iters, romis, unshaded; out holds iters
     # pack blocks
     "romis_ris_mis": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _I, _I,
@@ -86,8 +87,11 @@ SIGNATURES = {
     # origins, dirs, t_max, n_pix, s, nodes, tri_records [T, 12], out,
     # stream
     "romis_bvh_any_k": (_P, _P, _P, _LL, _I, _P, _P, _P, _P),
-    # ctx18, res, n_pix, k, nodes, tri_cols, n_tris, unshaded, out, stream
-    "romis_final_shade_bvh": (_P, _P, _LL, _I, _P, _P, _I, _I, _P, _P),
+    # position, normal, view_origin, kd, ks, shininess, valid (bool),
+    # sample pos, colour, big_w, n_pix, k, nodes, tri_records [T, 12],
+    # unshaded, out, stream
+    "romis_final_shade_bvh": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                              _I, _P, _P, _I, _P, _P),
     # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,
     # gumbel, unshaded, out, vis_check block, and with unbiased the
     # records [N, 8K] and [N, 16] (scratch), stream

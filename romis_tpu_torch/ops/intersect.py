@@ -132,24 +132,35 @@ def intersect_closest(rays: Rays, geometry, t_max=None):
     return best_t, best_i, best_u, best_v
 
 
-def intersect_any(origins, dirs, t_max, geometry) -> torch.Tensor:
+def intersect_any(origins, dirs, t_max, geometry, counts=None) -> torch.Tensor:
     """Occlusion: True where a triangle lies at t in (0, t_max).
     origins/dirs [..., 3, H, W], t_max [..., H, W] → bool [..., H, W]. BVH
-    geometry: the plain traversal ``ops.traverse.bvh_any``."""
+    geometry: the plain traversal ``ops.traverse.bvh_any``. With a
+    ``counts`` dict on a soup it also records the triangles kernel 6 tests
+    (each ray tests them in order up to its first occluding one):
+    ``counts["tests"]`` [..., H, W] int64."""
     if geometry.bvh is not None:
         from .traverse import bvh_any
 
-        return bvh_any(origins, dirs, t_max, geometry, geometry.bvh)
+        return bvh_any(origins, dirs, t_max, geometry, geometry.bvh, counts)
     ray = _ray_planes(origins, dirs)
     cols = geometry.tri_cols
     n = cols.shape[1]
     block = _pick_block(t_max.numel(), n)
     occluded = torch.zeros(t_max.shape, dtype=torch.bool,
                            device=origins.device)
+    first = None if counts is None else torch.full(
+        t_max.shape, n, dtype=torch.int64, device=origins.device)
     tm = t_max.unsqueeze(-3)
     for base in range(0, n, block):
         t, _, _ = _mt(ray, cols[:, base:base + block, None, None])
-        occluded = occluded | (t < tm).any(dim=-3)
+        hit = t < tm
+        if counts is not None:
+            first = torch.where(~occluded & hit.any(dim=-3),
+                                base + hit.int().argmax(dim=-3), first)
+        occluded = occluded | hit.any(dim=-3)
+    if counts is not None:
+        counts["tests"] = torch.where(occluded, first + 1, n)
     return occluded
 
 

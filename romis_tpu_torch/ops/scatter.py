@@ -3,18 +3,28 @@ row gather (reference ``romis_tpu/ops/pallas_scatter.py``):
 
     d_table[r, c] = sum over p with idx[p] == r of ct[c, p].
 
-Kernel 13 (``csrc/scatter.cu``) replaces the Pallas ``_scatter_kernel``: a
-warp-aggregated, block-private shared-memory accumulator flushed with one
-global atomic per (row, component) per block, instead of the TPU's one-hot
-MXU contraction and its 2048-row cap. ``scatter_rows_add`` launches it for
-CUDA tensors and runs ``scatter_rows_add_plain`` (``index_add_``) for CPU
-tensors. It is the backward of ``ops.rows.gather_rows``.
+Kernel 13 (``csrc/scatter.cu``) replaces the Pallas ``_scatter_kernel``
+(a one-hot MXU contraction capped at 2048 rows). Each warp-group of 32
+indices is classed by its distinct rows (at most ``HELD``, or more), and a
+warp sums up to ``HELD`` rows in registers while its groups stay on them.
+A table that fits in shared memory (``scatter_tile``) is summed by
+persistent blocks, as many an SM as fit: each warp owns ``warp_cols``
+whole columns of its block's table, reads their values from device memory
+a batch ahead, adds with plain read-modify-writes where tags show that no
+other lane adds to the same address, and each block flushes its table
+once with device atomics. A larger table (a scene's BVH triangles) is
+summed in device memory, a many-row group's runs of equal rows by a
+segmented scan. ``scatter_rows_add`` launches it for CUDA tensors and runs
+``scatter_rows_add_plain`` (``index_add_``) for CPU tensors. It is the
+backward of ``ops.rows.gather_rows``.
 
-Bound on the H100: contention on the few rows most pixels share (one
-material row and two triangle rows on the flagship scene), which the
-in-warp and in-block reductions absorb; device memory sees (C + 1) x 4 B
-per index. Float atomics add in no fixed order, so the last bits vary from
-run to run.
+Bound on the H100: device memory, (C + 1) x 4 B per index, once the
+contention on the few rows most pixels share (one material row and a few
+triangle rows on the flagship scene, 3 light rows on the torus field)
+stays in registers and shared memory; what holds the 512 random light
+rows back is each warp's chain of votes, shuffles and read-modify-writes
+(``PERF.md``). Float atomics add in no fixed order, so the last bits vary
+from run to run.
 """
 
 from __future__ import annotations
@@ -22,6 +32,42 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+
+SMEM_BYTES = 232448  # shared memory a block may hold on sm_90 (227 KB)
+TILE = 2048  # indices a tile of kernel 13's shared-memory path
+HELD = 4     # rows a warp of kernel 13 sums in registers (kHeld)
+TAGS = 256   # row tags a warp of kernel 13's tiled path keeps (kTags)
+
+
+def warp_cols(n_cols: int, n_rows: int) -> int:
+    """Columns a warp of kernel 13's tiled path takes. A narrow table
+    (C < 16): 1 (its C warps, several blocks an SM, keep enough loads in
+    flight). A wide one: its groups' classes and held rows serve the
+    warp's columns, whose chains of adds run side by side; 3 where most
+    groups sit on a few rows held in registers (at most 64 rows), 2 where
+    most add to random rows (fewer registers, more warps)."""
+    if n_cols < 16:
+        return 1
+    return 3 if n_rows <= 64 else 2
+
+
+def scatter_smem(n_cols: int, n_rows: int, tile: int = TILE) -> int:
+    """Bytes of shared memory kernel 13's tiled path takes: the table (its
+    row stride n_cols rounded up to odd), two buffers of a tile's indices
+    (rewritten as codes), a record of HELD + 1 ints a group of 32, and
+    TAGS ints for each of its warps (one a ``warp_cols`` columns, at least
+    4 and at most 32)."""
+    tab = (n_rows * (n_cols | 1) + 3) // 4 * 4
+    warps = min(max(-(-n_cols // warp_cols(n_cols, n_rows)), 4), 32)
+    return 4 * (tab + 2 * tile + (HELD + 1) * (tile // 32) + TAGS * warps)
+
+
+def scatter_tile(n_cols: int, n_rows: int) -> int:
+    """Kernel 13's tile for a [n_rows, n_cols] table: ``TILE`` where its
+    shared memory (``scatter_smem``) fits in ``SMEM_BYTES``, else 0 (the
+    device-memory path)."""
+    return TILE if scatter_smem(n_cols, n_rows) <= SMEM_BYTES else 0
 
 
 def _flat(ct: torch.Tensor, idx: torch.Tensor):
@@ -57,7 +103,8 @@ def scatter_rows_add(ct: torch.Tensor, idx: torch.Tensor,
     out = torch.zeros((n_rows, c), dtype=torch.float32, device=ct.device)
     if n and c:
         _build.launch("romis_scatter_rows_add", flat_ct.data_ptr(), c,
-                      flat_idx.data_ptr(), n, n_rows, out.data_ptr())
+                      flat_idx.data_ptr(), n, n_rows, scatter_tile(c, n_rows),
+                      warp_cols(c, n_rows), out.data_ptr())
         scatter_rows_add.launches += 1
     return out
 

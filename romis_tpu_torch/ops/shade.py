@@ -17,12 +17,20 @@ to the first hit; dead rays skip the trace. Device memory sees 18 + 10K
 planes in and 3 out.
 
 Kernel 21 (``final_shade_bvh``, the BVH mode of ``csrc/shade.cu``) replaces
-the Pallas ``_shade_paged_kernel`` for geometry with a BVH: the same pixel,
-its K live shadow rays traced by one shared walk of the tree (kernel 20's
-walk, ``csrc/walk.cuh``). Its plain version is the same
-``final_shade_plain``, whose visibility then walks the tree
-(``ops.traverse.bvh_any``). ``final_shade_fused`` dispatches on
-``geometry.bvh`` (the reference's ``restir.py:571-579``).
+the Pallas ``_shade_paged_kernel`` for geometry with a BVH: a thread per
+(pixel, lane), a pixel's K lanes side by side in one warp, each walking the
+tree alone for its live shadow ray (kernel 20's walk, ``csrc/walk.cuh``,
+on the triangle records ``ops.walk.tri_records``) and computing its lane's
+Phong term (only where the lane is lit); the pixel's first thread sums the
+K terms in lane order, so the colour is kernel 4's arithmetic bit for bit.
+It reads the context's and the reservoirs' own planes (``_fields``), where
+kernel 4 takes them packed into 18 + 10K planes (``_packed``, two copies
+of ~0.3 GB at 1080p). The TPU kernel's one shared walk of a pixel's K rays
+lost to walks per ray on this card (kernel 20). Its plain version is the
+same ``final_shade_plain``, whose visibility then walks the tree
+(``ops.traverse.bvh_any``).
+``final_shade_fused`` dispatches on ``geometry.bvh`` (the reference's
+``restir.py:571-579``).
 
 Both kernels have the unshaded mode of ``Features(enable_shading=False)``:
 each lane's shade is kd, as ``phong_shade`` returns it then, so every lane
@@ -78,7 +86,7 @@ def final_shade_plain(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
 
 def _packed(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
             features: Features):
-    """The kernels' inputs, checked → (ctx [18, H, W], reservoirs
+    """Kernel 4's inputs, checked → (ctx [18, H, W], reservoirs
     [10K, H, W], tri_cols, K, output [3, H, W])."""
     h, w = ctx.depth_t.shape[-2:]
     k = reservoirs.k
@@ -94,22 +102,50 @@ def _packed(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     return cp, rp, cols, k, out
 
 
+def _fields(ctx: ShadeCtx, reservoirs: Reservoirs):
+    """Kernel 21's inputs, each field's own planes (no packed copies),
+    checked and contiguous → ([position, normal, view origin, kd, ks,
+    shininess, valid, sample positions, colours, W], K)."""
+    h, w = ctx.depth_t.shape[-2:]
+    k = reservoirs.k
+    if not 1 <= k <= MAX_LANES:
+        raise ValueError(f"final shade kernel: K={k} outside 1..{MAX_LANES}")
+
+    def plane(name, a, shape, dtype=torch.float32):
+        a = a.detach().expand(shape).contiguous()
+        _build.check(a, name, dtype, shape)
+        return a
+
+    return [plane("position", ctx.position, (3, h, w)),
+            plane("normal", ctx.normal, (3, h, w)),
+            plane("view_origin", ctx.view_origin, (3, h, w)),
+            plane("kd", ctx.kd, (3, h, w)), plane("ks", ctx.ks, (3, h, w)),
+            plane("shininess", ctx.shininess, (h, w)),
+            plane("valid", ctx.valid, (h, w), torch.bool),
+            plane("pos", reservoirs.pos, (k, 3, h, w)),
+            plane("color", reservoirs.color, (k, 3, h, w)),
+            plane("big_w", reservoirs.big_w, (k, h, w))], k
+
+
 def final_shade_bvh(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
                     features: Features) -> torch.Tensor:
-    """Kernel 21: the final shade of geometry with a BVH, its shadow rays
-    traced by the shared K-ray walk → color [3, H, W]. The plain version
-    for CPU tensors."""
+    """Kernel 21: the final shade of geometry with a BVH, each live shadow
+    ray walking the tree alone → color [3, H, W]. The plain version for
+    CPU tensors."""
     if not ctx.position.is_cuda:
         return final_shade_plain(ctx, reservoirs, geometry, features)
-    from .walk import checked_tree
+    from .walk import checked_tree, tri_records
 
-    cp, rp, cols, k, out = _packed(ctx, reservoirs, geometry, features)
-    nodes, _ = checked_tree(geometry)
+    planes, k = _fields(ctx, reservoirs)
+    nodes, cols = checked_tree(geometry)
+    h, w = ctx.depth_t.shape[-2:]
+    out = torch.empty((3, h, w), dtype=torch.float32, device=nodes.device)
     if out.numel():
-        _build.launch("romis_final_shade_bvh", cp.data_ptr(), rp.data_ptr(),
-                      out[0].numel(), k, nodes.data_ptr(), cols.data_ptr(),
-                      cols.shape[1], int(not features.enable_shading),
-                      out.data_ptr())
+        recs = tri_records(cols)
+        _build.launch("romis_final_shade_bvh",
+                      *(a.data_ptr() for a in planes), h * w, k,
+                      nodes.data_ptr(), recs.data_ptr(),
+                      int(not features.enable_shading), out.data_ptr())
         final_shade_bvh.launches += 1
     return out
 

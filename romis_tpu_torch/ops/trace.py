@@ -164,10 +164,11 @@ def closest_hit(rays: Rays, geometry, t_max: float = math.inf):
 closest_hit.launches = 0
 
 
-def any_hit_plain(origins, dirs, t_max, geometry) -> torch.Tensor:
+def any_hit_plain(origins, dirs, t_max, geometry,
+                  counts=None) -> torch.Tensor:
     """The plain version: the block scan ``ops.intersect.intersect_any``
-    (the plain BVH traversal for BVH geometry)."""
-    return intersect_any(origins, dirs, t_max, geometry)
+    (the plain BVH traversal for BVH geometry); ``counts`` as there."""
+    return intersect_any(origins, dirs, t_max, geometry, counts)
 
 
 def any_hit(origins, dirs, t_max, geometry) -> torch.Tensor:

@@ -3,13 +3,26 @@
 one call on one NVIDIA GPU, at the shapes of ``chip_smoke.py``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
-    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 16,11]
+    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 13,21]
 
 Both trees' kernel libraries are built (the parent's with its own
 ``ops/_build.py``, into its own ``build/``), the registers and spill stores
 of the compared kernels are printed from both builds' ``-Xptxas -v`` logs,
 and the kernels are called on the same tensors, in turns (parent, this
-tree, this tree, parent). ``--kernels`` picks the sections (default 16,11):
+tree, this tree, parent). ``--kernels`` picks the sections (default 13,21):
+- 13, the row scatter-add, on every table of the three gradient steps
+  (``chip_smoke.scatter_tables``: the flagship's and the 5x5 torus
+  field's light, material, triangle and attribute-width tables at 1080p)
+  and the 2048-triangle soup's, each beside ``index_add_`` and its bound,
+  both trees' outputs within the plain and float64 tolerances; then the
+  gradient steps ``grad_surrogate``, ``grad_per_pixel`` and ``large_grad``
+  with either tree's kernel 13;
+- 21, the BVH final shade, on the torus field at 1080p at K = 1, 2 and 4,
+  shaded and unshaded, bit-equal to the parent's, kernel 20 at S = 2 on
+  the same rays beside it; kernels 4 (flagship, 2048-triangle soup) and 19
+  bit-equal to the parent's and timed beside them; then the frames
+  ``large_config5``, ``large_animated``, ``large_vischeck`` and the step
+  ``large_grad`` with either tree's kernel 21;
 - 16, neighbour selection, on the flagship's gates: SIMILAR, DISSIMILAR
   and two classes, on Philox and on injected scores, D = 5 and 8 at
   r = 10 (1920x1080) and D = 5 at r = 40 (past the staged window, at
@@ -577,10 +590,11 @@ class ParentPassLib:
         return fn
 
 
-def time_frames(c: Ctx, kernel: str, paths: dict, theirs_ops) -> None:
+def time_frames(c: Ctx, kernel: str, paths: dict, theirs_ops=None,
+                swap=None) -> None:
     """Frames of ``paths`` (name → (scene, camera or a stacked camera
-    path, features)) with this tree's kernels and with ``theirs_ops``, in
-    turns."""
+    path, features)) with this tree's kernels and with ``theirs_ops`` (or
+    ``swap``, as ``time_steps`` takes it), in turns."""
     torch, dev, card, ms = c.torch, c.dev, c.card, c.ms
     from romis_tpu_torch.render import restir
     from romis_tpu_torch.render.animation import render_animation
@@ -591,15 +605,17 @@ def time_frames(c: Ctx, kernel: str, paths: dict, theirs_ops) -> None:
 
         n_frames = cam.look_at.shape[0] if cam.look_at.dim() > 1 else 0
 
-        def frame(ops):
-            if n_frames:  # a stacked camera path: its frames, ms a frame
-                return lambda: render_animation(
-                    g, cam, sc.geometry, sc.lights, sc.num_lights, H, W, f,
-                    ops=ops)
-            return lambda: render_frame(g, cam, sc, H, W, f, ops=ops)
+        def frame(ops, theirs=False):
+            def run():
+                if n_frames:  # a stacked camera path: ms a frame below
+                    return render_animation(g, cam, sc.geometry, sc.lights,
+                                            sc.num_lights, H, W, f, ops=ops)
+                return render_frame(g, cam, sc, H, W, f, ops=ops)
+            return swapped(swap if theirs else None, run)
 
-        new, old = chip_smoke.ab_ms(torch, frame(restir.KERNELS),
-                                    frame(theirs_ops), 5, 5)
+        new, old = chip_smoke.ab_ms(
+            torch, frame(restir.KERNELS),
+            frame(theirs_ops or restir.KERNELS, True), 5, 5)
         if n_frames:
             new, old = new / n_frames, old / n_frames
         print(f"time frame[{path}]: {new:.3f} ms/frame with this tree's "
@@ -823,20 +839,33 @@ def section_14(c: Ctx) -> None:
         ms[f"ris_replay[{noise}]"] = dict(change=new, parent=old,
                                           parent_share=share)
     del uni, plain, mine, theirs, ctx
-    # The gradient steps that run kernel 14, with either tree's, from one
-    # forward frame's state against the light colours x 0.8 (chip_smoke's).
     from dataclasses import replace
 
+    time_steps(c, "14", replace(restir.KERNELS, ris_replay=parent_replay))
+
+
+def time_steps(c: Ctx, kernel: str, theirs_ops=None, swap=None) -> None:
+    """The three gradient steps with this tree's kernels and with the
+    parent's (``theirs_ops``, or ``swap`` = (module, name, the parent's
+    function) set in place of the module's), in turns, from one forward
+    frame's state against the light colours x 0.8 (chip_smoke's)."""
+    torch, dev, card, ms = c.torch, c.dev, c.card, c.ms
+    from dataclasses import replace
+
+    from romis_tpu_torch import Features
     from romis_tpu_torch.diff.grad import (
         extract_params, make_grad_fn, render_with_params,
     )
     from romis_tpu_torch.ops.bvh import with_bvh
-    from romis_tpu_torch.scene.scene import torus_field, torus_field_camera
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        flagship_camera, flagship_scene, torus_field, torus_field_camera,
+    )
 
+    scene = flagship_scene(dev)
     large = torus_field(5, dev)
     large.geometry = with_bvh(large.geometry)
     gf = Features(enable_tone_mapping=False, surrogate_resampling_grad=True)
-    theirs_ops = replace(restir.KERNELS, ris_replay=parent_replay)
     for path, (sc, cam, f) in {
             "grad_surrogate": (scene, flagship_camera(H, W, dev), gf),
             "grad_per_pixel": (scene, flagship_camera(H, W, dev),
@@ -853,20 +882,246 @@ def section_14(c: Ctx) -> None:
                     H, W, f.num_samples_in_reservoir, cam))
             target, _ = render_with_params(dim, g, *a, prev)
 
-        def step(ops):
+        def step(ops, theirs=False):
             fn = make_grad_fn(sc.geometry, sc.lights, sc.num_lights, H, W, f,
                               ops=ops)
             gs = torch.Generator(device=dev).manual_seed(5)
-            return lambda: fn(prm, target, gs, cam, prev)
+            return swapped(swap if theirs else None,
+                           lambda: fn(prm, target, gs, cam, prev))
 
-        new, old = chip_smoke.ab_ms(torch, step(restir.KERNELS),
-                                    step(theirs_ops), 5, 5)
-        print(f"time step[{path}]: {new:.3f} ms with this tree's kernel 14, "
-              f"{old:.3f} with the parent's [{card}]")
+        new, old = chip_smoke.ab_ms(
+            torch, step(restir.KERNELS),
+            step(theirs_ops or restir.KERNELS, True), 5, 5)
+        print(f"time step[{path}]: {new:.3f} ms with this tree's kernel "
+              f"{kernel}, {old:.3f} with the parent's [{card}]")
         ms[f"step[{path}]"] = dict(change=new, parent=old)
 
 
-SECTIONS = {"16": (section_16, ("nbrsel_kernel",)),
+def swapped(swap, fn):
+    """``fn`` run with ``swap`` = (module, name, value) set in place of the
+    module's attribute (no swap: ``fn``)."""
+    if swap is None:
+        return fn
+    mod, name, value = swap
+
+    def run():
+        saved = getattr(mod, name)
+        setattr(mod, name, value)
+        try:
+            return fn()
+        finally:
+            setattr(mod, name, saved)
+    return run
+
+
+def section_13(c: Ctx) -> None:
+    """Kernel 13 on every table of the three gradient steps (and the
+    2048-triangle soup's), each beside index_add_ and held to the plain and
+    float64 sums; then the gradient steps with either tree's kernel 13."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.ops import rows, scatter, trace, walk
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.scene.scene import (
+        build_geometry, flagship_camera, flagship_scene, torus_field,
+        torus_field_camera,
+    )
+
+    scene = flagship_scene(dev)
+    rays = generate_rays(flagship_camera(H, W, dev), H, W)
+    soup = build_geometry([chip_smoke.random_soup(
+        chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    lrays = generate_rays(torus_field_camera(H, W, dev), H, W)
+    k = 2
+    cases = chip_smoke.scatter_tables(
+        torch, gen, scene, trace.closest_hit_plain(rays, scene.geometry)[1], k)
+    cases["soup2048"] = (torch.randn((9, H, W), generator=gen, device=dev),
+                         trace.closest_hit_plain(rays, soup)[1].clamp_min(0),
+                         chip_smoke.SOUP_TRIS)
+    cases.update(chip_smoke.scatter_tables(
+        torch, gen, large, walk.closest_hit_bvh(lrays, large.geometry)[1], k,
+        "torus "))
+
+    def parent_scatter(ct, idx, n_rows):
+        """The parent's kernel 13, called as its wrapper called it."""
+        flat_ct, flat_idx = scatter._flat(ct, idx)
+        flat_ct = flat_ct.contiguous()
+        flat_idx = flat_idx.to(torch.int32).contiguous()
+        out = torch.zeros((n_rows, ct.shape[0]), device=dev)
+        c.call(c.plib.romis_scatter_rows_add, flat_ct.data_ptr(),
+               flat_ct.shape[0], flat_idx.data_ptr(), flat_idx.numel(), n_rows,
+               out.data_ptr())
+        return out
+
+    for label, (ct, idx, n_rows) in cases.items():
+        errs = {}
+        for tree, fn in (("this tree", scatter.scatter_rows_add),
+                         ("parent", parent_scatter)):
+            rel, rel64 = chip_smoke.scatter_rel(torch, fn(ct, idx, n_rows), ct,
+                                                idx, n_rows)
+            chip_smoke.require(rel <= chip_smoke.SCATTER_REL
+                               and rel64 <= chip_smoke.SCATTER_F64_REL,
+                               f"kernel 13 {label} ({tree}): {rel}, {rel64}")
+            errs[tree] = (rel, rel64)
+        new, old = chip_smoke.ab_ms(
+            torch, lambda: scatter.scatter_rows_add(ct, idx, n_rows),
+            lambda: parent_scatter(ct, idx, n_rows), 20, 20)
+        src, flat = ct.reshape(ct.shape[0], -1).t(), idx.reshape(-1).long()
+        lib = chip_smoke.cuda_ms(torch, lambda: torch.zeros(
+            (n_rows, ct.shape[0]), device=dev).index_add_(0, flat, src), 20)
+        b_ms, b_by = chip_smoke.scatter_bound(ct, idx, n_rows)
+        tile = scatter.scatter_tile(ct.shape[0], n_rows)
+        name = f"scatter_rows_add[{label}]"
+        print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms parent "
+              f"({old / new:.2f}x), index_add_ {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {n_rows} rows x {ct.shape[0]}, "
+              f"{idx.numel()} indices, tile {tile}; max err / sum|ct| vs "
+              f"plain, vs float64: {errs} [{card}]")
+        ms[name] = dict(change=new, parent=old, index_add=lib, bound=b_ms,
+                        tile=tile, rows=n_rows, cols=ct.shape[0],
+                        indices=idx.numel())
+        del src, flat
+    del cases
+    time_steps(c, "13", swap=(rows, "scatter_rows_add", parent_scatter))
+
+
+def section_21(c: Ctx) -> None:
+    """Kernel 21 on the 5x5 torus field at K = 1, 2 and 4, shaded and
+    unshaded, bit-equal to the parent's, with kernel 20 at S = 2 on the
+    same rays beside it; kernels 4 and 19 (unchanged designs) bit-equal
+    to the parent's and timed beside them; then the large frames and
+    ``large_grad`` with either tree's kernel 21."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays, make_camera
+    from romis_tpu_torch.ops import ris, shade, walk
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.ops.wrs import visibility
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.render.animation import interpolate_cameras
+    from romis_tpu_torch.scene.scene import (
+        build_geometry, flagship_camera, flagship_scene, torus_field,
+        torus_field_camera,
+    )
+
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    lgeo = large.geometry
+    _, lctx = restir.trace_primary(generate_rays(torus_field_camera(
+        H, W, dev), H, W), lgeo, Features(), restir.KERNELS)
+
+    def parent_bvh_shade(ctx, res, geometry, features):
+        """The parent's kernel 21 (its [10, T] columns), called as its
+        wrapper called it."""
+        cp, rp, cols, k_, out = shade._packed(ctx, res, geometry, features)
+        nodes, _ = walk.checked_tree(geometry)
+        c.call(c.plib.romis_final_shade_bvh, cp.data_ptr(), rp.data_ptr(),
+               out[0].numel(), k_, nodes.data_ptr(), cols.data_ptr(),
+               cols.shape[1], int(not features.enable_shading),
+               out.data_ptr())
+        return out
+
+    def compare(name, mine, theirs):
+        chip_smoke.require(torch.equal(mine(), theirs()),
+                           f"{name}: outputs differ from the parent's")
+        new, old = chip_smoke.ab_ms(torch, mine, theirs, 10, 10)
+        return new, old
+
+    for k in (1, 2, 4):
+        f = Features(num_samples_in_reservoir=k)
+        res = ris.gen_canonical_samples_ris(lctx, large.lights,
+                                            large.num_lights, f, generator=gen)
+        for mode, ff in (("shaded", f), ("unshaded",
+                                         f.replace(enable_shading=False))):
+            name = f"bvh_final_shade[K={k}, {mode}]"
+            new, old = compare(
+                name, lambda: shade.final_shade_bvh(lctx, res, lgeo, ff),
+                lambda: parent_bvh_shade(lctx, res, lgeo, ff))
+            row = dict(change=new, parent=old)
+            line = (f"time {name}: {new:.4f} ms this tree, {old:.4f} ms "
+                    f"parent ({old / new:.2f}x); bit-equal to the parent's")
+            if k == 2 and mode == "shaded":
+                got = {}
+
+                def grab(o, d, tm, _g):
+                    got["rays"] = (o.contiguous(),
+                                   d.expand(o.shape).contiguous(),
+                                   tm.contiguous())
+                    return torch.zeros(tm.shape, dtype=torch.bool,
+                                       device=dev)
+
+                visibility(lctx.position, res.pos, lgeo, grab)
+                k20 = chip_smoke.cuda_ms(torch, lambda: walk.any_hit_bvh_k(
+                    *got["rays"], lgeo), 10)
+                row.update(kernel20=k20)
+                line += (f"; kernel 20 on the same S = 2 rays (every lane, "
+                         f"dead ones too) {k20:.4f} ms")
+                del got
+            print(line + f" [{card}]")
+            ms[name] = row
+        del res
+
+    # Kernels 4 and 19 keep their designs: bit-equal, timed beside the
+    # parent's.
+    f = Features()
+    scene = flagship_scene(dev)
+    soup = build_geometry([chip_smoke.random_soup(
+        chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)
+    parent_shade = parent_launch(c, shade.final_shade_fused)
+    parent_any = parent_launch(c, walk.any_hit_bvh)
+    for label, sc_geo, cam in (("flagship", scene.geometry,
+                                flagship_camera(H, W, dev)),
+                               ("soup2048", soup, flagship_camera(H, W, dev))):
+        _, ctx = restir.trace_primary(generate_rays(cam, H, W), sc_geo, f,
+                                      restir.KERNELS)
+        res = ris.gen_canonical_samples_ris(ctx, scene.lights,
+                                            scene.num_lights, f, generator=gen)
+        name = f"final_shade[{label}]"
+        new, old = compare(name, lambda: shade.final_shade_fused(
+            ctx, res, sc_geo, f), lambda: parent_shade(ctx, res, sc_geo, f))
+        print(f"time {name} (kernel 4): {new:.4f} ms this tree, {old:.4f} ms "
+              f"parent ({new / old:.3f} of it); bit-equal [{card}]")
+        ms[name] = dict(change=new, parent=old)
+        del ctx, res
+    res = ris.gen_canonical_samples_ris(lctx, large.lights, large.num_lights,
+                                        f, generator=gen)
+    to = res.pos - lctx.position
+    dist = torch.linalg.vector_norm(to, dim=-3).clamp_min(1e-20)
+    d = to / dist[:, None]
+    o = lctx.position + 1e-3 * d
+    tm = torch.linalg.vector_norm(res.pos - o, dim=-3)
+    name = "bvh_any_hit[1 plane]"
+    new, old = compare(name, lambda: walk.any_hit_bvh(o[:1], d[:1], tm[:1],
+                                                      lgeo),
+                       lambda: parent_any(o[:1], d[:1], tm[:1], lgeo))
+    print(f"time {name} (kernel 19): {new:.4f} ms this tree, {old:.4f} ms "
+          f"parent ({new / old:.3f} of it); bit-equal [{card}]")
+    ms[name] = dict(change=new, parent=old)
+    del res, to, dist, d, o, tm
+
+    # The frames and the step that run kernel 21, with either tree's.
+    lcam = torus_field_camera(H, W, dev)
+    lcam_path = interpolate_cameras(lcam, make_camera(
+        look_at=(0, 0, 0), rotation_deg=(
+            25.0, 30.0 + chip_smoke.PAN_DEG * 3, 0.0), distance=11.0,
+        fov_deg=50.0, resolution=(H, W), device=dev), 4)
+    vfeats = Features(unbiased_combination=True,
+                      spatial_reuse_visibility_check=True)
+    time_frames(c, "21", {
+        "large_config5": (large, lcam, Features()),
+        "large_animated": (large, lcam_path, Features(
+            temporal_reprojection=True, unbiased_combination=True,
+            initial_samples_visibility_check=True)),
+        "large_vischeck": (large, lcam, vfeats),
+    }, swap=(shade, "final_shade_bvh", parent_bvh_shade))
+    time_steps(c, "21", swap=(shade, "final_shade_bvh", parent_bvh_shade))
+
+
+SECTIONS = {"13": (section_13, ("scatter_rows",)),
+            "21": (section_21, ("final_shade", "bvh_any_kernel")),
+            "16": (section_16, ("nbrsel_kernel",)),
             "14": (section_14, ("ris_kernel",)),
             "11": (section_11, ("spatial_pass_kernel",
                                 "spatial_unbiased_kernel",
@@ -883,9 +1138,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="root of the other tree (e.g. build/parent)")
-    ap.add_argument("--kernels", default="16,11",
-                    help="comma-separated sections: 16, 11, 14, 17, 7, 10, "
-                    "20")
+    ap.add_argument("--kernels", default="13,21",
+                    help="comma-separated sections: 13, 21, 16, 11, 14, "
+                    "17, 7, 10, 20")
     args = ap.parse_args()
     picked = args.kernels.split(",")
     if not torch.cuda.is_available():
