@@ -68,7 +68,13 @@ GPU.
    mode (Features(enable_shading=False)) of every kernel that evaluates
    Phong: the RIS, replay and MIS RIS, both spatial passes, the sweep in
    its four modes, the final shade and its BVH mode, at 1080p with the
-   tolerances above.
+   tolerances above. Kernel 4 (the final shade on a soup, its shadow rays
+   walking the soup culled as kernel 7 culls it) is also held to the
+   plain any-hit bool for bool on every lane it traces (its occlusion
+   output): on the flagship and the 2048-soup, on the one-torus soup at
+   1080p at K = 1, 2 and 4, shaded and unshaded, and on random, grazing,
+   edge-on and edge-crossing shadow rays (``hard_z_rays`` made receivers
+   and samples, ``hard_shade_inputs``) of the torus soup and the 2048-soup.
    Then slice 7's two kernels, which the reference reaches on no frame
    path, through their op-level entries: kernel 8 (the Plücker any-hit,
    ``ops.trace.any_hit_plucker``) against its plain version, the same bool
@@ -200,7 +206,19 @@ GPU.
    uniforms a candidate, the replay a second call for its fifth uniform);
    the table's rows keep their injected-uniform times and bounds. Kernel
    13 is timed on every table of ``scatter_tables``, each beside its bound
-   and ``index_add_`` (the table's row is the light table).
+   and ``index_add_`` (the table's row is the light table). Kernel 4's
+   bound counts the planes it reads (16 float planes and a byte plane of
+   context, 7K of reservoir) and writes (3); on the one-torus soup (the
+   vischeck_torus frame's receivers, K = 2) it is timed beside the culled
+   walk's bound (the box-alone walk's tests on the lanes it traces,
+   ``ops.trace.any_hit_culled`` with ``guard=False``; the guard's
+   operations printed apart) and the full scan's (the plain any-hit's
+   tests up to each ray's first occluder). Kernel 1 is timed on the same
+   soup's primary rays beside its bound. Kernel 5's bound counts what its
+   Philox stream needs (``pass_work``: the offsets drawn as the kernel
+   draws them, the races of the neighbours that pass the gates, a missed
+   receiver's one draw) and the planes in and out; its records' bytes are
+   printed apart. Both are printed beside their earlier designs' bounds.
 
 Any failed check raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table.
@@ -626,6 +644,141 @@ def hard_z_rays(rng, kind, cols, r1=3, k=2, h=6, w=16):
     return o.astype(np.float32), t.astype(np.float32)
 
 
+def hard_shade_inputs(torch, position, targets):
+    """Receivers at ``position`` [3, H, W] and K samples at ``targets``
+    [K, 3, H, W] (``hard_z_rays``' origin and targets) → (ShadeCtx,
+    Reservoirs) for the final shade: every receiver valid and facing its
+    first sample, unit colours and W, its shadow rays the segments' own."""
+    from romis_tpu_torch.core.types import Reservoirs, ShadeCtx
+
+    h, w = position.shape[-2:]
+    k = targets.shape[0]
+    to = targets[0] - position
+    nrm = to / torch.linalg.vector_norm(to, dim=0).clamp_min(1e-20)
+    one = torch.ones((h, w), device=position.device)
+    ctx = ShadeCtx(valid=one > 0, position=position.contiguous(), normal=nrm,
+                   view_origin=position + nrm, kd=one.expand(3, h, w) * 0.5,
+                   ks=one.expand(3, h, w) * 0.2, shininess=one * 10.0,
+                   geom_id=torch.zeros((h, w), dtype=torch.int32,
+                                       device=position.device),
+                   depth_t=one)
+    lane = torch.ones((k, h, w), device=position.device)
+    res = Reservoirs(pos=targets.contiguous(),
+                     color=torch.ones((k, 3, h, w), device=position.device),
+                     w_sum=lane, m=lane, big_w=lane, chosen_w=lane)
+    return ctx, res
+
+
+def sector_bytes(torch, mask, elem: int = 4) -> int:
+    """Bytes of the 32-byte sectors that a read or write of ``mask``'s True
+    elements touches: mask [..., H, W] over planes of ``elem``-byte values,
+    each leading index a plane of its own (planes 32-byte aligned, as at
+    1080p)."""
+    per = 32 // elem
+    m = mask.reshape(-1, mask.shape[-2] * mask.shape[-1])
+    pad = (-m.shape[1]) % per
+    if pad:
+        m = torch.cat([m, m.new_zeros((m.shape[0], pad))], dim=1)
+    return int(m.reshape(m.shape[0], -1, per).any(-1).sum().item()) * 32
+
+
+def shade_bytes(torch, ctx, res, occluded, shaded: bool) -> int:
+    """The bytes the final shade (kernels 4 and 21) needs on these inputs,
+    in 32-byte sectors: valid (a byte plane), W and the colour out at every
+    pixel; position and sample position where a lane may be live (W != 0,
+    and, shaded, a valid receiver), the normal there too when shaded (the
+    Phong gate); the colour of each lit lane (live, facing the light when
+    shaded, not ``occluded`` [K, H, W]) and the receiver's material where
+    one is (shaded: view, kd, ks, shininess; unshaded: kd alone)."""
+    every = torch.ones_like(ctx.valid)
+    to = res.pos - ctx.position[None]
+    dist = torch.sqrt(torch.clamp_min((to * to).sum(dim=-3), 1e-24))
+    dot_nl = (ctx.normal[None] * to).sum(dim=-3) / dist.clamp_min(1e-20)
+    live = res.big_w != 0
+    if shaded:
+        live = live & ctx.valid[None]
+    lit = live & ~occluded & ((dot_nl >= 0) if shaded else True)
+    any_live, any_lit = live.any(0), lit.any(0)
+    n = (sector_bytes(torch, every, 1) + res.k * sector_bytes(torch, every)
+         + 3 * sector_bytes(torch, every)
+         + 3 * sector_bytes(torch, any_live) + 3 * sector_bytes(torch, live))
+    if shaded:
+        return (n + 3 * sector_bytes(torch, any_live)
+                + 3 * sector_bytes(torch, lit)
+                + 10 * sector_bytes(torch, any_lit))
+    return n + 3 * sector_bytes(torch, any_lit)
+
+
+def pass_work(torch, spatial, ctx, gates, key, n_nbr: int, radius: int,
+              k: int, shaded: bool):
+    """Kernel 5's operations on its Philox stream ``key`` (pass 0) → (ops,
+    the (stream, lane) races it runs). Its offsets drawn as the kernel
+    draws them (Philox4x32-10 at counter (2s, pixel, pixel >> 32, tag),
+    its first two words), the gates of the neighbours they reach: a
+    receiver races stream 0, each neighbour that passes the gates and
+    itself, each race a Gumbel score, a p-hat and a logarithm a lane, and
+    divides W a lane; every stream draws a Philox call (two at K > 2) and
+    two uniforms. A missed receiver, shaded, draws stream 0 alone. Also
+    the bytes the pass needs on this stream, in 32-byte sectors
+    (``sector_bytes``): its 10K planes out; of the receiver, valid
+    everywhere, normal and depth where valid (the gates), kd where it races
+    (valid, or unshaded), position, view, ks and shininess where valid
+    (shaded); the neighbours' gates wherever a valid receiver's
+    neighbours fall; a lane's sample and colour, m and W at stream 0's
+    neighbour (a race's fallback), at each neighbour that passes the gates
+    and at a racing receiver, m and W also at a missed one (shaded) →
+    (ops, races, bytes)."""
+    h, w = ctx.depth_t.shape
+    dev = ctx.depth_t.device
+    p = torch.arange(h * w, dtype=torch.int64, device=dev)
+    kk = key.to(torch.int64)
+    k0, k1 = kk & 0xFFFFFFFF, (kk >> 32) & 0xFFFFFFFF
+    tag = torch.full_like(p, spatial._TAG_BIASED << 16)
+    offs = []
+    for s_ in range(n_nbr):
+        x, y, _, _ = spatial.philox4x32_10(
+            (torch.full_like(p, 2 * s_), p & 0xFFFFFFFF, p >> 32, tag), k0, k1)
+        offs.append(torch.stack([spatial._offset_from(x, radius),
+                                 spatial._offset_from(y, radius)]))
+    dy, dx = spatial.clamped_offsets(
+        torch.stack(offs, 1).reshape(2, n_nbr, h, w), h, w)
+    g = spatial.halo_offset_gather_plain(gates, dy, dx)  # [R, 5, H, W]
+    depth_ok = (1.0 - g[:, 3] / ctx.depth_t.clamp_min(1e-20)).abs() <= 0.1
+    normal_ok = (g[:, 0] * ctx.normal[0] + g[:, 1] * ctx.normal[1]
+                 + g[:, 2] * ctx.normal[2]) >= 0.90630778703
+    passed = depth_ok & normal_ok & (g[:, 4] > 0.5) & ctx.valid
+    full = ctx.valid if shaded else torch.ones_like(ctx.valid)
+    n_full = int(full.sum().item())
+    raced = int(full.sum().item()) * 2 + int(passed[1:].sum().item())
+    draw = PHILOX_OPS * (1 if k <= 2 else 2) + 2 * UNIFORM_OPS
+    ops = (n_full * (n_nbr + 1) * draw + (h * w - n_full) * draw
+           + raced * k * (GUMBEL_OPS + PHONG_OPS + LOG_OPS)
+           + n_full * k * DIV_OPS)
+    q = ((torch.arange(h, device=dev)[:, None] + dy) * w
+         + torch.arange(w, device=dev)[None, :] + dx).reshape(n_nbr, -1)
+
+    def at(sel):  # the pixels q[sel] as a [H, W] mask
+        m = torch.zeros(h * w, dtype=torch.bool, device=dev)
+        m[q[sel.reshape(n_nbr, -1)]] = True
+        return m.reshape(h, w)
+
+    every, valid = torch.ones_like(ctx.valid), ctx.valid
+    nbr_of_valid = at(valid[None].expand(n_nbr, h, w))
+    first = torch.zeros_like(passed)
+    if n_nbr:
+        first[0] = True
+    res_at = at(passed | first) | full
+    mw_at = res_at | (~full if shaded else torch.zeros_like(full))
+    n_bytes = (10 * k * sector_bytes(torch, every)
+               + sector_bytes(torch, every) + 4 * sector_bytes(torch, valid)
+               + 3 * sector_bytes(torch, full)
+               + (10 * sector_bytes(torch, valid) if shaded else 0)
+               + 5 * sector_bytes(torch, nbr_of_valid)
+               + 6 * k * sector_bytes(torch, res_at)
+               + 2 * k * sector_bytes(torch, mw_at))
+    return ops, raced, n_bytes
+
+
 def filtered_race(gates, d: int, radius: int, two_classes: bool,
                   prefer_similar: bool, same_geom: bool, depth_frac: float,
                   normal_cos: float, keys, scores, counts: dict):
@@ -815,7 +968,7 @@ def main() -> None:
     wrappers = {"closest_hit": trace.closest_hit,
                 "gather_rows": rows.gather_rows,
                 "ris": ris.gen_canonical_samples_ris,
-                "final_shade": shade.final_shade_fused,
+                "final_shade": shade.final_shade_soup,
                 "spatial_pass": spatial.spatial_pass_fused,
                 "spatial_pass_unbiased": spatial.spatial_pass_unbiased_fused,
                 "halo_gather": spatial.halo_offset_gather,
@@ -940,9 +1093,33 @@ def main() -> None:
         require(agree >= MIN_AGREE, f"final shade {label}: agree {agree}")
         return err[:, ok].max().item()
 
+    def check_soup_shade(c, res, geometry, label, f=feats):
+        """Kernel 4 against its plain version: the colour as
+        ``check_shade`` holds it, and each lane's occlusion bool equal to
+        the plain any-hit's on every lane it traces (False elsewhere)."""
+        o_k, occ_k = shade.final_shade_soup(c, res, geometry, f,
+                                            occlusion=True)
+        occ_p = shade.shadow_occlusion_plain(c, res, geometry, f)
+        torch.cuda.synchronize()
+        same = torch.equal(occ_k, occ_p)
+        print(f"check final_shade[{label}] occlusion: lanes {occ_p.numel()},"
+              f" occluded {occ_p.float().mean().item():.4f}, the plain "
+              f"any-hit's bool on every lane {same}")
+        require(same, f"final shade {label}: kernel 4's occlusion differs "
+                "from the plain any-hit's")
+        del o_k, occ_k, occ_p
+        return check_shade(c, res, geometry, label, f)
+
+    # An empty soup (no triangle: every lane visible) takes the direct
+    # loop over nothing.
+    empty = replace(
+        scene.geometry, tri_cols=scene.geometry.tri_cols[:, :0].contiguous(),
+        zcount=None)
     errs["final_shade"] = max(
-        check_shade(ctx, res_main, scene.geometry, "flagship"),
-        check_shade(soup_ctx, res_soup, soup, "soup2048"))
+        check_soup_shade(ctx, res_main, scene.geometry, "flagship"),
+        check_soup_shade(soup_ctx, res_soup, soup, "soup2048"),
+        check_soup_shade(ctx, res_main, empty, "empty soup"))
+    del empty
 
     # Any-hit: the shadow rays of the initial visibility check (origins
     # pushed toward the RIS winners, t_max the remaining distance).
@@ -1565,6 +1742,7 @@ def main() -> None:
         require(same >= MIN_AGREE, f"{label}: agree {same}")
         require(bit or not exact, f"{label}: not the plain bool on every "
                 f"ray")
+        cnt["occluded"] = occ_p
         return 1.0 - same, cnt
 
     lshadow = vis_rays(lctx.position, lres.pos)  # the K = 2 lanes
@@ -1817,7 +1995,7 @@ def main() -> None:
     for label, (kernel_fn, plain_fn) in pass_pair(ufeats).items():
         errs[label] = max(errs[label], check_pass(f"{label} unshaded",
                                                   kernel_fn, plain_fn))
-    errs["final_shade"] = max(errs["final_shade"], check_shade(
+    errs["final_shade"] = max(errs["final_shade"], check_soup_shade(
         ctx, res_u, scene.geometry, "flagship unshaded", ufeats))
     errs["bvh_final_shade"] = max(errs["bvh_final_shade"], check_shade(
         lctx, lres, lgeo, "torus5x5 BVH unshaded", ufeats))
@@ -1857,6 +2035,30 @@ def main() -> None:
     tcam = make_camera(resolution=(H, W), device=dev, **TORUS_CAM)
     _, tctx = restir.trace_primary(generate_rays(tcam, H, W),
                                    torus1.geometry, feats, restir.KERNELS)
+    # Kernel 4 on the one-torus soup (vischeck_torus's receivers, its
+    # culled walk over 61 blocks) at K = 1, 2 and 4, shaded and unshaded,
+    # and on shadow rays where its cull's guard decides: hard_z_rays'
+    # origins made receivers and their targets samples (unshaded: every
+    # lane with W != 0 traces), on the torus soup and the 2048-soup.
+    for k_ in (1, 2, 4):
+        f_ = Features(num_samples_in_reservoir=k_)
+        res_t = ris.gen_canonical_samples_ris(
+            tctx, torus1.lights, torus1.num_lights, f_, generator=gen)
+        for ff in (f_, f_.replace(enable_shading=False)):
+            errs["final_shade"] = max(errs["final_shade"], check_soup_shade(
+                tctx, res_t, torus1.geometry, f"torus soup, K={k_}, "
+                + ("shaded" if ff.enable_shading else "unshaded"), ff))
+        del res_t
+    hard_f = feats.replace(enable_shading=False)
+    for g_label, g_ in (("torus soup", torus1.geometry),
+                        ("soup2048", soup)):
+        cols_np = g_.tri_cols.cpu().numpy()
+        for i, kind in enumerate(HARD_RAY_KINDS):
+            o_, t_ = (torch.from_numpy(a).to(dev) for a in hard_z_rays(
+                np.random.default_rng(70 + i), kind, cols_np, 1, k, 64, 128))
+            c_, r_ = hard_shade_inputs(torch, o_[0], t_)
+            errs["final_shade"] = max(errs["final_shade"], check_soup_shade(
+                c_, r_, g_, f"{g_label}, {kind} shadow rays", hard_f))
     tshadow = shadow_rays(tctx, ris.gen_canonical_samples_ris(
         tctx, torus1.lights, torus1.num_lights, feats, generator=gen))
     sshadow = shadow_rays(soup_ctx_s, gen_canonical_samples_plain(
@@ -2510,6 +2712,8 @@ def main() -> None:
     uni = torch.rand((sk, 4, k, H, W), generator=gen, device=dev)
     o, d, tm = shadow_rays(ctx, res_main)
     key = spatial.philox_key(gen)
+    _, fctx = restir.trace_primary(rays, scene.geometry, feats,
+                                   restir.KERNELS)
     timings = {
         "closest_hit": ab_ms(
             torch, lambda: trace.closest_hit(rays, scene.geometry),
@@ -2524,10 +2728,13 @@ def main() -> None:
             lambda: gen_canonical_samples_plain(
                 ctx, scene.lights, scene.num_lights, feats, uniforms=uni),
             10, 3),
+        # On the receivers as a frame gives them (the kernels' trace: each
+        # field its own contiguous planes; the plain trace's are strided
+        # views, which the wrapper would copy).
         "final_shade": ab_ms(
-            torch, lambda: shade.final_shade_fused(ctx, res_main,
+            torch, lambda: shade.final_shade_fused(fctx, res_main,
                                                    scene.geometry, feats),
-            lambda: shade.final_shade_plain(ctx, res_main, scene.geometry,
+            lambda: shade.final_shade_plain(fctx, res_main, scene.geometry,
                                             feats), 20, 5),
         "any_hit": ab_ms(
             torch, lambda: trace.any_hit(o, d, tm, scene.geometry),
@@ -2763,6 +2970,70 @@ def main() -> None:
           f"{b6[0]:.4f} ms ({b6[1]}); kernel 6 {m6_torus:.4f} ms, "
           f"{m6_torus / b6[0]:.2f}x the bound [{card}]")
     del occ6, tests6, cnt6
+    # Kernel 4 on the one-torus soup (vischeck_torus's receivers, K = 2),
+    # beside two bounds: the culled walk's tests on the lanes it traces
+    # (the box alone deciding, as kernel 7's row counts; the guard's
+    # operations printed apart) and the full scan's, the plain any-hit's
+    # tests up to each ray's first occluder; the culled model's bool held
+    # to the plain any-hit's on every traced ray.
+    tres4 = ris.gen_canonical_samples_ris(tctx, torus1.lights,
+                                          torus1.num_lights, feats,
+                                          generator=gen)
+    ms4 = ab_ms(torch, lambda: shade.final_shade_soup(tctx, tres4, tgeo,
+                                                      feats),
+                lambda: shade.final_shade_plain(tctx, tres4, tgeo, feats),
+                10, 1)
+    rays4 = {}
+
+    def grab4(o_, d_, tm_, _g):
+        rays4["r"] = (o_, d_.expand(o_.shape), tm_)
+        return torch.ones(tm_.shape, dtype=torch.bool, device=dev)
+
+    live4 = shade.shadow_occlusion_plain(tctx, tres4, tgeo, feats, grab4)
+    o4, d4, tm4 = (a.movedim(-3, 0)[:, live4][:, None] if a.dim() > 3
+                   else a[live4][None] for a in rays4["r"])
+    cb4, cg4, cp4 = {}, {}, {}
+    occ4 = trace.any_hit_plain(o4, d4, tm4, tgeo, cp4)
+    require(torch.equal(trace.any_hit_culled(o4, d4, tm4, tgeo, cg4), occ4),
+            "kernel 4's culled model and the plain any-hit differ on the "
+            "torus soup")
+    trace.any_hit_culled(o4, d4, tm4, tgeo, cb4, guard=False)
+    n4 = int(live4.sum().item())
+    lit4 = n4 - int(occ4.sum().item())
+    occ4_all = torch.zeros_like(live4)
+    occ4_all[live4] = occ4[0]
+    bytes4 = shade_bytes(torch, tctx, tres4, occ4_all, feats.enable_shading)
+    rest4 = n4 * (SHADOW_OPS + 3 * (SFU_OPS + 1)) + lit4 * PHONG_OPS
+    b4c = bound(bytes4, cb4["box"].sum().item() * BOX_OPS
+                + cb4["tri"].sum().item() * MT_OPS + rest4)
+    b4f = bound(bytes4, cp4["tests"].sum().item() * MT_OPS + rest4)
+    guard4 = (cg4["guard"].sum().item() * GUARD_OPS
+              + cg4["guard_cone"].sum().item() * GUARD_CONE_OPS
+              + cg4["guard_tri"].sum().item() * GUARD_TRI_OPS)
+    print(f"time final_shade[torus soup 1080p, K=2, 970 triangles]: "
+          f"{ms4[0]:.4f} ms kernel, {ms4[1]:.4f} ms plain; bound of the "
+          f"culled walk {b4c[0]:.4f} ms ({b4c[1]}; per traced ray "
+          f"{cb4['box'].float().mean().item():.1f} box and "
+          f"{cb4['tri'].float().mean().item():.1f} triangle tests, "
+          f"{n4} rays traced), {ms4[0] / b4c[0]:.2f}x it; bound of the "
+          f"full scan {b4f[0]:.4f} ms ({b4f[1]}; "
+          f"{cp4['tests'].float().mean().item():.1f} tests a ray up to its "
+          f"first occluder); the guard alone (not in the bound) "
+          f"{guard4:.4e} operations, {1e3 * guard4 / FP32_OPS_S:.4f} ms at "
+          f"the float peak [{card}]")
+    del tres4, live4, rays4, o4, d4, tm4, occ4, occ4_all, cb4, cg4, cp4
+    # Kernel 1 on the same soup's primary rays (vischeck_torus's), beside
+    # its bound: every ray tests every triangle (the closest hit).
+    trays = generate_rays(tcam, H, W)
+    ms1 = ab_ms(torch, lambda: trace.closest_hit(trays, tgeo),
+                lambda: trace.closest_hit_plain(trays, tgeo), 20, 1)
+    n_t1 = tgeo.tri_cols.shape[1]
+    b1 = bound(H * W * 10 * 4 + n_t1 * 40, H * W * n_t1 * MT_OPS)
+    print(f"time closest_hit[torus soup 1080p, {n_t1} triangles, "
+          f"vischeck_torus's primary rays]: {ms1[0]:.4f} ms kernel, "
+          f"{ms1[1]:.4f} ms plain, bound {b1[0]:.4f} ms ({b1[1]}), "
+          f"{ms1[0] / b1[0]:.2f}x the bound [{card}]")
+    del trays
     # Kernel 12 on config 5's pack: its Philox stream (the plain version
     # draws the same offsets with neighbour_offsets), and injected offsets.
     timings["neighbour_gather"] = ab_ms(
@@ -2841,20 +3112,36 @@ def main() -> None:
     n_up = d1 * (d1 + 1) // 2
     live_lanes = ((res_main.big_w != 0) & ctx.valid[None]).sum().item()
     live_rays = ctx.valid.sum().item() * d1 * k  # at most: every sample
+    cnt_f = {}
+    trace.any_hit_plain(o, d, tm, scene.geometry, cnt_f)
+    shade_live = shade.shadow_occlusion_plain(
+        ctx, res_main, scene.geometry, feats,
+        lambda o_, d_, tm_, g_: torch.ones(tm_.shape, dtype=torch.bool,
+                                           device=dev))
+    shade_ops = (cnt_f["tests"][shade_live].sum().item() * MT_OPS
+                 + live_lanes * (SHADOW_OPS + PHONG_OPS))
+    bytes_f = shade_bytes(torch, fctx, res_main, shade.shadow_occlusion_plain(
+        fctx, res_main, scene.geometry, feats), feats.enable_shading)
+    pass_ops, pass_raced, pass_bytes = pass_work(
+        torch, spatial, ctx, spatial.pack_gates(ctx), key, n_nbr, radius, k,
+        feats.enable_shading)
+    del cnt_f, shade_live
     bounds = {
         "closest_hit": bound(hw * 10 * 4 + n_t * 40, hw * n_t * MT_OPS),
         "gather_rows": bound(hw * 4 * (1 + attr.shape[1]) + attr.numel() * 4,
                              0),
         "ris": bound(hw * 4 * (17 + sk * 4 * k + 10 * k), hw * s
                      * CANDIDATE_OPS),  # on injected uniforms
-        "final_shade": bound(hw * 4 * (18 + 10 * k + 3),
-                             live_lanes * (n_t * MT_OPS + SHADOW_OPS
-                                           + PHONG_OPS)),
+        # Kernel 4: the bytes this frame's data needs (shade_bytes); the
+        # flagship's rays test its 2 triangles up to the first hit.
+        "final_shade": bound(bytes_f, shade_ops),
         "any_hit": bound(o.shape[0] * hw * 29, o.shape[0] * hw * n_t
                          * MT_OPS),
         "halo_gather": bound(hw * 4 * (2 * halo_planes.shape[0] + 2), 0),
-        "spatial_pass": bound(hw * 4 * (20 * k + 5 + 18), hw * (n_nbr + 1)
-                              * (STREAM_OPS + k * (PHONG_OPS + LOG_OPS))),
+        # Kernel 5 on this run's Philox stream: the operations and the
+        # bytes its data needs (pass_work); the records' traffic is
+        # printed apart.
+        "spatial_pass": bound(pass_bytes, pass_ops),
         # The race's (R+1)·K and the Z sweep's R·K target PDFs and a unit
         # view a pixel; the planes in and out (the records' traffic is on
         # the sector line below).
@@ -2893,7 +3180,7 @@ def main() -> None:
     # three reciprocals; rays in and results out (40 B a primary ray:
     # 6 floats in, t, tri, u, v out; 29 B a shadow ray). The final shade:
     # the walk's tests of its live lanes (those it traces) and each live
-    # lane's set-up and Phong.
+    # lane's set-up and Phong; the fields' planes it reads, as kernel 4.
     def walk_ops(cnt, mask=None):
         box, tri = cnt["box"], cnt["tri"]
         if mask is not None:
@@ -2907,16 +3194,18 @@ def main() -> None:
     live_l = ((lres.big_w != 0) & lctx.valid[None] & (dot_l >= 0)
               & (dist_l > 1e-3))
     n_live_l = live_l.sum().item()
+    ops21 = (walk_ops(walk_counts["bvh_any_hit_k2"], live_l)
+             + n_live_l * (SHADOW_OPS + PHONG_OPS))
+    bytes21 = shade_bytes(torch, lctx, lres,
+                          walk_counts["bvh_any_hit_k2"]["occluded"],
+                          feats.enable_shading)
     bounds.update({
         "bvh_closest_hit": bound(hw * 40, walk_ops(
             walk_counts["bvh_closest_hit"])),
         "bvh_any_hit": bound(hw * 29, walk_ops(walk_counts["bvh_any_hit"])),
         "bvh_any_hit_k": bound((n_nbr + 1) * k * hw * 29, walk_ops(
             walk_counts["bvh_any_hit_k"])),
-        "bvh_final_shade": bound(
-            hw * 4 * (18 + 10 * k + 3),
-            walk_ops(walk_counts["bvh_any_hit_k2"], live_l)
-            + n_live_l * (SHADOW_OPS + PHONG_OPS)),
+        "bvh_final_shade": bound(bytes21, ops21),
     })
     # Kernel 7: the tests this run's rays make up to their first hit, an
     # origin set-up for each triangle an origin tests (while any of its K
@@ -3019,6 +3308,41 @@ def main() -> None:
           f"{sw['divided'] / hw:.4f} of them divided, {sw['scored'] / hw:.3f} "
           f"scored); before the filter {old_bounds['neighbour_select'][0]:.4f}"
           f" ms")
+    # Kernels 4 and 5 as their earlier designs were bounded: kernel 4's
+    # 18 + 10K packed planes in and every live lane against every
+    # triangle; kernel 5's 10K + 5 + 18 planes in and 10K out, every
+    # stream's draw, Gumbel scores, p-hat and logarithm on every pixel.
+    old45 = {"final_shade": bound(hw * 4 * (18 + 10 * k + 3), live_lanes
+                                  * (n_t * MT_OPS + SHADOW_OPS + PHONG_OPS)),
+             "spatial_pass": bound(hw * 4 * (20 * k + 5 + 18), hw * (n_nbr + 1)
+                                   * (STREAM_OPS + k * (PHONG_OPS + LOG_OPS)))}
+    for n_ in ("final_shade", "spatial_pass"):
+        print(f"bound {n_}: {bounds[n_][0]:.4f} ms ({bounds[n_][1]}); as the "
+              f"earlier design was counted {old45[n_][0]:.4f} ms "
+              f"({old45[n_][1]})")
+    # Kernels 4, 21 and 5 with every plane they read counted whole at
+    # every pixel (as this design was first bounded), beside the bytes
+    # their data needs.
+    shade_whole = hw * (4 * (16 + 7 * k + 3) + 1)
+    for n_, need, whole, ops_ in (
+            ("final_shade", bytes_f, shade_whole, shade_ops),
+            ("bvh_final_shade", bytes21, shade_whole, ops21),
+            ("spatial_pass", pass_bytes, hw * 4 * (8 * k + 5 + 18 + 10 * k),
+             pass_ops)):
+        w_ms, w_by = bound(whole, ops_)
+        print(f"bound {n_}: the bytes its data needs {need / 1e9:.4f} GB "
+              f"({need / hw:.1f} B a pixel, {1e3 * need / HBM_BYTES_S:.4f} "
+              f"ms); every plane it reads counted whole {whole / hw:.1f} B "
+              f"a pixel, a bound of {w_ms:.4f} ms ({w_by}); the bound used "
+              f"{bounds[n_][0]:.4f} ms ({bounds[n_][1]}) [{card}]")
+    rec5 = hw * 4 * 2 * (8 * k + spatial.GATE_RECORD)
+    print(f"bound spatial_pass: {pass_raced / hw:.3f} (stream, pixel) races "
+          f"a pixel of {n_nbr + 1} ({ctx.valid.float().mean().item():.4f} of "
+          f"the pixels hit); its records (reservoir {8 * k * 4} B, gate "
+          f"{spatial.GATE_RECORD * 4} B a pixel) written and read back once "
+          f"{rec5 / 1e9:.3f} GB ({1e3 * rec5 / HBM_BYTES_S:.4f} ms at the "
+          f"memory rate); neighbour sectors a pixel {n_nbr * (8 * k + 5)} "
+          f"in planes, {n_nbr * (-(-8 * k * 4 // 32) + 1)} in records")
     # Sectors a pixel's neighbour reads touch (32 B each; the offsets are
     # random, so no two lanes of a warp share one): the planes, one a float
     # (8K reservoir floats, the 17 context and K m floats of a neighbour),

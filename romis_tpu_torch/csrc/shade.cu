@@ -1,48 +1,63 @@
 // Kernel 4: final shade — shadow ray x Phong x W, averaged over K lanes.
 //
 // Replaces romis_tpu/ops/pallas_shade.py final_shade_pallas / _shade_kernel
-// (with _shade_lane_setup and _shade_phong_accum). Per pixel and lane: a
-// shadow ray from the surface point pushed 1e-3 toward the reservoir sample,
-// t_max = the remaining distance (ops/wrs.visibility; a coincident light
-// counts as visible), any-hit against the triangle soup with an early exit
-// per ray, then unshadowed Phong (ops/shading.phong_shade, falloff clamped
-// at 1e-5) x visibility x W, summed over the lanes and divided by K. Dead
-// rays — a missed pixel, a light behind the surface, or W = 0 — contribute
-// nothing whatever the visibility, so they skip the trace. Output: the
-// pre-tone-map color [3, H, W].
+// (with _shade_lane_setup, _shade_phong_accum and _occlusion_k_into). Per
+// pixel and lane: a shadow ray from the surface point pushed 1e-3 toward
+// the reservoir sample, t_max = the remaining distance (ops/wrs.visibility;
+// a coincident light counts as visible), any-hit against the triangle soup
+// with an early exit per ray, then unshadowed Phong (ops/shading.phong_shade,
+// falloff clamped at 1e-5) x visibility x W, summed over the lanes and
+// divided by K. Dead rays — a missed pixel, a light behind the surface, or
+// W = 0 — contribute nothing whatever the visibility, so they skip the
+// trace. Output: the pre-tone-map color [3, H, W].
 //
-// One thread per pixel; the triangle columns are staged through shared
-// memory in 512-triangle chunks (a broadcast read, as in kernel 1), with the
-// K lanes' occlusion flags in registers across the chunks. Bound: compute,
-// ~30 flops per live ray-triangle test until the first hit; device-memory
-// traffic is 18 + 10K planes in, 3 out.
+// One thread per (pixel, lane), a pixel's K lanes in adjacent threads of
+// one warp (32 / K pixels a warp), as kernel 21: each thread sets up its
+// lane's shadow ray and computes its lane's Phong term only where the lane
+// is lit; the pixel's first thread gathers the K terms by shuffles and sums
+// them in lane order from 0, ((0 + t0) + t1) + ..., then divides by K, the
+// arithmetic of the earlier one-thread-a-pixel design bit for bit. It reads
+// the context's and the reservoirs' own planes (ShadeFields), no packed
+// copies. The soup is culled as kernel 7 culls it (cull.cuh): the
+// wrapper's blocks (ops/trace.zcount_blocks, built once a soup) are staged
+// with their grown boxes and guard data into shared memory once a
+// persistent thread block; a pending ray tests a block's box over
+// [0, t_max] before the block's triangles, the near-parallel guard keeps a
+// block the box rejects where mt_tri's rounding could still accept one of
+// its triangles (deferred to a second pass for a soup's flagged blocks),
+// and the ray stops at its first hit. The triangle test is mt_tri, the
+// plain version's (ops/intersect._mt), so the bool is any_hit_plain's on
+// every ray (ops/trace.any_hit_culled is the plain model of this walk). A
+// soup of at most one block (the flagship's 2 triangles), or none (every
+// lane visible), has nothing to cull: it is staged as given, without the
+// blocks, so the wrapper builds none, and its rays test its triangles
+// directly. The wrapper may ask for each lane's occlusion byte as well (a
+// check). Bound: the bytes this
+// run's data needs (valid, W and out everywhere; position, normal and
+// sample position for the live lanes; colour and material for the lit
+// ones), or, on a culled soup, the walk's box, guard and triangle tests.
 //
 // Kernel 21, the BVH mode (romis_final_shade_bvh), replaces
 // romis_tpu/ops/pallas_shade.py final_shade_paged_pallas /
-// _shade_paged_kernel, for scenes of any size: one thread per (pixel,
-// lane), a pixel's K lanes in adjacent threads of one warp (32 / K pixels a
-// warp; at K = 3 two threads of each warp idle, so no pixel straddles two
-// warps). Each thread sets up its lane's shadow ray, walks the tree alone
-// (walk.cuh walk_any, kernel 20's walk, leaf triangles read as 48-byte
-// records, ops/walk.tri_records) and computes its lane's Phong term; the
-// pixel's first thread gathers the K terms by shuffles and sums them in
-// lane order from 0, ((0 + t0) + t1) + ..., then divides by K, as kernel
-// 4 does, so the output is kernel 4's arithmetic bit for bit; a lane that
-// is not lit skips its material and Phong (its term is 0 x W either way).
-// It reads the context's and the reservoirs' own planes (ShadeFields),
-// not the packed 18 + 10K planes kernel 4 takes (two copies the wrapper
-// makes). Its plain
-// version is the same final_shade_plain, whose visibility then walks the
-// tree (ops/traverse.bvh_any). Bound: the box and triangle tests of the
-// walk. The TPU kernel shares one walk between a pixel's K rays to
-// amortise its page DMAs; on this card that union walk visits every node
-// any of the K rays needs and tests the K slabs of a node one after
-// another (PERF.md, kernel 20), so each ray walks alone here.
+// _shade_paged_kernel, for scenes of any size, with the same thread
+// mapping and Phong: each thread walks the tree alone for its lane's live
+// shadow ray (walk.cuh walk_any, kernel 20's walk, leaf triangles read as
+// 48-byte records, ops/walk.tri_records). Its plain version is the same
+// final_shade_plain, whose visibility then walks the tree
+// (ops/traverse.bvh_any). Bound: the box and triangle tests of the walk.
+// The TPU kernel shares one walk between a pixel's K rays to amortise its
+// page DMAs; on this card that union walk visits every node any of the K
+// rays needs and tests the K slabs of a node one after another (PERF.md,
+// kernel 20), so each ray walks alone here.
 //
 // Both modes take the unshaded flag (Features.enable_shading=False): the
 // shade of every lane is then kd, whatever the light's side and the
 // receiver's validity (ops/shading.phong_shade), so every lane with W != 0
 // traces its shadow ray.
+#include <algorithm>
+#include <mutex>
+
+#include "cull.cuh"
 #include "walk.cuh"
 
 namespace romis {
@@ -131,88 +146,7 @@ __device__ __forceinline__ Material load_material(
   return m;
 }
 
-// Kernel 4: one thread per pixel, its K lanes' shadow rays tested against
-// the soup's triangles staged through shared memory. K is a template
-// parameter so the per-lane ray state stays in registers.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-final_shade_kernel(const float* __restrict__ ctx, const float* __restrict__ res,
-                   long long n, const float* __restrict__ cols, int n_tris,
-                   bool unshaded, float* __restrict__ out) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool in_range = p < n;
-
-  float px = 0.f, py = 0.f, pz = 0.f;
-  bool valid = false;
-  // Per lane: shadow-ray origin, direction, t_max and whether it still needs
-  // tracing (live and not yet occluded).
-  float rox[K], roy[K], roz[K];
-  float rdx[K], rdy[K], rdz[K], rtm[K];
-  bool pending[K], occluded[K];
-  float nx = 0.f, ny = 0.f, nz = 0.f;
-  if (in_range) {
-    px = ctx[p]; py = ctx[n + p]; pz = ctx[2 * n + p];
-    nx = ctx[3 * n + p]; ny = ctx[4 * n + p]; nz = ctx[5 * n + p];
-    valid = ctx[17 * n + p] > 0.5f;
-  }
-#pragma unroll
-  for (int lane = 0; lane < K; ++lane) {
-    pending[lane] = false;
-    occluded[lane] = false;
-    if (!in_range) continue;
-    const ShadowRay r = shadow_ray(
-        px, py, pz, nx, ny, nz, valid, unshaded, res[(3 * lane) * n + p],
-        res[(3 * lane + 1) * n + p], res[(3 * lane + 2) * n + p],
-        res[(8 * K + lane) * n + p]);
-    rox[lane] = r.ox; roy[lane] = r.oy; roz[lane] = r.oz;
-    rdx[lane] = r.dx; rdy[lane] = r.dy; rdz[lane] = r.dz;
-    rtm[lane] = r.tm;
-    pending[lane] = r.pending;
-  }
-
-  __shared__ float s[10][kTriChunk];
-  for (int base = 0; base < n_tris; base += kTriChunk) {
-    const int cnt = min(kTriChunk, n_tris - base);
-    __syncthreads();
-    stage_tris(s, cols, n_tris, base, cnt);
-    __syncthreads();
-#pragma unroll
-    for (int lane = 0; lane < K; ++lane) {
-      if (!pending[lane]) continue;
-      for (int j = 0; j < cnt; ++j) {
-        float t, u, v;
-        if (mt_hit(rox[lane], roy[lane], roz[lane], rdx[lane], rdy[lane],
-                   rdz[lane], &s[0][j], kTriChunk, t, u, v) &&
-            t < rtm[lane]) {
-          occluded[lane] = true;
-          pending[lane] = false;
-          break;
-        }
-      }
-    }
-  }
-  if (!in_range) return;
-
-  const Material m = load_material(ctx + 6 * n, ctx + 9 * n, ctx + 12 * n,
-                                   ctx + 15 * n, n, p, px, py, pz);
-  float acc[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int lane = 0; lane < K; ++lane) {
-    const float col[3] = {res[(3 * K + 3 * lane) * n + p],
-                          res[(3 * K + 3 * lane + 1) * n + p],
-                          res[(3 * K + 3 * lane + 2) * n + p]};
-    float term[3];
-    lane_term(px, py, pz, nx, ny, nz, m.vx, m.vy, m.vz, m.kd, m.ks, m.shin,
-              valid, unshaded, res[(3 * lane) * n + p], res[(3 * lane + 1) * n + p],
-              res[(3 * lane + 2) * n + p], col, res[(8 * K + lane) * n + p],
-              occluded[lane], term);
-    for (int c = 0; c < 3; ++c) acc[c] = acc[c] + term[c];
-  }
-  const float kf = static_cast<float>(K);
-  for (int c = 0; c < 3; ++c) out[c * n + p] = acc[c] / kf;
-}
-
-// Kernel 21's inputs: the receivers' and the reservoirs' own planes (no
+// The kernels' inputs: the receivers' and the reservoirs' own planes (no
 // packed copies), each [..., H, W] contiguous, n = H * W floats a plane.
 struct ShadeFields {
   const float *pos, *nrm, *view, *kd, *ks, *shin;  // [3] x4, [3], [1]
@@ -220,10 +154,216 @@ struct ShadeFields {
   const float *lpos, *lcol, *lw;                   // [K, 3], [K, 3], [K]
 };
 
+// One lane's receiver and sample, from the fields.
+struct LaneIn {
+  float px, py, pz, nx, ny, nz, lx, ly, lz, big_w;
+  bool valid;
+};
+
+__device__ __forceinline__ LaneIn load_lane(const ShadeFields& f, long long n,
+                                            long long p, int lane) {
+  const float* lp = f.lpos + 3 * lane * n;
+  return LaneIn{f.pos[p], f.pos[n + p], f.pos[2 * n + p],
+                f.nrm[p], f.nrm[n + p], f.nrm[2 * n + p],
+                lp[p], lp[n + p], lp[2 * n + p], f.lw[lane * n + p], f.valid[p]};
+}
+
+__device__ __forceinline__ ShadowRay lane_ray(const LaneIn& a, bool unshaded) {
+  return shadow_ray(a.px, a.py, a.pz, a.nx, a.ny, a.nz, a.valid, unshaded, a.lx,
+                    a.ly, a.lz, a.big_w);
+}
+
+// The lane's term, (lit ? Phong : 0) x W. Only a lit lane (its Phong gate
+// passed and its ray not occluded) loads its colour and material and
+// computes its Phong term; the others add 0 x W.
+__device__ __forceinline__ void lane_shade(const ShadeFields& f, long long n,
+                                           long long p, int lane, const LaneIn& a,
+                                           bool gate, bool occluded, bool unshaded,
+                                           float (&term)[3]) {
+  if (gate && !occluded) {
+    const float* lc = f.lcol + 3 * lane * n;
+    const float col[3] = {lc[p], lc[n + p], lc[2 * n + p]};
+    const Material m = load_material(f.view, f.kd, f.ks, f.shin, n, p, a.px,
+                                     a.py, a.pz);
+    lane_term(a.px, a.py, a.pz, a.nx, a.ny, a.nz, m.vx, m.vy, m.vz, m.kd, m.ks,
+              m.shin, a.valid, unshaded, a.lx, a.ly, a.lz, col, a.big_w,
+              occluded, term);
+  } else {
+    for (int c = 0; c < 3; ++c) term[c] = 0.0f * a.big_w;
+  }
+}
+
+// The lane-order sum, ((0 + t0) + t1) + ..., at the pixel's first thread
+// (thread slot * K of the warp), divided by K. Every lane of the warp
+// calls it.
+template <int K>
+__device__ __forceinline__ void write_pixel(const float (&term)[3], int slot,
+                                            int lane, bool in_range, long long n,
+                                            long long p, float* __restrict__ out) {
+  float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    for (int c = 0; c < 3; ++c)
+      acc[c] = acc[c] + __shfl_sync(kFull, term[c], slot * K + j);
+  if (!in_range || lane != 0) return;
+  const float kf = static_cast<float>(K);
+  for (int c = 0; c < 3; ++c) out[c * n + p] = acc[c] / kf;
+}
+
+// mt_tri of the shadow ray against the staged triangles [j0, j1) up to
+// the first one at t in (0, t_max).
+__device__ __forceinline__ bool tris_hit(const CullSoup& s, int j0, int j1,
+                                         const ShadowRay& r) {
+  for (int j = j0; j < j1; ++j) {
+    float t, u, v;
+    if (mt_hit(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s.tri + j, s.n_tris, t, u, v) &&
+        t < r.tm)
+      return true;
+  }
+  return false;
+}
+
+// Kernel 4's walk of one shadow ray over the culled soup (kMany: more than
+// one block) → occluded. Every lane of the warp calls it (its block loops
+// end by warp votes); `pending` says whether this lane's ray is traced.
+// Where at most kDealMax lanes need a block (its box passed, or its guard
+// kept it), the block's triangles are dealt out to the warp as kernel 7
+// deals them: two rays a round, a half-warp each, a lane a triangle, the
+// hits gathered by a vote; else each lane tests the block's triangles for
+// its own ray (the warp waits for its slowest lane).
+constexpr int kDealMax = 16;
+
+template <bool kMany>
+__device__ __forceinline__ bool soup_any(const CullSoup& s, int direct_end,
+                                         bool pending, const ShadowRay& r) {
+  if (!kMany)  // at most one block (stage_direct): up to its last active one
+    return pending && tris_hit(s, 0, direct_end, r);
+  const int nb = s.nb;
+  const int lane = threadIdx.x & 31;
+  const float ix = slab_inv(r.dx), iy = slab_inv(r.dy), iz = slab_inv(r.dz);
+  bool occluded = false, any_deferred = false;
+  for (int b = 0; b < nb; ++b) {
+    if (!__any_sync(kFull, pending)) break;
+    const bool deferred = s.box[12 * nb + b] > 0.5f;  // uniform
+    any_deferred = any_deferred || deferred;
+    // The box (and, unless deferred, the guard) decides whether the ray
+    // tests block b's triangles.
+    const bool pass =
+        pending &&
+        (box_hit(s.box, nb, b, r.ox, r.oy, r.oz, ix, iy, iz, r.tm) ||
+         (!deferred && guard_keeps(s, b, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tm)));
+    const int end = b * kZBlock + static_cast<int>(s.box[11 * nb + b]);
+    unsigned need = __ballot_sync(kFull, pass);
+    if (__popc(need) <= kDealMax) {  // uniform: a warp vote
+      const int half = lane >> 4, j = b * kZBlock + (lane & 15);
+      while (need != 0u) {
+        const int src0 = __ffs(need) - 1;
+        need &= need - 1u;
+        const int src1 = need != 0u ? __ffs(need) - 1 : -1;
+        if (src1 >= 0) need &= need - 1u;
+        const int src = half ? src1 : src0;
+        const int from = src < 0 ? src0 : src;
+        const ShadowRay q{__shfl_sync(kFull, r.ox, from), __shfl_sync(kFull, r.oy, from),
+                          __shfl_sync(kFull, r.oz, from), __shfl_sync(kFull, r.dx, from),
+                          __shfl_sync(kFull, r.dy, from), __shfl_sync(kFull, r.dz, from),
+                          __shfl_sync(kFull, r.tm, from), true, true};
+        const bool hit = src >= 0 && j < end && tris_hit(s, j, j + 1, q);
+        const unsigned hits = __ballot_sync(kFull, hit);
+        if ((lane == src0 && (hits & 0xffffu)) || (lane == src1 && (hits >> 16))) {
+          occluded = true;
+          pending = false;
+        }
+      }
+    } else if (pass && tris_hit(s, b * kZBlock, end, r)) {
+      occluded = true;
+      pending = false;
+    }
+  }
+  // The deferred guard: the flagged blocks whose box the ray failed, for
+  // the rays the walk left unoccluded (a hit ends a ray whatever the other
+  // blocks hold).
+  for (int b = 0; any_deferred && b < nb; ++b) {  // any_deferred is uniform
+    if (!__any_sync(kFull, pending)) break;
+    if (!pending || !(s.box[12 * nb + b] > 0.5f)) continue;
+    if (!box_hit(s.box, nb, b, r.ox, r.oy, r.oz, ix, iy, iz, r.tm) &&
+        guard_keeps(s, b, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tm) &&
+        tris_hit(s, b * kZBlock, b * kZBlock + static_cast<int>(s.box[11 * nb + b]),
+                 r)) {
+      occluded = true;
+      pending = false;
+    }
+  }
+  return occluded;
+}
+
+// Kernel 4: persistent blocks, each staging the culled soup once, whose
+// warps take 32 / K pixels at a time (thread slot * K + lane of a warp
+// shades lane `lane` of the pixel `slot`); occ, where given, gets each
+// lane's occlusion byte [K, N]. A culled soup runs blocks of 1024 threads
+// (its staged soup may leave room for one block an SM), and reads its
+// lane's inputs again after the walk rather than hold them through it
+// (registers: 64 a thread).
+template <bool kMany>
+constexpr int shade_threads() { return kMany ? 1024 : 256; }
+
+extern __shared__ float shade_smem[];
+
+// A soup of at most one block, staged as given: its [10, n_tris] columns
+// alone (no boxes, no guard), tested directly.
+__device__ __forceinline__ CullSoup stage_direct(float* smem, const float* __restrict__ cols,
+                                                 int n_tris) {
+  for (int i = threadIdx.x; i < 10 * n_tris; i += blockDim.x) smem[i] = cols[i];
+  return CullSoup{smem, nullptr, nullptr, nullptr, n_tris, 0};
+}
+
+// One past the staged soup's last active triangle (after the staging's
+// __syncthreads): a soup's padding, inactive, is not tested (the
+// flagship's 2 triangles come padded to 8).
+__device__ __forceinline__ int active_end(const CullSoup& s) {
+  int end = 0;
+  for (int j = 0; j < s.n_tris; ++j)
+    if (s.tri[9 * s.n_tris + j] > 0.0f) end = j + 1;
+  return end;
+}
+
+template <int K, bool kMany>
+__global__ void __launch_bounds__(shade_threads<kMany>())
+final_shade_kernel(const ShadeFields f, long long n, const float* __restrict__ cols,
+                   const float* __restrict__ boxes, const float* __restrict__ normals,
+                   int n_tris, bool unshaded, float* __restrict__ out,
+                   unsigned char* __restrict__ occ) {
+  const CullSoup s = kMany ? stage_cull(shade_smem, cols, boxes, normals, n_tris)
+                           : stage_direct(shade_smem, cols, n_tris);
+  __syncthreads();
+  const int end = kMany ? 0 : active_end(s);
+  constexpr int kPerWarp = 32 / K;
+  const int wl = threadIdx.x & 31;
+  const int slot = wl / K, lane = wl - slot * K;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  const long long chunks = (n + kPerWarp - 1) / kPerWarp;
+  for (long long c = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+       c < chunks; c += warps) {  // uniform over the warp
+    const long long p = c * kPerWarp + slot;
+    const bool in_range = slot < kPerWarp && p < n;
+    LaneIn a{};
+    ShadowRay r{};
+    if (in_range) {
+      a = load_lane(f, n, p, lane);
+      r = lane_ray(a, unshaded);
+    }
+    const bool occluded = soup_any<kMany>(s, end, in_range && r.pending, r);
+    float term[3] = {0.f, 0.f, 0.f};
+    if (in_range) {
+      if (kMany) a = load_lane(f, n, p, lane);
+      lane_shade(f, n, p, lane, a, r.gate, occluded, unshaded, term);
+      if (occ != nullptr) occ[lane * n + p] = occluded;
+    }
+    write_pixel<K>(term, slot, lane, in_range, n, p, out);
+  }
+}
+
 // Kernel 21: thread slot * K + lane of a warp shades lane `lane` of the
-// warp's pixel `slot`; the pixel's first thread writes its colour. Only a
-// lit lane (its Phong gate passed and its ray not occluded) loads its
-// receiver's material and computes its Phong term; the others add 0 x W.
+// warp's pixel `slot`; the pixel's first thread writes its colour.
 constexpr int kShadeBvhThreads = 128;
 
 template <int K>
@@ -241,50 +381,64 @@ final_shade_bvh_kernel(const ShadeFields f, long long n,
   const bool in_range = slot < kPerWarp && p < n;
   float term[3] = {0.f, 0.f, 0.f};
   if (in_range) {
-    const float px = f.pos[p], py = f.pos[n + p], pz = f.pos[2 * n + p];
-    const float nx = f.nrm[p], ny = f.nrm[n + p], nz = f.nrm[2 * n + p];
-    const bool valid = f.valid[p];
-    const float* lp = f.lpos + 3 * lane * n;
-    const float lx = lp[p], ly = lp[n + p], lz = lp[2 * n + p];
-    const float big_w = f.lw[lane * n + p];
-    const ShadowRay r = shadow_ray(px, py, pz, nx, ny, nz, valid, unshaded,
-                                   lx, ly, lz, big_w);
+    const LaneIn a = load_lane(f, n, p, lane);
+    const ShadowRay r = lane_ray(a, unshaded);
     const bool occluded =
         r.pending && walk_any(nodes, RecTris{recs}, r.ox, r.oy, r.oz, r.dx,
                               r.dy, r.dz, r.tm);
-    if (r.gate && !occluded) {
-      const float* lc = f.lcol + 3 * lane * n;
-      const float col[3] = {lc[p], lc[n + p], lc[2 * n + p]};
-      const Material m = load_material(f.view, f.kd, f.ks, f.shin, n, p, px,
-                                       py, pz);
-      lane_term(px, py, pz, nx, ny, nz, m.vx, m.vy, m.vz, m.kd, m.ks, m.shin,
-                valid, unshaded, lx, ly, lz, col, big_w, occluded, term);
-    } else {
-      for (int c = 0; c < 3; ++c) term[c] = 0.0f * big_w;
-    }
+    lane_shade(f, n, p, lane, a, r.gate, occluded, unshaded, term);
   }
-  // The lane-order sum, ((0 + t0) + t1) + ..., at the pixel's first thread.
-  float acc[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < K; ++j)
-    for (int c = 0; c < 3; ++c)
-      acc[c] = acc[c] + __shfl_sync(0xffffffffu, term[c], slot * K + j);
-  if (!in_range || lane != 0) return;
-  const float kf = static_cast<float>(K);
-  for (int c = 0; c < 3; ++c) out[c * n + p] = acc[c] / kf;
+  write_pixel<K>(term, slot, lane, in_range, n, p, out);
 }
 
-int launch_shade(const float* ctx, const float* res, long long n, int k,
-                 const float* cols, int n_tris, bool unshaded, float* out,
+// The persistent grid of one instantiation: as many blocks as fit on the
+// card at once (each looping over warps' chunks of pixels, so the soup is
+// staged once a block), worked out at the first launch on a device with a
+// given staged size and kept; the shared-memory attribute is set then.
+struct ShadeGrid {
+  size_t smem = 0;
+  int blocks = 0;  // 0: not worked out yet
+};
+
+template <int K, bool kMany>
+int launch_shade(const ShadeFields& f, long long n, const float* cols,
+                 const float* boxes, const float* normals, int n_tris,
+                 bool unshaded, float* out, unsigned char* occ,
                  cudaStream_t stream) {
-  const int grid = blocks_for(n);
-  switch (k) {
-    case 1: final_shade_kernel<1><<<grid, kThreads, 0, stream>>>(ctx, res, n, cols, n_tris, unshaded, out); break;
-    case 2: final_shade_kernel<2><<<grid, kThreads, 0, stream>>>(ctx, res, n, cols, n_tris, unshaded, out); break;
-    case 3: final_shade_kernel<3><<<grid, kThreads, 0, stream>>>(ctx, res, n, cols, n_tris, unshaded, out); break;
-    case 4: final_shade_kernel<4><<<grid, kThreads, 0, stream>>>(ctx, res, n, cols, n_tris, unshaded, out); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kMaxDevices = 64;
+  static std::mutex mu;
+  static ShadeGrid grids[kMaxDevices];
+  const size_t smem = kMany ? cull_smem_bytes(n_tris)
+                            : sizeof(float) * 10 * static_cast<size_t>(n_tris);
+  auto kernel = final_shade_kernel<K, kMany>;
+  constexpr int kThr = shade_threads<kMany>();
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err != 0) return err;
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int blocks = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    ShadeGrid& g = grids[dev];
+    if (g.blocks == 0 || g.smem != smem) {
+      int sms = 0, per_sm = 0;
+      err = static_cast<int>(cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+      if (err == 0) err = static_cast<int>(
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+      if (err == 0) err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kThr, smem));
+      if (err != 0) return err;
+      g.smem = smem;
+      g.blocks = sms * std::max(per_sm, 1);
+    }
+    blocks = g.blocks;
   }
+  constexpr int kPerBlock = kThr / 32 * (32 / K);
+  const long long need = (n + kPerBlock - 1) / kPerBlock;
+  const int grid = static_cast<int>(std::min<long long>(need, blocks));
+  kernel<<<grid, kThr, smem, stream>>>(f, n, cols, boxes, normals, n_tris,
+                                       unshaded, out, occ);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,12 +454,37 @@ void launch_shade_bvh(const ShadeFields& f, long long n, const float4* nodes,
 
 }  // namespace romis
 
-extern "C" int romis_final_shade(const float* ctx, const float* res,
-                                 long long n, int k, const float* cols,
-                                 int n_tris, int unshaded, float* out,
-                                 cudaStream_t stream) {
-  return romis::launch_shade(ctx, res, n, k, cols, n_tris, unshaded != 0, out,
-                             stream);
+// A culled soup: cols [10, T] block-ordered, T a multiple of kZBlock
+// above it (at most 2048), boxes [13, T / kZBlock], normals [5, T]
+// (ops/trace.zcount_blocks). A soup of at most kZBlock triangles: its
+// cols [10, T] as given (T may be 0), boxes and normals null. occ [K, N]
+// bytes or null.
+extern "C" int romis_final_shade(
+    const float* pos, const float* nrm, const float* view, const float* kd,
+    const float* ks, const float* shin, const bool* valid, const float* lpos,
+    const float* lcol, const float* lw, long long n, int k, const float* cols,
+    const float* boxes, const float* normals, int n_tris, int unshaded,
+    float* out, unsigned char* occ, cudaStream_t stream) {
+  using namespace romis;
+  const bool many = boxes != nullptr, u = unshaded != 0;
+  if (many ? (normals == nullptr || n_tris <= kZBlock || n_tris % kZBlock != 0 ||
+              n_tris > 2048)
+           : (normals != nullptr || n_tris < 0 || n_tris > kZBlock))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ShadeFields f{pos, nrm, view, kd, ks, shin, valid, lpos, lcol, lw};
+#define ROMIS_SHADE(K)                                                              \
+  (many ? launch_shade<K, true>(f, n, cols, boxes, normals, n_tris, u, out, occ,   \
+                                stream)                                             \
+        : launch_shade<K, false>(f, n, cols, boxes, normals, n_tris, u, out, occ,  \
+                                 stream))
+  switch (k) {
+    case 1: return ROMIS_SHADE(1);
+    case 2: return ROMIS_SHADE(2);
+    case 3: return ROMIS_SHADE(3);
+    case 4: return ROMIS_SHADE(4);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ROMIS_SHADE
 }
 
 extern "C" int romis_final_shade_bvh(

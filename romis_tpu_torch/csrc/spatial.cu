@@ -39,13 +39,24 @@
 // (2·stream + hi, pixel, tag): tag = 0x5350 | unbiased in the high half and
 // the pass index in the low half, disjoint from RIS's counters (tag 0).
 //
-// Kernel 5 runs one thread per pixel on 32 x 8 blocks, so a block's
-// neighbours fall in a (8 + 2r) x (32 + 2r) window that L1 and L2 serve. K
-// is a template parameter so each lane's race state stays in registers.
-// Bound: compute, (R+1)·K target-PDF evaluations, one powf each, per
-// pixel; device memory sees 18 + 10K planes in for the receiver and
-// itself, 10K planes out, and the neighbour reads, which mostly hit the
-// caches.
+// Kernel 5 reads its neighbours from pixel-major records, as kernel 11
+// does: its offsets are random per pixel, so in the plane layout each of a
+// neighbour's 5 gate floats and 8K reservoir floats cost a 32-byte sector
+// of their own (21 at K = 2). Its pre-pass (records_kernel, in the same
+// entry, counted in the kernel's time) writes each pixel's reservoir record
+// (kernel 11's, below) and its gate record, [normal 3 | depth] as one
+// float4, the depth NaN where the pixel is invalid: NaN fails the depth
+// gate exactly as an invalid neighbour fails the plane kernel's mask, so a
+// neighbour costs a 16-byte and a 64-byte load at K = 2. A neighbour that
+// the gates reject adds 0 to every lane's race, so its reservoir record is
+// read only where it passes (or is stream 0, which the race selects when
+// no weight is positive). The receiver reads its own planes (coalesced)
+// and its self stream its own record; every operation and its order are
+// the plane kernel's, so the outputs are bit-equal to it. K is a template
+// parameter so each lane's race state stays in registers. Bound: compute,
+// (R+1)·K target-PDF evaluations, one powf each, and the Philox draws per
+// pixel; device memory sees 18 + 13K planes in for the receiver and the
+// pre-pass, 10K planes out, and the records once written and read back.
 //
 // Kernel 11 reads its neighbours from pixel-major records. Its offsets are
 // random per pixel, so the 32 lanes of a warp read 32 unrelated pixels: in
@@ -74,8 +85,7 @@ namespace romis {
 constexpr float kDepthFrac = 0.1f;            // render/restir.SPATIAL_DEPTH_FRAC
 constexpr float kNormalCos = 0.90630778703f;  // render/restir.SPATIAL_NORMAL_COS
 constexpr int kMaxNbr = 8;                    // unbiased: neighbours a pixel
-constexpr int kBlockX = 32, kBlockY = 8;     // kernel 5's blocks
-constexpr int kPassX = 16, kPassY = 16;     // kernel 11's pass
+constexpr int kPassX = 16, kPassY = 16;     // the passes' blocks
 constexpr int kCtxRecord = 16;                // floats of a context record
 
 struct PassArgs {
@@ -90,8 +100,9 @@ struct PassArgs {
   bool unshaded;
   float* out;           // [10K, N]
   float* vis;           // unbiased vis_check: [2K + 3R + RK, N], or null
-  float* rres;          // unbiased: [N, 8K] reservoir records
+  float* rres;          // [N, 8K] reservoir records
   float* rctx;          // unbiased: [N, 16] context records
+  float* rgate;         // biased: [N, 4] gate records
 };
 
 struct Lane {
@@ -188,31 +199,11 @@ __device__ __forceinline__ void race_lane(Lane& L, bool first, bool mask,
   L.m = L.m + (mask ? m : 0.0f);
 }
 
-// One input stream (the reservoir at pixel q, from the planes) into every
-// lane's race.
-template <int K>
-__device__ __forceinline__ void race(Lane (&L)[K], bool first, bool mask,
-                                     const PassArgs& a, long long n, long long q,
-                                     const Receiver& r, float vx, float vy,
-                                     float vz, const float (&g)[K]) {
-#pragma unroll
-  for (int l = 0; l < K; ++l) {
-    float pos[3], col[3];
-    for (int c = 0; c < 3; ++c) {
-      pos[c] = a.res[(3 * l + c) * n + q];
-      col[c] = a.res[(3 * K + 3 * l + c) * n + q];
-    }
-    const float big_w = a.res[(8 * K + l) * n + q];
-    const float m = a.res[(7 * K + l) * n + q];
-    race_lane(L[l], first, mask, r, vx, vy, vz, pos, col, big_w, m, g[l]);
-  }
-}
-
 // The reservoir record of pixel q (a lane's pos 3 | col 3 | m | W, lane
-// after lane) into every lane's race (kernel 11); each lane's m also goes
-// to m_out[l · stride], where given.
+// after lane) into every lane's race, as race() with the gates' mask; each
+// lane's m also goes to m_out[l · stride], where given.
 template <int K>
-__device__ __forceinline__ void race_record(Lane (&L)[K], bool first,
+__device__ __forceinline__ void race_record(Lane (&L)[K], bool first, bool mask,
                                             const float* __restrict__ rres,
                                             long long q, const Receiver& r,
                                             float vx, float vy, float vz,
@@ -224,7 +215,7 @@ __device__ __forceinline__ void race_record(Lane (&L)[K], bool first,
     const float4 f0 = __ldg(src + 2 * l), f1 = __ldg(src + 2 * l + 1);
     const float pos[3] = {f0.x, f0.y, f0.z};
     const float col[3] = {f0.w, f1.x, f1.y};
-    race_lane(L[l], first, true, r, vx, vy, vz, pos, col, f1.w, f1.z, g[l]);
+    race_lane(L[l], first, mask, r, vx, vy, vz, pos, col, f1.w, f1.z, g[l]);
     if (m_out != nullptr) m_out[l * stride] = f1.z;
   }
 }
@@ -269,12 +260,14 @@ __device__ __forceinline__ void write_lanes(const PassArgs& a, long long n,
   }
 }
 
-// Kernel 5: the biased pass.
+// Kernel 5: the biased pass on the records, 3 blocks an SM at K <= 2 (its
+// latency wants the warps more than the registers: 85 a thread at most),
+// 2 above (no spills).
 template <int K>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+__global__ void __launch_bounds__(kPassX * kPassY, K <= 2 ? 3 : 2)
 spatial_pass_kernel(const PassArgs a) {
-  const int j = blockIdx.x * kBlockX + threadIdx.x;
-  const int i = blockIdx.y * kBlockY + threadIdx.y;
+  const int j = blockIdx.x * kPassX + threadIdx.x;
+  const int i = blockIdx.y * kPassY + threadIdx.y;
   if (i >= a.h || j >= a.w) return;
   const long long n = static_cast<long long>(a.h) * a.w;
   const long long p = static_cast<long long>(i) * a.w + j;
@@ -282,28 +275,50 @@ spatial_pass_kernel(const PassArgs a) {
   float vx, vy, vz;
   unit_view(r, vx, vy, vz);
   const float recv_depth = a.cen[16 * n + p];
+  const float4* gate = reinterpret_cast<const float4*>(a.rgate);
   uint32_t k0, k1;
   philox_key_words(a.key, k0, k1);
   Lane L[K];
   init_lanes<K>(L);
   const int nn = a.n_nbr;
-  for (int s = 0; s < nn; ++s) {
+  if (!r.valid && !a.unshaded && nn > 0) {
+    // A missed receiver, shaded: every neighbour fails the gates and every
+    // p-hat is 0, so no weight is positive and the race keeps stream 0's
+    // sample (w = 0, p-hat 0); w_sum and m sum stream 0's 0 and the self
+    // stream's w = 0·W·m and m, the full race's operations.
+    const StreamNoise<K> z = stream_noise<K>(a, 0, n, p, k0, k1);
+    const long long y = min(max(static_cast<long long>(i) + z.dy, 0LL), static_cast<long long>(a.h - 1));
+    const long long x = min(max(static_cast<long long>(j) + z.dx, 0LL), static_cast<long long>(a.w - 1));
+    const float4* src = reinterpret_cast<const float4*>(a.rres + (y * a.w + x) * 8 * K);
+    const float4* own = reinterpret_cast<const float4*>(a.rres + p * 8 * K);
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      const float4 f0 = __ldg(src + 2 * l), f1 = __ldg(src + 2 * l + 1);
+      const float4 m1 = __ldg(own + 2 * l + 1);  // (col yz, m, W) of the self stream
+      const float sel[6] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y};
+      for (int c = 0; c < 6; ++c) L[l].sel[c] = sel[c];
+      L[l].w_sum = (0.0f + 0.0f) + 0.0f * m1.w * m1.z;
+      L[l].m = (0.0f + 0.0f) + m1.z;
+    }
+  }
+  for (int s = 0; s < nn && (r.valid || a.unshaded); ++s) {
     const StreamNoise<K> z = stream_noise<K>(a, s, n, p, k0, k1);
     // Source pixel of neighbour s, clamped to the screen.
     const long long y = min(max(static_cast<long long>(i) + z.dy, 0LL), static_cast<long long>(a.h - 1));
     const long long x = min(max(static_cast<long long>(j) + z.dx, 0LL), static_cast<long long>(a.w - 1));
     const long long q = y * a.w + x;
-    // Similarity gates (render/restir.spatial_pass).
-    const float nd = a.gates[3 * n + q];
-    const bool depth_ok = fabsf(1.0f - nd / fmaxf(recv_depth, 1e-20f)) <= kDepthFrac;
-    const bool normal_ok = a.gates[q] * r.nx + a.gates[n + q] * r.ny +
-                               a.gates[2 * n + q] * r.nz >= kNormalCos;
-    const bool mask = depth_ok && normal_ok && r.valid && a.gates[4 * n + q] > 0.5f;
-    race<K>(L, s == 0, mask, a, n, q, r, vx, vy, vz, z.g);
+    // Similarity gates (render/restir.spatial_pass); an invalid
+    // neighbour's NaN depth fails the first.
+    const float4 g = __ldg(gate + q);
+    const bool depth_ok = fabsf(1.0f - g.w / fmaxf(recv_depth, 1e-20f)) <= kDepthFrac;
+    const bool normal_ok = g.x * r.nx + g.y * r.ny + g.z * r.nz >= kNormalCos;
+    const bool mask = depth_ok && normal_ok && r.valid;
+    if (s == 0 || mask)
+      race_record<K>(L, s == 0, mask, a.rres, q, r, vx, vy, vz, z.g, nullptr, 0);
   }
-  {
+  if (r.valid || a.unshaded || nn == 0) {
     const StreamNoise<K> z = stream_noise<K>(a, nn, n, p, k0, k1);
-    race<K>(L, nn == 0, true, a, n, p, r, vx, vy, vz, z.g);
+    race_record<K>(L, nn == 0, true, a.rres, p, r, vx, vy, vz, z.g, nullptr, 0);
   }
   float denom_m[K];
 #pragma unroll
@@ -311,16 +326,19 @@ spatial_pass_kernel(const PassArgs a) {
   write_lanes<K>(a, n, p, L, denom_m);
 }
 
-// Kernel 11's pre-pass: each pixel's reservoir and context records. A
-// block of 128 pixels reads its planes (coalesced), transposes them in
-// shared memory (a padded stride: no bank conflicts) and writes its records
-// as two contiguous runs.
+// The passes' pre-pass: each pixel's reservoir record and, for kernel 11,
+// its context record, for kernel 5 its gate record. A block of 128 pixels
+// reads its planes (coalesced), transposes them in shared memory (a padded
+// stride: no bank conflicts) and writes its records as two contiguous
+// runs.
 constexpr int kRecThreads = 128;
+constexpr int kGateRecord = 4;  // floats of a gate record
 
-template <int K>
+template <int K, bool kUnbiased>
 __global__ void __launch_bounds__(kRecThreads)
 records_kernel(const PassArgs a) {
-  constexpr int RW = 8 * K + 1, CW = kCtxRecord + 1;
+  constexpr int RW = 8 * K + 1;
+  constexpr int CR = kUnbiased ? kCtxRecord : kGateRecord, CW = CR + 1;
   __shared__ float sres[kRecThreads * RW];
   __shared__ float sctx[kRecThreads * CW];
   const long long n = static_cast<long long>(a.h) * a.w;
@@ -337,23 +355,30 @@ records_kernel(const PassArgs a) {
       o[6] = a.res[(7 * K + l) * n + p];
       o[7] = a.res[(8 * K + l) * n + p];
     }
-    const Receiver r = load_receiver(a.cen, n, p, a.unshaded);
-    float vx, vy, vz;
-    unit_view(r, vx, vy, vz);
-    const bool lit = r.valid || r.unshaded;  // else kd = ks = 0: Phong is 0
-    const float c[kCtxRecord] = {
-        r.px, r.py, r.pz, r.nx, r.ny, r.nz, vx, vy, vz,
-        lit ? r.kd[0] : 0.0f, lit ? r.kd[1] : 0.0f, lit ? r.kd[2] : 0.0f,
-        lit ? r.ks[0] : 0.0f, lit ? r.ks[1] : 0.0f, lit ? r.ks[2] : 0.0f, r.shin};
+    float* o = sctx + threadIdx.x * CW;
+    if constexpr (kUnbiased) {
+      const Receiver r = load_receiver(a.cen, n, p, a.unshaded);
+      float vx, vy, vz;
+      unit_view(r, vx, vy, vz);
+      const bool lit = r.valid || r.unshaded;  // else kd = ks = 0: Phong is 0
+      const float c[kCtxRecord] = {
+          r.px, r.py, r.pz, r.nx, r.ny, r.nz, vx, vy, vz,
+          lit ? r.kd[0] : 0.0f, lit ? r.kd[1] : 0.0f, lit ? r.kd[2] : 0.0f,
+          lit ? r.ks[0] : 0.0f, lit ? r.ks[1] : 0.0f, lit ? r.ks[2] : 0.0f, r.shin};
 #pragma unroll
-    for (int f = 0; f < kCtxRecord; ++f) sctx[threadIdx.x * CW + f] = c[f];
+      for (int f = 0; f < kCtxRecord; ++f) o[f] = c[f];
+    } else {
+      for (int c = 0; c < 3; ++c) o[c] = a.gates[c * n + p];
+      o[3] = a.gates[4 * n + p] > 0.5f ? a.gates[3 * n + p] : __int_as_float(0x7fc00000);
+    }
   }
   __syncthreads();
+  float* rout = kUnbiased ? a.rctx : a.rgate;
   const int cnt = static_cast<int>(min(static_cast<long long>(kRecThreads), n - p0));
   for (int i = threadIdx.x; i < cnt * 8 * K; i += kRecThreads)
     a.rres[p0 * 8 * K + i] = sres[(i / (8 * K)) * RW + i % (8 * K)];
-  for (int i = threadIdx.x; i < cnt * kCtxRecord; i += kRecThreads)
-    a.rctx[p0 * kCtxRecord + i] = sctx[(i / kCtxRecord) * CW + i % kCtxRecord];
+  for (int i = threadIdx.x; i < cnt * CR; i += kRecThreads)
+    rout[p0 * CR + i] = sctx[(i / CR) * CW + i % CR];
 }
 
 // A pixel's context record as a Receiver: valid, since an invalid pixel's
@@ -411,12 +436,13 @@ spatial_unbiased_kernel(const PassArgs a) {
       const long long x = min(max(static_cast<long long>(j) + z.dx, 0LL), static_cast<long long>(a.w - 1));
       const int q = static_cast<int>(y * a.w + x);
       qs[s * kStride] = q;
-      race_record<K>(L, s == 0, a.rres, q, r, vx, vy, vz, z.g, ms + s * K * kStride, kStride);
+      race_record<K>(L, s == 0, true, a.rres, q, r, vx, vy, vz, z.g, ms + s * K * kStride,
+                     kStride);
     }
   }
   {
     const StreamNoise<K> z = stream_noise<K>(a, nn, n, p, k0, k1);
-    race_record<K>(L, nn == 0, a.rres, p, r, vx, vy, vz, z.g, nullptr, 0);
+    race_record<K>(L, nn == 0, true, a.rres, p, r, vx, vy, vz, z.g, nullptr, 0);
   }
 
   // Z-count: each input's pre-pass m where its own p-hat of the winner is
@@ -459,42 +485,48 @@ spatial_unbiased_kernel(const PassArgs a) {
 
 template <int K>
 cudaError_t launch_pass(const PassArgs& a, bool unbiased, cudaStream_t stream) {
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((a.w + kBlockX - 1) / kBlockX, (a.h + kBlockY - 1) / kBlockY);
-  if (!unbiased) {
-    spatial_pass_kernel<K><<<grid, block, 0, stream>>>(a);
-    return cudaGetLastError();
-  }
   const int rec_blocks = static_cast<int>(
       (static_cast<long long>(a.h) * a.w + kRecThreads - 1) / kRecThreads);
-  records_kernel<K><<<rec_blocks, kRecThreads, 0, stream>>>(a);
+  if (unbiased)
+    records_kernel<K, true><<<rec_blocks, kRecThreads, 0, stream>>>(a);
+  else
+    records_kernel<K, false><<<rec_blocks, kRecThreads, 0, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 pass_block(kPassX, kPassY);
-  const dim3 pass_grid((a.w + kPassX - 1) / kPassX, (a.h + kPassY - 1) / kPassY);
-  spatial_unbiased_kernel<K><<<pass_grid, pass_block, 0, stream>>>(a);
+  const dim3 block(kPassX, kPassY);
+  const dim3 grid((a.w + kPassX - 1) / kPassX, (a.h + kPassY - 1) / kPassY);
+  if (unbiased)
+    spatial_unbiased_kernel<K><<<grid, block, 0, stream>>>(a);
+  else
+    spatial_pass_kernel<K><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace romis
 
+// Scratch the pre-pass writes: rres [N, 8K] reservoir records; rctx
+// [N, 16] context records (unbiased; null when biased); rgate [N, 4] gate
+// records (biased; null when unbiased).
 extern "C" int romis_spatial_pass(const float* res, const float* gates,
                                   const float* cen, int h, int w, int k,
                                   int n_nbr, int radius, int unbiased,
                                   const long long* key, unsigned int tag,
                                   const int* offs, const float* gumbel,
                                   int unshaded, float* out, float* vis,
-                                  float* rres, float* rctx,
+                                  float* rres, float* rctx, float* rgate,
                                   cudaStream_t stream) {
   using namespace romis;
   if (unbiased && n_nbr > kMaxNbr) return static_cast<int>(cudaErrorInvalidValue);
-  if (unbiased && (rres == nullptr || rctx == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (rres == nullptr || (rctx == nullptr) != (unbiased == 0) ||
+      (rgate == nullptr) != (unbiased != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (!unbiased && vis != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (!unbiased && gates == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if ((offs == nullptr) != (gumbel == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (offs == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const PassArgs a{res, gates, cen, h, w, n_nbr, radius, key, tag, offs, gumbel,
-                   unshaded != 0, out, vis, rres, rctx};
+  const PassArgs a{res,   gates,        cen,  h,    w,   n_nbr,
+                   radius, key,         tag,  offs, gumbel, unshaded != 0,
+                   out,    vis,         rres, rctx, rgate};
   const bool ub = unbiased != 0;
   switch (k) {
     case 1: return static_cast<int>(launch_pass<1>(a, ub, stream));

@@ -54,8 +54,12 @@ SIGNATURES = {
     "romis_ris": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _P),
     # the same arguments; out holds the 7K replay-record planes
     "romis_ris_replay": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _P),
-    # ctx18, res, n_pix, k, tri_cols, n_tris, unshaded, out, stream
-    "romis_final_shade": (_P, _P, _LL, _I, _P, _I, _I, _P, _P),
+    # position, normal, view_origin, kd, ks, shininess, valid (bool),
+    # sample pos, colour, big_w, n_pix, k, block-ordered tri_cols, boxes,
+    # guard normals (ops/trace.zcount_blocks), n_tris, unshaded, out,
+    # occlusion bytes [K, N] or null, stream
+    "romis_final_shade": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
+                          _P, _P, _P, _I, _I, _P, _P, _P),
     # origins, dirs, t_max, n_pix, n_rays, tri_cols, n_tris, out, stream
     "romis_any_hit": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
     # planes, c, h, w, dy, dx, n_out, out, stream
@@ -93,10 +97,11 @@ SIGNATURES = {
     "romis_final_shade_bvh": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
                               _I, _P, _P, _I, _P, _P),
     # res, gates, ctx18, h, w, k, n_nbr, radius, unbiased, key, tag, offs,
-    # gumbel, unshaded, out, vis_check block, and with unbiased the
-    # records [N, 8K] and [N, 16] (scratch), stream
+    # gumbel, unshaded, out, vis_check block, the reservoir records
+    # [N, 8K], the context records [N, 16] (unbiased, else null) and the
+    # gate records [N, 4] (biased, else null) (scratch), stream
     "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,
-                           _P, _I, _P, _P, _P, _P, _P),
+                           _P, _I, _P, _P, _P, _P, _P, _P),
     # origins, targets, mask, h, w, n_origins, k, tri_cols (block-ordered),
     # boxes, normals, n_tris, eps, out, stream
     "romis_zcount_occ": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P,

@@ -5,7 +5,16 @@ Kernel 5 (``csrc/spatial.cu``, ``spatial_pass_fused``) replaces the Pallas
 ``_pass_kernel``: one biased spatial-reuse pass per pixel (R neighbour
 offsets, depth and normal gates, stream weights, a Gumbel race per lane and
 the combine) with the reservoir state in the ``[10K, H, W]`` plane layout
-in and out, so the passes chain without re-packing. Kernel 11 (the same
+in and out, so the passes chain without re-packing. Its neighbours are
+random per pixel, so it reads them from pixel-major records that a
+pre-pass in the same entry writes: the gate record (``gate_records``:
+normal | depth, the depth NaN where the pixel is invalid, which fails the
+depth gate as the invalid neighbour fails the mask) and the reservoir
+record (``reservoir_records``), a 16-byte and a 64-byte load a neighbour at
+K = 2 instead of 21 sectors; a rejected neighbour's reservoir record is not
+read, and a missed receiver (shaded), whose race no weight can win, only
+draws stream 0. ``spatial_pass_records_plain`` is the pass over the
+records in PyTorch, bit-equal to the plain version. Kernel 11 (the same
 source, ``spatial_pass_unbiased_fused``) replaces ``_pass_unbiased_kernel``:
 the race without gates and a second sweep that counts Z at each
 neighbour's own context. Its neighbours are random per pixel, so it reads
@@ -78,12 +87,12 @@ Its plain version is the clamped gather at the offsets, and
 both.
 
 Bound on the H100: the passes are compute-bound, (R+1)·K target-PDF
-evaluations with one ``powf`` each per pixel (R·K more for the unbiased
-Z; the vis_check mode writes 2K + 3R + RK planes more); the neighbour
-reads stay within ±radius and are served mostly by L1 and L2. The halo
-gather is bound by device-memory bandwidth, the scatter by bandwidth once
-its adds stay in shared memory (above); the neighbour gather by bandwidth
-too, R·C planes written for C read.
+evaluations with one ``powf`` each per pixel at most (R·K more for the
+unbiased Z; the vis_check mode writes 2K + 3R + RK planes more); the
+neighbour reads stay within ±radius and are served mostly by L1 and L2.
+The halo gather is bound by device-memory bandwidth, the scatter by
+bandwidth once its adds stay in shared memory (above); the neighbour
+gather by bandwidth too, R·C planes written for C read.
 """
 
 from __future__ import annotations
@@ -441,6 +450,45 @@ def spatial_pass_plain(res_planes: torch.Tensor, gates: torch.Tensor,
     return pack_reservoir_planes(out)
 
 
+def spatial_pass_records_plain(rres: torch.Tensor, grec: torch.Tensor,
+                               cen_ctx: torch.Tensor, k: int, n_nbr: int,
+                               radius: int, features: Features,
+                               inject) -> torch.Tensor:
+    """A plain model of kernel 5 on its records (``reservoir_records``,
+    ``gate_records``): every neighbour's and the receiver's own reservoir
+    read from the reservoir records, the neighbours' gates from the gate
+    records with the validity folded into the depth (every gate record
+    valid, an invalid pixel's depth NaN), then ``render.restir.
+    spatial_pass``; injected noise → [10K, H, W], ``spatial_pass_plain``'s
+    bits."""
+    from ..render.restir import spatial_pass
+
+    h, w = cen_ctx.shape[-2:]
+    offs, gumbel = inject
+    dy, dx = clamped_offsets(offs, h, w)
+    rows = torch.arange(h, device=dy.device)[:, None]
+    cols = torch.arange(w, device=dy.device)[None, :]
+    q = (rows + dy.long()) * w + (cols + dx.long())  # [R, H, W]
+
+    def res_of(rec):  # records [..., H·W, 8K] → Reservoirs
+        f = rec.reshape(rec.shape[:-1] + (k, 8)).movedim(-3, -1)
+        lead = f.shape[:-3]
+        zero = torch.zeros_like(f[..., 6, :])
+        planes = torch.cat([f[..., 0:3, :].reshape(lead + (3 * k, h * w)),
+                            f[..., 3:6, :].reshape(lead + (3 * k, h * w)),
+                            zero, f[..., 6, :], f[..., 7, :], zero], dim=-2)
+        return unpack_reservoir_planes(
+            planes.reshape(lead + (10 * k, h, w)), k)
+
+    nbr = res_of(rres[q.reshape(n_nbr, h * w)])
+    g = grec[q].movedim(-1, 1)  # [R, 4, H, W]
+    nbr_gates = torch.cat([g, torch.ones_like(g[:, :1])], dim=1)
+    out = spatial_pass(unpack_center_ctx(cen_ctx), res_of(rres), nbr,
+                       _gate_ctx(nbr_gates),
+                       features.replace(unbiased_combination=False), gumbel)
+    return pack_reservoir_planes(out)
+
+
 def spatial_pass_unbiased_plain(res_planes: torch.Tensor,
                                 cen_ctx: torch.Tensor, k: int, n_nbr: int,
                                 radius: int, features: Features,
@@ -542,13 +590,39 @@ def z_visibility(planes: torch.Tensor, block: torch.Tensor,
 
 
 CTX_RECORD = 16  # floats of kernel 11's context record
+GATE_RECORD = 4  # floats of kernel 5's gate record
 
 
-def record_buffers(n: int, k: int, device):
-    """Kernel 11's scratch: the reservoir records [N, 8K] and the context
-    records [N, 16] its pre-pass writes (``pack_records``)."""
+def record_buffers(n: int, k: int, device, width: int = CTX_RECORD):
+    """The passes' scratch, which their pre-pass writes: the reservoir
+    records [N, 8K] and records of ``width`` floats, kernel 11's context
+    records (``CTX_RECORD``, ``pack_records``) or kernel 5's gate records
+    (``GATE_RECORD``, ``gate_records``)."""
     return (torch.empty((n, 8 * k), dtype=torch.float32, device=device),
-            torch.empty((n, CTX_RECORD), dtype=torch.float32, device=device))
+            torch.empty((n, width), dtype=torch.float32, device=device))
+
+
+def reservoir_records(res_planes: torch.Tensor, k: int) -> torch.Tensor:
+    """The passes' reservoir records, as their pre-pass writes them:
+    res_planes [10K, H, W] → [H·W, 8K], a lane's pos 3 | col 3 | m | W,
+    lane after lane."""
+    n = res_planes.shape[-1] * res_planes.shape[-2]
+    planes = res_planes.reshape(10 * k, n)
+    return torch.cat([torch.cat([planes[3 * l:3 * l + 3],
+                                 planes[3 * k + 3 * l:3 * k + 3 * l + 3],
+                                 planes[7 * k + l:7 * k + l + 1],
+                                 planes[8 * k + l:8 * k + l + 1]])
+                      for l in range(k)]).t().contiguous()
+
+
+def gate_records(gates: torch.Tensor) -> torch.Tensor:
+    """Kernel 5's gate records, as its pre-pass writes them: gates
+    [5, H, W] (``pack_gates``) → [H·W, 4], normal 3 | depth, the depth NaN
+    where the pixel is invalid (NaN fails the depth gate, as an invalid
+    neighbour fails the mask)."""
+    g = gates.reshape(5, -1)
+    depth = torch.where(g[4] > 0.5, g[3], torch.nan)
+    return torch.cat([g[0:3], depth[None]]).t().contiguous()
 
 
 def pack_records(res_planes: torch.Tensor, cen_ctx: torch.Tensor, k: int,
@@ -560,12 +634,7 @@ def pack_records(res_planes: torch.Tensor, cen_ctx: torch.Tensor, k: int,
     shininess, with kd = ks = 0 at an invalid pixel unless
     ``unshaded``)."""
     n = res_planes.shape[-1] * res_planes.shape[-2]
-    planes = res_planes.reshape(10 * k, n)
-    rres = torch.cat([torch.cat([planes[3 * l:3 * l + 3],
-                                 planes[3 * k + 3 * l:3 * k + 3 * l + 3],
-                                 planes[7 * k + l:7 * k + l + 1],
-                                 planes[8 * k + l:8 * k + l + 1]])
-                      for l in range(k)]).t().contiguous()
+    rres = reservoir_records(res_planes, k)
     c = cen_ctx.reshape(18, n)
     view = c[6:9] - c[0:3]
     sq = view[0] * view[0] + view[1] * view[1] + view[2] * view[2]
@@ -610,8 +679,8 @@ def _launch_pass(name, wrapper, res_planes, gates, cen_ctx, k, n_nbr,
     vis = torch.empty((vis_check_planes(k, n_nbr), h, w),
                       dtype=torch.float32, device=res_planes.device) \
         if vis_check else None
-    rres, rctx = record_buffers(h * w, k, res_planes.device) if unbiased \
-        else (None, None)
+    rres, recs = record_buffers(h * w, k, res_planes.device,
+                                CTX_RECORD if unbiased else GATE_RECORD)
     if h * w:
         _build.launch("romis_spatial_pass", res_planes.data_ptr(),
                       None if gates is None else gates.data_ptr(),
@@ -619,8 +688,8 @@ def _launch_pass(name, wrapper, res_planes, gates, cen_ctx, k, n_nbr,
                       int(unbiased), key_ptr, tag, o_ptr, g_ptr,
                       int(not features.enable_shading), out.data_ptr(),
                       None if vis is None else vis.data_ptr(),
-                      None if rres is None else rres.data_ptr(),
-                      None if rctx is None else rctx.data_ptr())
+                      rres.data_ptr(), recs.data_ptr() if unbiased else None,
+                      None if unbiased else recs.data_ptr())
         wrapper.launches += 1
     return out if vis is None else (out, vis)
 

@@ -72,7 +72,7 @@ import torch
 from ..core.types import Rays
 from . import _build, walk
 from .intersect import (
-    _pick_block, intersect_any, intersect_closest, reeval_tuv,
+    _mt, _pick_block, intersect_any, intersect_closest, reeval_tuv,
 )
 
 # The soup the reference kernel holds on chip (pallas_trace.MAX_SMEM_TRIS);
@@ -440,46 +440,25 @@ def _inv_dir(c: torch.Tensor) -> torch.Tensor:
     return torch.where(c < 0.0, -1.0, 1.0) / torch.clamp_min(c.abs(), 1e-20)
 
 
-def zcount_occ_culled(origins, targets, geometry, eps: float = 1e-3,
-                      mask=None, counts=None, order: bool | None = None,
-                      lazy: bool | None = None,
-                      guard: bool = True) -> torch.Tensor:
-    """A plain model of kernel 7's culled walk: the blocks of
-    ``zcount_blocks`` in order, a pending ray's slab test of each block's
-    box over its window [0, dist], then the block's triangles in order
-    with ``zcount_occ_plain``'s arithmetic, each ray stopping at its first
-    hit. Where a box test fails, the near-parallel guard over the block's
-    triangles may still keep the block: at once, or in a second pass over
-    the blocks for the rays the walk left unoccluded (every block with
-    ``lazy``, none without; by default the blocks ``zcount_blocks`` flags,
-    as the kernel does). Its bool is
-    ``zcount_occ_plain``'s on every ray (a block is only dropped where no
-    triangle of it can accept the ray). With a ``counts`` dict it records
-    the tests the kernel makes (one lane's own rays, the per-lane mode):
-    ``box``, ``guard`` (blocks whose box failed and were guarded),
-    ``guard_cone`` and ``guard_tri`` (the cone and normal products of
-    their guard) and ``tri`` [R+1, K, H, W] per ray, ``origin`` [R+1, H, W]
-    the origin set-ups (a triangle of a block that some ray of the origin
-    tests). With ``guard=False`` the box alone decides (the walk the cull
-    itself needs; its bool may then miss a hit on a near-parallel ray)."""
-    cols, boxes, guard_data = zcount_blocks(geometry, order)
-    defer = ([bool(lazy)] * boxes.shape[1] if lazy is not None
-             else (boxes[12] > 0.5).tolist())
-    nrm, cones = guard_data[:3], guard_data[3:].reshape(-1, 4)
-    dx, dy, dz, dist = _zcount_rays(origins, targets, mask)
-    r1, k, h, w = dist.shape
-    dev = origins.device
-    o = [origins[:, None, c].expand(r1, k, h, w).reshape(-1) for c in range(3)]
-    d = [a.reshape(-1) for a in (dx, dy, dz)]
+def _culled_walk(o, d, dist, boxes, guard_data, defer, test, guard=True,
+                 direct=False):
+    """The culled walk of kernels 7 and 4 over the blocks of
+    ``zcount_blocks``, on flat rays: origins ``o`` and unit directions
+    ``d`` (three [N] tensors each), the window [0, dist] [N], every ray
+    with ``dist`` > 0 traced. Per block, in order, a pending ray's slab
+    test of the block's box, then (where the box rejects it and the block
+    is not deferred) the near-parallel guard, then ``test(b, rays)`` → (hit
+    [n] bool, triangles tested up to the first hit [n]); a hit ends the
+    ray. The deferred blocks' guard runs in a second pass for the rays
+    left pending. ``direct`` (a soup of one block, kernel 4): no box test,
+    the block's triangles tested at once. → (occluded [N], counts: box,
+    guard (blocks guarded), guard_cone and guard_tri (its products), tri,
+    each [N] int64)."""
     inv = [_inv_dir(a) for a in d]
-    dist = dist.reshape(-1)
-    pending = dist > eps
+    pending = dist > 0.0
     occluded = torch.zeros_like(pending)
-    n = {name: torch.zeros(dist.shape, dtype=torch.int64, device=dev)
+    n = {name: torch.zeros(dist.shape, dtype=torch.int64, device=dist.device)
          for name in ("box", "tri", "guard", "guard_tri", "guard_cone")}
-    n_origin = torch.zeros(r1 * h * w, dtype=torch.int64, device=dev)
-    ray_origin = (torch.arange(dist.numel(), device=dev) // (k * h * w)
-                  * (h * w) + torch.arange(dist.numel(), device=dev) % (h * w))
 
     def box_ok(b, idx):
         n["box"][idx] += 1
@@ -501,6 +480,7 @@ def zcount_occ_culled(origins, targets, geometry, eps: float = 1e-3,
         test failed): kept where some triangle's rounding could reach the
         ray; a pair's cone first, then the pair's two normals."""
         n["guard"][idx] += 1
+        nrm, cones = guard_data[:3], guard_data[3:].reshape(-1, 4)
         ox, oy, oz = (a[idx] for a in o)
         reach = ((ox - boxes[6, b]).abs() + (oy - boxes[7, b]).abs()
                  + (oz - boxes[8, b]).abs() + boxes[9, b] + dist[idx])
@@ -520,10 +500,80 @@ def zcount_occ_culled(origins, targets, geometry, eps: float = 1e-3,
                                  + di[2] * nrm[2, j]).abs() <= reach)
         return near
 
-    def test(b, live):
-        """The triangles of block b against the rays ``live``."""
+    def run(b, live):
         if live.numel() == 0:
             return
+        hit, tests = test(b, live)
+        n["tri"][live] += tests
+        done = live[hit]
+        occluded[done] = True
+        pending[done] = False
+
+    if direct:
+        run(0, pending.nonzero().squeeze(1))
+        return occluded, n
+    for b in range(boxes.shape[1]):
+        idx = pending.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            break
+        ok = box_ok(b, idx)
+        if guard and not defer[b]:
+            ok[~ok] = guard_keeps(b, idx[~ok])
+        run(b, idx[ok])
+    for b in (b for b in range(boxes.shape[1]) if guard and defer[b]):
+        idx = pending.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            break
+        cand = idx[~box_ok(b, idx)]
+        run(b, cand[guard_keeps(b, cand)])
+    return occluded, n
+
+
+def _first_tests(hit, act):
+    """Triangles a ray tests in a block, its active ones in order up to
+    its first hit: hit [B, n] bool, act [B] → [n] int64."""
+    tested = torch.cumsum(act.to(torch.int64), 0)
+    return torch.where(hit.any(dim=0), tested[hit.int().argmax(dim=0)],
+                       tested[-1])
+
+
+def zcount_occ_culled(origins, targets, geometry, eps: float = 1e-3,
+                      mask=None, counts=None, order: bool | None = None,
+                      lazy: bool | None = None,
+                      guard: bool = True) -> torch.Tensor:
+    """A plain model of kernel 7's culled walk (``_culled_walk``): the
+    blocks of ``zcount_blocks`` in order, a pending ray's slab test of
+    each block's box over its window [0, dist], then the block's triangles
+    in order with ``zcount_occ_plain``'s arithmetic, each ray stopping at
+    its first hit. Where a box test fails, the near-parallel guard over
+    the block's triangles may still keep the block: at once, or in a
+    second pass over the blocks for the rays the walk left unoccluded
+    (every block with ``lazy``, none without; by default the blocks
+    ``zcount_blocks`` flags, as the kernel does). Its bool is
+    ``zcount_occ_plain``'s on every ray (a block is only dropped where no
+    triangle of it can accept the ray). With a ``counts`` dict it records
+    the tests the kernel makes (one lane's own rays, the per-lane mode):
+    ``box``, ``guard`` (blocks whose box failed and were guarded),
+    ``guard_cone`` and ``guard_tri`` (the cone and normal products of
+    their guard) and ``tri`` [R+1, K, H, W] per ray, ``origin`` [R+1, H, W]
+    the origin set-ups (a triangle of a block that some ray of the origin
+    tests). With ``guard=False`` the box alone decides (the walk the cull
+    itself needs; its bool may then miss a hit on a near-parallel ray)."""
+    cols, boxes, guard_data = zcount_blocks(geometry, order)
+    defer = ([bool(lazy)] * boxes.shape[1] if lazy is not None
+             else (boxes[12] > 0.5).tolist())
+    dx, dy, dz, dist = _zcount_rays(origins, targets, mask)
+    r1, k, h, w = dist.shape
+    dev = origins.device
+    o = [origins[:, None, c].expand(r1, k, h, w).reshape(-1) for c in range(3)]
+    d = [a.reshape(-1) for a in (dx, dy, dz)]
+    dist = dist.reshape(-1)
+    n_origin = torch.zeros(r1 * h * w, dtype=torch.int64, device=dev)
+    ray_origin = (torch.arange(dist.numel(), device=dev) // (k * h * w)
+                  * (h * w) + torch.arange(dist.numel(), device=dev) % (h * w))
+
+    def test(b, live):
+        """The triangles of block b against the rays ``live``."""
         v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, act = \
             cols[:, b * ZCOUNT_BLOCK:(b + 1) * ZCOUNT_BLOCK, None]
         ox, oy, oz = (a[live] for a in o)
@@ -543,35 +593,79 @@ def zcount_occ_culled(origins, targets, geometry, eps: float = 1e-3,
         aa = det * det
         hit = ((aa > 1e-18) & (ua >= 0.0) & (va >= 0.0) & (ua + va <= aa)
                & (ta > eps * aa) & (ta < dist[live] * aa) & (act > 0.0))
-        any_hit_ = hit.any(dim=0)
-        tested = torch.cumsum((act[:, 0] > 0.0).to(torch.int64), 0)
-        tests = torch.where(any_hit_, tested[hit.int().argmax(dim=0)],
-                            tested[-1])
-        n["tri"][live] += tests
+        tests = _first_tests(hit, act[:, 0] > 0.0)
         n_origin.add_(torch.zeros_like(n_origin).scatter_reduce_(
             0, ray_origin[live], tests, "amax"))
-        done = live[any_hit_]
-        occluded[done] = True
-        pending[done] = False
+        return hit.any(dim=0), tests
 
-    for b in range(boxes.shape[1]):
-        idx = pending.nonzero().squeeze(1)
-        if idx.numel() == 0:
-            break
-        ok = box_ok(b, idx)
-        if guard and not defer[b]:
-            ok[~ok] = guard_keeps(b, idx[~ok])
-        test(b, idx[ok])
-    for b in (b for b in range(boxes.shape[1]) if guard and defer[b]):
-        idx = pending.nonzero().squeeze(1)
-        if idx.numel() == 0:
-            break
-        cand = idx[~box_ok(b, idx)]
-        test(b, cand[guard_keeps(b, cand)])
+    # A ray is traced where its window reaches past eps (kernel 7's test).
+    occluded, n = _culled_walk(o, d, torch.where(dist > eps, dist, 0.0),
+                               boxes, guard_data, defer, test, guard)
     if counts is not None:
         counts.update({name: v.reshape(r1, k, h, w) for name, v in n.items()})
         counts["origin"] = n_origin.reshape(r1, h, w)
     return occluded.reshape(r1, k, h, w)
+
+
+def any_hit_culled(origins, dirs, t_max, geometry, counts=None,
+                   guard: bool = True) -> torch.Tensor:
+    """A plain model of kernel 4's walk of its shadow rays
+    (``_culled_walk`` over the blocks of ``zcount_blocks``, the soup's
+    default order, the flagged blocks' guard deferred): each ray's box
+    test over [0, t_max], the guard where the box rejects it, then the
+    block's triangles in order with the plain any-hit's Möller–Trumbore
+    (``ops.intersect._mt``, the division form ``mt_tri`` of the kernels),
+    t in (0, t_max); a soup of at most one block (or none) tests its
+    triangles as given, directly.
+    origins [..., 3, H, W], dirs broadcastable to them, t_max [..., H, W]
+    → bool [..., H, W], ``any_hit_plain``'s on every ray traced (t_max >
+    0; the others are False). With a ``counts`` dict it records the tests
+    kernel 4 makes per ray (``box``, ``guard``, ``guard_cone``,
+    ``guard_tri``, ``tri``, each [..., H, W]); ``guard=False`` lets the
+    box alone decide (the tests the cull itself needs).
+
+    The guard's bound (``zcount_blocks``) holds for this test too. With
+    s = sin θ·|cos| (θ the triangle's corner angle, cos = d·n̂) and L as
+    there, det = e1·(d × e2) and the numerators t·p, d·q, e2·q carry
+    absolute errors of at most 5.83u|e1||e2|, 5.83u|t||e2|,
+    5.83u|t||e1| and 5.83u|t||e1||e2| (two roundings a cross-product
+    term, three a dot product), and the division and the product by the
+    reciprocal add 2u relative to each of u, v and t. So the exact crossing
+    of the plane lies within 5.83u(3|t| + |e1| + |e2| + |t*|)/s + 2u(|e1|
+    + |e2| + |t*|) ≤ 20.4u·L/s of a point the test accepts (|t| ≤ |o -
+    c|₁ + h, |e1|, |e2| ≤ 2h, |t*| ≤ dist, L = |o - c|₁ + 3h + dist, h the
+    box's L1 half-diagonal), under the division-free form's 23u·L/s that
+    the guard's 64u covers; a ray the guard lets go has s > 64u·L/g ≥
+    576u, so det's relative error stays under 1 %."""
+    direct = geometry.tri_cols.shape[1] <= ZCOUNT_BLOCK
+    if direct:  # the soup as given, no blocks (kernel 4's wrapper builds none)
+        cols = geometry.tri_cols.detach()
+        boxes = guard_data = cols.new_zeros((13, 1))
+    else:
+        cols, boxes, guard_data = zcount_blocks(geometry)
+    lead = tuple(t_max.shape)
+    o = [origins.select(-3, c).expand(lead).reshape(-1) for c in range(3)]
+    d = [dirs.expand(origins.shape).select(-3, c).expand(lead).reshape(-1)
+         for c in range(3)]
+    dist = t_max.reshape(-1)
+
+    def test(b, live):
+        tri = cols[:, b * ZCOUNT_BLOCK:(b + 1) * ZCOUNT_BLOCK, None, None]
+        if tri.shape[1] == 0:  # an empty soup: nothing to hit
+            none = torch.zeros(live.shape, dtype=torch.int64,
+                               device=live.device)
+            return none.bool(), none
+        ray = tuple(a[live][None, None] for a in o + d)
+        t, _, _ = _mt(ray, tri)  # [B, 1, n]
+        hit = t[:, 0] < dist[live]
+        return hit.any(dim=0), _first_tests(hit, tri[9, :, 0, 0] > 0.0)
+
+    occluded, n = _culled_walk(o, d, dist, boxes, guard_data,
+                               (boxes[12] > 0.5).tolist(), test, guard,
+                               direct=direct)
+    if counts is not None:
+        counts.update({name: v.reshape(lead) for name, v in n.items()})
+    return occluded.reshape(lead)
 
 
 def zcount_occ(origins, targets, geometry, eps: float = 1e-3,

@@ -3,13 +3,27 @@
 one call on one NVIDIA GPU, at the shapes of ``chip_smoke.py``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
-    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 13,21]
+    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 4,5]
 
 Both trees' kernel libraries are built (the parent's with its own
 ``ops/_build.py``, into its own ``build/``), the registers and spill stores
 of the compared kernels are printed from both builds' ``-Xptxas -v`` logs,
 and the kernels are called on the same tensors, in turns (parent, this
-tree, this tree, parent). ``--kernels`` picks the sections (default 13,21):
+tree, this tree, parent). ``--kernels`` picks the sections (default 4,5):
+- 4, the final shade on a triangle soup, at 1080p on the flagship (2
+  triangles), the 2048-triangle soup and the one-torus soup (970
+  triangles, the vischeck_torus frame's receivers), K = 1, 2 and 4,
+  shaded and unshaded, bit-equal to the parent's (which packs 18 + 10K
+  planes inside its call, as its wrapper did); kernels 21 and 19
+  bit-equal and timed beside the parent's; then the frames ``config5``,
+  ``slice1``, ``vischeck`` and ``vischeck_torus`` and the gradient steps
+  ``grad_surrogate`` and ``grad_per_pixel`` with either tree's kernel 4;
+- 5, the biased spatial pass, at K = 1, 2 and 4 on Philox and on
+  injected noise (R = 5, r = 10, 1080p, the records' pre-pass in the
+  call) on the flagship's receivers and on the 5x5 torus field's,
+  bit-equal to the parent's, kernel 11 beside it on the flagship;
+  then the frames ``config5``, ``unshaded``, ``large_config5`` and
+  ``large_k1`` with either tree's kernel 5;
 - 13, the row scatter-add, on every table of the three gradient steps
   (``chip_smoke.scatter_tables``: the flagship's and the 5x5 torus
   field's light, material, triangle and attribute-width tables at 1080p)
@@ -111,10 +125,12 @@ def ptxas_lines(log: Path, names) -> list[str]:
 
 class Ctx:
     """What the sections share: torch, the device, the card line, the
-    parent's library, a generator, the results."""
+    parent's library and its entries' signatures, a generator, the
+    results."""
 
-    def __init__(self, torch, parent_lib, card):
+    def __init__(self, torch, parent_lib, card, parent_signatures):
         self.torch, self.plib, self.card = torch, parent_lib, card
+        self.psig = parent_signatures
         self.dev = torch.device("cuda", 0)
         self.gen = torch.Generator(device=self.dev).manual_seed(8)
         self.ms = {}
@@ -304,14 +320,37 @@ def section_20(c: Ctx) -> None:
         ms[f"frame[{path}]"] = dict(change=new, parent=old)
 
 
+class ParentLib:
+    """The parent's library as this tree's wrappers call it: an entry whose
+    signature the two trees share passes through; a ``romis_spatial_pass``
+    one argument shorter (before the gate records got their own pointer:
+    ..., rres, rctx, stream, its biased pass reading no records) is called
+    without the gate records' pointer."""
+
+    def __init__(self, lib, signatures):
+        self.lib, self.sig = lib, signatures
+
+    def __getattr__(self, name):
+        from romis_tpu_torch.ops import _build
+
+        fn = getattr(self.lib, name)
+        if (name != "romis_spatial_pass"
+                or len(self.sig[name]) == len(_build.SIGNATURES[name])):
+            return fn
+        return lambda *a: fn(*a[:-2], a[-1])
+
+
 def parent_launch(c: Ctx, fn):
     """``fn`` with the parent's library behind ``_build.launch``: a C entry
-    whose signature the two trees share runs the parent's kernel."""
+    whose signature the two trees share (``ParentLib``) runs the parent's
+    kernel."""
     from romis_tpu_torch.ops import _build
+
+    plib = ParentLib(c.plib, c.psig)
 
     def run(*a, **kw):
         saved = _build.library
-        _build.library = lambda: c.plib
+        _build.library = lambda: plib
         try:
             return fn(*a, **kw)
         finally:
@@ -575,21 +614,6 @@ def section_7(c: Ctx) -> None:
     ms["frame[vischeck_torus]"] = dict(change=new, parent=old)
 
 
-class ParentPassLib:
-    """The parent's library as ``_build.launch`` sees it, where this
-    tree's ``romis_spatial_pass`` passes kernel 11's two record buffers
-    that the parent's entry does not take."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self.lib, name)
-        if name == "romis_spatial_pass":
-            return lambda *a: fn(*a[:16], a[-1])
-        return fn
-
-
 def time_frames(c: Ctx, kernel: str, paths: dict, theirs_ops=None,
                 swap=None) -> None:
     """Frames of ``paths`` (name → (scene, camera or a stacked camera
@@ -701,24 +725,15 @@ def section_11(c: Ctx) -> None:
     from romis_tpu_torch.core.camera import generate_rays, make_camera
     from romis_tpu_torch.render.animation import interpolate_cameras
     from romis_tpu_torch.core.types import pack_reservoir_planes
-    from romis_tpu_torch.ops import _build, ris, shade, spatial
+    from romis_tpu_torch.ops import ris, shade, spatial
     from romis_tpu_torch.ops.bvh import with_bvh
     from romis_tpu_torch.render import restir
     from romis_tpu_torch.scene.scene import (
         flagship_camera, flagship_scene, torus_field, torus_field_camera,
     )
 
-    plib = ParentPassLib(c.plib)
-
     def parent(fn):
-        def run(*a, **kw):
-            saved = _build.library
-            _build.library = lambda: plib
-            try:
-                return fn(*a, **kw)
-            finally:
-                _build.library = saved
-        return run
+        return parent_launch(c, fn)
 
     n_nbr, radius = 5, 10
     vfeats = Features(unbiased_combination=True,
@@ -844,11 +859,14 @@ def section_14(c: Ctx) -> None:
     time_steps(c, "14", replace(restir.KERNELS, ris_replay=parent_replay))
 
 
-def time_steps(c: Ctx, kernel: str, theirs_ops=None, swap=None) -> None:
-    """The three gradient steps with this tree's kernels and with the
-    parent's (``theirs_ops``, or ``swap`` = (module, name, the parent's
-    function) set in place of the module's), in turns, from one forward
-    frame's state against the light colours x 0.8 (chip_smoke's)."""
+def time_steps(c: Ctx, kernel: str, theirs_ops=None, swap=None,
+               paths=("grad_surrogate", "grad_per_pixel", "large_grad")
+               ) -> None:
+    """The gradient steps (``paths``; by default all three) with this
+    tree's kernels and with the parent's (``theirs_ops``, or ``swap`` =
+    (module, name, the parent's function) set in place of the module's), in
+    turns, from one forward frame's state against the light colours x 0.8
+    (chip_smoke's)."""
     torch, dev, card, ms = c.torch, c.dev, c.card, c.ms
     from dataclasses import replace
 
@@ -871,6 +889,8 @@ def time_steps(c: Ctx, kernel: str, theirs_ops=None, swap=None) -> None:
             "grad_per_pixel": (scene, flagship_camera(H, W, dev),
                                gf.replace(exact_gradients=True)),
             "large_grad": (large, torus_field_camera(H, W, dev), gf)}.items():
+        if path not in paths:
+            continue
         prm = extract_params(sc.geometry, sc.lights)
         dim = replace(prm, **{n: getattr(prm, n) * 0.8 for n in (
             "light_c0", "light_c1", "light_c2", "light_c3")})
@@ -990,8 +1010,8 @@ def section_13(c: Ctx) -> None:
 def section_21(c: Ctx) -> None:
     """Kernel 21 on the 5x5 torus field at K = 1, 2 and 4, shaded and
     unshaded, bit-equal to the parent's, with kernel 20 at S = 2 on the
-    same rays beside it; kernels 4 and 19 (unchanged designs) bit-equal
-    to the parent's and timed beside them; then the large frames and
+    same rays beside it; kernel 19 (unchanged design) bit-equal to the
+    parent's and timed beside it; then the large frames and
     ``large_grad`` with either tree's kernel 21."""
     torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
     from romis_tpu_torch import Features
@@ -1001,10 +1021,7 @@ def section_21(c: Ctx) -> None:
     from romis_tpu_torch.ops.wrs import visibility
     from romis_tpu_torch.render import restir
     from romis_tpu_torch.render.animation import interpolate_cameras
-    from romis_tpu_torch.scene.scene import (
-        build_geometry, flagship_camera, flagship_scene, torus_field,
-        torus_field_camera,
-    )
+    from romis_tpu_torch.scene.scene import torus_field, torus_field_camera
 
     large = torus_field(5, dev)
     large.geometry = with_bvh(large.geometry)
@@ -1012,16 +1029,7 @@ def section_21(c: Ctx) -> None:
     _, lctx = restir.trace_primary(generate_rays(torus_field_camera(
         H, W, dev), H, W), lgeo, Features(), restir.KERNELS)
 
-    def parent_bvh_shade(ctx, res, geometry, features):
-        """The parent's kernel 21 (its [10, T] columns), called as its
-        wrapper called it."""
-        cp, rp, cols, k_, out = shade._packed(ctx, res, geometry, features)
-        nodes, _ = walk.checked_tree(geometry)
-        c.call(c.plib.romis_final_shade_bvh, cp.data_ptr(), rp.data_ptr(),
-               out[0].numel(), k_, nodes.data_ptr(), cols.data_ptr(),
-               cols.shape[1], int(not features.enable_shading),
-               out.data_ptr())
-        return out
+    parent_bvh_shade = parent_launch(c, shade.final_shade_bvh)
 
     def compare(name, mine, theirs):
         chip_smoke.require(torch.equal(mine(), theirs()),
@@ -1063,28 +1071,9 @@ def section_21(c: Ctx) -> None:
             ms[name] = row
         del res
 
-    # Kernels 4 and 19 keep their designs: bit-equal, timed beside the
-    # parent's.
+    # Kernel 19 keeps its design: bit-equal, timed beside the parent's.
     f = Features()
-    scene = flagship_scene(dev)
-    soup = build_geometry([chip_smoke.random_soup(
-        chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)
-    parent_shade = parent_launch(c, shade.final_shade_fused)
     parent_any = parent_launch(c, walk.any_hit_bvh)
-    for label, sc_geo, cam in (("flagship", scene.geometry,
-                                flagship_camera(H, W, dev)),
-                               ("soup2048", soup, flagship_camera(H, W, dev))):
-        _, ctx = restir.trace_primary(generate_rays(cam, H, W), sc_geo, f,
-                                      restir.KERNELS)
-        res = ris.gen_canonical_samples_ris(ctx, scene.lights,
-                                            scene.num_lights, f, generator=gen)
-        name = f"final_shade[{label}]"
-        new, old = compare(name, lambda: shade.final_shade_fused(
-            ctx, res, sc_geo, f), lambda: parent_shade(ctx, res, sc_geo, f))
-        print(f"time {name} (kernel 4): {new:.4f} ms this tree, {old:.4f} ms "
-              f"parent ({new / old:.3f} of it); bit-equal [{card}]")
-        ms[name] = dict(change=new, parent=old)
-        del ctx, res
     res = ris.gen_canonical_samples_ris(lctx, large.lights, large.num_lights,
                                         f, generator=gen)
     to = res.pos - lctx.position
@@ -1119,7 +1108,205 @@ def section_21(c: Ctx) -> None:
     time_steps(c, "21", swap=(shade, "final_shade_bvh", parent_bvh_shade))
 
 
-SECTIONS = {"13": (section_13, ("scatter_rows",)),
+def parent_soup_shade(c: Ctx):
+    """The parent's kernel 4, called as its wrapper called it: the context
+    and the reservoirs packed into 18 + 10K planes inside the call, the
+    soup's [10, T] columns in their own order."""
+    torch = c.torch
+    from romis_tpu_torch.core.types import pack_reservoir_planes
+    from romis_tpu_torch.ops import shade
+
+    def run(ctx, res, geometry, features):
+        cp = shade.pack_center_ctx(ctx)
+        rp = pack_reservoir_planes(res)
+        cols = geometry.tri_cols
+        out = torch.empty((3,) + tuple(ctx.depth_t.shape[-2:]),
+                          device=c.dev)
+        c.call(c.plib.romis_final_shade, cp.data_ptr(), rp.data_ptr(),
+               out[0].numel(), res.k, cols.data_ptr(), cols.shape[1],
+               int(not features.enable_shading), out.data_ptr())
+        return out
+    return run
+
+
+def section_4(c: Ctx) -> None:
+    """Kernel 4 at 1080p on the flagship (2 triangles), the 2048-triangle
+    soup and the one-torus soup (970 triangles, chip_smoke's TORUS_CAM, the
+    vischeck_torus frame's receivers), K = 1, 2 and 4, shaded and
+    unshaded: bit-equal to the parent's, in turns, the parent first; the
+    one-torus soup's time also beside its two bounds (the culled walk's
+    tests and the full scan's, chip_smoke's counts). Kernels 21 and 19
+    bit-equal to the parent's and timed beside them. Then the frames
+    ``config5``, ``slice1``, ``vischeck`` and ``vischeck_torus`` and the
+    steps ``grad_surrogate`` and ``grad_per_pixel`` with either tree's
+    kernel 4."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays, make_camera
+    from romis_tpu_torch.ops import ris, shade, walk
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        build_geometry, flagship_camera, flagship_scene, torus_field,
+        torus_field_camera,
+    )
+
+    theirs = parent_soup_shade(c)
+    scene = flagship_scene(dev)
+    soup = build_geometry([chip_smoke.random_soup(
+        chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)
+    torus1 = torus_field(1, dev)
+    tcam = make_camera(resolution=(H, W), device=dev, **chip_smoke.TORUS_CAM)
+    for label, sc, geo, cam in (
+            ("torus soup", torus1, torus1.geometry, tcam),
+            ("flagship", scene, scene.geometry, flagship_camera(H, W, dev)),
+            ("soup2048", scene, soup, flagship_camera(H, W, dev))):
+        _, ctx = restir.trace_primary(generate_rays(cam, H, W), geo,
+                                      Features(), restir.KERNELS)
+        for k in (1, 2, 4):
+            f = Features(num_samples_in_reservoir=k)
+            res = ris.gen_canonical_samples_ris(ctx, sc.lights, sc.num_lights,
+                                                f, generator=gen)
+            for mode, ff in (("shaded", f),
+                             ("unshaded", f.replace(enable_shading=False))):
+                mine = lambda: shade.final_shade_soup(ctx, res, geo, ff)  # noqa: E731
+                them = lambda: theirs(ctx, res, geo, ff)  # noqa: E731
+                chip_smoke.require(torch.equal(mine(), them()),
+                                   f"kernel 4 {label} K={k} {mode}: outputs "
+                                   "differ from the parent's")
+                reps = 20 if label == "flagship" else 5
+                new, old = chip_smoke.ab_ms(torch, mine, them, reps, reps)
+                name = f"final_shade[{label}, K={k}, {mode}]"
+                print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms "
+                      f"parent ({old / new:.2f}x); bit-equal to the parent's "
+                      f"[{card}]")
+                ms[name] = dict(change=new, parent=old)
+            del res
+        del ctx
+    # Kernels 21 and 19 (the walk and the Phong helpers they share with
+    # kernel 4): bit-equal to the parent's, timed beside them.
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    lgeo = large.geometry
+    f = Features()
+    _, lctx = restir.trace_primary(generate_rays(torus_field_camera(
+        H, W, dev), H, W), lgeo, f, restir.KERNELS)
+    res = ris.gen_canonical_samples_ris(lctx, large.lights, large.num_lights,
+                                        f, generator=gen)
+    to = res.pos - lctx.position
+    d = to / torch.linalg.vector_norm(to, dim=-3).clamp_min(1e-20)[:, None]
+    o = lctx.position + 1e-3 * d
+    tm = torch.linalg.vector_norm(res.pos - o, dim=-3)
+    for name, mine, them in (
+            ("bvh_final_shade[K=2] (kernel 21)",
+             lambda: shade.final_shade_bvh(lctx, res, lgeo, f),
+             lambda: parent_launch(c, shade.final_shade_bvh)(lctx, res, lgeo,
+                                                            f)),
+            ("bvh_any_hit[1 plane] (kernel 19)",
+             lambda: walk.any_hit_bvh(o[:1], d[:1], tm[:1], lgeo),
+             lambda: parent_launch(c, walk.any_hit_bvh)(o[:1], d[:1], tm[:1],
+                                                        lgeo))):
+        chip_smoke.require(torch.equal(mine(), them()),
+                           f"{name}: outputs differ from the parent's")
+        new, old = chip_smoke.ab_ms(torch, mine, them, 10, 10)
+        print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms parent "
+              f"({new / old:.3f} of it); bit-equal [{card}]")
+        ms[name] = dict(change=new, parent=old)
+    del res, to, d, o, tm, large, lctx
+    vfeats = Features(unbiased_combination=True,
+                      spatial_reuse_visibility_check=True)
+    cam = flagship_camera(H, W, dev)
+    time_frames(c, "4", {
+        "config5": (scene, cam, Features()),
+        "slice1": (scene, cam, Features(spatial_reuse=False)),
+        "vischeck": (scene, cam, vfeats),
+        "vischeck_torus": (torus1, tcam, vfeats),
+    }, swap=(shade, "final_shade_soup", theirs))
+    # The flagship's steps repack the soup's columns every step: kernel 4
+    # must not rebuild the cull's blocks for its one-block soup.
+    time_steps(c, "4", swap=(shade, "final_shade_soup", theirs),
+               paths=("grad_surrogate", "grad_per_pixel"))
+
+
+def section_5(c: Ctx) -> None:
+    """Kernel 5 at K = 1, 2 and 4 on Philox and on injected noise (R = 5,
+    r = 10, 1080p) on the flagship's receivers (about half of them missed
+    pixels) and on the 5x5 torus field's, its records' pre-pass in the
+    timed call: bit-equal to the parent's, in turns; kernel 11 beside it
+    on the flagship (bit-equal, within ±3 % asked). Then the frames ``config5``,
+    ``unshaded``, ``large_config5`` and ``large_k1`` with either tree's
+    kernel 5."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from dataclasses import replace
+
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.core.types import pack_reservoir_planes
+    from romis_tpu_torch.ops import ris, shade, spatial
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        flagship_camera, flagship_scene, torus_field, torus_field_camera,
+    )
+
+    n_nbr, radius = 5, 10
+    scene = flagship_scene(dev)
+    cam = flagship_camera(H, W, dev)
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    lcam = torus_field_camera(H, W, dev)
+    parent5 = parent_launch(c, spatial.spatial_pass_fused)
+    parent11 = parent_launch(c, spatial.spatial_pass_unbiased_fused)
+    for sc_name, sc, cam_ in (("flagship", scene, cam),
+                              ("torus field", large, lcam)):
+        _, ctx = restir.trace_primary(generate_rays(cam_, H, W),
+                                      sc.geometry, Features(), restir.KERNELS)
+        cen = shade.pack_center_ctx(ctx)
+        gates = spatial.pack_gates(ctx)
+        print(f"receivers[{sc_name}]: {ctx.valid.float().mean().item():.4f} "
+              "of the pixels hit")
+        for k in (1, 2, 4):
+            f = Features(num_samples_in_reservoir=k)
+            rp = pack_reservoir_planes(ris.gen_canonical_samples_ris(
+                ctx, sc.lights, sc.num_lights, f, generator=gen))
+            inject = spatial.spatial_noise(gen, n_nbr, k, radius, H, W)
+            key = spatial.philox_key(gen)
+            for noise, kw in (("philox", dict(key=key)),
+                              ("injected", dict(inject=inject))):
+                for label, fn, par, args in (
+                        ("kernel 5", spatial.spatial_pass_fused, parent5,
+                         (rp, gates, cen, k, n_nbr, radius, f)),
+                        ("kernel 11", spatial.spatial_pass_unbiased_fused,
+                         parent11, (rp, cen, k, n_nbr, radius, f))):
+                    if label == "kernel 11" and sc is large:
+                        continue
+                    mine = lambda: fn(*args, **kw)  # noqa: E731
+                    them = lambda: par(*args, **kw)  # noqa: E731
+                    chip_smoke.require(torch.equal(mine(), them()),
+                                       f"{label} K={k} {noise} {sc_name}: "
+                                       "outputs differ from the parent's")
+                    new, old = chip_smoke.ab_ms(torch, mine, them, 10, 10)
+                    name = f"{label}[K={k}, {noise}, {sc_name}]"
+                    print(f"time {name}: {new:.4f} ms this tree, {old:.4f} "
+                          f"ms parent ({old / new:.2f}x); bit-equal to the "
+                          f"parent's [{card}]")
+                    ms[name] = dict(change=new, parent=old)
+            del rp, inject
+        del ctx, cen, gates
+    time_frames(c, "5", {
+        "config5": (scene, cam, Features()),
+        "unshaded": (scene, cam, Features(enable_shading=False)),
+        "large_config5": (large, lcam, Features()),
+        "large_k1": (large, lcam, Features(
+            num_samples_in_reservoir=1,
+            initial_samples_visibility_check=True)),
+    }, replace(restir.KERNELS, spatial_pass=parent5))
+
+
+SECTIONS = {"4": (section_4, ("final_shade", "bvh_any_kernel")),
+            "5": (section_5, ("spatial_pass_kernel",
+                              "spatial_unbiased_kernel", "records_kernel")),
+            "13": (section_13, ("scatter_rows",)),
             "21": (section_21, ("final_shade", "bvh_any_kernel")),
             "16": (section_16, ("nbrsel_kernel",)),
             "14": (section_14, ("ris_kernel",)),
@@ -1138,9 +1325,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="root of the other tree (e.g. build/parent)")
-    ap.add_argument("--kernels", default="13,21",
-                    help="comma-separated sections: 13, 21, 16, 11, 14, "
-                    "17, 7, 10, 20")
+    ap.add_argument("--kernels", default="4,5",
+                    help="comma-separated sections: 4, 5, 13, 21, 16, 11, "
+                    "14, 17, 7, 10, 20")
     args = ap.parse_args()
     picked = args.kernels.split(",")
     if not torch.cuda.is_available():
@@ -1161,7 +1348,7 @@ def main() -> None:
                        ("parent", parent.BUILD_DIR / "build.log")):
         for line in ptxas_lines(log, names):
             print(f"ptxas {label}: {line}")
-    c = Ctx(torch, parent.library(), card)
+    c = Ctx(torch, parent.library(), card, parent.SIGNATURES)
     for p in picked:
         SECTIONS[p][0](c)
         torch.cuda.empty_cache()

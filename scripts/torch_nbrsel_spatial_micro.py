@@ -95,7 +95,7 @@ def load(job, obj, name):
     for fn_name, args in (
             ("micro_neighbour_select", list(sig["romis_neighbour_select"])[:-1]
              + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
-            ("micro_spatial_unbiased", list(sig["romis_spatial_pass"])[:-1]
+            ("micro_spatial_unbiased", list(sig["romis_spatial_pass"])[:-2]
              + [ctypes.c_int, ctypes.c_void_p])):
         if hasattr(lib, fn_name):
             fn = getattr(lib, fn_name)

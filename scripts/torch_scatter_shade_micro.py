@@ -137,6 +137,7 @@ def main() -> None:
         chip_smoke.fail("torch.cuda.is_available() is False")
     from romis_tpu_torch import Features
     from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.core.types import pack_reservoir_planes
     from romis_tpu_torch.ops import _build, ris, scatter, shade, trace, walk
     from romis_tpu_torch.ops.bvh import with_bvh
     from romis_tpu_torch.render import restir
@@ -275,7 +276,8 @@ def main() -> None:
         f = Features(num_samples_in_reservoir=kk)
         res = ris.gen_canonical_samples_ris(lctx, large.lights,
                                             large.num_lights, f, generator=gen)
-        cp, rp, _, _, _ = shade._packed(lctx, res, lgeo, f)
+        cp = shade.pack_center_ctx(lctx)  # the 18 + 10K packed planes
+        rp = pack_reservoir_planes(res)
         ref = shade.final_shade_bvh(lctx, res, lgeo, f)
 
         def micro(v):
