@@ -21,6 +21,24 @@ inline int blocks_for(long long n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);
 }
 
+// Primary rays in tiles (kernels 18 and 1): ray i of a launch traces pixel
+// tile_pixel(i) of the h x w frame, a warp's 32 rays an 8 x 4 tile, the
+// tiles row by row (the frame padded to whole tiles: -1 off the frame).
+// Neighbouring pixels' rays take nearly the same path, so a warp's lanes
+// stay together.
+__host__ __device__ inline long long tiled_rays(int h, int w) {
+  return static_cast<long long>((h + 3) / 4) * ((w + 7) / 8) * 32;
+}
+
+__device__ __forceinline__ long long tile_pixel(long long i, int h, int w) {
+  const long long tile = i >> 5;
+  const int lane = static_cast<int>(i & 31);
+  const int tiles_x = (w + 7) / 8;
+  const long long y = tile / tiles_x * 4 + lane / 8;
+  const long long x = tile % tiles_x * 8 + (lane & 7);
+  return (y < h && x < w) ? y * w + x : -1;
+}
+
 __device__ __forceinline__ float scrub(float x) { return isnan(x) ? 0.0f : x; }
 
 // core/vec.vnorm: exactly 0 for the zero vector.

@@ -1,13 +1,16 @@
-// The soup's block cull, shared by kernel 7 (zcount.cu) and kernel 4
-// (shade.cu): ops/trace.zcount_blocks cuts the soup into blocks of kZBlock
+// The soup's block cull, shared by kernel 7 (zcount.cu), kernel 4
+// (shade.cu) and kernel 1 (trace.cu): ops/trace.soup_blocks cuts the soup
+// into blocks of kZBlock
 // triangles, each with a grown box and the near-parallel guard's data. A
 // ray tests a block's box over its window [0, dist] before the block's
 // triangles; where the box test fails, the guard still keeps the block if
 // the ray is within the rounding's reach of parallel to one of its
 // triangles (zcount_blocks derives the bound; it covers both the
-// division-free test of kernel 7 and the division form mt_tri of kernel 4,
-// ops/trace.any_hit_culled).
+// division-free test of kernel 7 and the division form mt_tri of kernels 4
+// and 1, ops/trace.any_hit_culled and closest_hit_culled).
 #pragma once
+
+#include <mutex>
 
 #include "common.cuh"
 
@@ -68,30 +71,87 @@ __device__ __forceinline__ float slab_inv(float c) {
   return __fdividef(c < 0.0f ? -1.0f : 1.0f, fmaxf(fabsf(c), 1e-20f));
 }
 
+// The guard's reach before its window: |o - c|_1 + three half-diagonals
+// of block b.
+__device__ __forceinline__ float guard_l0(const CullSoup& s, int b, float ox, float oy,
+                                          float oz) {
+  const int nb = s.nb;
+  return fabsf(ox - s.box[6 * nb + b]) + fabsf(oy - s.box[7 * nb + b]) +
+         fabsf(oz - s.box[8 * nb + b]) + s.box[9 * nb + b];
+}
+
 // The near-parallel guard of block b for one ray (o, unit d) whose box
-// test failed, over the window [0, dist] → whether it keeps the block:
-// the reach L = |o - c|_1 + three half-diagonals + dist against the
-// growth over 8u, then each pair's cone, then, only for the pairs the
-// cone does not rule out, their two normals (zcount_blocks' bound; kernel
-// 7's guard_of does the same for K rays at once).
+// test failed, at the reach L = guard_l0 + the window's end → whether it
+// keeps the block: L against the growth over 8u, then each pair's cone,
+// then, only for the pairs the cone does not rule out, their two normals
+// (soup_blocks' bound; kernel 7's guard_of does the same for K rays at
+// once).
+// Pair q of block b: whether its cone leaves the ray near-parallel to one
+// of its two triangles, |d.m| <= reach.
+__device__ __forceinline__ bool pair_keeps(const CullSoup& s, int b, int q, float dx,
+                                           float dy, float dz, float reach) {
+  const float4 c = s.pairs[b * (kZBlock / 2) + q];
+  if (fabsf(dx * c.x + dy * c.y + dz * c.z) - c.w > reach) return false;
+  for (int j = b * kZBlock + 2 * q; j < b * kZBlock + 2 * q + 2; ++j) {
+    const float mx = s.nrm[j], my = s.nrm[s.n_tris + j], mz = s.nrm[2 * s.n_tris + j];
+    if (fabsf(dx * mx + dy * my + dz * mz) <= reach) return true;
+  }
+  return false;
+}
+
+__device__ __forceinline__ bool guard_keeps_at(const CullSoup& s, int b, float dx,
+                                               float dy, float dz, float reach) {
+  if (reach >= s.box[10 * s.nb + b]) return true;
+#pragma unroll 2
+  for (int q = 0; q < kZBlock / 2; ++q)
+    if (pair_keeps(s, b, q, dx, dy, dz, reach)) return true;
+  return false;
+}
+
+// The guard over the window [0, dist] (an any-hit ray's).
 __device__ __forceinline__ bool guard_keeps(const CullSoup& s, int b, float ox, float oy,
                                             float oz, float dx, float dy, float dz,
                                             float dist) {
-  const int nb = s.nb;
-  const float l0 = fabsf(ox - s.box[6 * nb + b]) + fabsf(oy - s.box[7 * nb + b]) +
-                   fabsf(oz - s.box[8 * nb + b]) + s.box[9 * nb + b];
-  const float reach = l0 + dist;
-  if (reach >= s.box[10 * nb + b]) return true;
-#pragma unroll 2
-  for (int q = 0; q < kZBlock / 2; ++q) {
-    const float4 c = s.pairs[b * (kZBlock / 2) + q];
-    if (fabsf(dx * c.x + dy * c.y + dz * c.z) - c.w > reach) continue;
-    for (int j = b * kZBlock + 2 * q; j < b * kZBlock + 2 * q + 2; ++j) {
-      const float mx = s.nrm[j], my = s.nrm[s.n_tris + j], mz = s.nrm[2 * s.n_tris + j];
-      if (fabsf(dx * mx + dy * my + dz * mz) <= reach) return true;
-    }
+  return guard_keeps_at(s, b, dx, dy, dz, guard_l0(s, b, ox, oy, oz) + dist);
+}
+
+// The persistent grid of one kernel instantiation (kernels 4 and 1): as
+// many blocks as fit on the card at once, each looping over the rays (so
+// the soup is staged once a block), worked out at the first launch on a
+// device with a given staged size and kept; the shared-memory attribute is
+// set then. Each source keeps its grids at file scope in an unnamed
+// namespace: a function-local static of a template is a unique global
+// symbol, which the loader shares with any other library (another build
+// of these sources) that defines one of the same name.
+struct PersistentGrid {
+  static constexpr int kMaxDevices = 64;
+  std::mutex mu;
+  size_t smem[kMaxDevices] = {};
+  int blocks[kMaxDevices] = {};  // 0: not worked out yet
+};
+
+template <class Kernel>
+int persistent_blocks(PersistentGrid& g, Kernel kernel, int threads, size_t smem,
+                      int& blocks) {
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err != 0) return err;
+  if (dev >= PersistentGrid::kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> lock(g.mu);
+  if (g.blocks[dev] == 0 || g.smem[dev] != smem) {
+    int sms = 0, per_sm = 0;
+    err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    if (err == 0) err = static_cast<int>(
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    if (err == 0) err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads, smem));
+    if (err != 0) return err;
+    g.smem[dev] = smem;
+    g.blocks[dev] = sms * (per_sm > 1 ? per_sm : 1);
   }
-  return false;
+  blocks = g.blocks[dev];
+  return 0;
 }
 
 }  // namespace romis

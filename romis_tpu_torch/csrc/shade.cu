@@ -55,7 +55,6 @@
 // receiver's validity (ops/shading.phong_shade), so every lane with W != 0
 // traces its shadow ray.
 #include <algorithm>
-#include <mutex>
 
 #include "cull.cuh"
 #include "walk.cuh"
@@ -391,49 +390,23 @@ final_shade_bvh_kernel(const ShadeFields f, long long n,
   write_pixel<K>(term, slot, lane, in_range, n, p, out);
 }
 
-// The persistent grid of one instantiation: as many blocks as fit on the
-// card at once (each looping over warps' chunks of pixels, so the soup is
-// staged once a block), worked out at the first launch on a device with a
-// given staged size and kept; the shared-memory attribute is set then.
-struct ShadeGrid {
-  size_t smem = 0;
-  int blocks = 0;  // 0: not worked out yet
-};
+namespace {
+PersistentGrid shade_grids[5][2];  // [K][kMany]
+}  // namespace
 
 template <int K, bool kMany>
 int launch_shade(const ShadeFields& f, long long n, const float* cols,
                  const float* boxes, const float* normals, int n_tris,
                  bool unshaded, float* out, unsigned char* occ,
                  cudaStream_t stream) {
-  constexpr int kMaxDevices = 64;
-  static std::mutex mu;
-  static ShadeGrid grids[kMaxDevices];
+  PersistentGrid& grids = shade_grids[K][kMany];
   const size_t smem = kMany ? cull_smem_bytes(n_tris)
                             : sizeof(float) * 10 * static_cast<size_t>(n_tris);
   auto kernel = final_shade_kernel<K, kMany>;
   constexpr int kThr = shade_threads<kMany>();
-  int dev = 0;
-  int err = static_cast<int>(cudaGetDevice(&dev));
-  if (err != 0) return err;
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   int blocks = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    ShadeGrid& g = grids[dev];
-    if (g.blocks == 0 || g.smem != smem) {
-      int sms = 0, per_sm = 0;
-      err = static_cast<int>(cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-      if (err == 0) err = static_cast<int>(
-          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-      if (err == 0) err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kThr, smem));
-      if (err != 0) return err;
-      g.smem = smem;
-      g.blocks = sms * std::max(per_sm, 1);
-    }
-    blocks = g.blocks;
-  }
+  const int err = persistent_blocks(grids, kernel, kThr, smem, blocks);
+  if (err != 0) return err;
   constexpr int kPerBlock = kThr / 32 * (32 / K);
   const long long need = (n + kPerBlock - 1) / kPerBlock;
   const int grid = static_cast<int>(std::min<long long>(need, blocks));

@@ -9,9 +9,16 @@
 // cursor, reading node records and leaf triangles through the read-only
 // cache (the tree and the triangles of a 24k-triangle scene, ~2 MB, stay in
 // L2). The plain versions are ops/traverse.bvh_closest and bvh_any, whose
-// walk each thread repeats step for step.
+// walk kernels 19 and 20 repeat step for step; kernel 18 walks in another
+// order and gives the plain walk's answer (walk_closest_ordered).
 //
-// Kernel 18: one thread per primary ray; the running best t prunes.
+// Kernel 18: one thread per primary ray, a warp's rays an 8 x 4 tile of
+//   pixels, walking the tree nearer child first from ops/bvh.wide_record's
+//   two-box node record with a short stack (walk.cuh
+//   walk_closest_ordered), its leaf triangles read as 48-byte records; the
+//   running best t prunes. A ray whose answer may
+//   not be the plain walk's is walked again in preorder (walk_closest,
+//   the plain walk step for step).
 // Kernel 19: one thread per ray of the flattened leading axes (rays
 //   [S, 3, N], t_max [S, N], out [S, N] bool), stopping at the first hit.
 // Kernel 20: the S <= 16 rays of each pixel (the K lanes of the initial
@@ -27,7 +34,11 @@
 //
 // What holds a walk back on the H100 is latency: every step is a dependent
 // node load, so the card needs many walks in flight (occupancy), and each
-// leaf triangle costs loads. The TPU's kernel 20 shares ONE walk between a
+// leaf triangle costs loads. Kernel 18's preorder walk (the parent design)
+// took 27.7 dependent node loads a primary ray on the 5x5 torus field and
+// met its closest hit late (children in build order); its redesign takes
+// both children's boxes in one 64-byte load (12.7 steps a ray), the nearer
+// child first, and reads leaf triangles as records. The TPU's kernel 20 shares ONE walk between a
 // pixel's S rays to amortise its page DMAs; on this card that union walk
 // visits every node any of the S rays needs (S rays going to S different
 // light samples), runs up to S slab tests a node serially, and holds 10 S
@@ -55,18 +66,32 @@ inline int walk_blocks(long long n) {
   return static_cast<int>((n + kWalkThreads - 1) / kWalkThreads);
 }
 
-__global__ void __launch_bounds__(kWalkThreads)
+// Kernel 18 at 12 blocks an SM (40 registers, the stack in local memory).
+constexpr int kClosestMinBlocks = 12;
+
+__global__ void __launch_bounds__(kWalkThreads, kClosestMinBlocks)
 bvh_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   long long n, const float4* __restrict__ nodes,
-                   const float* __restrict__ cols, int n_tris, float t_max,
+                   int h, int w, const float4* __restrict__ nodes,
+                   const float4* __restrict__ wide,
+                   const float4* __restrict__ recs, float t_max,
                    float* __restrict__ t_out, int* __restrict__ tri_out,
                    float* __restrict__ u_out, float* __restrict__ v_out) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  const long long p = tile_pixel(
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x, h, w);
+  if (p < 0) return;
+  const long long n = static_cast<long long>(h) * w;
+  const float ox = o[p], oy = o[n + p], oz = o[2 * n + p];
+  const float dx = d[p], dy = d[n + p], dz = d[2 * n + p];
   float best_t = t_max, best_u = 0.f, best_v = 0.f;
   int best_i = -1;
-  walk_closest(nodes, cols, n_tris, o[p], o[n + p], o[2 * n + p], d[p],
-               d[n + p], d[2 * n + p], best_t, best_i, best_u, best_v);
+  if (!walk_closest_ordered(nodes, wide, RecTris{recs}, ox, oy, oz, dx, dy, dz,
+                            t_max, best_t, best_i, best_u, best_v)) {
+    best_t = t_max;
+    best_i = -1;
+    best_u = best_v = 0.f;
+    walk_closest(nodes, RecTris{recs}, ox, oy, oz, dx, dy, dz, best_t, best_i,
+                 best_u, best_v);
+  }
   t_out[p] = best_t;
   tri_out[p] = best_i;
   u_out[p] = best_u;
@@ -112,14 +137,16 @@ bvh_any_k_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 }  // namespace romis
 
-extern "C" int romis_bvh_closest(const float* o, const float* d, long long n,
-                                 const float* nodes, const float* cols,
-                                 int n_tris, float t_max, float* t, int* tri,
-                                 float* u, float* v, cudaStream_t stream) {
+extern "C" int romis_bvh_closest(const float* o, const float* d, int h, int w,
+                                 const float* nodes, const float* wide,
+                                 const float* recs, float t_max, float* t,
+                                 int* tri, float* u, float* v,
+                                 cudaStream_t stream) {
   using namespace romis;
-  bvh_closest_kernel<<<walk_blocks(n), kWalkThreads, 0, stream>>>(
-      o, d, n, reinterpret_cast<const float4*>(nodes), cols, n_tris, t_max, t,
-      tri, u, v);
+  bvh_closest_kernel<<<walk_blocks(tiled_rays(h, w)), kWalkThreads, 0, stream>>>(
+      o, d, h, w, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(wide), reinterpret_cast<const float4*>(recs),
+      t_max, t, tri, u, v);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 // The threaded BVH walk on the device, shared by kernels 18-20 (walk.cu)
 // and the BVH final shade (kernel 21, shade.cu): the node record, the slab
-// test, the closest-hit walk (18) and the one-ray any-hit walk walk_any
-// (kernels 19, 20 and 21, each ray walking alone).
+// test, the closest-hit walks (18: walk_closest_ordered, nearer child
+// first, and walk_closest, the plain walk's preorder) and the one-ray
+// any-hit walk walk_any (kernels 19, 20 and 21, each ray walking alone).
 //
 // The tree is ops/bvh.py's DFS-preorder skip-link layout: node i's record is
 // 8 words, read as two float4 through the read-only cache, bmin xyz | bmax x
@@ -58,15 +59,28 @@ __device__ __forceinline__ bool slab_hit(const Node& n, float ox, float oy,
   return tnear <= tfar && tfar >= 0.0f && tnear <= t_max;
 }
 
+// The slab test's tnear and tfar (slab_hit's operations) of the box
+// (lo, hi) per axis.
+__device__ __forceinline__ void slabs(float lox, float hix, float loy, float hiy,
+                                      float loz, float hiz, float ox, float oy,
+                                      float oz, float ix, float iy, float iz,
+                                      float& tnear, float& tfar) {
+  const float t0x = (lox - ox) * ix, t1x = (hix - ox) * ix;
+  const float t0y = (loy - oy) * iy, t1y = (hiy - oy) * iy;
+  const float t0z = (loz - oz) * iz, t1z = (hiz - oz) * iz;
+  tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+}
+
 // Closest hit of one ray (ops/traverse.bvh_closest): the running best t
 // prunes the boxes, and a later triangle replaces the best only if strictly
 // nearer, so ties go to the first hit in walk order. On a miss best_t keeps
 // its initial value and best_i stays -1.
+template <class Tris>
 __device__ __forceinline__ void walk_closest(const float4* __restrict__ nodes,
-                                             const float* __restrict__ cols,
-                                             int n_tris, float ox, float oy,
-                                             float oz, float dx, float dy,
-                                             float dz, float& best_t,
+                                             const Tris& tris, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float& best_t,
                                              int& best_i, float& best_u,
                                              float& best_v) {
   const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
@@ -80,7 +94,7 @@ __device__ __forceinline__ void walk_closest(const float4* __restrict__ nodes,
       const int count = leaf & ((1 << kLeafCountBits) - 1);
       for (int j = 0; j < count; ++j) {
         float t, u, v;
-        if (mt_hit(ox, oy, oz, dx, dy, dz, cols + first + j, n_tris, t, u, v) &&
+        if (mt_tri(ox, oy, oz, dx, dy, dz, tris(first + j), t, u, v) &&
             t < best_t) {
           best_t = t;
           best_i = first + j;
@@ -96,7 +110,7 @@ __device__ __forceinline__ void walk_closest(const float4* __restrict__ nodes,
 }
 
 // A leaf's triangles as the walk reads them: from the [10, T] columns
-// (kernels 18 and 19), or from 48-byte records (kernels 20 and 21;
+// (kernel 19), or from 48-byte records (kernels 18, 20 and 21;
 // ops/walk.tri_records: v0 xyz | e1 xyz | e2 xyz | active | 0 0, three
 // float4 from one record instead of ten floats from ten columns).
 struct ColTris {
@@ -147,6 +161,95 @@ __device__ __forceinline__ bool walk_any(const float4* __restrict__ nodes,
     }
   }
   return occ;
+}
+
+// Kernel 18's walk (ops/traverse.bvh_closest_ordered is its plain model):
+// from ops/bvh.wide_record, an inner node's record gives both children's
+// boxes and references (an inner child's node index, a leaf's word
+// negated), so a step tests two boxes from one 64-byte load and goes to
+// the nearer child, the farther waiting on a stack of kWalkStack entries.
+// A box is entered where slab_hit passes it with the ray's t_max and where
+// pm, the largest tnear on its path, is at most best_t * kLoose; a hit
+// replaces the best where it comes first in (t, index) order. Returns
+// false where the answer may not be the plain walk's (the best's pm above
+// its t with another hit, t2, below that pm; or a full stack): the caller
+// then walks the ray again in preorder (walk_closest). bvh_closest_ordered
+// says why the answer stands otherwise.
+constexpr int kWalkStack = 32;          // ops/traverse.WALK_STACK
+constexpr float kLoose = 1.00006103515625f;  // 1 + 2^-14, ops/traverse.LOOSE
+
+template <class Tris>
+__device__ __forceinline__ bool walk_closest_ordered(
+    const float4* __restrict__ nodes, const float4* __restrict__ wide,
+    const Tris& tris, float ox, float oy, float oz, float dx, float dy,
+    float dz, float t_max, float& best_t, int& best_i, float& best_u,
+    float& best_v) {
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  const Node root = load_node(nodes, 0);
+  float pm, tf;
+  slabs(root.a.x, root.a.w, root.a.y, root.b.x, root.a.z, root.b.y, ox, oy, oz,
+        ix, iy, iz, pm, tf);
+  if (!(pm <= tf && tf >= 0.0f && pm <= t_max)) return true;
+  int ref = -root.leaf();  // 0: the root is inner
+  float t2 = INFINITY, tau = -INFINITY;
+  int2 stack[kWalkStack];
+  int sp = 0;
+  while (true) {
+    if (ref < 0) {  // a leaf: its triangles, then the stack
+      const int first = (-ref) >> kLeafCountBits;
+      const int count = (-ref) & ((1 << kLeafCountBits) - 1);
+      for (int j = 0; j < count; ++j) {
+        float t, u, v;
+        if (!mt_tri(ox, oy, oz, dx, dy, dz, tris(first + j), t, u, v)) continue;
+        const int i = first + j;
+        if (t < best_t || (t == best_t && i < best_i)) {
+          if (best_i >= 0) t2 = fminf(t2, best_t);
+          best_t = t;
+          best_i = i;
+          best_u = u;
+          best_v = v;
+          tau = pm;
+        } else if (t < t_max) {
+          t2 = fminf(t2, t);
+        }
+      }
+    } else {  // an inner node: both children's boxes
+      const float4* rec = wide + 4 * ref;
+      const float4 x = __ldg(rec), y = __ldg(rec + 1), z = __ldg(rec + 2);
+      const int4 kids = __ldg(reinterpret_cast<const int4*>(rec + 3));
+      const float lim = best_t * kLoose;
+      float tnl, tfl, tnr, tfr;
+      slabs(x.x, x.y, y.x, y.y, z.x, z.y, ox, oy, oz, ix, iy, iz, tnl, tfl);
+      slabs(x.z, x.w, y.z, y.w, z.z, z.w, ox, oy, oz, ix, iy, iz, tnr, tfr);
+      const float pml = fmaxf(pm, tnl), pmr = fmaxf(pm, tnr);
+      const bool gl = tnl <= tfl && tfl >= 0.0f && tnl <= t_max && pml <= lim;
+      const bool gr = tnr <= tfr && tfr >= 0.0f && tnr <= t_max && pmr <= lim;
+      if (gl || gr) {
+        const bool left = gl && (!gr || tnl <= tnr);
+        if (gl && gr) {
+          if (sp == kWalkStack) return false;
+          stack[sp++] = left ? make_int2(kids.y, __float_as_int(pmr))
+                             : make_int2(kids.x, __float_as_int(pml));
+        }
+        ref = left ? kids.x : kids.y;
+        pm = left ? pml : pmr;
+        continue;
+      }
+    }
+    // The stack's top entry, while its path can still hold the answer.
+    bool found = false;
+    while (sp > 0) {
+      const int2 e = stack[--sp];
+      if (__int_as_float(e.y) <= best_t * kLoose) {
+        ref = e.x;
+        pm = __int_as_float(e.y);
+        found = true;
+        break;
+      }
+    }
+    if (!found) break;
+  }
+  return !(best_i >= 0 && tau > best_t && t2 < tau);
 }
 
 }  // namespace romis

@@ -45,8 +45,11 @@ _P, _I, _U, _LL, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 # C entry points (each returns cudaGetLastError() after its launch) and
 # their argument types; the last argument of each is the CUDA stream.
 SIGNATURES = {
-    # o, d, n_pix, tri_cols, n_tris, t_max, t, tri, u, v, stream
-    "romis_closest_hit": (_P, _P, _LL, _P, _I, _F, _P, _P, _P, _P, _P),
+    # o, d, h, w, tri_cols, boxes, guard normals, input index (the three
+    # null for a soup of at most 16 triangles, else ops/trace.soup_blocks),
+    # n_tris, t_max, t, tri, u, v, stream
+    "romis_closest_hit": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _F, _P, _P,
+                          _P, _P, _P),
     # table, n_rows, n_cols, idx, n_idx, out, stream
     "romis_gather_rows": (_P, _I, _I, _P, _LL, _P, _P),
     # ctx17, n_pix, light_rows, n_rows, num_lights, s, k, seed, uniforms,
@@ -83,8 +86,10 @@ SIGNATURES = {
     # s, num_lights, mode, unshaded, out0, out1, out2, stream
     "romis_mis_iteration": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P, _P, _P, _P),
-    # o, d, n_pix, nodes, tri_cols, n_tris, t_max, t, tri, u, v, stream
-    "romis_bvh_closest": (_P, _P, _LL, _P, _P, _I, _F, _P, _P, _P, _P, _P),
+    # o, d, h, w, nodes, wide (ops/bvh.wide_record), tri_records [T, 12],
+    # t_max, t, tri, u, v, stream
+    "romis_bvh_closest": (_P, _P, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
+                          _P),
     # origins, dirs, t_max, n_pix, n_rays, nodes, tri_cols, n_tris, out,
     # stream
     "romis_bvh_any": (_P, _P, _P, _LL, _LL, _P, _P, _I, _P, _P),

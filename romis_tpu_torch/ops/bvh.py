@@ -22,8 +22,11 @@ Besides the reference's node columns, a BVH carries ``nodes``, the record
 the CUDA walk reads (``csrc/walk.cuh``): per node 8 words, bmin xyz | bmax
 xyz | miss_link | leaf, where leaf = leaf_first * 32 + leaf_count for a leaf
 and 0 for an inner node (the miss link and the leaf word are int32 bit
-patterns), and ``max_leaf_count``, the largest leaf, which bounds the plain
-traversal's leaf loop (``ops/traverse.py``). The SAH builder may emit
+patterns), ``wide``, the record of kernel 18's nearer-first walk (per inner
+node both children's boxes and references, derived from the same tree; see
+``wide_record``), ``depth``, the tree's depth, and ``max_leaf_count``, the
+largest leaf, which bounds the plain traversal's leaf loop
+(``ops/traverse.py``). The SAH builder may emit
 leaves of up to 4 * max_leaf triangles. The reference's TPU page cut
 (``PagedBVH``) is a Mosaic shared-memory and DMA layout and is not ported.
 """
@@ -56,6 +59,8 @@ class BVH:
     leaf_count: torch.Tensor  # int32, 0 for inner nodes
     nodes: torch.Tensor  # [N, 8] f32, the CUDA walk's record
     max_leaf_count: int
+    wide: torch.Tensor  # [N, 16] f32, the nearer-first walk's (wide_record)
+    depth: int  # nodes on the longest root-to-leaf path
 
     @property
     def n_nodes(self) -> int:
@@ -86,6 +91,8 @@ def bvh_from_arrays(bmin, bmax, miss, lfirst, lcount, device) -> BVH:
     words[:, 6] = miss
     words[:, 7] = np.where(leaf, (lfirst << LEAF_COUNT_BITS) | lcount, 0)
 
+    wide, depth = wide_record(bmin, bmax, miss, words[:, 7])
+
     def t(a):
         return torch.as_tensor(np.array(a, order="C"), device=device)
 
@@ -93,7 +100,37 @@ def bvh_from_arrays(bmin, bmax, miss, lfirst, lcount, device) -> BVH:
                bmin_z=t(bmin[:, 2]), bmax_x=t(bmax[:, 0]),
                bmax_y=t(bmax[:, 1]), bmax_z=t(bmax[:, 2]), miss_link=t(miss),
                leaf_first=t(lfirst), leaf_count=t(lcount), nodes=t(rec),
-               max_leaf_count=int(lcount.max()))
+               max_leaf_count=int(lcount.max()), wide=t(wide), depth=depth)
+
+
+def wide_record(bmin, bmax, miss, leaf_word):
+    """Kernel 18's node record, derived from the threaded tree → (wide
+    [N, 16] f32, depth). Inner node i's children are i + 1 and the miss
+    link of i + 1 (its sibling); row i holds x | y | z, each as (lo, hi)
+    of the left child then of the right, then the two children's
+    references: an inner child's node index (>= 1), a leaf child's leaf
+    word negated (< 0); the last two words are 0, as is a leaf's row. The
+    references are int32 bit patterns. A ray tests both children's boxes
+    from one 64-byte record and goes to the nearer first."""
+    n = len(miss)
+    wide = np.zeros((n, 16), np.float32)
+    inner = np.nonzero(leaf_word == 0)[0]
+    inner = inner[inner + 1 < n]
+    left = inner + 1
+    right = miss[left]
+    for row, c in ((0, left), (2, right)):
+        for axis in range(3):
+            wide[inner, 4 * axis + row] = bmin[c, axis]
+            wide[inner, 4 * axis + row + 1] = bmax[c, axis]
+    refs = wide.view(np.int32)
+    refs[inner, 12] = np.where(leaf_word[left] != 0, -leaf_word[left], left)
+    refs[inner, 13] = np.where(leaf_word[right] != 0, -leaf_word[right],
+                               right)
+    # Preorder: a parent comes before its children.
+    depth = np.ones(n, np.int64)
+    for i, lft, rgt in zip(inner.tolist(), left.tolist(), right.tolist()):
+        depth[lft] = depth[rgt] = depth[i] + 1
+    return wide, int(depth.max())
 
 
 def _build_arrays_sah(v0, e1, e2, max_leaf):

@@ -2,8 +2,11 @@
 ``romis_tpu/ops/pallas_trace.py``, ``pallas_closest`` and ``pallas_any``).
 
 Kernel 1 (``csrc/trace.cu``) replaces the Pallas ``_closest_kernel``:
-Möller–Trumbore over the whole triangle soup, one thread per ray, triangles
-staged through shared memory. Same contract as the plain block scan
+Möller–Trumbore over the triangle soup, one thread per ray, the soup
+staged into shared memory once a persistent thread block; a soup of more
+than ``ZCOUNT_BLOCK`` triangles culled by the blocks of ``soup_blocks``
+(``closest_hit_culled`` is the plain model of that walk and derives why
+its answer is the plain scan's). Same contract as the plain block scan
 ``ops.intersect.intersect_closest``: t in (0, t_max), ties to the lowest
 triangle index, (t = inf, tri = -1, u = v = 0) on a miss. ``closest_hit``
 is differentiable in the rays and the vertex columns, with the reference's
@@ -16,10 +19,10 @@ Kernel 6 (``csrc/any.cu``) replaces the Pallas ``_any_kernel``: boolean
 occlusion at t in (0, t_max) with an early exit per ray, leading sample
 axes kept, the same contract as ``ops.intersect.intersect_any``.
 
-Bound on the H100: compute, ~30 flops per ray-triangle test; the triangle
-columns are a shared-memory broadcast, so device memory sees only rays in
-and hits out (~40 B per pixel for the closest hit, 29 B per ray for the
-any-hit).
+Bound on the H100: the triangle columns are a shared-memory broadcast, so
+device memory sees only rays in and hits out (~40 B per pixel for the
+closest hit, 29 B per ray for the any-hit); operations, the ray-triangle
+tests (and kernel 1's box and guard tests on a culled soup).
 
 Kernel 7 (``csrc/zcount.cu``, ``zcount_occ``) replaces the Pallas
 ``_zcount_kernel``: the Z-count occlusion of the unbiased pass's visibility
@@ -106,10 +109,12 @@ def _closest_hit_forward(rays: Rays, geometry, t_max: float):
     h, w = rays.hw
     _build.check(rays.origin, "rays.origin", torch.float32, (3, h, w))
     _build.check(rays.direction, "rays.direction", torch.float32, (3, h, w))
-    cols = geometry.tri_cols
-    _build.check(cols, "tri_cols", torch.float32)
+    _build.check(geometry.tri_cols, "tri_cols", torch.float32)
     check_soup(geometry, "closest_hit")
-    n_tris = cols.shape[1]
+    if geometry.tri_cols.shape[1] <= ZCOUNT_BLOCK:  # nothing to cull
+        cols, boxes, guard, index = geometry.tri_cols, None, None, None
+    else:
+        cols, boxes, guard, index = soup_blocks(geometry)
     dev = rays.origin.device
     t = torch.empty((h, w), dtype=torch.float32, device=dev)
     tri = torch.empty((h, w), dtype=torch.int32, device=dev)
@@ -117,8 +122,13 @@ def _closest_hit_forward(rays: Rays, geometry, t_max: float):
     v = torch.empty((h, w), dtype=torch.float32, device=dev)
     if h * w == 0:
         return t, tri, u, v
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
     _build.launch("romis_closest_hit", rays.origin.data_ptr(),
-                  rays.direction.data_ptr(), h * w, cols.data_ptr(), n_tris,
+                  rays.direction.data_ptr(), h, w, cols.data_ptr(),
+                  ptr(boxes), ptr(guard), ptr(index), cols.shape[1],
                   float(t_max), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
                   v.data_ptr())
     closest_hit.launches += 1
@@ -291,11 +301,13 @@ def _spread_bits(q: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def _blocks(cols: torch.Tensor, order: bool):
-    """zcount_blocks in the Morton (``order``) or the input order."""
+    """soup_blocks in the Morton (``order``) or the input order."""
     cols = cols.detach()
     t = cols.shape[1]
+    index = torch.arange(t, dtype=torch.int32, device=cols.device)
     if t == 0:
-        return cols, cols.new_zeros((13, 0)), cols.new_zeros((5, 0))
+        return (cols, cols.new_zeros((13, 0)), cols.new_zeros((5, 0)),
+                index)
     act = cols[9] > 0.0
     v0 = cols[0:3]
     v1, v2 = v0 + cols[3:6], v0 + cols[6:9]
@@ -313,11 +325,13 @@ def _blocks(cols: torch.Tensor, order: bool):
                | _spread_bits(q[2]))
         perm = torch.argsort(torch.where(act, key, 1 << 31), stable=True)
         cols, lo, hi, act = cols[:, perm], lo[:, perm], hi[:, perm], act[perm]
+        index = index[perm]
     pad = (-t) % ZCOUNT_BLOCK
     if pad:
         cols, lo, hi = (torch.nn.functional.pad(a, (0, pad))
                         for a in (cols, lo, hi))
         act = torch.cat([act, act.new_zeros(pad)])
+        index = torch.nn.functional.pad(index, (0, pad), value=-1)
     nb = (t + pad) // ZCOUNT_BLOCK
     b_lo = torch.where(act, lo, inf).reshape(3, nb, ZCOUNT_BLOCK).amin(-1)
     b_hi = torch.where(act, hi, -inf).reshape(3, nb, ZCOUNT_BLOCK).amax(-1)
@@ -378,7 +392,7 @@ def _blocks(cols: torch.Tensor, order: bool):
     defer = no_cone.sum(-1) * 2 > pairs_live.sum(-1)
     boxes = torch.cat([b_lo, b_hi, centre, s3[None], g_over[None],
                        end.to(cols.dtype)[None], defer.to(cols.dtype)[None]])
-    return cols.contiguous(), boxes.contiguous(), guard.contiguous()
+    return cols.contiguous(), boxes.contiguous(), guard.contiguous(), index
 
 
 def _box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -389,13 +403,24 @@ def _box_area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def zcount_blocks(geometry, order: bool | None = None):
-    """Kernel 7's cull: the soup's columns [10, T] in the Morton order of
-    the triangles' box centres (``order=True``), in the input order
+    """``soup_blocks`` without the index: (cols, boxes, guard), the kept
+    tuple itself by default."""
+    if order is not None:
+        return _blocks(geometry.tri_cols, order)[:3]
+    soup_blocks(geometry)
+    return geometry.zcount[2]
+
+
+def soup_blocks(geometry, order: bool | None = None):
+    """The cull of kernels 7, 4 and 1: the soup's columns [10, T] in the
+    Morton order of the triangles' box centres (``order=True``), in the
+    input order
     (``False``) or, by default, in whichever of the two gives the blocks'
     boxes the smaller summed surface area (the order a mesh is written in
     keeps a strip of neighbours together; a shuffled soup needs the sort),
     padded with inactive triangles to a multiple of ``ZCOUNT_BLOCK`` →
-    (cols [10, T'], boxes [13, T'/ZCOUNT_BLOCK], guard [5, T']).
+    (cols [10, T'], boxes [13, T'/ZCOUNT_BLOCK], guard [5, T'], index
+    [T'] int32: each slot's triangle in the input order, -1 on padding).
 
     A block's box (rows 0-5: min xyz, max xyz) holds its active triangles'
     corners (v0, v0 + e1, v0 + e2), grown by g = 1e-4 + 1e-5 of the soup's
@@ -421,15 +446,14 @@ def zcount_blocks(geometry, order: bool | None = None):
     if order is not None:
         return _blocks(cols, order)
     kept = geometry.zcount
-    if kept is not None and kept[0] is cols and kept[1] == cols._version:
-        return kept[2]
-    out = build_zcount_blocks(cols)
-    geometry.zcount = (cols, cols._version, out)
-    return out
+    if kept is None or kept[0] is not cols or kept[1] != cols._version:
+        out = build_zcount_blocks(cols)
+        kept = geometry.zcount = (cols, cols._version, out[:3], out[3])
+    return kept[2] + (kept[3],)
 
 
 def build_zcount_blocks(cols: torch.Tensor):
-    """``zcount_blocks``' default of the columns [10, T], not kept."""
+    """``soup_blocks``' default of the columns [10, T], not kept."""
     m, i = _blocks(cols, True), _blocks(cols, False)
     morton = _box_area(m[1]) < _box_area(i[1])
     return tuple(torch.where(morton, a, b) for a, b in zip(m, i))
@@ -438,6 +462,73 @@ def build_zcount_blocks(cols: torch.Tensor):
 def _inv_dir(c: torch.Tensor) -> torch.Tensor:
     """A slab test's reciprocal: zero components become a huge slope."""
     return torch.where(c < 0.0, -1.0, 1.0) / torch.clamp_min(c.abs(), 1e-20)
+
+
+def _box_ok(n, boxes, b, o, inv, dist, idx):
+    """The slab test of block b's box for the rays idx over [0, dist]."""
+    n["box"][idx] += 1
+    ox, oy, oz = (a[idx] for a in o)
+    t = [(boxes[c, b] - oc) * ic[idx] for c, oc, ic in
+         ((0, ox, inv[0]), (1, oy, inv[1]), (2, oz, inv[2]))]
+    t1 = [(boxes[3 + c, b] - oc) * ic[idx] for c, oc, ic in
+          ((0, ox, inv[0]), (1, oy, inv[1]), (2, oz, inv[2]))]
+    tn = torch.maximum(torch.maximum(torch.minimum(t[0], t1[0]),
+                                     torch.minimum(t[1], t1[1])),
+                       torch.minimum(t[2], t1[2]))
+    tf = torch.minimum(torch.minimum(torch.maximum(t[0], t1[0]),
+                                     torch.maximum(t[1], t1[1])),
+                       torch.maximum(t[2], t1[2]))
+    return (tf >= tn) & (tf >= 0.0) & (tn <= dist)
+
+
+def _guard_keeps(n, boxes, guard_data, b, o, d, dist, idx, capped=False):
+    """The near-parallel guard of block b for the rays idx (their box test
+    failed) over the window [0, dist]: kept where some triangle's rounding
+    could reach the ray; a pair's cone first, then the pair's two normals.
+    ``capped`` (a closest-hit ray, dist its best t): the reach of the
+    smaller of ``closest_hit_culled``'s two rules that holds."""
+    n["guard"][idx] += 1
+    nrm, cones = guard_data[:3], guard_data[3:].reshape(-1, 4)
+    ox, oy, oz = (a[idx] for a in o)
+    di = [a[idx] for a in d]
+    l0 = ((ox - boxes[6, b]).abs() + (oy - boxes[7, b]).abs()
+          + (oz - boxes[8, b]).abs() + boxes[9, b])
+    if not capped:
+        reach = l0 + dist
+        near = reach >= boxes[10, b]
+    else:  # closest_hit_culled's two rules
+        reach = l0 + torch.minimum(dist, CLOSEST_REACH * l0)
+        box_rule = reach < boxes[10, b]
+        cx, cy, cz = boxes[6, b] - ox, boxes[7, b] - oy, boxes[8, b] - oz
+        qx = cy * di[2] - cz * di[1]
+        qy = cz * di[0] - cx * di[2]
+        qz = cx * di[1] - cy * di[0]
+        delta = ((qx * qx + qy * qy + qz * qz).sqrt() * (1.0 - 2.0 ** -16)
+                 - boxes[9, b] * (1.0 / 3.0)
+                 - 2.0 ** -16 * (cx.abs() + cy.abs() + cz.abs()))
+        g = boxes[10, b] * 2.0 ** -21  # row 10 = g / 8u
+        gp = torch.minimum(2.5 * delta, 0.2 * l0)
+        r_delta = torch.where(gp > g, (2.0 * l0) * (g / gp), torch.inf)
+        near = ~box_rule & ~(gp > g)
+        reach = torch.where(box_rule, torch.minimum(reach, r_delta), r_delta)
+    for q in range(ZCOUNT_BLOCK // 2):
+        c = cones[b * ZCOUNT_BLOCK // 2 + q]
+        pair = ~near
+        if c[3] < 1e30:
+            n["guard_cone"][idx[pair]] += 1
+            pair &= ~((di[0] * c[0] + di[1] * c[1] + di[2] * c[2]).abs()
+                      - c[3] > reach)
+        n["guard_tri"][idx[pair]] += 2
+        for j in range(b * ZCOUNT_BLOCK + 2 * q,
+                       b * ZCOUNT_BLOCK + 2 * q + 2):
+            near |= pair & ((di[0] * nrm[0, j] + di[1] * nrm[1, j]
+                             + di[2] * nrm[2, j]).abs() <= reach)
+    return near
+
+
+def _walk_counts(shape, device):
+    return {name: torch.zeros(shape, dtype=torch.int64, device=device)
+            for name in ("box", "tri", "guard", "guard_tri", "guard_cone")}
 
 
 def _culled_walk(o, d, dist, boxes, guard_data, defer, test, guard=True,
@@ -457,48 +548,7 @@ def _culled_walk(o, d, dist, boxes, guard_data, defer, test, guard=True,
     inv = [_inv_dir(a) for a in d]
     pending = dist > 0.0
     occluded = torch.zeros_like(pending)
-    n = {name: torch.zeros(dist.shape, dtype=torch.int64, device=dist.device)
-         for name in ("box", "tri", "guard", "guard_tri", "guard_cone")}
-
-    def box_ok(b, idx):
-        n["box"][idx] += 1
-        ox, oy, oz = (a[idx] for a in o)
-        t = [(boxes[c, b] - oc) * ic[idx] for c, oc, ic in
-             ((0, ox, inv[0]), (1, oy, inv[1]), (2, oz, inv[2]))]
-        t1 = [(boxes[3 + c, b] - oc) * ic[idx] for c, oc, ic in
-              ((0, ox, inv[0]), (1, oy, inv[1]), (2, oz, inv[2]))]
-        tn = torch.maximum(torch.maximum(torch.minimum(t[0], t1[0]),
-                                         torch.minimum(t[1], t1[1])),
-                           torch.minimum(t[2], t1[2]))
-        tf = torch.minimum(torch.minimum(torch.maximum(t[0], t1[0]),
-                                         torch.maximum(t[1], t1[1])),
-                           torch.maximum(t[2], t1[2]))
-        return (tf >= tn) & (tf >= 0.0) & (tn <= dist[idx])
-
-    def guard_keeps(b, idx):
-        """The near-parallel guard of block b for the rays idx (their box
-        test failed): kept where some triangle's rounding could reach the
-        ray; a pair's cone first, then the pair's two normals."""
-        n["guard"][idx] += 1
-        nrm, cones = guard_data[:3], guard_data[3:].reshape(-1, 4)
-        ox, oy, oz = (a[idx] for a in o)
-        reach = ((ox - boxes[6, b]).abs() + (oy - boxes[7, b]).abs()
-                 + (oz - boxes[8, b]).abs() + boxes[9, b] + dist[idx])
-        near = reach >= boxes[10, b]
-        di = [a[idx] for a in d]
-        for q in range(ZCOUNT_BLOCK // 2):
-            c = cones[b * ZCOUNT_BLOCK // 2 + q]
-            pair = ~near
-            if c[3] < 1e30:
-                n["guard_cone"][idx[pair]] += 1
-                pair &= ~((di[0] * c[0] + di[1] * c[1] + di[2] * c[2]).abs()
-                          - c[3] > reach)
-            n["guard_tri"][idx[pair]] += 2
-            for j in range(b * ZCOUNT_BLOCK + 2 * q,
-                           b * ZCOUNT_BLOCK + 2 * q + 2):
-                near |= pair & ((di[0] * nrm[0, j] + di[1] * nrm[1, j]
-                                 + di[2] * nrm[2, j]).abs() <= reach)
-        return near
+    n = _walk_counts(dist.shape, dist.device)
 
     def run(b, live):
         if live.numel() == 0:
@@ -516,16 +566,19 @@ def _culled_walk(o, d, dist, boxes, guard_data, defer, test, guard=True,
         idx = pending.nonzero().squeeze(1)
         if idx.numel() == 0:
             break
-        ok = box_ok(b, idx)
+        ok = _box_ok(n, boxes, b, o, inv, dist[idx], idx)
         if guard and not defer[b]:
-            ok[~ok] = guard_keeps(b, idx[~ok])
+            fail = idx[~ok]
+            ok[~ok] = _guard_keeps(n, boxes, guard_data, b, o, d, dist[fail],
+                                   fail)
         run(b, idx[ok])
     for b in (b for b in range(boxes.shape[1]) if guard and defer[b]):
         idx = pending.nonzero().squeeze(1)
         if idx.numel() == 0:
             break
-        cand = idx[~box_ok(b, idx)]
-        run(b, cand[guard_keeps(b, cand)])
+        cand = idx[~_box_ok(n, boxes, b, o, inv, dist[idx], idx)]
+        run(b, cand[_guard_keeps(n, boxes, guard_data, b, o, d, dist[cand],
+                                 cand)])
     return occluded, n
 
 
@@ -666,6 +719,139 @@ def any_hit_culled(origins, dirs, t_max, geometry, counts=None,
     if counts is not None:
         counts.update({name: v.reshape(lead) for name, v in n.items()})
     return occluded.reshape(lead)
+
+
+# The guard's window of a closest-hit ray, min(best t, CLOSEST_REACH · l0)
+# (closest_hit_culled; csrc/trace.cu kReach).
+CLOSEST_REACH = 1.0
+
+
+def closest_hit_culled(rays: Rays, geometry, t_max: float = math.inf,
+                       counts=None, order: bool | None = None,
+                       guard: bool = True):
+    """A plain model of kernel 1's walk, ``closest_hit_plain``'s contract:
+    rays [3, H, W] → (t, tri int32, u, v), each [H, W]; t = inf, tri = -1,
+    u = v = 0 on a miss. A soup of more than ``ZCOUNT_BLOCK`` triangles is
+    walked over the blocks of ``soup_blocks`` in order, each ray with its
+    running best t (t_max before its first hit): the block's box over [0,
+    best t], then, where the box rejects the ray (and the block is not
+    deferred), the near-parallel guard, then the block's triangles with
+    the plain scan's Möller–Trumbore (``ops.intersect._mt``, the division
+    form ``mt_tri`` of the kernels); a hit replaces the best where it comes
+    first in (t, input index) order (``index``), so the answer does not
+    depend on the blocks' order and ties go to the lowest input index, as
+    the plain scan's do. The deferred blocks' guard runs in a second pass
+    over the rays' final windows. A soup of at most ``ZCOUNT_BLOCK``
+    triangles is tested as given, up to its last active triangle. With a
+    ``counts`` dict it records the tests kernel 1 makes per ray (``box``,
+    ``guard``, ``guard_cone``, ``guard_tri``, ``tri``, each [H, W]);
+    ``order`` picks the blocks' order as ``soup_blocks`` does (by default
+    the kernel's); ``guard=False`` lets the box alone decide (the tests the
+    cull itself needs; its answer may then miss a hit on a near-parallel
+    ray).
+
+    The box rule's window. ``any_hit_culled``'s bound takes |t*| <= dist for
+    the exact plane crossing t* of an accepted hit, and a closest-hit
+    window [0, best t] is infinite until the ray's first hit. So the guard
+    takes the window min(best t, D), D = ``CLOSEST_REACH`` · l0 = l0, l0 =
+    |o - c|₁ + row 9 (three L1 half-diagonals h of the grown box, h >= 3g
+    since every side is at least 2g): reach = l0 + min(best t, D). Where
+    best t <= D the bound is the any-hit one. Else a triangle whose
+    crossing has |t*| <= D is covered by the bound with dist = D, and one
+    with |t*| > D cannot accept the ray: every point of the triangle lies
+    within h of c, so the crossing is at least |t*||d| - |o - c|₂ - h >=
+    (|t*| - D) + 2h - 2^-21 |t*| from it (|d| = 1 within ``vnormalize``'s
+    rounding), while the test accepts only points within 20.4u (l0 +
+    |t*|) / s of it (s as there), and a ray the guard lets go has s >
+    64u · 2 l0 / g; so the accepted point would lie within 0.16 g (1 +
+    |t*| / l0) of the crossing, less than that distance since h >= 3g and
+    l0 >= 9g. This is the box rule: it rests on the box
+    test's failure, and holds where reach < row 10.
+
+    The distance rule. Far from a block the box rule keeps more than it
+    must: the ray misses the grown box by g at least, but its line may
+    pass far from the block. With delta a lower bound of the distance from
+    the ray's line to every point of the block (|(c - o) × d| less row 9
+    / 3, the grown box's L1 half-diagonal, each rounded down), take the
+    growth g' = min(2.5 delta, 0.2 l0) in g's place: where g' > g, a ray
+    with s > 64u · 2 l0 / g' for each triangle, i.e. |d·m| > 2 l0 g / g',
+    cannot be accepted. For |t*| <= l0 the test accepts only points within
+    20.4u (l0 + |t*|) / s < 0.32 g' <= 0.8 delta of the crossing, nearer
+    than the line comes to the triangle; for |t*| = k l0 > l0 within 0.16
+    g' (1 + k), under delta for k <= 1.1 (0.84 delta) and under (k - 1) l0
+    <= the crossing's distance from the block beyond (g' <= 0.2 l0), and
+    s > 640u keeps det's error small, as there. The guard keeps a block
+    where some triangle has |d·m| at most the smaller reach of the rules
+    that hold, and wholly where neither holds. A block is thus only
+    dropped where no triangle of it can be accepted at t <= best t (the
+    margins leave the boundary strict), and the answer is the plain scan's
+    on every ray."""
+    h, w = rays.hw
+    n = h * w
+    dev = rays.origin.device
+    o = [rays.origin[c].reshape(n) for c in range(3)]
+    d = [rays.direction[c].reshape(n) for c in range(3)]
+    cols = geometry.tri_cols.detach()
+    direct = cols.shape[1] <= ZCOUNT_BLOCK
+    if direct:
+        index = torch.arange(cols.shape[1], device=dev)
+    else:
+        cols, boxes, guard_data, index = soup_blocks(geometry, order)
+    index = index.long()
+    best_t = torch.full((n,), float(t_max), device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros(n, device=dev)
+    best_v = torch.zeros(n, device=dev)
+    cnt = _walk_counts((n,), dev)
+
+    def test(j0, j1, live):
+        """Triangles [j0, j1) against the rays ``live``."""
+        if live.numel() == 0 or j1 <= j0:
+            return
+        cnt["tri"][live] += j1 - j0
+        ray = tuple(a[live][None] for a in o + d)
+        t, u, v = _mt(ray, cols[:, j0:j1, None])  # [B, n], t inf off a hit
+        t_min = t.amin(0)
+        first = torch.where(t == t_min, index[j0:j1, None],
+                            torch.iinfo(torch.int64).max)
+        loc = first.argmin(0, keepdim=True)
+        i_min = torch.gather(first, 0, loc)[0]
+        bt, bi = best_t[live], best_i[live]
+        better = torch.isfinite(t_min) & ((t_min < bt)
+                                          | ((t_min == bt) & (i_min < bi)))
+        best_t[live] = torch.where(better, t_min, bt)
+        best_i[live] = torch.where(better, i_min, bi)
+        best_u[live] = torch.where(better, torch.gather(u, 0, loc)[0],
+                                   best_u[live])
+        best_v[live] = torch.where(better, torch.gather(v, 0, loc)[0],
+                                   best_v[live])
+
+    every = torch.arange(n, device=dev)
+    if direct:
+        act = (cols[9] > 0.0).nonzero()
+        test(0, int(act[-1]) + 1 if act.numel() else 0, every)
+    else:
+        inv = [_inv_dir(a) for a in d]
+        defer = (boxes[12] > 0.5).tolist()
+        ends = boxes[11].long().tolist()
+        for b in range(boxes.shape[1]):
+            ok = _box_ok(cnt, boxes, b, o, inv, best_t, every)
+            if guard and not defer[b]:
+                fail = every[~ok]
+                ok[~ok] = _guard_keeps(cnt, boxes, guard_data, b, o, d,
+                                       best_t[fail], fail, capped=True)
+            test(b * ZCOUNT_BLOCK, b * ZCOUNT_BLOCK + ends[b], every[ok])
+        for b in (b for b in range(boxes.shape[1]) if guard and defer[b]):
+            cand = every[~_box_ok(cnt, boxes, b, o, inv, best_t, every)]
+            keep = _guard_keeps(cnt, boxes, guard_data, b, o, d,
+                                best_t[cand], cand, capped=True)
+            test(b * ZCOUNT_BLOCK, b * ZCOUNT_BLOCK + ends[b], cand[keep])
+    if counts is not None:
+        counts.update({name: v.reshape(h, w) for name, v in cnt.items()})
+    hit = best_i >= 0
+    return (torch.where(hit, best_t, torch.inf).reshape(h, w),
+            best_i.int().reshape(h, w), best_u.reshape(h, w),
+            best_v.reshape(h, w))
 
 
 def zcount_occ(origins, targets, geometry, eps: float = 1e-3,

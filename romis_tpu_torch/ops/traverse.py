@@ -26,6 +26,10 @@ are dropped from the working set after every step, so the work follows the
 rays still walking. ``counts`` (a dict) receives the box tests and the
 triangle tests each ray made (int64, shaped like the rays' pixels), the
 work the kernels' bound counts.
+
+``bvh_closest_ordered`` is a plain model of kernel 18's own walk, which
+visits the nearer child first (the tests the kernel makes, for the CPU
+tests and the bound); kernel 18's plain version stays ``bvh_closest``.
 """
 
 from __future__ import annotations
@@ -140,6 +144,199 @@ def bvh_closest(rays: Rays, geometry, bvh, t_max=None, counts=None):
         keep = (nxt >= 0).nonzero().squeeze(1)
         ray, cursor = ray[keep], nxt[keep]
     cnt.done((h, w))
+    return (best_t.reshape(h, w), best_i.reshape(h, w),
+            best_u.reshape(h, w), best_v.reshape(h, w))
+
+
+WALK_STACK = 32  # entries of kernel 18's stack (csrc/walk.cuh kWalkStack)
+LOOSE = 1.0 + 2.0 ** -14  # its box test's slack over the best t (kLoose)
+
+
+def _slabs(lo, hi, o, inv):
+    """``slab_test``'s (tnear, tfar) of boxes lo, hi [3, N] for rays o,
+    inv [3, N], in its order of operations."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    tn = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
+                                     torch.minimum(t0[1], t1[1])),
+                       torch.minimum(t0[2], t1[2]))
+    tf = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
+                                     torch.maximum(t0[1], t1[1])),
+                       torch.maximum(t0[2], t1[2]))
+    return tn, tf
+
+
+def bvh_closest_ordered(rays: Rays, geometry, bvh, t_max=None, counts=None):
+    """A plain model of kernel 18's walk: ``bvh_closest``'s contract and,
+    on the rays its certainty test passes, its bits (the rest it walks
+    again with ``bvh_closest``, as the kernel does).
+
+    Each ray tests the root's box, then at an inner node both children's
+    boxes from ``bvh.wide`` (``slab_test``'s arithmetic) and goes to the
+    nearer (the smaller tnear; the left on a tie), pushing the farther on a
+    stack of ``WALK_STACK`` entries; a leaf's triangles are tested in
+    order. A hit replaces the best where it comes first in (t, index)
+    order, so ties go to the lowest index. A box is entered where the plain
+    test passes it with the ray's t_max (tnear <= tfar, tfar >= 0, tnear <=
+    t_max) and where ``pm``, the largest tnear on its path from the root,
+    is at most the best t times ``LOOSE``; a popped entry is dropped when
+    its ``pm`` is not.
+
+    Why the answer is the plain walk's. The plain walk enters a box where
+    tnear <= its best t when it gets there; its leaves come in preorder in
+    ascending ``leaf_first``, so its strict ``t < best_t`` keeps the lowest
+    index on ties. Let m be the first in (t, index) order of the hits in
+    the leaves whose boxes pass with t_max alone. A walk tests m where
+    every box on m's path has tnear <= its best t then, which holds
+    whatever the order if ``pm(m)`` <= t_m: then both walks find m. The
+    rounding of the slab test and of Möller–Trumbore can put a box's tnear
+    a few ulps above the t of a triangle inside it (``pm(m)`` > t_m); the
+    plain walk then misses m only if it found before, in preorder, a hit y
+    with t_m < t_y < ``pm(m)``. So the walk keeps ``t2``, the least t of
+    its other hits (replaced bests included), and its answer stands unless
+    ``pm(best)`` > best t and ``t2`` < ``pm(best)``; such a ray (or one
+    whose stack overflows) is walked again by the plain walk. The slack
+    ``LOOSE`` makes the walk see every hit y that could do so, on the
+    assumption that no hit's t lies more than 2**-16 of it below the
+    tnear of a box on its path (tens of ulps is what the rounding gives a
+    ray that is not within a fraction of a degree of parallel to the
+    triangle): then ``pm(m)`` <= t_m (1 + 2**-16) and ``pm(y)`` <= t_m (1 +
+    2**-16)**2 < t_m ``LOOSE``. ``counts`` as ``bvh_closest``'s, both walks'
+    tests of a ray walked again summed, and ``counts["again"]``, the rays
+    walked again (bool)."""
+    h, w = rays.hw
+    dev = rays.origin.device
+    n = h * w
+    o_all = rays.origin.reshape(3, n)
+    d_all = rays.direction.reshape(3, n)
+    inv_all = inv_direction(d_all)
+    tmax = (torch.full((n,), torch.inf, device=dev) if t_max is None
+            else t_max.reshape(n).to(torch.float32))
+    best_t = tmax.clone()
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros(n, device=dev)
+    best_v = torch.zeros(n, device=dev)
+    t2 = torch.full((n,), torch.inf, device=dev)
+    tau = torch.full((n,), -torch.inf, device=dev)
+    again = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_box = torch.ones(n, dtype=torch.int64, device=dev)
+    n_tri = torch.zeros(n, dtype=torch.int64, device=dev)
+    n_tris = geometry.tri_cols.shape[1]
+    wide = bvh.wide
+    refs = wide.view(torch.int32)[:, 12:14].long()
+    root_lo = torch.stack([bvh.bmin_x[0], bvh.bmin_y[0], bvh.bmin_z[0]])
+    root_hi = torch.stack([bvh.bmax_x[0], bvh.bmax_y[0], bvh.bmax_z[0]])
+    root_tn, root_tf = _slabs(root_lo[:, None], root_hi[:, None], o_all,
+                              inv_all)
+    cap = min(WALK_STACK, bvh.depth)
+    stack_ref = torch.zeros((n, cap), dtype=torch.long, device=dev)
+    stack_pm = torch.zeros((n, cap), device=dev)
+    sp = torch.zeros(n, dtype=torch.long, device=dev)
+    root_leaf = int(bvh.leaf_count[0]) > 0
+    root_ref = -((int(bvh.leaf_first[0]) << 5) | int(bvh.leaf_count[0])) \
+        if root_leaf else 0
+    # The walking rays, each with its cursor (an inner node's index or a
+    # leaf's negated word) and its path's largest tnear.
+    ray = ((root_tn <= root_tf) & (root_tf >= 0.0)
+           & (root_tn <= tmax)).nonzero().squeeze(1)
+    cur = torch.full(ray.shape, root_ref, dtype=torch.long, device=dev)
+    pm = root_tn[ray]
+    pop = torch.zeros(ray.shape, dtype=torch.bool, device=dev)
+    while ray.numel():
+        # A ray at a leaf tests its triangles and then pops.
+        at_leaf = ~pop & (cur < 0)
+        sel = at_leaf.nonzero().squeeze(1)
+        if sel.numel():
+            r = ray[sel]
+            word = -cur[sel]
+            first, count = word >> 5, word & 31
+            n_tri.index_add_(0, r, count)
+            os_, ds_ = o_all[:, r], d_all[:, r]
+            bt, bi, bu, bv = best_t[r], best_i[r], best_u[r], best_v[r]
+            s2, ta, lpm = t2[r], tau[r], pm[sel]
+            for j in range(bvh.max_leaf_count):
+                idx = torch.clamp_max(first + j, n_tris - 1)
+                t, u, v, ok = _mt(os_, ds_, geometry.tri_cols, idx)
+                ok = ok & (j < count)
+                better = ok & ((t < bt) | ((t == bt) & (idx < bi)))
+                s2 = torch.where(better & (bi >= 0), torch.minimum(s2, bt),
+                                 s2)
+                s2 = torch.where(ok & ~better & (t < tmax[r]),
+                                 torch.minimum(s2, t), s2)
+                bt = torch.where(better, t, bt)
+                bi = torch.where(better, idx, bi)
+                bu = torch.where(better, u, bu)
+                bv = torch.where(better, v, bv)
+                ta = torch.where(better, lpm, ta)
+            best_t[r], best_i[r], best_u[r], best_v[r] = bt, bi, bu, bv
+            t2[r], tau[r] = s2, ta
+            pop[sel] = True
+        # A ray at an inner node tests both children's boxes.
+        sel = (~pop & ~at_leaf).nonzero().squeeze(1)
+        if sel.numel():
+            r = ray[sel]
+            n_box.index_add_(0, r, torch.full_like(r, 2))
+            rec = wide[cur[sel]]  # [n, 16]
+            o, inv, lim = o_all[:, r], inv_all[:, r], best_t[r] * LOOSE
+            went = []
+            for side in (0, 2):
+                lo = torch.stack([rec[:, 4 * a + side] for a in range(3)])
+                hi = torch.stack([rec[:, 4 * a + side + 1] for a in range(3)])
+                tn, tf = _slabs(lo, hi, o, inv)
+                cpm = torch.maximum(pm[sel], tn)
+                went.append(((tn <= tf) & (tf >= 0.0) & (tn <= tmax[r])
+                             & (cpm <= lim), tn, cpm))
+            (gl, tnl, pml), (gr, tnr, pmr) = went
+            ref_l, ref_r = refs[cur[sel], 0], refs[cur[sel], 1]
+            left_first = tnl <= tnr
+            both = gl & gr
+            full = both & (sp[r] >= cap)
+            again[r[full]] = True
+            push = (both & ~full).nonzero().squeeze(1)
+            if push.numel():
+                far = torch.where(left_first[push], ref_r[push], ref_l[push])
+                far_pm = torch.where(left_first[push], pmr[push], pml[push])
+                stack_ref[r[push], sp[r[push]]] = far
+                stack_pm[r[push], sp[r[push]]] = far_pm
+                sp[r[push]] += 1
+            go_l = gl & (~gr | left_first)
+            cur[sel] = torch.where(go_l, ref_l, ref_r)
+            pm[sel] = torch.where(go_l, pml, pmr)
+            pop[sel] = ~(gl | gr) | full
+        # A popping ray takes its stack's top entry while the entry's path
+        # can still hold a hit first in (t, index) order; an empty stack
+        # (or an overflow) ends its walk.
+        sel = (pop & ~again[ray]).nonzero().squeeze(1)
+        done = pop & again[ray]
+        if sel.numel():
+            r = ray[sel]
+            has = sp[r] > 0
+            top = torch.clamp_min(sp[r] - 1, 0)
+            e_ref, e_pm = stack_ref[r, top], stack_pm[r, top]
+            sp[r] = top
+            take = has & (e_pm <= best_t[r] * LOOSE)
+            cur[sel] = torch.where(take, e_ref, cur[sel])
+            pm[sel] = torch.where(take, e_pm, pm[sel])
+            pop[sel] = ~take
+            done[sel] = ~has
+        keep = (~done).nonzero().squeeze(1)
+        ray, cur, pm, pop = ray[keep], cur[keep], pm[keep], pop[keep]
+    again |= (best_i >= 0) & (tau > best_t) & (t2 < tau)
+    sel = again.nonzero().squeeze(1)
+    best_i = best_i.int()
+    if sel.numel():  # the plain walk, on these rays alone
+        cnt = None if counts is None else {}
+        sub = Rays(o_all[:, sel, None], d_all[:, sel, None])
+        res = bvh_closest(sub, geometry, bvh, tmax[sel, None], cnt)
+        best_t[sel], best_i[sel], best_u[sel], best_v[sel] = (
+            a[:, 0] for a in res)
+        if cnt is not None:
+            n_box.index_add_(0, sel, cnt["box"][:, 0])
+            n_tri.index_add_(0, sel, cnt["tri"][:, 0])
+    if counts is not None:
+        counts["box"] = n_box.reshape(h, w)
+        counts["tri"] = n_tri.reshape(h, w)
+        counts["again"] = again.reshape(h, w)
     return (best_t.reshape(h, w), best_i.reshape(h, w),
             best_u.reshape(h, w), best_v.reshape(h, w))
 

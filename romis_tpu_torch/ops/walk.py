@@ -10,7 +10,12 @@ has no per-lane control flow; on the H100 every thread walks the whole
 threaded tree (``ops/bvh.py``) with its own cursor, reading node records
 and leaf triangles through the read-only cache:
 - kernel 18 (``closest_hit_bvh``): one thread per primary ray, pruning with
-  its running best t;
+  its running best t; it walks nearer child first, both children's boxes
+  from one record of ``bvh.wide`` a step and the farther child on a short
+  stack, its leaf triangles read as 48-byte records kept on the geometry
+  (``kept_records``); a ray whose answer may not be the plain walk's is
+  walked again in preorder (``ops.traverse.bvh_closest_ordered`` is the
+  plain model of this walk and says why the answer is the plain walk's);
 - kernel 19 (``any_hit_bvh``): one thread per ray, stopping at the first
   hit;
 - kernel 20 (``any_hit_bvh_k``): the S <= 16 rays of each pixel, a thread
@@ -18,7 +23,8 @@ and leaf triangles through the read-only cache:
   first hit; its leaf triangles come as 48-byte records
   (``tri_records``, built from the columns in each call).
 Their plain versions are ``ops.traverse.bvh_closest`` and ``bvh_any``,
-whose walk the kernels repeat step for step, so they agree hit for hit.
+whose walk kernels 19 and 20 repeat step for step, so they agree hit for
+hit.
 
 ``ops.trace.closest_hit`` and ``any_hit`` send BVH geometry here, with the
 reference's rule for the any-hit (``ops/intersect.py:154-162``): 2 <= S <=
@@ -55,6 +61,11 @@ from .traverse import bvh_any, bvh_closest
 K_MAX = 16  # rays per pixel kernel 20 takes (the reference's PAGED_ANY_K_MAX)
 
 
+def _aligned(a: torch.Tensor, name: str) -> None:
+    if a.data_ptr() % 16:
+        raise ValueError(f"{name}: expected 16-byte aligned records")
+
+
 def checked_tree(geometry):
     """The BVH record and the triangle columns, checked for the walk."""
     bvh = geometry.bvh
@@ -62,8 +73,7 @@ def checked_tree(geometry):
         raise ValueError("the BVH walk needs geometry with a BVH "
                          "(ops.bvh.with_bvh)")
     _build.check(bvh.nodes, "bvh.nodes", torch.float32, (bvh.n_nodes, 8))
-    if bvh.nodes.data_ptr() % 16:
-        raise ValueError("bvh.nodes: expected 16-byte aligned records")
+    _aligned(bvh.nodes, "bvh.nodes")
     cols = geometry.tri_cols
     _build.check(cols, "tri_cols", torch.float32)
     return bvh.nodes, cols
@@ -72,7 +82,9 @@ def checked_tree(geometry):
 def closest_hit_bvh(rays: Rays, geometry, t_max: float = math.inf):
     """Closest hit of rays [3, H, W] by the BVH walk → (t, tri int32, u,
     v), each [H, W]; tri = -1, u = v = 0 and t = t_max on a miss. Kernel
-    18 for CUDA tensors, the plain traversal for CPU tensors."""
+    18 (the nearer-first walk of ``ops.traverse.bvh_closest_ordered``, on
+    ``bvh.wide`` and the kept ``kept_records``) for CUDA tensors, the plain
+    traversal for CPU tensors."""
     if not rays.origin.is_cuda:
         tm = None
         if not math.isinf(t_max):
@@ -81,7 +93,11 @@ def closest_hit_bvh(rays: Rays, geometry, t_max: float = math.inf):
     h, w = rays.hw
     _build.check(rays.origin, "rays.origin", torch.float32, (3, h, w))
     _build.check(rays.direction, "rays.direction", torch.float32, (3, h, w))
-    nodes, cols = checked_tree(geometry)
+    nodes, _ = checked_tree(geometry)
+    wide = geometry.bvh.wide
+    _build.check(wide, "bvh.wide", torch.float32, (geometry.bvh.n_nodes, 16))
+    _aligned(wide, "bvh.wide")
+    recs = kept_records(geometry)
     dev = rays.origin.device
     t = torch.empty((h, w), dtype=torch.float32, device=dev)
     tri = torch.empty((h, w), dtype=torch.int32, device=dev)
@@ -89,8 +105,8 @@ def closest_hit_bvh(rays: Rays, geometry, t_max: float = math.inf):
     v = torch.empty((h, w), dtype=torch.float32, device=dev)
     if h * w:
         _build.launch("romis_bvh_closest", rays.origin.data_ptr(),
-                      rays.direction.data_ptr(), h * w, nodes.data_ptr(),
-                      cols.data_ptr(), cols.shape[1], float(t_max),
+                      rays.direction.data_ptr(), h, w, nodes.data_ptr(),
+                      wide.data_ptr(), recs.data_ptr(), float(t_max),
                       t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr())
         closest_hit_bvh.launches += 1
     return t, tri, u, v
@@ -100,9 +116,24 @@ closest_hit_bvh.launches = 0
 
 
 def tri_records(cols: torch.Tensor) -> torch.Tensor:
-    """The [10, T] triangle columns as kernel 20 reads them: [T, 12], a
-    48-byte record a triangle (v0 xyz | e1 xyz | e2 xyz | active | 0 0)."""
+    """The [10, T] triangle columns as kernels 18, 20 and 21 read them:
+    [T, 12], a 48-byte record a triangle (v0 xyz | e1 xyz | e2 xyz | active
+    | 0 0)."""
     return torch.nn.functional.pad(cols.t(), (0, 2)).contiguous()
+
+
+def kept_records(geometry) -> torch.Tensor:
+    """``tri_records`` of the geometry's columns, kept on the geometry
+    (``Geometry.records``) with the columns tensor they came from and
+    rebuilt if the geometry's columns are another tensor or were written
+    to (a gradient step writes them every step)."""
+    cols = geometry.tri_cols
+    kept = geometry.records
+    if kept is not None and kept[0] is cols and kept[1] == cols._version:
+        return kept[2]
+    recs = tri_records(cols.detach())
+    geometry.records = (cols, cols._version, recs)
+    return recs
 
 
 def _any_args(origins, dirs, t_max, name):

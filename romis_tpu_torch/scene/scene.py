@@ -71,10 +71,15 @@ class Geometry:
     # ops.bvh.with_bvh): every trace entry point then walks the tree
     # instead of scanning the soup.
     bvh: object = None
-    # Kernel 7's blocks of the soup (ops.trace.zcount_blocks), built at its
-    # first Z-count call and kept with the columns tensor they came from.
+    # The soup's blocks (ops.trace.soup_blocks) of kernels 7, 4 and 1, built
+    # at the first call that culls and kept with the columns tensor they
+    # came from.
     zcount: object = dataclasses.field(default=None, repr=False,
                                        compare=False)
+    # Kernel 18's leaf-triangle records (ops.walk.kept_records), kept the
+    # same way.
+    records: object = dataclasses.field(default=None, repr=False,
+                                        compare=False)
 
     @property
     def num_tris(self) -> int:

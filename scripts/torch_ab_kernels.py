@@ -3,13 +3,27 @@
 one call on one NVIDIA GPU, at the shapes of ``chip_smoke.py``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
-    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 4,5]
+    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 18,1]
 
 Both trees' kernel libraries are built (the parent's with its own
 ``ops/_build.py``, into its own ``build/``), the registers and spill stores
 of the compared kernels are printed from both builds' ``-Xptxas -v`` logs,
 and the kernels are called on the same tensors, in turns (parent, this
-tree, this tree, parent). ``--kernels`` picks the sections (default 4,5):
+tree, this tree, parent). ``--kernels`` picks the sections (default 18,1):
+- 18, the BVH closest hit, at 1080p on the 5x5 torus field's primary rays
+  and on the 2048-triangle soup with a BVH: (t, tri, u, v) bit-equal to
+  the parent's and to the plain walk, beside both walks' bounds (its
+  nearer-first walk's tests, ``ops.traverse.bvh_closest_ordered``, and
+  the plain walk's); kernels 19, 20 (S = 2) and 21 (K = 2) bit-equal and
+  timed beside the parent's; then the frames ``large_config5``,
+  ``large_k1``, ``large_romis`` and the step ``large_grad`` with either
+  tree's kernel 18;
+- 1, the soup closest hit, at 1080p on the flagship, the 2048-triangle
+  soup and the one-torus soup: bit-equal to the parent's and to the plain
+  scan, the culled soups beside the culled walk's and the full scan's
+  bounds; kernels 4 and 7 bit-equal and timed beside the parent's; then
+  the frames ``slice1``, ``config5``, ``vischeck_torus`` and the step
+  ``grad_surrogate`` with either tree's kernel 1;
 - 4, the final shade on a triangle soup, at 1080p on the flagship (2
   triangles), the 2048-triangle soup and the one-torus soup (970
   triangles, the vischeck_torus frame's receivers), K = 1, 2 and 4,
@@ -1303,7 +1317,254 @@ def section_5(c: Ctx) -> None:
     }, replace(restir.KERNELS, spatial_pass=parent5))
 
 
-SECTIONS = {"4": (section_4, ("final_shade", "bvh_any_kernel")),
+def section_18(c: Ctx) -> None:
+    """Kernel 18 at 1080p on the 5x5 torus field's primary rays and on the
+    2048-triangle soup with a BVH (the flagship camera's rays): (t, tri,
+    u, v) bit-equal to the parent's and to the plain walk, in turns, the
+    parent first, beside its two bounds (its nearer-first walk's tests and
+    the plain walk's). Kernels 19, 20 (S = 2) and 21 (K = 2), which share
+    ``walk.cuh``, bit-equal to the parent's and timed beside them. Then the
+    frames ``large_config5``, ``large_k1`` and ``large_romis`` and the step
+    ``large_grad`` with either tree's kernel 18."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    import math
+
+    from romis_tpu_torch import Features, RayTraceMode
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.ops import ris, shade, walk
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.ops.traverse import bvh_closest, bvh_closest_ordered
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        build_geometry, flagship_camera, torus_field, torus_field_camera,
+    )
+
+    def parent18(rays, geometry, t_max=math.inf):
+        """The parent's kernel 18 (the preorder walk on the [10, T]
+        columns), called as its wrapper called it."""
+        h, w = rays.hw
+        cols = geometry.tri_cols
+        out = [torch.empty((h, w), dtype=dt, device=dev) for dt in (
+            torch.float32, torch.int32, torch.float32, torch.float32)]
+        c.call(c.plib.romis_bvh_closest, rays.origin.data_ptr(),
+               rays.direction.data_ptr(), h * w,
+               geometry.bvh.nodes.data_ptr(), cols.data_ptr(), cols.shape[1],
+               float(t_max), *(a.data_ptr() for a in out))
+        return tuple(out)
+
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    lgeo = large.geometry
+    lcam = torus_field_camera(H, W, dev)
+    soup_bvh = with_bvh(build_geometry([chip_smoke.random_soup(
+        chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev))
+    for label, geo, rays in (
+            ("torus field", lgeo, generate_rays(lcam, H, W)),
+            ("soup2048 with a BVH", soup_bvh,
+             generate_rays(flagship_camera(H, W, dev), H, W))):
+        mine = walk.closest_hit_bvh(rays, geo)
+        cnt_o, cnt_p = {}, {}
+        model = bvh_closest_ordered(rays, geo, geo.bvh, counts=cnt_o)
+        plain = bvh_closest(rays, geo, geo.bvh, counts=cnt_p)
+        differ = sum((a != b).int() for a, b in zip(mine, plain)) > 0
+        chip_smoke.require(
+            all(torch.equal(a, b) for a, b in zip(mine, parent18(rays, geo)))
+            and all(torch.equal(a, b) for a, b in zip(model, plain))
+            and not differ.any(),
+            f"kernel 18 {label}: {int(differ.sum())} rays differ from the "
+            "plain walk, or it or its model from the parent's")
+        new, old = chip_smoke.ab_ms(torch, lambda: walk.closest_hit_bvh(
+            rays, geo), lambda: parent18(rays, geo), 20, 20)
+        b_o = chip_smoke.bound(H * W * 40, chip_smoke.walk_ops(cnt_o))
+        b_p = chip_smoke.bound(H * W * 40, chip_smoke.walk_ops(cnt_p))
+        name = f"bvh_closest_hit[{label}]"
+        print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms parent "
+              f"({old / new:.2f}x); bit-equal to the parent's and the plain "
+              f"walk; bound {b_o[0]:.4f} ms ({b_o[1]}; its walk: per ray "
+              f"{cnt_o['box'].float().mean().item():.2f} box and "
+              f"{cnt_o['tri'].float().mean().item():.2f} triangle tests, "
+              f"{int(cnt_o['again'].sum().item())} rays walked again), "
+              f"{new / b_o[0]:.2f}x it; the plain walk's {b_p[0]:.4f} ms "
+              f"({cnt_p['box'].float().mean().item():.2f} box, "
+              f"{cnt_p['tri'].float().mean().item():.2f} triangle tests) "
+              f"[{card}]")
+        ms[name] = dict(change=new, parent=old, bound=b_o[0],
+                        plain_walk_bound=b_p[0])
+        del mine, model, plain, cnt_o, cnt_p, differ
+    # Kernels 19, 20 and 21 share walk.cuh: bit-equal, timed beside the
+    # parent's.
+    f = Features()
+    _, lctx = restir.trace_primary(generate_rays(lcam, H, W), lgeo, f,
+                                   restir.KERNELS)
+    res = ris.gen_canonical_samples_ris(lctx, large.lights, large.num_lights,
+                                        f, generator=gen)
+    to = res.pos - lctx.position
+    d = to / torch.linalg.vector_norm(to, dim=-3).clamp_min(1e-20)[:, None]
+    o = (lctx.position + 1e-3 * d).contiguous()
+    d = d.contiguous()
+    tm = torch.linalg.vector_norm(res.pos - o, dim=-3)
+    for name, mine, them in (
+            ("bvh_any_hit[1 plane] (kernel 19)",
+             lambda: walk.any_hit_bvh(o[:1], d[:1], tm[:1], lgeo),
+             lambda: parent_launch(c, walk.any_hit_bvh)(o[:1], d[:1], tm[:1],
+                                                        lgeo)),
+            ("bvh_any_hit_k[S=2] (kernel 20)",
+             lambda: walk.any_hit_bvh_k(o, d, tm, lgeo),
+             lambda: parent_launch(c, walk.any_hit_bvh_k)(o, d, tm, lgeo)),
+            ("bvh_final_shade[K=2] (kernel 21)",
+             lambda: shade.final_shade_bvh(lctx, res, lgeo, f),
+             lambda: parent_launch(c, shade.final_shade_bvh)(lctx, res, lgeo,
+                                                            f))):
+        chip_smoke.require(torch.equal(mine(), them()),
+                           f"{name}: outputs differ from the parent's")
+        new, old = chip_smoke.ab_ms(torch, mine, them, 10, 10)
+        print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms parent "
+              f"({new / old:.3f} of it); bit-equal [{card}]")
+        ms[name] = dict(change=new, parent=old)
+    del res, to, d, o, tm, lctx
+    time_frames(c, "18", {
+        "large_config5": (large, lcam, Features()),
+        "large_k1": (large, lcam, Features(
+            num_samples_in_reservoir=1,
+            initial_samples_visibility_check=True)),
+        "large_romis": (large, lcam, Features(
+            ray_trace_mode=RayTraceMode.ROMIS)),
+    }, swap=(walk, "closest_hit_bvh", parent18))
+    time_steps(c, "18", swap=(walk, "closest_hit_bvh", parent18),
+               paths=("large_grad",))
+
+
+def section_1(c: Ctx) -> None:
+    """Kernel 1 at 1080p on the flagship (2 triangles padded to 8), the
+    2048-triangle soup (the flagship camera's rays) and the one-torus soup
+    (970 triangles, chip_smoke's TORUS_CAM): (t, tri, u, v) bit-equal to
+    the parent's and to the plain scan, in turns, the parent first; the
+    culled soups beside their two bounds (the culled walk's tests,
+    ``ops.trace.closest_hit_culled``, and the full scan's). Kernels 4 and
+    7, which share the cull, bit-equal to the parent's and timed beside
+    them. Then the frames ``slice1``, ``config5`` and ``vischeck_torus``
+    and the step ``grad_surrogate`` with either tree's kernel 1."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    import math
+
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays, make_camera
+    from romis_tpu_torch.ops import ris, shade, trace, walk
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        build_geometry, flagship_camera, flagship_scene, torus_field,
+    )
+
+    forward = trace._closest_hit_forward
+
+    def parent1(rays, geometry, t_max=math.inf):
+        """The parent's kernel 1 (every ray against every triangle slot),
+        called as its wrapper called it; BVH geometry as this tree's."""
+        if geometry.bvh is not None:
+            return walk.closest_hit_bvh(rays, geometry, t_max)
+        h, w = rays.hw
+        cols = geometry.tri_cols
+        out = [torch.empty((h, w), dtype=dt, device=dev) for dt in (
+            torch.float32, torch.int32, torch.float32, torch.float32)]
+        c.call(c.plib.romis_closest_hit, rays.origin.data_ptr(),
+               rays.direction.data_ptr(), h * w, cols.data_ptr(),
+               cols.shape[1], float(t_max), *(a.data_ptr() for a in out))
+        return tuple(out)
+
+    scene = flagship_scene(dev)
+    cam = flagship_camera(H, W, dev)
+    frays = generate_rays(cam, H, W)
+    soup = build_geometry([chip_smoke.random_soup(
+        chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)
+    torus1 = torus_field(1, dev)
+    tcam = make_camera(resolution=(H, W), device=dev, **chip_smoke.TORUS_CAM)
+    for label, geo, rays in (
+            ("flagship", scene.geometry, frays),
+            ("soup2048", soup, frays),
+            ("torus soup", torus1.geometry, generate_rays(tcam, H, W))):
+        mine = forward(rays, geo, math.inf)
+        plain = trace.closest_hit_plain(rays, geo)
+        differ = sum((a != b).int() for a, b in zip(mine, plain)) > 0
+        chip_smoke.require(
+            all(torch.equal(a, b) for a, b in zip(mine, parent1(rays, geo)))
+            and not differ.any(),
+            f"kernel 1 {label}: {int(differ.sum())} rays differ from the "
+            "plain scan, or it from the parent's")
+        reps = 20 if label == "flagship" else 5
+        new, old = chip_smoke.ab_ms(torch, lambda: forward(rays, geo, math.inf),
+                                    lambda: parent1(rays, geo), reps, reps)
+        name = f"closest_hit[{label}]"
+        line = (f"time {name}: {new:.4f} ms this tree, {old:.4f} ms parent "
+                f"({old / new:.2f}x); bit-equal to the parent's and the "
+                f"plain scan")
+        n_t = geo.tri_cols.shape[1]
+        n_act = int(geo.active.sum().item())
+        full = chip_smoke.bound(H * W * 40 + n_t * 40,
+                                H * W * n_act * chip_smoke.MT_OPS)
+        row = dict(change=new, parent=old, full_scan_bound=full[0])
+        if n_t > trace.ZCOUNT_BLOCK:
+            cnt, cnt_b = {}, {}
+            chip_smoke.require(all(torch.equal(a, b) for a, b in zip(
+                trace.closest_hit_culled(rays, geo, counts=cnt), plain)),
+                f"kernel 1 {label}: the culled model differs")
+            trace.closest_hit_culled(rays, geo, counts=cnt_b, guard=False)
+            b_c = chip_smoke.bound(H * W * 40, (
+                cnt_b["box"].sum().item() * chip_smoke.BOX_OPS
+                + cnt_b["tri"].sum().item() * chip_smoke.MT_OPS
+                + H * W * 3 * chip_smoke.SFU_OPS))
+            line += (f"; bound of the culled walk (the box alone) "
+                     f"{b_c[0]:.4f} ms ({b_c[1]}; per ray "
+                     f"{cnt_b['box'].float().mean().item():.1f} box and "
+                     f"{cnt_b['tri'].float().mean().item():.1f} triangle "
+                     f"tests; with the guard "
+                     f"{cnt['tri'].float().mean().item():.1f} triangle tests,"
+                     f" {cnt['guard'].float().mean().item():.1f} blocks "
+                     f"guarded), {new / b_c[0]:.2f}x it")
+            row.update(bound=b_c[0])
+            del cnt, cnt_b
+        print(line + f"; the full scan's bound {full[0]:.4f} ms ({full[1]}) "
+              f"[{card}]")
+        ms[name] = row
+        del mine, plain, differ
+    # Kernels 4 and 7 share the cull (cull.cuh, soup_blocks): bit-equal,
+    # timed beside the parent's.
+    f = Features()
+    _, tctx = restir.trace_primary(generate_rays(tcam, H, W),
+                                   torus1.geometry, f, restir.KERNELS)
+    tres = ris.gen_canonical_samples_ris(tctx, torus1.lights,
+                                         torus1.num_lights, f, generator=gen)
+    origins = torch.stack([tctx.position] + [
+        tctx.position.roll(sh, dims=-1) for sh in (3, -3, 7, -7, 11)])
+    for name, mine, them in (
+            ("final_shade[torus soup, K=2] (kernel 4)",
+             lambda: shade.final_shade_soup(tctx, tres, torus1.geometry, f),
+             lambda: parent_launch(c, shade.final_shade_soup)(
+                 tctx, tres, torus1.geometry, f)),
+            ("zcount_occ[torus soup, R+1=6, K=2] (kernel 7)",
+             lambda: trace.zcount_occ(origins, tres.pos, torus1.geometry),
+             lambda: parent_launch(c, trace.zcount_occ)(
+                 origins, tres.pos, torus1.geometry))):
+        chip_smoke.require(torch.equal(mine(), them()),
+                           f"{name}: outputs differ from the parent's")
+        new, old = chip_smoke.ab_ms(torch, mine, them, 5, 5)
+        print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms parent "
+              f"({new / old:.3f} of it); bit-equal [{card}]")
+        ms[name] = dict(change=new, parent=old)
+    del tctx, tres, origins
+    vfeats = Features(unbiased_combination=True,
+                      spatial_reuse_visibility_check=True)
+    time_frames(c, "1", {
+        "slice1": (scene, cam, Features(spatial_reuse=False)),
+        "config5": (scene, cam, Features()),
+        "vischeck_torus": (torus1, tcam, vfeats),
+    }, swap=(trace, "_closest_hit_forward", parent1))
+    time_steps(c, "1", swap=(trace, "_closest_hit_forward", parent1),
+               paths=("grad_surrogate",))
+
+
+SECTIONS = {"18": (section_18, ("bvh_closest", "bvh_any", "final_shade")),
+            "1": (section_1, ("closest_hit", "final_shade", "zcount_kernel")),
+            "4": (section_4, ("final_shade", "bvh_any_kernel")),
             "5": (section_5, ("spatial_pass_kernel",
                               "spatial_unbiased_kernel", "records_kernel")),
             "13": (section_13, ("scatter_rows",)),
@@ -1325,9 +1586,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="root of the other tree (e.g. build/parent)")
-    ap.add_argument("--kernels", default="4,5",
-                    help="comma-separated sections: 4, 5, 13, 21, 16, 11, "
-                    "14, 17, 7, 10, 20")
+    ap.add_argument("--kernels", default="18,1",
+                    help="comma-separated sections: 18, 1, 4, 5, 13, 21, 16, "
+                    "11, 14, 17, 7, 10, 20")
     args = ap.parse_args()
     picked = args.kernels.split(",")
     if not torch.cuda.is_available():
