@@ -11,8 +11,12 @@ GPU.
    shapes the 1920x1080 frame gives it on the flagship scene (a ground quad
    under 512 area lights): closest hit (t, tri, u and v the plain scan's on
    every ray, the rays that differ counted), final shade and any-hit also
-   on a random soup of 2048 triangles; the halo gather on random offsets and on
-   the smooth field of a camera shift; the biased and unbiased spatial
+   on a random soup of 2048 triangles; the halo gather at every shape the
+   frames give it (``halo_cases``: D = 1 through a camera shift, D = 5 at
+   random and at selected neighbours' offsets), on a field beyond its
+   window's margin, a ±100 field and planes holding infinities, NaNs and
+   signed zeros, bit for bit as 32-bit patterns, each shape timed beside
+   its bound and launches; the biased and unbiased spatial
    passes on injected noise (exact) and on their own random streams (means
    within 1 %). Then the gradient step's kernels: the row scatter-add into
    every table the steps scatter into (``scatter_tables``: the light
@@ -46,8 +50,11 @@ GPU.
    port's own host builder), with the rays of its 1080p frame: the closest
    hit (kernel 18: t, tri, u and v the plain walk's on every ray, its
    nearer-first model ``ops.traverse.bvh_closest_ordered`` too, whose
-   tests bound it), the any-hit with one walk per ray (19) on the frame's
-   shadow rays with 1 and with 17 planes, the K-ray any-hit (20, a walk per
+   tests bound it), the any-hit with one walk per ray (19; the plain
+   bool on every ray, its walk's model ``ops.traverse.bvh_any_wide``
+   too, whose tests bound it) on the frame's shadow rays with 1 and with
+   17 planes and on hard rays toward the field's triangles
+   (``hard_any_rays``), the K-ray any-hit (20, a walk per
    ray with a pixel's S rays side by side) with S = 2 (the shadow rays of
    the K lanes), 4 and 16 (sky rays) and 12 (the ext_vis rays of one MIS
    iteration; also against kernel 19 on the same rays), the plain bool on
@@ -223,8 +230,11 @@ GPU.
    tests up to each ray's first occluder). Kernel 1 is timed on the same
    soup's primary rays beside its bound, the culled walk's box, guard and
    triangle tests (``ops.trace.closest_hit_culled``, its plain model, bit
-   for bit the plain scan's), and the full scan's. Kernel 18's bound counts
-   its nearer-first walk's tests; the plain walk's are printed beside. Kernel 5's bound counts what its
+   for bit the plain scan's), and the full scan's. Kernels 18's and 19's
+   bounds count their own walks' tests on the two-box records; the plain
+   walk's are printed beside. Kernel 9's row in the table is the gather route's 39
+   planes at D = 5; its bound, the planes read once, the outputs written
+   once and the offsets read once. Kernel 5's bound counts what its
    Philox stream needs (``pass_work``: the offsets drawn as the kernel
    draws them, the races of the neighbours that pass the gates, a missed
    receiver's one draw) and the planes in and out; its records' bytes are
@@ -678,6 +688,108 @@ def hard_shade_inputs(torch, position, targets):
     return ctx, res
 
 
+# Kernel 9's frame shapes (PERF.md row 9): label → launches over the
+# frame and step paths (PATHS x FRAMES).
+HALO_FRAME_LAUNCHES = {
+    "reprojection 1x25, camera shift": 6,
+    "config5_gather 5x39, random +-10": 4,
+    "grad_per_pixel 5x45, random +-10": 4,
+    "grad_per_pixel big_w 5x2, random +-10": 4,
+    "resolve_neighbour_ctx 5x14, selected": 8,
+    "mis_ext_vis 5x6, selected": 20,
+}
+
+
+def halo_cases(torch, gen, ctx, res, feats, pan_cam):
+    """Kernel 9's inputs at the frames' shapes, on a 1080p frame's context
+    ``ctx`` and reservoirs ``res`` (K = 2) → label (``HALO_FRAME_LAUNCHES``)
+    → (planes [C, H, W], dy, dx [D, H, W] int32): temporal reprojection's
+    25 planes through the camera-shift field of ``pan_cam`` (clamped to
+    the reprojection radius); the gather route's 39 pixel planes, the
+    per-pixel gradient path's 39 + 3K and its K big_w planes at the spatial
+    pass's random offsets within the radius, clamped into the image; the
+    sweep's 14 neighbour-context planes and 3K sample positions at the
+    neighbour selection's offsets."""
+    from romis_tpu_torch.core.camera import project_to_pixel
+    from romis_tpu_torch.core.types import pack_reservoir_planes
+    from romis_tpu_torch.ops import nbrsel, shade, spatial
+    from romis_tpu_torch.render.neighbours import select_neighbour_indices
+    from romis_tpu_torch.render.restir import pack_pixel_planes
+    from romis_tpu_torch.render.rmis import mis_offsets
+
+    h, w = ctx.depth_t.shape
+    dev = ctx.depth_t.device
+    k = res.k
+    rr = feats.reprojection_radius
+    rows_f, cols_f, _ = project_to_pixel(pan_cam, ctx.position, h, w)
+    cam_dy = (torch.round(rows_f).clamp(0, h - 1).int() - torch.arange(
+        h, dtype=torch.int32, device=dev)[:, None]).clamp(-rr, rr)[None]
+    cam_dx = (torch.round(cols_f).clamp(0, w - 1).int() - torch.arange(
+        w, dtype=torch.int32, device=dev)[None, :]).clamp(-rr, rr)[None]
+    offs, _ = spatial.spatial_noise(gen, feats.num_neighbours_to_sample, k,
+                                    feats.spatial_resample_radius, h, w)
+    rdy, rdx = spatial.clamped_offsets(offs, h, w)
+    ny, nx = select_neighbour_indices(gen, ctx, h, w, feats,
+                                      select=nbrsel.neighbour_select)
+    sel = mis_offsets(ny, nx)
+    d = sel.shape[0] // 2
+    sdy, sdx = sel[:d].contiguous(), sel[d:].contiguous()
+    pix = pack_pixel_planes(res, ctx)
+    cen = shade.pack_center_ctx(ctx)
+    pos = res.pos.reshape(3 * k, h, w)
+    return {
+        "reprojection 1x25, camera shift": (
+            torch.cat([pack_reservoir_planes(res), spatial.pack_gates(ctx)]),
+            cam_dy, cam_dx),
+        "config5_gather 5x39, random +-10": (pix, rdy, rdx),
+        "grad_per_pixel 5x45, random +-10": (torch.cat([pix, pos]), rdy,
+                                             rdx),
+        "grad_per_pixel big_w 5x2, random +-10": (res.big_w.contiguous(),
+                                                  rdy, rdx),
+        "resolve_neighbour_ctx 5x14, selected": (torch.cat(
+            [cen[0:6], cen[9:16], cen[17:18]]), sdy, sdx),
+        "mis_ext_vis 5x6, selected": (pos.contiguous(), sdy, sdx),
+    }
+
+
+def halo_bound(planes, dy):
+    """Kernel 9's bound: each plane read once, each output written once,
+    the offsets read once → (ms, "bytes")."""
+    c, h, w = planes.shape
+    d = dy.shape[0]
+    return bound(4 * h * w * (c + d * c + 2 * d), 0)
+
+
+def same_bits(torch, a, b) -> bool:
+    """The same 32-bit patterns (NaN payloads and signed zeros count)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def hard_any_rays(torch, rng, kind, geometry, s=4, h=16, w=32):
+    """Shadow rays of ``hard_z_rays``' kinds toward a BVH geometry's
+    triangles, and ``at_hit``: random rays whose t_max is their closest
+    hit's t (the triangle at t_max itself does not occlude) → (origins,
+    dirs, t_max) [S, 3, H, W], [S, H, W] on the geometry's device."""
+    from romis_tpu_torch.core.types import Rays
+    from romis_tpu_torch.ops.traverse import bvh_closest
+
+    cols = geometry.tri_cols.cpu().numpy()
+    o_, t_ = hard_z_rays(rng, "random" if kind == "at_hit" else kind, cols,
+                         r1=1, k=s, h=h, w=w)
+    dev = geometry.tri_cols.device
+    o = torch.from_numpy(o_).to(dev).expand(s, 3, h, w).contiguous()
+    to = torch.from_numpy(t_).to(dev) - o
+    tm = torch.linalg.vector_norm(to, dim=1)
+    d = (to / tm.clamp_min(1e-20)[:, None]).contiguous()
+    if kind == "at_hit":
+        for i in range(s):
+            t, tri, _, _ = bvh_closest(Rays(o[i], d[i]), geometry,
+                                       geometry.bvh)
+            tm[i] = torch.where(tri >= 0, t, tm[i])
+    return o, d, tm.contiguous()
+
+
 def walk_ops(cnt, mask=None) -> float:
     """The operations of a BVH walk's tests, from its ``counts`` (on the
     rays of ``mask``): BOX_OPS a box test, MT_OPS a triangle test, a ray's
@@ -916,7 +1028,7 @@ def main() -> None:
         Features, MISWeight, NeighbourSelectionStrategy, RayTraceMode,
     )
     from romis_tpu_torch.core.camera import (
-        generate_rays, make_camera, project_to_pixel,
+        generate_rays, make_camera,
     )
     from romis_tpu_torch.core.types import (
         Rays, pack_reservoir_planes, unpack_reservoir_planes,
@@ -929,7 +1041,7 @@ def main() -> None:
     )
     from romis_tpu_torch.ops.bvh import with_bvh
     from romis_tpu_torch.ops.traverse import (
-        bvh_any, bvh_closest, bvh_closest_ordered,
+        bvh_any, bvh_any_wide, bvh_closest, bvh_closest_ordered,
     )
     from romis_tpu_torch.ops.wrs import (
         gen_canonical_replay_plain, gen_canonical_samples_plain, gumbel_noise,
@@ -1170,34 +1282,54 @@ def main() -> None:
     errs["any_hit"] = max(check_any(ctx, res_main, scene.geometry, "flagship"),
                           check_any(soup_ctx, res_soup, soup, "soup2048"))
 
-    # Halo gather: the reprojection planes [10K+5, H, W] at D=1.
-    rr = feats.reprojection_radius
-    halo_planes = torch.cat([pack_reservoir_planes(res_main),
-                             spatial.pack_gates(ctx)])
-    rand_dy = torch.randint(-rr, rr + 1, (1, H, W), generator=gen, device=dev,
-                            dtype=torch.int32)
-    rand_dx = torch.randint(-rr, rr + 1, (1, H, W), generator=gen, device=dev,
-                            dtype=torch.int32)
+    # Halo gather (kernel 9) at every shape the frames give it
+    # (halo_cases), bit for bit as 32-bit patterns, and on a field beyond
+    # the window's margin, a +-100 field clamped at the borders and planes
+    # holding infinities, NaNs and signed zeros.
     cam_pan = make_camera(look_at=(2.57, 1.23, -1.35),
                           rotation_deg=(10.3 + PAN_DEG, 30.0 + PAN_DEG, 0.0),
                           distance=25.0, fov_deg=30.0, resolution=(H, W),
                           device=dev)
-    rows_f, cols_f, _ = project_to_pixel(cam_pan, ctx.position, H, W)
-    smooth_dy = (torch.round(rows_f).clamp(0, H - 1).int() - torch.arange(
-        H, dtype=torch.int32, device=dev)[:, None]).clamp(-rr, rr)[None]
-    smooth_dx = (torch.round(cols_f).clamp(0, W - 1).int() - torch.arange(
-        W, dtype=torch.int32, device=dev)[None, :]).clamp(-rr, rr)[None]
-    for label, dy, dx in (("random", rand_dy, rand_dx),
-                          ("camera-shift", smooth_dy, smooth_dx)):
-        g_k = spatial.halo_offset_gather(halo_planes, dy, dx)
-        g_p = spatial.halo_offset_gather_plain(halo_planes, dy, dx)
+    halo = halo_cases(torch, gen, ctx, res_main, feats, cam_pan)
+    rand40 = spatial.clamped_offsets(torch.randint(
+        -40, 41, (2, n_nbr, H, W), generator=gen, device=dev,
+        dtype=torch.int32), H, W)
+    raw100 = torch.randint(-100, 101, (2, n_nbr, H, W), generator=gen,
+                           device=dev, dtype=torch.int32)
+    h39 = halo["config5_gather 5x39, random +-10"]
+    special = h39[0].clone()
+    bits = special.view(torch.int32).reshape(-1)
+    picks = torch.randint(0, bits.numel(), (4, bits.numel() // 50),
+                          generator=gen, device=dev)
+    bits[picks[0]] = 0x7F800000  # +inf
+    bits[picks[1]] = -0x800000  # -inf
+    bits[picks[2]] = 0x7FC00000 | (picks[2] % (1 << 20)).int()  # NaNs
+    bits[picks[3]] = -0x80000000  # -0.0
+    halo_extra = {
+        "beyond the margin 5x14, random +-40": (
+            halo["resolve_neighbour_ctx 5x14, selected"][0], *rand40),
+        "+-100 5x39, clamped at the borders": (h39[0], *raw100),
+        "specials 5x39 (inf, NaN, -0.0), random +-40": (special, *rand40),
+        # Two groups of offset fields (csrc/halo.cu kGatherDGroup).
+        "8 fields 8x6, random +-10": (h39[0][:6].contiguous(),
+                                      *spatial.clamped_offsets(torch.randint(
+                                          -radius, radius + 1, (2, 8, H, W),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32), H, W)),
+    }
+    for label, (pl, dy, dx) in {**halo, **halo_extra}.items():
+        g_k = spatial.halo_offset_gather(pl, dy, dx)
+        g_p = spatial.halo_offset_gather_plain(pl, dy, dx)
         torch.cuda.synchronize()
-        exact = torch.equal(g_k, g_p)
-        print(f"check halo_gather[{label}]: planes {halo_planes.shape[0]}, "
-              f"mean |dy| {dy.abs().float().mean().item():.3f}, bit-exact "
-              f"{exact}")
+        exact = same_bits(torch, g_k, g_p)
+        far = spatial.beyond_window(dy, dx).float().mean().item()
+        print(f"check halo_gather[{label}]: D={dy.shape[0]}, C={pl.shape[0]}, "
+              f"mean |dy| {dy.abs().float().mean().item():.3f}, beyond the "
+              f"window {far:.4f}, bit-exact (32-bit patterns) {exact}")
         require(exact, f"halo gather {label} is not bit-exact")
+        del g_k, g_p
     errs["halo_gather"] = 0.0
+    del special, bits, picks
 
     # Spatial passes on the RIS reservoirs of the flagship frame.
     cen = shade.pack_center_ctx(ctx)
@@ -1780,9 +1912,25 @@ def main() -> None:
         return 1.0 - same, cnt
 
     lshadow = vis_rays(lctx.position, lres.pos)  # the K = 2 lanes
+    # Kernel 19 (its bool the plain traversal's on every ray): the K = 1
+    # initial check's plane, 17 planes to the sky light, and hard rays
+    # toward the field's triangles (hard_any_rays: random, grazing,
+    # edge-on, edge-crossing, t_max at the closest hit). Its bound counts
+    # its own walk's tests on the two-box records (bvh_any_wide, the same
+    # bool; the plain walk's printed beside).
     one = tuple(a[:1] for a in lshadow)
-    errs["bvh_any_hit"], walk_counts["bvh_any_hit"] = check_walk_any(
-        "bvh_any_hit[torus5x5, 1 plane]", walk.any_hit_bvh, one)
+    errs["bvh_any_hit"], walk_counts["bvh_any_plain"] = check_walk_any(
+        "bvh_any_hit[torus5x5, 1 plane]", walk.any_hit_bvh, one, True)
+    c19 = {}
+    same19 = torch.equal(bvh_any_wide(*one, lgeo, lgeo.bvh, counts=c19),
+                         walk_counts["bvh_any_plain"]["occluded"])
+    walk_counts["bvh_any_hit"] = c19
+    print(f"check bvh_any_wide[torus5x5, 1 plane] (kernel 19's walk): "
+          f"the plain bool on every ray {same19}, per ray "
+          f"{c19['box'].float().mean().item():.2f} box and "
+          f"{c19['tri'].float().mean().item():.2f} triangle tests, "
+          f"{int(c19['again'].sum().item())} rays walked again")
+    require(same19, "kernel 19's walk model differs from the plain walk")
     # 17 planes: the frame's receivers to 17 points of the sky light.
     sky = large.lights.rows[0]
     uv = torch.rand((2, SKY_PLANES, 1, H, W), generator=gen, device=dev)
@@ -1790,8 +1938,14 @@ def main() -> None:
                + uv[1] * sky[6:9, None, None])
     sky_rays = vis_rays(lctx.position, sky_pts)
     err17, _ = check_walk_any(f"bvh_any_hit[torus5x5, {SKY_PLANES} planes]",
-                              walk.any_hit_bvh, sky_rays)
+                              walk.any_hit_bvh, sky_rays, True)
     errs["bvh_any_hit"] = max(errs["bvh_any_hit"], err17)
+    rng19 = np.random.default_rng(19)
+    for kind in HARD_RAY_KINDS + ("at_hit",):
+        err_h, _ = check_walk_any(
+            f"bvh_any_hit[torus5x5, hard rays: {kind}]", walk.any_hit_bvh,
+            hard_any_rays(torch, rng19, kind, lgeo, s=4, h=128, w=256), True)
+        errs["bvh_any_hit"] = max(errs["bvh_any_hit"], err_h)
     errs["bvh_any_hit_k"], walk_counts["bvh_any_hit_k2"] = check_walk_any(
         "bvh_any_hit_k[torus5x5, S=2]", walk.any_hit_bvh_k, lshadow, True)
     for s_ in (4, 16):  # the first S planes of the sky rays
@@ -2789,11 +2943,12 @@ def main() -> None:
         "any_hit": ab_ms(
             torch, lambda: trace.any_hit(o, d, tm, scene.geometry),
             lambda: trace.any_hit_plain(o, d, tm, scene.geometry), 20, 5),
+        # Kernel 9 at the gather route's 39 planes, D = 5 (every frame
+        # shape is timed apart below).
         "halo_gather": ab_ms(
-            torch, lambda: spatial.halo_offset_gather(halo_planes, smooth_dy,
-                                                      smooth_dx),
-            lambda: spatial.halo_offset_gather_plain(
-                halo_planes, smooth_dy, smooth_dx).contiguous(), 20, 5),
+            torch, lambda: spatial.halo_offset_gather(*h39),
+            lambda: spatial.halo_offset_gather_plain(*h39).contiguous(), 20,
+            3),
     }
     for label, (kernel_fn, plain_fn) in pass_fns.items():
         timings[label] = ab_ms(torch, lambda: kernel_fn(generator=gen,
@@ -3126,8 +3281,8 @@ def main() -> None:
     idx_l = idx.reshape(-1).long()
     rows_i = torch.arange(H, device=dev)[:, None]
     cols_i = torch.arange(W, device=dev)[None, :]
-    ny_l = torch.clamp(rows_i + smooth_dy.long(), 0, H - 1)
-    nx_l = torch.clamp(cols_i + smooth_dx.long(), 0, W - 1)
+    ny_l = torch.clamp(rows_i + h39[1].long(), 0, H - 1)
+    nx_l = torch.clamp(cols_i + h39[2].long(), 0, W - 1)
     l_ct, l_idx, l_rows = scatter_cases["lights"]
     l_src = l_ct.reshape(l_ct.shape[0], -1).t()
     l_flat = l_idx.reshape(-1).long()
@@ -3156,8 +3311,7 @@ def main() -> None:
     library = {
         "gather_rows": cuda_ms(
             torch, lambda: torch.index_select(attr, 0, idx_l), 20),
-        "halo_gather": cuda_ms(
-            torch, lambda: halo_planes[:, ny_l, nx_l], 20),
+        "halo_gather": cuda_ms(torch, lambda: h39[0][:, ny_l, nx_l], 20),
         "scatter_rows_add": cuda_ms(
             torch, lambda: torch.zeros((l_rows, l_ct.shape[0]), device=dev)
             .index_add_(0, l_flat, l_src), 20),
@@ -3213,7 +3367,7 @@ def main() -> None:
         "final_shade": bound(bytes_f, shade_ops),
         "any_hit": bound(o.shape[0] * hw * 29, o.shape[0] * hw * n_t
                          * MT_OPS),
-        "halo_gather": bound(hw * 4 * (2 * halo_planes.shape[0] + 2), 0),
+        "halo_gather": halo_bound(h39[0], h39[1]),
         # Kernel 5 on this run's Philox stream: the operations and the
         # bytes its data needs (pass_work); the records' traffic is
         # printed apart.
@@ -3368,6 +3522,16 @@ def main() -> None:
           f"preorder); the plain walk's {b18p[0]:.4f} ms (per ray "
           f"{p18['box'].float().mean().item():.2f} box and "
           f"{p18['tri'].float().mean().item():.2f} triangle tests)")
+    c19, p19 = walk_counts["bvh_any_hit"], walk_counts["bvh_any_plain"]
+    b19p = bound(hw * 29, walk_ops(p19))
+    print(f"bound bvh_any_hit: {bounds['bvh_any_hit'][0]:.4f} ms, its "
+          f"walk's tests on the two-box records (per ray "
+          f"{c19['box'].float().mean().item():.2f} box and "
+          f"{c19['tri'].float().mean().item():.2f} triangle tests, "
+          f"{int(c19['again'].sum().item())} rays walked again in "
+          f"preorder); the plain walk's {b19p[0]:.4f} ms (per ray "
+          f"{p19['box'].float().mean().item():.2f} box and "
+          f"{p19['tri'].float().mean().item():.2f} triangle tests)")
     inject = spatial.spatial_noise(gen, n_nbr, k, radius, H, W)
     for label, (kernel_fn, _) in pass_fns.items():
         ms = cuda_ms(torch, lambda: kernel_fn(inject=inject), 10)
@@ -3441,9 +3605,18 @@ def main() -> None:
           f" GB); the records written and read back once "
           f"{rec_bytes / 1e9:.3f} GB ({1e3 * rec_bytes / HBM_BYTES_S:.4f} ms "
           f"at the memory rate)")
-    ms = cuda_ms(torch, lambda: spatial.halo_offset_gather(
-        halo_planes, rand_dy, rand_dx), 20)
-    print(f"time halo_gather (random offsets): {ms:.4f} ms [{card}]")
+    # Kernel 9 at every frame shape, beside its bound and launches.
+    for label, (pl, dy, dx) in {**halo, **halo_extra}.items():
+        if label.startswith(("+-100", "specials", "8 fields")):
+            continue
+        k_ms, p_ms = ab_ms(torch, lambda: spatial.halo_offset_gather(
+            pl, dy, dx), lambda: spatial.halo_offset_gather_plain(
+                pl, dy, dx).contiguous(), 20, 2)
+        b_ms, b_by = halo_bound(pl, dy)
+        print(f"time halo_gather[{label}]: {k_ms:.4f} ms kernel, {p_ms:.4f} "
+              f"ms plain, bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.2f} of "
+              f"the bound reached, frame launches "
+              f"{HALO_FRAME_LAUNCHES.get(label, 0)} [{card}]")
     # Kernels 3 and 14 on Philox, the mode of every frame and step: no
     # uniform planes read, and a Philox4x32-10 call and four uniforms a
     # candidate (the replay a second call for its fifth uniform).

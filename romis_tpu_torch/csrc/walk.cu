@@ -9,8 +9,9 @@
 // cursor, reading node records and leaf triangles through the read-only
 // cache (the tree and the triangles of a 24k-triangle scene, ~2 MB, stay in
 // L2). The plain versions are ops/traverse.bvh_closest and bvh_any, whose
-// walk kernels 19 and 20 repeat step for step; kernel 18 walks in another
-// order and gives the plain walk's answer (walk_closest_ordered).
+// walk kernel 20 repeats step for step; kernels 18 and 19 walk in another
+// order and give the plain walk's answer (walk_closest_ordered,
+// walk_any_wide).
 //
 // Kernel 18: one thread per primary ray, a warp's rays an 8 x 4 tile of
 //   pixels, walking the tree nearer child first from ops/bvh.wide_record's
@@ -20,7 +21,11 @@
 //   not be the plain walk's is walked again in preorder (walk_closest,
 //   the plain walk step for step).
 // Kernel 19: one thread per ray of the flattened leading axes (rays
-//   [S, 3, N], t_max [S, N], out [S, N] bool), stopping at the first hit.
+//   [S, 3, N], t_max [S, N], out [S, N] bool), a plane's rays in 8 x 4
+//   pixel tiles a warp, walking the tree nearer child first from the
+//   two-box records with a short stack (walk.cuh walk_any_wide), its leaf
+//   triangles read as 48-byte records, stopping at the first accepted hit;
+//   a ray whose stack fills is walked again in preorder (walk_any).
 // Kernel 20: the S <= 16 rays of each pixel (the K lanes of the initial
 //   check, the D1*K rays of the MIS ext_vis batch, the (R+1)*K Z rays of
 //   the visibility check), each with its own origin (wrs.visibility pushes
@@ -38,7 +43,11 @@
 // took 27.7 dependent node loads a primary ray on the 5x5 torus field and
 // met its closest hit late (children in build order); its redesign takes
 // both children's boxes in one 64-byte load (12.7 steps a ray), the nearer
-// child first, and reads leaf triangles as records. The TPU's kernel 20 shares ONE walk between a
+// child first, and reads leaf triangles as records. Kernel 19's first
+// design walked the preorder on the [10, T] columns (ten scattered floats
+// a leaf triangle), a warp's rays a row of 32 pixels; its redesign takes
+// kernel 18's steps: the two-box records, 8 x 4 tiles, the triangle
+// records, 40 registers. The TPU's kernel 20 shares ONE walk between a
 // pixel's S rays to amortise its page DMAs; on this card that union walk
 // visits every node any of the S rays needs (S rays going to S different
 // light samples), runs up to S slab tests a node serially, and holds 10 S
@@ -98,20 +107,36 @@ bvh_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
   v_out[p] = best_v;
 }
 
-__global__ void __launch_bounds__(kWalkThreads)
+// Kernel 19: one thread per ray, a plane's rays in 8 x 4 pixel tiles a
+// warp (ray i of the launch is pixel tile_pixel(i mod tiled_rays) of plane
+// i / tiled_rays), the nearer-first walk on the two-box records with the
+// triangle records, the preorder walk again where its stack was full. At
+// kAnyMinBlocks blocks an SM (40 registers, the stack in local memory), as
+// kernel 18.
+constexpr int kAnyMinBlocks = 12;
+
+__global__ void __launch_bounds__(kWalkThreads, kAnyMinBlocks)
 bvh_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
-               const float* __restrict__ t_max, long long n_pix,
-               long long n_rays, const float4* __restrict__ nodes,
-               const float* __restrict__ cols, int n_tris,
+               const float* __restrict__ t_max, int h, int w, int s_n,
+               const float4* __restrict__ nodes,
+               const float4* __restrict__ wide,
+               const float4* __restrict__ recs,
                unsigned char* __restrict__ out) {
-  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  const long long si = r / n_pix, p = r - si * n_pix;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long per_plane = tiled_rays(h, w);
+  const long long si = i / per_plane;
+  if (si >= s_n) return;
+  const long long p = tile_pixel(i - si * per_plane, h, w);
+  if (p < 0) return;
+  const long long n_pix = static_cast<long long>(h) * w;
   const long long base = si * 3 * n_pix + p;
-  out[r] = walk_any(nodes, ColTris{cols, n_tris}, o[base], o[base + n_pix],
-                    o[base + 2 * n_pix], d[base], d[base + n_pix],
-                    d[base + 2 * n_pix], t_max[r])
-               ? 1 : 0;
+  const float ox = o[base], oy = o[base + n_pix], oz = o[base + 2 * n_pix];
+  const float dx = d[base], dy = d[base + n_pix], dz = d[base + 2 * n_pix];
+  const float tm = t_max[si * n_pix + p];
+  int occ = walk_any_wide(nodes, wide, RecTris{recs}, ox, oy, oz, dx, dy, dz, tm);
+  if (occ < 0)
+    occ = walk_any(nodes, RecTris{recs}, ox, oy, oz, dx, dy, dz, tm) ? 1 : 0;
+  out[si * n_pix + p] = static_cast<unsigned char>(occ);
 }
 
 // Kernel 20: one thread per ray, a pixel's S rays in adjacent lanes (ray
@@ -151,13 +176,14 @@ extern "C" int romis_bvh_closest(const float* o, const float* d, int h, int w,
 }
 
 extern "C" int romis_bvh_any(const float* o, const float* d, const float* t_max,
-                             long long n_pix, long long n_rays,
-                             const float* nodes, const float* cols, int n_tris,
+                             int h, int w, int s, const float* nodes,
+                             const float* wide, const float* recs,
                              unsigned char* out, cudaStream_t stream) {
   using namespace romis;
-  bvh_any_kernel<<<walk_blocks(n_rays), kWalkThreads, 0, stream>>>(
-      o, d, t_max, n_pix, n_rays, reinterpret_cast<const float4*>(nodes), cols,
-      n_tris, out);
+  bvh_any_kernel<<<walk_blocks(tiled_rays(h, w) * s), kWalkThreads, 0, stream>>>(
+      o, d, t_max, h, w, s, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(wide), reinterpret_cast<const float4*>(recs),
+      out);
   return static_cast<int>(cudaGetLastError());
 }
 

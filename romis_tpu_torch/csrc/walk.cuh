@@ -2,7 +2,9 @@
 // and the BVH final shade (kernel 21, shade.cu): the node record, the slab
 // test, the closest-hit walks (18: walk_closest_ordered, nearer child
 // first, and walk_closest, the plain walk's preorder) and the one-ray
-// any-hit walk walk_any (kernels 19, 20 and 21, each ray walking alone).
+// any-hit walks (walk_any_wide, kernel 19's, on the two-box records;
+// walk_any, the plain walk's preorder, kernels 20 and 21 and kernel 19's
+// fallback), each ray walking alone.
 //
 // The tree is ops/bvh.py's DFS-preorder skip-link layout: node i's record is
 // 8 words, read as two float4 through the read-only cache, bmin xyz | bmax x
@@ -109,8 +111,8 @@ __device__ __forceinline__ void walk_closest(const float4* __restrict__ nodes,
   }
 }
 
-// A leaf's triangles as the walk reads them: from the [10, T] columns
-// (kernel 19), or from 48-byte records (kernels 18, 20 and 21;
+// A leaf's triangles as the walk reads them: from the [10, T] columns, or
+// from 48-byte records (kernels 18-21;
 // ops/walk.tri_records: v0 xyz | e1 xyz | e2 xyz | active | 0 0, three
 // float4 from one record instead of ten floats from ten columns).
 struct ColTris {
@@ -250,6 +252,83 @@ __device__ __forceinline__ bool walk_closest_ordered(
     if (!found) break;
   }
   return !(best_i >= 0 && tau > best_t && t2 < tau);
+}
+
+// Kernel 19's walk (ops/traverse.bvh_any_wide is its plain model): the
+// root's box as the plain walk tests it, then at an inner node both
+// children's boxes from one ops/bvh.wide_record (slab_hit's operations
+// with the ray's t_max), the left child first and the right on a stack of
+// kWalkStack entries; a leaf's triangles in order, stopping at the first
+// accepted hit. The set of leaves whose box and ancestors' boxes pass is
+// the plain walk's, so the bool (the OR over their triangles) is too,
+// whatever the order and whoever stops where.
+//
+// The loop is a speculative while-while (Aila and Laine, "Understanding
+// the efficiency of ray traversal on GPUs", HPG 2009): a lane that reaches
+// a leaf puts it aside and goes on down the tree until every lane of the
+// warp holds a leaf, then the warp tests its leaves together, so the
+// divergent shadow rays of a warp spend fewer steps with most lanes idle.
+// Returns 1 (occluded), 0 (visible) or -1 (the stack was full: the caller
+// walks the ray again with walk_any).
+constexpr int kWalkDone = -2147483647 - 1;  // no leaf word is this
+
+template <class Tris>
+__device__ __forceinline__ int walk_any_wide(const float4* __restrict__ nodes,
+                                             const float4* __restrict__ wide,
+                                             const Tris& tris, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float tm) {
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  const Node root = load_node(nodes, 0);
+  if (!slab_hit(root, ox, oy, oz, ix, iy, iz, tm)) return 0;
+  int ref = -root.leaf();  // >= 0 an inner node, < 0 a leaf, or kWalkDone
+  int leaf = 0;            // a leaf put aside (its word negated), 0 none
+  if (ref < 0) {           // the root is a leaf
+    leaf = ref;
+    ref = kWalkDone;
+  }
+  int stack[kWalkStack];
+  int sp = 0;
+  while (ref != kWalkDone || leaf != 0) {
+    while (ref >= 0) {  // inner nodes
+      const float4* rec = wide + 4 * ref;
+      const float4 x = __ldg(rec), y = __ldg(rec + 1), z = __ldg(rec + 2);
+      const int4 kids = __ldg(reinterpret_cast<const int4*>(rec + 3));
+      float tnl, tfl, tnr, tfr;
+      slabs(x.x, x.y, y.x, y.y, z.x, z.y, ox, oy, oz, ix, iy, iz, tnl, tfl);
+      slabs(x.z, x.w, y.z, y.w, z.z, z.w, ox, oy, oz, ix, iy, iz, tnr, tfr);
+      const bool gl = tnl <= tfl && tfl >= 0.0f && tnl <= tm;
+      const bool gr = tnr <= tfr && tfr >= 0.0f && tnr <= tm;
+      if (gl && gr) {
+        if (sp == kWalkStack) return -1;
+        stack[sp++] = kids.y;
+      }
+      if (gl || gr)
+        ref = gl ? kids.x : kids.y;
+      else
+        ref = sp > 0 ? stack[--sp] : kWalkDone;
+      if (ref < 0 && ref != kWalkDone && leaf == 0) {  // put the leaf aside
+        leaf = ref;
+        ref = sp > 0 ? stack[--sp] : kWalkDone;
+      }
+      if (!__any_sync(__activemask(), leaf == 0)) break;
+    }
+    while (leaf != 0) {  // the leaf put aside, then the current one
+      const int first = (-leaf) >> kLeafCountBits;
+      const int count = (-leaf) & ((1 << kLeafCountBits) - 1);
+      for (int j = 0; j < count; ++j) {
+        float t, u, v;
+        if (mt_tri(ox, oy, oz, dx, dy, dz, tris(first + j), t, u, v) && t < tm)
+          return 1;
+      }
+      leaf = 0;
+      if (ref < 0 && ref != kWalkDone) {
+        leaf = ref;
+        ref = sp > 0 ? stack[--sp] : kWalkDone;
+      }
+    }
+  }
+  return 0;
 }
 
 }  // namespace romis

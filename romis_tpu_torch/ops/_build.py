@@ -65,8 +65,8 @@ SIGNATURES = {
                           _P, _P, _P, _I, _I, _P, _P, _P),
     # origins, dirs, t_max, n_pix, n_rays, tri_cols, n_tris, out, stream
     "romis_any_hit": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
-    # planes, c, h, w, dy, dx, n_out, out, stream
-    "romis_halo_gather": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
+    # planes, c, h, w, d, dy, dx, out, stream
+    "romis_halo_gather": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     # ct, d, c, h, w, dy, dx, out (zero-filled), stream
     "romis_halo_scatter": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     # ct, n_cols, idx, n_idx, n_rows, tile (0: the device-memory path),
@@ -90,9 +90,9 @@ SIGNATURES = {
     # t_max, t, tri, u, v, stream
     "romis_bvh_closest": (_P, _P, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
                           _P),
-    # origins, dirs, t_max, n_pix, n_rays, nodes, tri_cols, n_tris, out,
-    # stream
-    "romis_bvh_any": (_P, _P, _P, _LL, _LL, _P, _P, _I, _P, _P),
+    # origins, dirs, t_max, h, w, s (planes), nodes, wide, tri_records
+    # [T, 12], out, stream
+    "romis_bvh_any": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     # origins, dirs, t_max, n_pix, s, nodes, tri_records [T, 12], out,
     # stream
     "romis_bvh_any_k": (_P, _P, _P, _LL, _I, _P, _P, _P, _P),

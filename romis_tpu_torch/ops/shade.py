@@ -119,14 +119,14 @@ def final_shade_bvh(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     CPU tensors."""
     if not ctx.position.is_cuda:
         return final_shade_plain(ctx, reservoirs, geometry, features)
-    from .walk import checked_tree, tri_records
+    from .walk import checked_tree, kept_records
 
     planes, k = _fields(ctx, reservoirs)
-    nodes, cols = checked_tree(geometry)
+    nodes, _ = checked_tree(geometry)
     h, w = ctx.depth_t.shape[-2:]
     out = torch.empty((3, h, w), dtype=torch.float32, device=nodes.device)
     if out.numel():
-        recs = tri_records(cols)
+        recs = kept_records(geometry)
         _build.launch("romis_final_shade_bvh",
                       *(a.data_ptr() for a in planes), h * w, k,
                       nodes.data_ptr(), recs.data_ptr(),

@@ -22,9 +22,16 @@ them from pixel-major records that a pre-pass in the same entry writes (a
 lane's reservoir fields together; the context with its unit view, kd and
 ks zero at an invalid pixel), two 64-byte records a neighbour at K = 2
 instead of a 32-byte sector a float; ``pack_records`` is that pre-pass in
-PyTorch, and ``record_buffers`` the scratch the wrapper allocates. Kernel 9 (``csrc/halo.cu``, ``halo_offset_gather``)
-replaces ``_offset_gather_kernel``: planes gathered at exact per-pixel
-offsets, indices clamped into the image.
+PyTorch, and ``record_buffers`` the scratch the wrapper allocates. Kernel 9
+(``csrc/halo.cu``, ``halo_offset_gather``) replaces
+``_offset_gather_kernel``: planes gathered at exact per-pixel offsets,
+indices clamped into the image. For D >= 2 offset fields a block owns a
+32×32 tile of output pixels, stages the tile's window (± 16 pixels) one
+channel at a time into shared memory (``cp.async``, double-buffered), and
+copies each output from the window, or from device memory where its
+source lies beyond the window (``halo_gather_windowed`` is that
+decomposition in PyTorch); one field (temporal reprojection's smooth
+camera shift, whose loads coalesce) keeps a thread per pixel.
 
 The plain versions do what the JAX XLA path does: a gather by indexing at
 per-pixel offsets, then ``render.restir.spatial_pass`` (the gates and
@@ -111,6 +118,13 @@ MAX_UNBIASED_NEIGHBOURS = 8  # the unbiased kernel keeps R offsets in registers
 # Kernel 10's accumulator window: its source tile +- this many pixels
 # (csrc/halo.cu kMargin); a source whose target lies further is "far".
 HALO_SCATTER_MARGIN = 16
+# Kernel 9 at D >= 2 (csrc/halo.cu kGatherTileH/W, kGatherMargin,
+# kGatherChunk): a block's output tile, its window's margin (a source
+# beyond the window is read from device memory, "far"), the channels a
+# window stage holds.
+HALO_GATHER_TILE = (32, 32)
+HALO_GATHER_MARGIN = 16
+HALO_GATHER_CHUNK = 1
 # Philox counter tags of the pass kernels and the neighbour gather (RIS
 # uses tag 0).
 _TAG_BIASED, _TAG_UNBIASED, _TAG_GATHER = 0x5350, 0x5351, 0x5352
@@ -196,6 +210,62 @@ def _check_offsets(name, planes_hw, dy, dx):
     return dyi, dxi
 
 
+def beyond_window(dy: torch.Tensor, dx: torch.Tensor, tile=HALO_GATHER_TILE,
+                  margin: int = HALO_GATHER_MARGIN) -> torch.Tensor:
+    """The outputs kernel 9 (D >= 2) reads from device memory: those whose
+    clamped source lies outside their tile's window (the tile ± ``margin``).
+    dy/dx [D, H, W] int → bool [D, H, W]."""
+    h, w = dy.shape[-2:]
+    th, tw = tile
+    rows = torch.arange(h, device=dy.device)[:, None]
+    cols = torch.arange(w, device=dy.device)[None, :]
+    wy = torch.clamp(rows + dy.long(), 0, h - 1) - (rows // th * th - margin)
+    wx = torch.clamp(cols + dx.long(), 0, w - 1) - (cols // tw * tw - margin)
+    return ((wy < 0) | (wy >= th + 2 * margin) | (wx < 0)
+            | (wx >= tw + 2 * margin))
+
+
+def halo_gather_windowed(planes: torch.Tensor, dy: torch.Tensor,
+                         dx: torch.Tensor, tile=HALO_GATHER_TILE,
+                         margin: int = HALO_GATHER_MARGIN,
+                         chunk: int = HALO_GATHER_CHUNK):
+    """Kernel 9's decomposition at D >= 2 in PyTorch: every output tile
+    stages, ``chunk`` channels at a time, the cells of its window (the tile
+    ± ``margin``) that lie in the image, and copies each output from the
+    window, or from the planes where its clamped source lies outside the
+    window ("far"). planes [C, H, W], dy/dx [D, H, W] int → (out [D, C, H,
+    W], far bool [D, H, W]); out is ``halo_offset_gather_plain``'s, bit for
+    bit."""
+    c_n, h, w = planes.shape
+    d_n = dy.shape[0]
+    th, tw = tile
+    dev = planes.device
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = torch.arange(w, device=dev)[None, :]
+    sy = torch.clamp(rows + dy.long(), 0, h - 1)
+    sx = torch.clamp(cols + dx.long(), 0, w - 1)
+    far = beyond_window(dy, dx, tile, margin)
+    out = torch.empty((d_n, c_n, h, w), dtype=planes.dtype, device=dev)
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            ys, xs = slice(y0, y0 + th), slice(x0, x0 + tw)
+            gy0, gx0 = max(y0 - margin, 0), max(x0 - margin, 0)
+            gy1 = min(y0 + th + margin, h)
+            gx1 = min(x0 + tw + margin, w)
+            t_sy, t_sx, t_far = sy[:, ys, xs], sx[:, ys, xs], far[:, ys, xs]
+            # The window's cells in the image; a far source's cell is
+            # clamped into it and replaced below.
+            cy = torch.clamp(t_sy, gy0, gy1 - 1) - gy0
+            cx = torch.clamp(t_sx, gx0, gx1 - 1) - gx0
+            for c0 in range(0, c_n, chunk):
+                stage = planes[c0:c0 + chunk, gy0:gy1, gx0:gx1]
+                got = stage[:, cy, cx].movedim(1, 0)  # [D, cc, th, tw]
+                direct = planes[c0:c0 + chunk, t_sy, t_sx].movedim(1, 0)
+                out[:, c0:c0 + chunk, ys, xs] = torch.where(
+                    t_far[:, None], direct, got)
+    return out, far
+
+
 def _halo_gather_forward(planes, dy, dx):
     if not planes.is_cuda:
         return halo_offset_gather_plain(planes, dy, dx)
@@ -203,12 +273,14 @@ def _halo_gather_forward(planes, dy, dx):
     dyi, dxi = _check_offsets("halo_offset_gather", (h, w), dy, dx)
     planes = planes.contiguous()
     _build.check(planes, "planes", torch.float32)
+    if h * w >= 2 ** 31:
+        raise ValueError(f"halo_offset_gather: {h}x{w} pixels exceed "
+                         f"32-bit indexing")
     d = dyi.shape[0]
     out = torch.empty((d, c, h, w), dtype=torch.float32, device=planes.device)
     if out.numel():
-        _build.launch("romis_halo_gather", planes.data_ptr(), c, h, w,
-                      dyi.data_ptr(), dxi.data_ptr(), d * h * w,
-                      out.data_ptr())
+        _build.launch("romis_halo_gather", planes.data_ptr(), c, h, w, d,
+                      dyi.data_ptr(), dxi.data_ptr(), out.data_ptr())
         halo_offset_gather.launches += 1
     return out
 
@@ -285,9 +357,10 @@ def halo_offset_gather(planes: torch.Tensor, dy: torch.Tensor,
                        dx: torch.Tensor) -> torch.Tensor:
     """out[d, c, i, j] = planes[c, i + dy[d, i, j], j + dx[d, i, j]], the
     coordinates clamped into the image. planes [C, H, W] f32, dy/dx
-    [D, H, W] int → [D, C, H, W]. Kernel 9 for CUDA tensors, the plain
-    version for CPU tensors; differentiable in ``planes``, with
-    ``halo_offset_scatter`` as the backward."""
+    [D, H, W] int → [D, C, H, W]. Kernel 9 for CUDA tensors (at D >= 2 the
+    windowed gather of ``halo_gather_windowed``, at D = 1 a thread per
+    pixel), the plain version for CPU tensors; differentiable in
+    ``planes``, with ``halo_offset_scatter`` as the backward."""
     if planes.requires_grad and torch.is_grad_enabled():
         return _HaloGather.apply(planes, dy, dx)
     return _halo_gather_forward(planes, dy, dx)

@@ -28,8 +28,9 @@ triangle tests each ray made (int64, shaped like the rays' pixels), the
 work the kernels' bound counts.
 
 ``bvh_closest_ordered`` is a plain model of kernel 18's own walk, which
-visits the nearer child first (the tests the kernel makes, for the CPU
-tests and the bound); kernel 18's plain version stays ``bvh_closest``.
+visits the nearer child first, and ``bvh_any_wide`` of kernel 19's, on the
+same two-box records (the tests each kernel makes, for the CPU tests and
+the bounds); their plain versions stay ``bvh_closest`` and ``bvh_any``.
 """
 
 from __future__ import annotations
@@ -393,4 +394,136 @@ def bvh_any(origins, dirs, t_max, geometry, bvh, counts=None) -> torch.Tensor:
         keep = ((nxt >= 0) & ~hit_any).nonzero().squeeze(1)
         ray, cursor = ray[keep], nxt[keep]
     cnt.done(shape)
+    return occluded.reshape(shape)
+
+
+def bvh_any_wide(origins, dirs, t_max, geometry, bvh, counts=None,
+                 stack: int = WALK_STACK) -> torch.Tensor:
+    """A plain model of kernel 19's walk: ``bvh_any``'s contract and bool.
+
+    Each ray tests the root's box (``slab_test``), then at an inner node
+    both children's boxes from ``bvh.wide`` with its t_max (``slab_test``'s
+    arithmetic) and goes to the left child where its box passes, pushing
+    the right where both pass on a stack of ``stack`` entries; a leaf's
+    triangles are tested in order up to the first accepted hit (t in (0,
+    t_max)), which ends the walk. A ray that would push onto a full stack
+    is walked again by ``bvh_any``, as the kernel walks it again in
+    preorder. The kernel's loop puts a leaf aside until every lane of its
+    warp holds one (csrc/walk.cuh walk_any_wide), so on an occluded ray it
+    may test a few boxes more than this model counts, never fewer.
+
+    Why the bool is ``bvh_any``'s: both walks enter exactly the leaves
+    whose box and ancestors' boxes pass the slab test with the ray's t_max
+    (a child's box in ``bvh.wide`` is the child node's), and for a fixed
+    t_max the any-hit bool is the OR over those leaves' triangles, so it
+    depends neither on the order of the visits nor on where a walk stops.
+    ``counts`` (a dict) receives the box and triangle tests each ray made
+    (both walks' of a ray walked again, summed) and ``"again"``, the rays
+    walked again (bool), each shaped like the rays' pixels."""
+    lead = tuple(origins.shape[:-3])
+    h, w = origins.shape[-2:]
+    dev = origins.device
+    shape = lead + (h, w)
+    n = 1
+    for s in shape:
+        n *= s
+
+    def flat(a):  # [..., 3, H, W] → [3, N], rays in (lead, pixel) order
+        return a.expand(lead + (3, h, w)).reshape(-1, 3, h * w) \
+            .transpose(0, 1).reshape(3, n)
+
+    o_all, d_all = flat(origins), flat(dirs)
+    inv_all = inv_direction(d_all)
+    tm_all = t_max.expand(shape).reshape(n).to(torch.float32)
+    occluded = torch.zeros(n, dtype=torch.bool, device=dev)
+    again = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_box = torch.ones(n, dtype=torch.int64, device=dev)
+    n_tri = torch.zeros(n, dtype=torch.int64, device=dev)
+    n_tris = geometry.tri_cols.shape[1]
+    wide = bvh.wide
+    refs = wide.view(torch.int32)[:, 12:14].long()
+    root = torch.zeros(n, dtype=torch.long, device=dev)
+    alive = slab_test(bvh, root, o_all, inv_all, tm_all)
+    # An entry of the stack is never deeper than the tree.
+    room = max(1, min(stack, bvh.depth + 1))
+    stack_ref = torch.zeros((n, room), dtype=torch.long, device=dev)
+    sp = torch.zeros(n, dtype=torch.long, device=dev)
+    root_ref = -((int(bvh.leaf_first[0]) << 5) | int(bvh.leaf_count[0])) \
+        if int(bvh.leaf_count[0]) > 0 else 0
+    ray = alive.nonzero().squeeze(1)
+    cur = torch.full(ray.shape, root_ref, dtype=torch.long, device=dev)
+    pop = torch.zeros(ray.shape, dtype=torch.bool, device=dev)
+    while ray.numel():
+        done = torch.zeros(ray.shape, dtype=torch.bool, device=dev)
+        # A ray at a leaf tests its triangles up to the first hit.
+        at_leaf = ~pop & (cur < 0)
+        sel = at_leaf.nonzero().squeeze(1)
+        if sel.numel():
+            r = ray[sel]
+            word = -cur[sel]
+            first, count = word >> 5, word & 31
+            os_, ds_, tm = o_all[:, r], d_all[:, r], tm_all[r]
+            hit = torch.zeros(sel.shape, dtype=torch.bool, device=dev)
+            tested = torch.zeros(sel.shape, dtype=torch.int64, device=dev)
+            for j in range(bvh.max_leaf_count):
+                live = ~hit & (j < count)
+                idx = torch.clamp_max(first + j, n_tris - 1)
+                t, _, _, ok = _mt(os_, ds_, geometry.tri_cols, idx)
+                tested += live.long()
+                hit = hit | (live & ok & (t < tm))
+            n_tri.index_add_(0, r, tested)
+            occluded[r] = hit
+            done[sel] = hit
+            pop[sel] = ~hit
+        # A ray at an inner node tests both children's boxes.
+        sel = (~pop & ~at_leaf).nonzero().squeeze(1)
+        if sel.numel():
+            r = ray[sel]
+            n_box.index_add_(0, r, torch.full_like(r, 2))
+            rec = wide[cur[sel]]  # [n, 16]
+            o, inv, tm = o_all[:, r], inv_all[:, r], tm_all[r]
+            went = []
+            for side in (0, 2):
+                lo = torch.stack([rec[:, 4 * a + side] for a in range(3)])
+                hi = torch.stack([rec[:, 4 * a + side + 1] for a in range(3)])
+                tn, tf = _slabs(lo, hi, o, inv)
+                went.append((tn <= tf) & (tf >= 0.0) & (tn <= tm))
+            gl, gr = went
+            ref_l, ref_r = refs[cur[sel], 0], refs[cur[sel], 1]
+            both = gl & gr
+            full = both & (sp[r] >= stack)
+            again[r[full]] = True
+            done[sel] = full
+            push = (both & ~full).nonzero().squeeze(1)
+            if push.numel():
+                stack_ref[r[push], sp[r[push]]] = ref_r[push]
+                sp[r[push]] += 1
+            cur[sel] = torch.where(gl, ref_l, ref_r)
+            pop[sel] = ~(gl | gr)
+        # A popping ray takes its stack's top entry; an empty stack ends
+        # its walk (visible).
+        sel = (pop & ~done).nonzero().squeeze(1)
+        if sel.numel():
+            r = ray[sel]
+            has = sp[r] > 0
+            top = torch.clamp_min(sp[r] - 1, 0)
+            cur[sel] = torch.where(has, stack_ref[r, top], cur[sel])
+            sp[r] = top
+            pop[sel] = ~has
+            done[sel] = ~has
+        keep = (~done).nonzero().squeeze(1)
+        ray, cur, pop = ray[keep], cur[keep], pop[keep]
+    sel = again.nonzero().squeeze(1)
+    if sel.numel():  # the plain walk, on these rays alone
+        cnt = None if counts is None else {}
+        o_, d_ = (a[:, sel].T[:, :, None, None] for a in (o_all, d_all))
+        occluded[sel] = bvh_any(o_, d_, tm_all[sel, None, None], geometry,
+                                bvh, cnt)[:, 0, 0]
+        if cnt is not None:
+            n_box.index_add_(0, sel, cnt["box"][:, 0, 0])
+            n_tri.index_add_(0, sel, cnt["tri"][:, 0, 0])
+    if counts is not None:
+        counts["box"] = n_box.reshape(shape)
+        counts["tri"] = n_tri.reshape(shape)
+        counts["again"] = again.reshape(shape)
     return occluded.reshape(shape)

@@ -16,15 +16,19 @@ and leaf triangles through the read-only cache:
   (``kept_records``); a ray whose answer may not be the plain walk's is
   walked again in preorder (``ops.traverse.bvh_closest_ordered`` is the
   plain model of this walk and says why the answer is the plain walk's);
-- kernel 19 (``any_hit_bvh``): one thread per ray, stopping at the first
-  hit;
+- kernel 19 (``any_hit_bvh``): one thread per ray, a plane's rays in 8 × 4
+  pixel tiles, walking ``bvh.wide`` and the kept records, the left child
+  first, in a loop that puts a leaf aside until every lane of the warp
+  holds one, stopping at the first accepted hit; a ray whose stack fills
+  is walked again in preorder (``ops.traverse.bvh_any_wide`` is the plain
+  model of this walk);
 - kernel 20 (``any_hit_bvh_k``): the S <= 16 rays of each pixel, a thread
   per ray with the pixel's S rays in adjacent lanes, each stopping at its
-  first hit; its leaf triangles come as 48-byte records
-  (``tri_records``, built from the columns in each call).
+  first hit in preorder; its leaf triangles come as the kept records.
 Their plain versions are ``ops.traverse.bvh_closest`` and ``bvh_any``,
-whose walk kernels 19 and 20 repeat step for step, so they agree hit for
-hit.
+whose walk kernel 20 repeats step for step, so they agree hit for hit; for
+a fixed t_max the any-hit bool does not depend on the order of the visits,
+so kernel 19 gives ``bvh_any``'s too.
 
 ``ops.trace.closest_hit`` and ``any_hit`` send BVH geometry here, with the
 reference's rule for the any-hit (``ops/intersect.py:154-162``): 2 <= S <=
@@ -35,7 +39,11 @@ Bound on the H100: operations, the walk's box tests (about 22 operations
 each) and triangle tests (one Möller–Trumbore each); device memory sees
 the rays in and the hits out (40 B a closest-hit ray, 29 B an any-hit ray).
 What holds a walk back is latency: each step is a dependent node load, so
-occupancy decides how many walks hide it. The TPU's kernel 20 shares one
+occupancy decides how many walks hide it, and divergence: a warp's shadow
+rays go to different lights, so kernel 19's loop lets a lane that meets a
+leaf go on down the tree until every lane holds one, and the warp tests
+its leaves together (Aila and Laine's speculative while-while). The TPU's
+kernel 20 shares one
 walk between a pixel's S rays to amortise its page DMAs; on this card that
 union walk visits every node any of the S rays needs, runs the S slab
 tests of a node one after another and holds 10·S floats of ray state a
@@ -93,11 +101,7 @@ def closest_hit_bvh(rays: Rays, geometry, t_max: float = math.inf):
     h, w = rays.hw
     _build.check(rays.origin, "rays.origin", torch.float32, (3, h, w))
     _build.check(rays.direction, "rays.direction", torch.float32, (3, h, w))
-    nodes, _ = checked_tree(geometry)
-    wide = geometry.bvh.wide
-    _build.check(wide, "bvh.wide", torch.float32, (geometry.bvh.n_nodes, 16))
-    _aligned(wide, "bvh.wide")
-    recs = kept_records(geometry)
+    nodes, wide, recs = checked_wide(geometry)
     dev = rays.origin.device
     t = torch.empty((h, w), dtype=torch.float32, device=dev)
     tri = torch.empty((h, w), dtype=torch.int32, device=dev)
@@ -116,7 +120,7 @@ closest_hit_bvh.launches = 0
 
 
 def tri_records(cols: torch.Tensor) -> torch.Tensor:
-    """The [10, T] triangle columns as kernels 18, 20 and 21 read them:
+    """The [10, T] triangle columns as kernels 18-21 read them:
     [T, 12], a 48-byte record a triangle (v0 xyz | e1 xyz | e2 xyz | active
     | 0 0)."""
     return torch.nn.functional.pad(cols.t(), (0, 2)).contiguous()
@@ -151,19 +155,33 @@ def _any_args(origins, dirs, t_max, name):
     return o, d, tm, lead + (h, w), h * w
 
 
+def checked_wide(geometry):
+    """The node records, ``bvh.wide`` and the kept triangle records,
+    checked for the walks on the two-box records (kernels 18 and 19)."""
+    nodes, _ = checked_tree(geometry)
+    wide = geometry.bvh.wide
+    _build.check(wide, "bvh.wide", torch.float32, (geometry.bvh.n_nodes, 16))
+    _aligned(wide, "bvh.wide")
+    return nodes, wide, kept_records(geometry)
+
+
 def any_hit_bvh(origins, dirs, t_max, geometry) -> torch.Tensor:
     """Occlusion by the BVH walk, one walk per ray: origins [..., 3, H, W],
     dirs broadcastable to them, t_max [..., H, W] → bool [..., H, W].
-    Kernel 19 for CUDA tensors, the plain traversal for CPU tensors."""
+    Kernel 19 (the walk of ``ops.traverse.bvh_any_wide``, on ``bvh.wide``
+    and the kept ``kept_records``, a plane's rays in 8 × 4 tiles) for CUDA
+    tensors, the plain traversal for CPU tensors."""
     if not origins.is_cuda:
         return bvh_any(origins, dirs, t_max, geometry, geometry.bvh)
     o, d, tm, shape, n_pix = _any_args(origins, dirs, t_max, "any_hit_bvh")
-    nodes, cols = checked_tree(geometry)
+    h, w = shape[-2:]
+    s = math.prod(shape[:-2])
+    nodes, wide, recs = checked_wide(geometry)
     out = torch.empty(shape, dtype=torch.bool, device=o.device)
     if out.numel():
         _build.launch("romis_bvh_any", o.data_ptr(), d.data_ptr(),
-                      tm.data_ptr(), n_pix, out.numel(), nodes.data_ptr(),
-                      cols.data_ptr(), cols.shape[1], out.data_ptr())
+                      tm.data_ptr(), h, w, s, nodes.data_ptr(),
+                      wide.data_ptr(), recs.data_ptr(), out.data_ptr())
         any_hit_bvh.launches += 1
     return out
 
@@ -183,10 +201,10 @@ def any_hit_bvh_k(origins, dirs, t_max, geometry) -> torch.Tensor:
     if not 1 <= s <= K_MAX:
         raise ValueError(f"any_hit_bvh_k: {s} rays per pixel outside "
                          f"1..{K_MAX}")
-    nodes, cols = checked_tree(geometry)
+    nodes, _ = checked_tree(geometry)
     out = torch.empty(shape, dtype=torch.bool, device=o.device)
     if n_pix:
-        recs = tri_records(cols)
+        recs = kept_records(geometry)
         _build.launch("romis_bvh_any_k", o.data_ptr(), d.data_ptr(),
                       tm.data_ptr(), n_pix, s, nodes.data_ptr(),
                       recs.data_ptr(), out.data_ptr())

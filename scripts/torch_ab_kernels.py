@@ -3,13 +3,28 @@
 one call on one NVIDIA GPU, at the shapes of ``chip_smoke.py``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
-    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 18,1]
+    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 9,19]
 
 Both trees' kernel libraries are built (the parent's with its own
 ``ops/_build.py``, into its own ``build/``), the registers and spill stores
 of the compared kernels are printed from both builds' ``-Xptxas -v`` logs,
 and the kernels are called on the same tensors, in turns (parent, this
-tree, this tree, parent). ``--kernels`` picks the sections (default 18,1):
+tree, this tree, parent). ``--kernels`` picks the sections (default 9,19):
+- 9, the halo offset gather, at 1920x1080 on the flagship frame's planes
+  at every shape the frames give it (``chip_smoke.halo_cases``: D = 1
+  through a camera shift, D = 5 at random and at selected neighbours'
+  offsets; 25, 39, 45, 2, 14 and 6 planes), a field beyond the window's
+  margin and a +-100 field: bit-equal (32-bit patterns) to the parent's
+  and the plain version's, beside the bound and the frame launches;
+  kernel 10 beside the parent's; then the frames ``config5_gather``,
+  ``romis``, ``large_romis``, ``large_rmis_equal`` and the step
+  ``grad_per_pixel`` with either tree's kernel 9;
+- 19, the BVH any-hit, on the 5x5 torus field at 1080p: the K = 1 initial
+  check's plane, 17 planes to the sky light and hard rays toward its
+  triangles, the same bool as the parent's and the plain walk's, beside
+  its own walk's bound (``ops.traverse.bvh_any_wide``) and the
+  plain walk's; kernels 18, 20 and 21 bit-equal beside the parent's; then
+  the frame ``large_k1`` with either tree's kernel 19;
 - 18, the BVH closest hit, at 1080p on the 5x5 torus field's primary rays
   and on the 2048-triangle soup with a BVH: (t, tri, u, v) bit-equal to
   the parent's and to the plain walk, beside both walks' bounds (its
@@ -370,6 +385,283 @@ def parent_launch(c: Ctx, fn):
         finally:
             _build.library = saved
     return run
+
+
+def parent_any19(c: Ctx):
+    """The parent's kernel 19 (a thread a ray of the flattened planes, the
+    preorder walk on the [10, T] columns), called as its wrapper called
+    it."""
+    torch = c.torch
+    from romis_tpu_torch.ops import walk
+
+    def run(origins, dirs, t_max, geometry):
+        o, d, tm, shape, n_pix = walk._any_args(origins, dirs, t_max,
+                                                "parent")
+        cols = geometry.tri_cols
+        out = torch.empty(shape, dtype=torch.bool, device=o.device)
+        c.call(c.plib.romis_bvh_any, o.data_ptr(), d.data_ptr(),
+               tm.data_ptr(), n_pix, out.numel(),
+               geometry.bvh.nodes.data_ptr(), cols.data_ptr(), cols.shape[1],
+               out.data_ptr())
+        return out
+    return run
+
+
+def parent_halo9(c: Ctx):
+    """The parent's kernel 9 (a thread per (d, pixel) at any D), called as
+    its wrapper called it."""
+    torch = c.torch
+
+    def run(planes, dy, dx):
+        c_n, h, w = planes.shape
+        pl = planes.contiguous()
+        dyi, dxi = dy.int().contiguous(), dx.int().contiguous()
+        d = dyi.shape[0]
+        out = torch.empty((d, c_n, h, w), device=pl.device)
+        c.call(c.plib.romis_halo_gather, pl.data_ptr(), c_n, h, w,
+               dyi.data_ptr(), dxi.data_ptr(), d * h * w, out.data_ptr())
+        return out
+    return run
+
+
+def section_9(c: Ctx) -> None:
+    """Kernel 9 at 1920x1080 on the flagship frame's planes at every shape
+    the frames give it (``chip_smoke.halo_cases``), on a field beyond the
+    window's margin (+-40), a +-100 field clamped at the borders and 8
+    offset fields (two groups of the kernel's): every
+    output bit-equal (32-bit patterns) to the parent's and the plain
+    version's, in turns with the parent's, beside the bound and the frame
+    launches. Kernel 10 (its backward, unchanged) within twice
+    HALO_SCATTER_REL of the parent's (its atomic adds take no fixed order,
+    and each tree is within HALO_SCATTER_REL of the plain sum) and timed
+    beside it. Then the frames ``config5_gather``,
+    ``romis``, ``large_romis`` and ``large_rmis_equal`` and the step
+    ``grad_per_pixel`` with either tree's kernel 9."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    from romis_tpu_torch import Features, RayTraceMode
+    from romis_tpu_torch.core.camera import generate_rays, make_camera
+    from romis_tpu_torch.ops import ris, spatial
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        flagship_camera, flagship_scene, torus_field, torus_field_camera,
+    )
+
+    theirs = parent_halo9(c)
+    f = Features()
+    scene = flagship_scene(dev)
+    cam = flagship_camera(H, W, dev)
+    _, ctx = restir.trace_primary(generate_rays(cam, H, W), scene.geometry,
+                                  f, restir.KERNELS)
+    res = ris.gen_canonical_samples_ris(ctx, scene.lights, scene.num_lights,
+                                        f, generator=gen)
+    pan = make_camera(look_at=(2.57, 1.23, -1.35),
+                      rotation_deg=(10.3 + chip_smoke.PAN_DEG,
+                                    30.0 + chip_smoke.PAN_DEG, 0.0),
+                      distance=25.0, fov_deg=30.0, resolution=(H, W),
+                      device=dev)
+    cases = chip_smoke.halo_cases(torch, gen, ctx, res, f, pan)
+    h39 = cases["config5_gather 5x39, random +-10"]
+    cases["beyond the margin 5x14, random +-40"] = (
+        cases["resolve_neighbour_ctx 5x14, selected"][0],
+        *spatial.clamped_offsets(torch.randint(
+            -40, 41, (2, 5, H, W), generator=gen, device=dev,
+            dtype=torch.int32), H, W))
+    cases["+-100 5x39, clamped at the borders"] = (h39[0], *torch.randint(
+        -100, 101, (2, 5, H, W), generator=gen, device=dev,
+        dtype=torch.int32))
+    cases["8 fields 8x6, random +-10"] = (  # two groups of offset fields
+        h39[0][:6].contiguous(), *spatial.clamped_offsets(torch.randint(
+            -10, 11, (2, 8, H, W), generator=gen, device=dev,
+            dtype=torch.int32), H, W))
+    for label, (pl, dy, dx) in cases.items():
+        mine = spatial.halo_offset_gather(pl, dy, dx)
+        same = (chip_smoke.same_bits(torch, mine, theirs(pl, dy, dx))
+                and chip_smoke.same_bits(torch, mine, spatial
+                                         .halo_offset_gather_plain(pl, dy,
+                                                                   dx)))
+        chip_smoke.require(same, f"kernel 9 {label}: not the parent's or "
+                           "the plain version's bits")
+        del mine
+        new, old = chip_smoke.ab_ms(
+            torch, lambda: spatial.halo_offset_gather(pl, dy, dx),
+            lambda: theirs(pl, dy, dx), 20, 20)
+        b_ms, b_by = chip_smoke.halo_bound(pl, dy)
+        far = spatial.beyond_window(dy, dx).float().mean().item()
+        launches = chip_smoke.HALO_FRAME_LAUNCHES.get(label, 0)
+        print(f"time halo_gather[{label}]: {new:.4f} ms this tree, {old:.4f} "
+              f"ms parent ({old / new:.2f}x); bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / new:.2f} of it reached; beyond the window {far:.4f}; "
+              f"frame launches {launches}; bit-equal to the parent's and the "
+              f"plain version's [{card}]")
+        ms[f"halo_gather[{label}]"] = dict(change=new, parent=old,
+                                           bound=b_ms, launches=launches)
+    # Kernel 10, the gather's backward, keeps its design.
+    ct = torch.randn((5, 2, H, W), generator=gen, device=dev)
+    _, dy, dx = h39
+    mine10 = spatial.halo_offset_scatter(ct, dy, dx)
+    theirs10 = parent_launch(c, spatial.halo_offset_scatter)(ct, dy, dx)
+    mag = spatial.halo_offset_scatter_plain(ct.abs(), dy, dx).clamp_min(1e-30)
+    rel = ((mine10 - theirs10).abs() / mag).max().item()
+    chip_smoke.require(rel <= 2 * chip_smoke.HALO_SCATTER_REL,
+                       f"kernel 10: {rel} from the parent's")
+    new, old = chip_smoke.ab_ms(
+        torch, lambda: spatial.halo_offset_scatter(ct, dy, dx),
+        lambda: parent_launch(c, spatial.halo_offset_scatter)(ct, dy, dx), 20,
+        20)
+    print(f"time halo_scatter[5x2, random +-10] (kernel 10): {new:.4f} ms "
+          f"this tree, {old:.4f} ms parent ({new / old:.3f} of it); max "
+          f"difference / sum|ct| {rel:.2e} (atomic order) [{card}]")
+    ms["halo_scatter (kernel 10)"] = dict(change=new, parent=old)
+    del cases, h39, ct, mine10, theirs10, mag, ctx, res
+    torch.cuda.empty_cache()
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    lcam = torus_field_camera(H, W, dev)
+    mis_f = Features(ray_trace_mode=RayTraceMode.ROMIS)
+    swap = (spatial, "_halo_gather_forward", theirs)
+    time_frames(c, "9", {
+        "config5_gather": (scene, cam, Features(fused_spatial_gather=False)),
+        "romis": (scene, cam, mis_f),
+        "large_romis": (large, lcam, mis_f),
+        "large_rmis_equal": (large, lcam, Features(
+            ray_trace_mode=RayTraceMode.RMIS)),
+    }, swap=swap)
+    time_steps(c, "9", swap=swap, paths=("grad_per_pixel",))
+
+
+def section_19(c: Ctx) -> None:
+    """Kernel 19 on the 5x5 torus field at 1080p: the K = 1 initial check's
+    plane, 17 planes to the sky light and hard rays toward the field's
+    triangles (``chip_smoke.hard_any_rays``), every bool the parent's and
+    the plain walk's (17 planes: the parent's), in turns with the parent's,
+    beside its bound (its own walk's tests on the two-box records,
+    ``ops.traverse.bvh_any_wide``) and the plain walk's. Kernels 18, 20
+    (S = 2 and 12) and 21 (K = 2), which share ``walk.cuh`` and now the
+    kept triangle records, bit-equal and timed beside the parent's. Then
+    the frame ``large_k1`` with either tree's kernel 19."""
+    torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    import numpy as np
+
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.ops import nbrsel, ris, shade, spatial, walk
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.ops.traverse import bvh_any, bvh_any_wide
+    from romis_tpu_torch.ops.wrs import visibility
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.render.neighbours import select_neighbour_indices
+    from romis_tpu_torch.render.rmis import mis_offsets
+    from romis_tpu_torch.scene.scene import torus_field, torus_field_camera
+
+    theirs = parent_any19(c)
+    f = Features()
+    large = torus_field(5, dev)
+    large.geometry = with_bvh(large.geometry)
+    lgeo = large.geometry
+    lcam = torus_field_camera(H, W, dev)
+    lrays = generate_rays(lcam, H, W)
+    _, lctx = restir.trace_primary(lrays, lgeo, f, restir.KERNELS)
+    res = ris.gen_canonical_samples_ris(lctx, large.lights, large.num_lights,
+                                        f, generator=gen)
+
+    def vis_rays(targets):
+        got = {}
+
+        def grab(o, d, tm, _g):
+            got["rays"] = (o.contiguous(), d.expand(o.shape).contiguous(),
+                           tm.contiguous())
+            return torch.zeros(tm.shape, dtype=torch.bool, device=dev)
+
+        visibility(lctx.position, targets, lgeo, grab)
+        return got["rays"]
+
+    shadow = vis_rays(res.pos)
+    sky = large.lights.rows[0]
+    uv = torch.rand((2, chip_smoke.SKY_PLANES, 1, H, W), generator=gen,
+                    device=dev)
+    sky_rays = vis_rays(sky[0:3, None, None] + uv[0] * sky[3:6, None, None]
+                        + uv[1] * sky[6:9, None, None])
+    rng = np.random.default_rng(19)
+    cases = {"1 plane, the K=1 initial check": tuple(a[:1] for a in shadow),
+             f"{chip_smoke.SKY_PLANES} planes to the sky light": sky_rays}
+    cases.update({f"hard rays: {kind}": chip_smoke.hard_any_rays(
+        torch, rng, kind, lgeo, s=4, h=128, w=256)
+        for kind in chip_smoke.HARD_RAY_KINDS + ("at_hit",)})
+    for label, rays in cases.items():
+        mine = walk.any_hit_bvh(*rays, lgeo)
+        same = torch.equal(mine, theirs(*rays, lgeo))
+        hw_ = rays[2].numel()
+        plain_too = rays[2].shape[0] < chip_smoke.SKY_PLANES
+        cnt_o, cnt_p = {}, {}
+        if plain_too:
+            same = same and torch.equal(mine, bvh_any(*rays, lgeo, lgeo.bvh,
+                                                      counts=cnt_p))
+            same = same and torch.equal(mine, bvh_any_wide(
+                *rays, lgeo, lgeo.bvh, counts=cnt_o))
+        chip_smoke.require(same, f"kernel 19 {label}: bools differ from the "
+                           "parent's or the plain walk's")
+        new, old = chip_smoke.ab_ms(torch, lambda: walk.any_hit_bvh(
+            *rays, lgeo), lambda: theirs(*rays, lgeo), 20, 20)
+        line = (f"time bvh_any_hit[{label}]: {new:.4f} ms this tree, "
+                f"{old:.4f} ms parent ({old / new:.2f}x); the same bool on "
+                f"every ray")
+        row = dict(change=new, parent=old)
+        if plain_too:
+            b_o = chip_smoke.bound(hw_ * 29, chip_smoke.walk_ops(cnt_o))
+            b_p = chip_smoke.bound(hw_ * 29, chip_smoke.walk_ops(cnt_p))
+            line += (f"; bound {b_o[0]:.4f} ms ({b_o[1]}; its walk: per ray "
+                     f"{cnt_o['box'].float().mean().item():.2f} box and "
+                     f"{cnt_o['tri'].float().mean().item():.2f} triangle "
+                     f"tests, {int(cnt_o['again'].sum().item())} rays walked "
+                     f"again), {new / b_o[0]:.2f}x it; the plain walk's "
+                     f"{b_p[0]:.4f} ms "
+                     f"({cnt_p['box'].float().mean().item():.2f} box, "
+                     f"{cnt_p['tri'].float().mean().item():.2f} triangle "
+                     f"tests)")
+            row.update(bound=b_o[0], plain_walk_bound=b_p[0])
+        print(line + f" [{card}]")
+        ms[f"bvh_any_hit[{label}]"] = row
+        del mine, cnt_o, cnt_p
+    del cases, sky_rays
+    # Kernels 18, 20 and 21: the kept records now in 20 and 21's wrappers.
+    k = f.num_samples_in_reservoir
+    lny, lnx = select_neighbour_indices(gen, lctx, H, W, f,
+                                        select=nbrsel.neighbour_select)
+    loffs = mis_offsets(lny, lnx)
+    lpos = ris.gen_mis_reservoir_planes(lctx, large.lights, large.num_lights,
+                                        f, 1, True, generator=gen)[:3 * k]
+    d_n = loffs.shape[0] // 2
+    ext = vis_rays(torch.cat([lpos[None], spatial.halo_offset_gather(
+        lpos, loffs[:d_n], loffs[d_n:])]).reshape(d_n + 1, k, 3, H, W))
+    for name, mine, them in (
+            ("bvh_closest_hit (kernel 18)",
+             lambda: walk.closest_hit_bvh(lrays, lgeo),
+             lambda: parent_launch(c, walk.closest_hit_bvh)(lrays, lgeo)),
+            ("bvh_any_hit_k[S=2] (kernel 20)",
+             lambda: walk.any_hit_bvh_k(*shadow, lgeo),
+             lambda: parent_launch(c, walk.any_hit_bvh_k)(*shadow, lgeo)),
+            ("bvh_any_hit_k[S=12 ext_vis] (kernel 20)",
+             lambda: walk.any_hit_bvh_k(*ext, lgeo),
+             lambda: parent_launch(c, walk.any_hit_bvh_k)(*ext, lgeo)),
+            ("bvh_final_shade[K=2] (kernel 21)",
+             lambda: shade.final_shade_bvh(lctx, res, lgeo, f),
+             lambda: parent_launch(c, shade.final_shade_bvh)(lctx, res, lgeo,
+                                                            f))):
+        a, b = mine(), them()
+        same = (all(torch.equal(x, y) for x, y in zip(a, b))
+                if isinstance(a, tuple) else torch.equal(a, b))
+        chip_smoke.require(same, f"{name}: outputs differ from the parent's")
+        new, old = chip_smoke.ab_ms(torch, mine, them, 10, 10)
+        print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms parent "
+              f"({new / old:.3f} of it); bit-equal [{card}]")
+        ms[name] = dict(change=new, parent=old)
+    del res, shadow, ext, lctx
+    time_frames(c, "19", {
+        "large_k1": (large, lcam, Features(
+            num_samples_in_reservoir=1,
+            initial_samples_visibility_check=True)),
+    }, swap=(walk, "any_hit_bvh", theirs))
 
 
 def section_17(c: Ctx) -> None:
@@ -1087,7 +1379,7 @@ def section_21(c: Ctx) -> None:
 
     # Kernel 19 keeps its design: bit-equal, timed beside the parent's.
     f = Features()
-    parent_any = parent_launch(c, walk.any_hit_bvh)
+    parent_any = parent_any19(c)
     res = ris.gen_canonical_samples_ris(lctx, large.lights, large.num_lights,
                                         f, generator=gen)
     to = res.pos - lctx.position
@@ -1218,8 +1510,7 @@ def section_4(c: Ctx) -> None:
                                                             f)),
             ("bvh_any_hit[1 plane] (kernel 19)",
              lambda: walk.any_hit_bvh(o[:1], d[:1], tm[:1], lgeo),
-             lambda: parent_launch(c, walk.any_hit_bvh)(o[:1], d[:1], tm[:1],
-                                                        lgeo))):
+             lambda: parent_any19(c)(o[:1], d[:1], tm[:1], lgeo))):
         chip_smoke.require(torch.equal(mine(), them()),
                            f"{name}: outputs differ from the parent's")
         new, old = chip_smoke.ab_ms(torch, mine, them, 10, 10)
@@ -1406,8 +1697,7 @@ def section_18(c: Ctx) -> None:
     for name, mine, them in (
             ("bvh_any_hit[1 plane] (kernel 19)",
              lambda: walk.any_hit_bvh(o[:1], d[:1], tm[:1], lgeo),
-             lambda: parent_launch(c, walk.any_hit_bvh)(o[:1], d[:1], tm[:1],
-                                                        lgeo)),
+             lambda: parent_any19(c)(o[:1], d[:1], tm[:1], lgeo)),
             ("bvh_any_hit_k[S=2] (kernel 20)",
              lambda: walk.any_hit_bvh_k(o, d, tm, lgeo),
              lambda: parent_launch(c, walk.any_hit_bvh_k)(o, d, tm, lgeo)),
@@ -1562,7 +1852,9 @@ def section_1(c: Ctx) -> None:
                paths=("grad_surrogate",))
 
 
-SECTIONS = {"18": (section_18, ("bvh_closest", "bvh_any", "final_shade")),
+SECTIONS = {"9": (section_9, ("halo_gather", "halo_scatter")),
+            "19": (section_19, ("bvh_any", "bvh_closest", "final_shade")),
+            "18": (section_18, ("bvh_closest", "bvh_any", "final_shade")),
             "1": (section_1, ("closest_hit", "final_shade", "zcount_kernel")),
             "4": (section_4, ("final_shade", "bvh_any_kernel")),
             "5": (section_5, ("spatial_pass_kernel",
@@ -1586,9 +1878,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="root of the other tree (e.g. build/parent)")
-    ap.add_argument("--kernels", default="18,1",
-                    help="comma-separated sections: 18, 1, 4, 5, 13, 21, 16, "
-                    "11, 14, 17, 7, 10, 20")
+    ap.add_argument("--kernels", default="9,19",
+                    help="comma-separated sections: 9, 19, 18, 1, 4, 5, 13, "
+                    "21, 16, 11, 14, 17, 7, 10, 20")
     args = ap.parse_args()
     picked = args.kernels.split(",")
     if not torch.cuda.is_available():
