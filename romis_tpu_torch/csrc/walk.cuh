@@ -111,18 +111,9 @@ __device__ __forceinline__ void walk_closest(const float4* __restrict__ nodes,
   }
 }
 
-// A leaf's triangles as the walk reads them: from the [10, T] columns, or
-// from 48-byte records (kernels 18-21;
-// ops/walk.tri_records: v0 xyz | e1 xyz | e2 xyz | active | 0 0, three
-// float4 from one record instead of ten floats from ten columns).
-struct ColTris {
-  const float* __restrict__ cols;
-  int n_tris;
-  __device__ __forceinline__ Tri operator()(int i) const {
-    return load_tri(cols + i, n_tris);
-  }
-};
-
+// A leaf's triangles as the walks read them (kernels 18-21): 48-byte
+// records (ops/walk.tri_records: v0 xyz | e1 xyz | e2 xyz | active | 0 0,
+// three float4 from one record instead of ten floats from ten columns).
 struct RecTris {
   const float4* __restrict__ recs;
   __device__ __forceinline__ Tri operator()(int i) const {

@@ -122,7 +122,7 @@ def final_shade_bvh(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     from .walk import checked_tree, kept_records
 
     planes, k = _fields(ctx, reservoirs)
-    nodes, _ = checked_tree(geometry)
+    nodes = checked_tree(geometry)
     h, w = ctx.depth_t.shape[-2:]
     out = torch.empty((3, h, w), dtype=torch.float32, device=nodes.device)
     if out.numel():

@@ -118,8 +118,8 @@ MAX_UNBIASED_NEIGHBOURS = 8  # the unbiased kernel keeps R offsets in registers
 # Kernel 10's accumulator window: its source tile +- this many pixels
 # (csrc/halo.cu kMargin); a source whose target lies further is "far".
 HALO_SCATTER_MARGIN = 16
-# Kernel 9 at D >= 2 (csrc/halo.cu kGatherTileH/W, kGatherMargin,
-# kGatherChunk): a block's output tile, its window's margin (a source
+# Kernel 9 at D >= 2 (csrc/halo.cu kGatherTileH/W, kGatherMargin; one
+# channel a stage): a block's output tile, its window's margin (a source
 # beyond the window is read from device memory, "far"), the channels a
 # window stage holds.
 HALO_GATHER_TILE = (32, 32)

@@ -75,16 +75,16 @@ def _aligned(a: torch.Tensor, name: str) -> None:
 
 
 def checked_tree(geometry):
-    """The BVH record and the triangle columns, checked for the walk."""
+    """The BVH's node records, checked for the walk, with the triangle
+    columns that ``kept_records`` builds the walk's triangles from."""
     bvh = geometry.bvh
     if bvh is None:
         raise ValueError("the BVH walk needs geometry with a BVH "
                          "(ops.bvh.with_bvh)")
     _build.check(bvh.nodes, "bvh.nodes", torch.float32, (bvh.n_nodes, 8))
     _aligned(bvh.nodes, "bvh.nodes")
-    cols = geometry.tri_cols
-    _build.check(cols, "tri_cols", torch.float32)
-    return bvh.nodes, cols
+    _build.check(geometry.tri_cols, "tri_cols", torch.float32)
+    return bvh.nodes
 
 
 def closest_hit_bvh(rays: Rays, geometry, t_max: float = math.inf):
@@ -158,7 +158,7 @@ def _any_args(origins, dirs, t_max, name):
 def checked_wide(geometry):
     """The node records, ``bvh.wide`` and the kept triangle records,
     checked for the walks on the two-box records (kernels 18 and 19)."""
-    nodes, _ = checked_tree(geometry)
+    nodes = checked_tree(geometry)
     wide = geometry.bvh.wide
     _build.check(wide, "bvh.wide", torch.float32, (geometry.bvh.n_nodes, 16))
     _aligned(wide, "bvh.wide")
@@ -201,7 +201,7 @@ def any_hit_bvh_k(origins, dirs, t_max, geometry) -> torch.Tensor:
     if not 1 <= s <= K_MAX:
         raise ValueError(f"any_hit_bvh_k: {s} rays per pixel outside "
                          f"1..{K_MAX}")
-    nodes, _ = checked_tree(geometry)
+    nodes = checked_tree(geometry)
     out = torch.empty(shape, dtype=torch.bool, device=o.device)
     if n_pix:
         recs = kept_records(geometry)

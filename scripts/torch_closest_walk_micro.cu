@@ -26,6 +26,7 @@
 //   once a block after the staging; primary rays share their origin).
 #include "trace.cu"
 #include "walk.cu"
+#include "torch_walk_micro_coltris.cuh"
 
 namespace micro {
 using namespace romis;

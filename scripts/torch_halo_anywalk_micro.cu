@@ -19,7 +19,8 @@
 //   2 with 1 channel; 9 2 at 3 blocks an SM; 10 the package's with plain
 //   stores instead of streaming ones; 11 margin 12, 2 channels, 4 blocks
 //   an SM, 5 fields; 12 2 channels, 3 blocks an SM, 5 fields; 13 the
-//   package's at 5 blocks an SM; 14 the package's with 8 fields;
+//   package's at 5 blocks an SM; 14 the package's with 8 fields; 15 this
+//   template at the package's settings (the package's kernel folds them);
 // - variant 6: pixel-major records, a transposing pre-pass into
 //   ``scratch`` ([H W, C4] floats, C4 = C rounded up to 4), then a thread
 //   per (d, pixel) reading its source's record as float4 loads.
@@ -43,11 +44,191 @@
 // records, the preorder walk again where its stack fills.
 #include "halo.cu"
 #include "walk.cu"
+#include "torch_walk_micro_coltris.cuh"
 
 namespace micro {
 using namespace romis;
 
 // ---- kernel 9 ----
+
+// The window design with its knobs: a kTH x 32 output tile, margin kM, kCC
+// channels a stage, staged by cp.async double-buffered (kAsync) or by
+// loads and stores in turn with the copies out, 16-byte copies (kVec),
+// kMinBlocks blocks an SM, streaming stores (kStream), kDG offset fields
+// resolved at once. The package's kernel is <32, 16, 1, true, kVec, 4,
+// true, 5>.
+template <int kTH, int kM, int kCC, bool kAsync>
+struct GatherWindow {
+  static constexpr int kWinH = kTH + 2 * kM, kWinW = kGatherTileW + 2 * kM;
+  static constexpr int kArea = kWinH * kWinW;
+  static constexpr int kRows = kGatherThreads / kGatherTileW;  // a pass's
+  static constexpr int kPerThread = kTH * kGatherTileW / kGatherThreads;
+  static constexpr int kBuffers = kAsync ? 2 : 1;
+  static constexpr size_t kSmem = sizeof(float) * kBuffers * kCC * kArea;
+  static_assert(kGatherTileW == 32 && kTH % kRows == 0,
+                "a warp a row of the tile");
+  static_assert(kArea % 4 == 0, "16-byte aligned stages");
+};
+
+// Stage the window of channels [c0, c0 + cc) into dst [cc][kArea].
+template <int kTH, int kM, int kCC, bool kAsync, bool kVec>
+__device__ __forceinline__ void stage_variant(float* dst,
+                                              const float* __restrict__ pc,
+                                              int cc, int n, int h, int w,
+                                              int y0, int x0) {
+  using Win = GatherWindow<kTH, kM, kCC, kAsync>;
+  if (kVec) {
+    constexpr int kQuads = Win::kWinW / 4, kCells = Win::kWinH * kQuads;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < cc * kCells; e += kGatherThreads) {
+      const int c = e / kCells, a = e - c * kCells;
+      const int wy = a / kQuads, wx = 4 * (a - wy * kQuads);
+      const int gy = y0 - kM + wy, gx = x0 - kM + wx;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < w)
+        cp_async16(dst + c * Win::kArea + wy * Win::kWinW + wx,
+                   pc + static_cast<long long>(c) * n + gy * w + gx);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < cc * Win::kArea; e += kGatherThreads) {
+      const int c = e / Win::kArea, a = e - c * Win::kArea;
+      const int gy = y0 - kM + a / Win::kWinW;
+      const int gx = x0 - kM + a % Win::kWinW;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+        const float* src = pc + static_cast<long long>(c) * n + gy * w + gx;
+        if (kAsync)
+          cp_async4(dst + e, src);
+        else
+          dst[e] = __ldg(src);
+      }
+    }
+  }
+}
+
+template <int kTH, int kM, int kCC, bool kAsync, bool kVec, int kMinBlocks,
+          bool kStream, int kDG>
+__global__ void __launch_bounds__(kGatherThreads, kMinBlocks)
+window_variant_kernel(const float* __restrict__ planes, int c_n, int h, int w,
+                      int d_n, const int* __restrict__ dy,
+                      const int* __restrict__ dx, float* __restrict__ out) {
+  using Win = GatherWindow<kTH, kM, kCC, kAsync>;
+  extern __shared__ float4 win_raw[];  // [kBuffers][kCC][kArea]
+  float* win = reinterpret_cast<float*>(win_raw);
+  const int x0 = blockIdx.x * kGatherTileW, y0 = blockIdx.y * kTH;
+  const int n = h * w;
+  const int j = x0 + static_cast<int>(threadIdx.x) % kGatherTileW;
+  const int i_first = y0 + static_cast<int>(threadIdx.x) / kGatherTileW;
+  const int n_chunks = (c_n + kCC - 1) / kCC;
+  for (int d0 = 0; d0 < d_n; d0 += kDG) {
+    if (kAsync) {  // the first chunk in flight while the offsets load
+      stage_variant<kTH, kM, kCC, kAsync, kVec>(win, planes, min(kCC, c_n),
+                                                n, h, w, y0, x0);
+      cp_async_commit();
+    }
+    const int dg = min(kDG, d_n - d0);
+    int src[kDG][Win::kPerThread];
+#pragma unroll
+    for (int q = 0; q < Win::kPerThread; ++q) {
+      const int i = i_first + q * Win::kRows;
+      const bool in = i < h && j < w;
+      const int p = i * w + j;
+#pragma unroll
+      for (int e = 0; e < kDG; ++e) {
+        int s = 0;
+        if (in && e < dg) {
+          const long long o = static_cast<long long>(d0 + e) * n + p;
+          const int sy = min(max(i + min(max(__ldg(dy + o), -h), h), 0), h - 1);
+          const int sx = min(max(j + min(max(__ldg(dx + o), -w), w), 0), w - 1);
+          const int wy = sy - y0 + kM, wx = sx - x0 + kM;
+          s = (wy >= 0 && wy < Win::kWinH && wx >= 0 && wx < Win::kWinW)
+                  ? wy * Win::kWinW + wx
+                  : -1 - (sy * w + sx);
+        }
+        src[e][q] = s;
+      }
+    }
+    for (int k = 0; k < n_chunks; ++k) {
+      const int c0 = k * kCC, cc = min(kCC, c_n - c0);
+      float* buf = win + (k % Win::kBuffers) * kCC * Win::kArea;
+      if (kAsync) {
+        if (k + 1 < n_chunks) {  // the next chunk into the other buffer
+          stage_variant<kTH, kM, kCC, kAsync, kVec>(
+              win + ((k + 1) % Win::kBuffers) * kCC * Win::kArea,
+              planes + static_cast<long long>(c0 + kCC) * n,
+              min(kCC, c_n - c0 - kCC), n, h, w, y0, x0);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+      } else {
+        __syncthreads();  // the previous chunk's reads are done
+        stage_variant<kTH, kM, kCC, kAsync, kVec>(
+            buf, planes + static_cast<long long>(c0) * n, cc, n, h, w, y0, x0);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < kCC; ++c) {
+        if (c >= cc) break;
+        const float* __restrict__ wc = buf + c * Win::kArea;
+        const float* __restrict__ gc = planes + static_cast<long long>(c0 + c) * n;
+#pragma unroll
+        for (int e = 0; e < kDG; ++e) {
+          if (e >= dg) break;
+          float* __restrict__ oc =
+              out + (static_cast<long long>(d0 + e) * c_n + c0 + c) * n;
+#pragma unroll
+          for (int q = 0; q < Win::kPerThread; ++q) {
+            const int i = i_first + q * Win::kRows;
+            if (i >= h || j >= w) continue;
+            const int s = src[e][q];
+            const float v = s >= 0 ? wc[s] : __ldg(gc + (-1 - s));
+            if (kStream)
+              __stcs(oc + i * w + j, v);
+            else
+              oc[i * w + j] = v;
+          }
+        }
+      }
+      if (kAsync) __syncthreads();  // this buffer is staged again at k + 2
+    }
+  }
+}
+
+template <int kTH, int kM, int kCC, bool kAsync, bool kVec, int kMinBlocks,
+          bool kStream, int kDG>
+int launch_window_kernel(const float* planes, int c_n, int h, int w, int d_n,
+                         const int* dy, const int* dx, float* out,
+                         cudaStream_t stream) {
+  using Win = GatherWindow<kTH, kM, kCC, kAsync>;
+  auto kernel = window_variant_kernel<kTH, kM, kCC, kAsync, kVec, kMinBlocks,
+                                      kStream, kDG>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Win::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((w + kGatherTileW - 1) / kGatherTileW, (h + kTH - 1) / kTH);
+  kernel<<<grid, kGatherThreads, Win::kSmem, stream>>>(planes, c_n, h, w, d_n,
+                                                       dy, dx, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kVec where the rows allow 16-byte copies (kVecOk = false forces 4).
+template <int kTH, int kM, int kCC, bool kAsync, bool kVecOk = true,
+          int kMinBlocks = kGatherMinBlocks, bool kStream = true,
+          int kDG = kGatherDGroup>
+int launch_halo_window(const float* planes, int c_n, int h, int w, int d_n,
+                       const int* dy, const int* dx, float* out,
+                       cudaStream_t stream) {
+  const bool vec = kVecOk && kAsync && kM % 4 == 0 && w % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(planes) % 16 == 0;
+  return vec ? launch_window_kernel<kTH, kM, kCC, kAsync, kAsync && kVecOk,
+                                    kMinBlocks, kStream, kDG>(
+                   planes, c_n, h, w, d_n, dy, dx, out, stream)
+             : launch_window_kernel<kTH, kM, kCC, kAsync, false, kMinBlocks,
+                                    kStream, kDG>(planes, c_n, h, w, d_n, dy,
+                                                  dx, out, stream);
+}
 
 __global__ void __launch_bounds__(kThreads)
 records_kernel(const float* __restrict__ planes, int c_n, int c4, long long n,
@@ -315,6 +496,7 @@ extern "C" int micro_halo(int variant, const float* planes, int c_n, int h, int 
     case 12: return MICRO_WINDOW(32, 16, 2, true, true, 3, true, 5);
     case 13: return MICRO_WINDOW(32, 16, 1, true, true, 5, true, 5);
     case 14: return MICRO_WINDOW(32, 16, 1, true, true, 4, true, 8);
+    case 15: return MICRO_WINDOW(32, 16, 1, true, true);
 #undef MICRO_WINDOW
     case 6: {
       const int c4 = (c_n + 3) / 4;

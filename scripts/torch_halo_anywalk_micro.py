@@ -16,8 +16,9 @@ the package's kernel, a thread per (d, pixel) (variant 0, the first
 design; the package's at D = 1), the shared-memory window staged in turns
 with the copies out (1, the first window design), staged double-buffered
 by cp.async with its tile, margin, channel chunk, copy width, blocks an
-SM, offset fields resolved at once and stores varied (2-5, 7-14) and
-pixel-major records read as float4 (6). Every output
+SM, offset fields resolved at once and stores varied (2-5, 7-14; 15 at
+the package's settings, which its kernel has folded in) and pixel-major
+records read as float4 (6). Every output
 is the plain version's, bit for bit (32-bit patterns).
 
 Kernel 19 on the 5x5 torus field (24,202 triangles) at 1080p: the K = 1
@@ -76,6 +77,7 @@ HALO_VARIANTS = {
     12: "v12 2 channels, 3 blocks an SM, 5 fields",
     13: "v13 the package's at 5 blocks an SM",
     14: "v14 the package's with 8 fields",
+    15: "v15 the window template at the package's settings",
 }
 ANY_VARIANTS = {
     1: "v1 no register bound",
@@ -215,7 +217,7 @@ def main() -> None:
         del plain, far
         measure(f"halo_gather[{label}]", runs,
                 lambda a, b: chip_smoke.same_bits(torch, a, b),
-                ("halo_gather", "records_kernel"))
+                ("halo_gather", "window_variant", "records_kernel"))
         times[f"halo_gather[{label}]"]["bound_ms"] = b_ms
         del scratch
         torch.cuda.empty_cache()

@@ -270,7 +270,7 @@ def main() -> None:
 
     # ---- kernel 21 ----
     _, lctx = restir.trace_primary(lrays, lgeo, Features(), restir.KERNELS)
-    nodes, cols = walk.checked_tree(lgeo)
+    nodes, cols = walk.checked_tree(lgeo), lgeo.tri_cols
     recs = walk.tri_records(cols)
     for kk in (1, 2, 4):
         f = Features(num_samples_in_reservoir=kk)

@@ -13,6 +13,7 @@
 //   each alone, on the records (the walk per ray without the lanes side by
 //   side).
 #include "shade.cu"
+#include "torch_walk_micro_coltris.cuh"
 
 namespace micro {
 using namespace romis;

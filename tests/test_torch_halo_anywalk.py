@@ -219,23 +219,81 @@ def test_any_ordered_is_plain_and_jax(field, planes):
 # Rays of 512 whose bool the JAX package's arithmetic (XLA's order of
 # operations in Möller–Trumbore) decides otherwise than the port's plain
 # walk: rays in a triangle's plane or through its edge, where the
-# determinant or u + v sits at its threshold (2, 6 and 11 in a probe).
-JAX_HARD_DIFFER = {"random": 0, "grazing": 8, "edge_on": 16, "edge": 24}
+# determinant or u + v sits at its threshold. The seeds are fixed and the
+# run is on the CPU, so the counts are the measured ones, exactly.
+JAX_HARD_DIFFER = {"random": 0, "grazing": 2, "edge_on": 6, "edge": 11}
+# The float32 rounding a test of mt_one is allowed, in units of float32's
+# epsilon times the magnitudes that enter it.
+MT_ULPS = 4
+
+
+def _mt_decisions(o, d, tm, cols):
+    """Möller–Trumbore (``ops.intersect.mt_one``, a hit when t < t_max) of
+    rays o, d [N, 3], t_max [N] against every active triangle of the
+    columns [10, T], in float64 with each test's float32 rounding bounded
+    by MT_ULPS epsilons of the magnitudes in it → (ambiguous, occluded)
+    bool [N]: ``occluded`` where some triangle passes every test by more
+    than its rounding; ``ambiguous`` where none does but some triangle
+    passes every test within its rounding, so float32 may decide either
+    way."""
+    o, d = o.astype(np.float64)[:, None], d.astype(np.float64)[:, None]
+    tm = tm.astype(np.float64)[:, None]
+    c = cols.astype(np.float64)
+    v0, e1, e2 = c[0:3].T[None], c[3:6].T[None], c[6:9].T[None]
+    active = c[9] > 0
+
+    def norm(a):
+        return np.linalg.norm(a, axis=-1)
+
+    pvec, tvec = np.cross(d, e2), o - v0
+    qvec = np.cross(tvec, e1)
+    det = (e1 * pvec).sum(-1)
+    eps = MT_ULPS * float(np.finfo(np.float32).eps)
+    scale = norm(tvec) + norm(o) + norm(v0)  # o - v0 rounds too
+    e_det = eps * norm(e1) * norm(d) * norm(e2)
+    ad = np.maximum(np.abs(det) - e_det, 1e-300)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = (tvec * pvec).sum(-1) / det
+        v = (d * qvec).sum(-1) / det
+        t = (e2 * qvec).sum(-1) / det
+    eu = (eps * scale * norm(d) * norm(e2) + np.abs(u) * e_det) / ad
+    ev = (eps * scale * norm(d) * norm(e1) + np.abs(v) * e_det) / ad
+    et = (eps * scale * norm(e2) * norm(e1) + np.abs(t) * e_det) / ad
+    etm = eps * tm
+    sure = (active & (np.abs(det) - e_det > 1e-9) & (u - eu >= 0)
+            & (u + eu <= 1) & (v - ev >= 0) & (u + v + eu + ev <= 1)
+            & (t - et > 0) & (t + et < tm - etm))
+    maybe = (active & (np.abs(det) + e_det > 1e-9) & (u + eu >= 0)
+             & (u - eu <= 1) & (v + ev >= 0) & (u + v - eu - ev <= 1)
+             & (t + et > 0) & (t - et < tm + etm))
+    occluded = sure.any(axis=1)
+    return maybe.any(axis=1) & ~occluded, occluded
 
 
 @pytest.mark.parametrize("kind", HARD_RAY_KINDS)
 def test_any_ordered_on_hard_rays(field, kind):
     """Random, grazing, edge-on and edge-crossing shadow rays toward the
-    field's triangles: the plain walk's bool on every ray, and JAX's but
-    on the few degenerate rays its rounding decides."""
+    field's triangles: the plain walk's bool on every ray; on every ray
+    that no float32 rounding can tip, the float64 decision over every
+    triangle; and JAX's but on the measured few rays its rounding decides
+    otherwise, each of them one that rounding can tip."""
     jscene, pscene = field
     geometry = pscene.geometry
     rng = np.random.default_rng(len(kind))
     o, d, tm = hard_any_rays(torch, rng, kind, geometry, s=4, h=8, w=16)
     got, plain, expect, _ = _three_way(jscene, geometry, o, d, tm)
     assert torch.equal(got, plain)
-    assert (got.numpy() != expect).sum() <= JAX_HARD_DIFFER[kind]
     assert 0.05 < got.float().mean().item() <= 1.0
+    ambiguous, occluded = _mt_decisions(
+        o.permute(0, 2, 3, 1).reshape(-1, 3).numpy(),
+        d.permute(0, 2, 3, 1).reshape(-1, 3).numpy(), tm.reshape(-1).numpy(),
+        geometry.tri_cols.numpy())
+    got, expect = got.numpy().reshape(-1), expect.reshape(-1)
+    assert ambiguous.mean() < 0.5
+    np.testing.assert_array_equal(got[~ambiguous], occluded[~ambiguous])
+    differ = got != expect
+    assert differ.sum() == JAX_HARD_DIFFER[kind]
+    assert ambiguous[differ].all()
 
 
 def test_any_ordered_with_t_max_at_the_hit(field):
