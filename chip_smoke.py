@@ -89,15 +89,20 @@ GPU.
    plain scan on every ray of the one-torus soup's 1080p primary rays and
    of random, grazing, edge-on and edge-crossing rays (``hard_z_rays``'
    origins toward their targets) of the torus soup and the 2048-soup.
-   Then slice 7's two kernels, which the reference reaches on no frame
-   path, through their op-level entries: kernel 8 (the Plücker any-hit,
-   ``ops.trace.any_hit_plucker``) against its plain version, the same bool
-   on every ray, and against kernel 6 (Möller–Trumbore) on the same rays,
-   at most PLUCKER_MT_SHARE of the hit pixels' rays apart (and of all
-   rays but on the flagship, whose missed pixels' rays end on the ground):
-   the K = 2 shadow rays of the
-   flagship's 1080p frame, of the one-torus soup's 1080p frame (970
-   triangles, TORUS_CAM) and of the 2048-triangle soup at 480x270; kernel
+   Then kernel 6 (the soup any-hit, ``ops.trace.any_hit``) and kernel 8
+   (the Plücker any-hit, ``ops.trace.any_hit_plucker``, an op-level entry
+   the reference reaches on no frame path), both culled by the soup's
+   blocks, each against its plain version, the same bool on every
+   segment (``check_soup_any``): the K = 2 shadow rays of the flagship's
+   1080p frame, of the one-torus soup's 1080p frame (970 triangles,
+   TORUS_CAM) and of the 2048-triangle soup at 480x270, where kernel 8 is
+   also held to kernel 6, at most PLUCKER_MT_SHARE of the hit pixels'
+   segments apart (and of all but on the flagship, whose missed pixels'
+   segments end on the ground); ``hard_z_rays``' four kinds made segments
+   (``seg_rays``) on the torus soup and the 2048-soup, and random segments
+   among small triangles moved 100 and 1000 units from the origin
+   (``moved_soup``, ``box_segments``), where the Plücker sides round the
+   most (kernel 8's share apart from kernel 6 printed there); kernel
    12 (the neighbour gather, ``ops.spatial.neighbour_gather``) on config
    5's pack (C = 10K + 19 = 39 planes: a coordinate plane, the reservoirs,
    the 18 context planes; R = 5, r = 10) at 1080p, bit-exact on injected
@@ -107,7 +112,7 @@ GPU.
    plain Philox draw's (``neighbour_offsets``), each of the 2r + 1 values
    of dy and of dx within NBR_SHARE_REL of 1/(2r + 1) over the interior
    pixels, and dx not shared down columns (as the TPU kernel shares it).
-4. Twenty-three main paths, each at 1920x1080, once through the kernels and
+4. Twenty-four main paths, each at 1920x1080, once through the kernels and
    once through the plain versions, with the launch counters set to 0 just
    before and read just after the kernels' run:
    - slice 1: ``Features(spatial_reuse=False)``, 2 frames;
@@ -116,7 +121,11 @@ GPU.
      radius 10), 4 frames;
    - the animated path: a camera turning about 4 pixels per frame, with
      temporal reprojection, the unbiased combine and the initial visibility
-     check, 4 frames (``render_animation``).
+     check, 4 frames (``render_animation``); and ``animated_torus``, the
+     same features on the one-torus field as a soup of 970 triangles
+     (TORUS_CAM turning), 2 frames, its initial check's shadow rays through
+     kernel 6 on the culled soup, compared with the plain run at 480x270 on
+     injected noise.
    - the gradient paths of ``diff.grad.make_grad_fn`` on config 5's
      features without tone mapping: ``grad_surrogate``
      (``surrogate_resampling_grad``: the replay RIS, replay records through
@@ -174,7 +183,8 @@ GPU.
    and its float32 operations over 67 TFLOP/s, special functions, Philox
    and divisions at their instruction cost, from this run's shapes) and,
    where one PyTorch call computes the same function, that call; then
-   ``torch.profiler`` over 3 R-OMIS frames, the 4 animated frames, a
+   ``torch.profiler`` over 3 R-OMIS frames, the 4 animated frames, the 2
+   animated frames of the one-torus soup, a
    large config-5 frame, a large R-OMIS frame and the three vis-check
    paths (device busy and idle
    share, kernels per frame, the top kernels by device time). Kernel 17 is
@@ -205,16 +215,21 @@ GPU.
    traffic is printed on its sector line. The BVH kernels' bound counts the box
    and triangle tests that the plain traversal made on the same rays and
    tree (BOX_OPS and MT_OPS each, and each ray's three reciprocals).
-   Kernel 8 is timed beside kernel 6 on the torus soup's 1080p shadow rays
-   (its bound: the triangle tests this run's rays make up to their first
-   occluder, PLUCKER_OPS each, the table built inside the timed call as
-   the entry builds it), with ``torch.matmul`` of the [5T, 16]
-   constants by the [16, N] rays as the library column, labelled "product
-   only" (it computes no sign test); kernel 12 on its Philox stream, with
-   one advanced-indexing gather at the clamped coordinates as the library
-   call. Kernel 6 on the same torus-soup rays is printed beside its bound
-   there: the Moller-Trumbore tests each ray makes up to its first
-   occluder (``ops.trace.any_hit_plain`` counts them). Kernels 3 and 14 are
+   Kernels 6 and 8 are timed side by side on the torus soup's 1080p shadow
+   rays, the 2048-soup's and the flagship's, each beside two bounds: the
+   tests its cull needs (the box alone deciding, ``ops.trace``'s
+   ``any_hit_culled`` and ``any_hit_plucker_culled`` with ``guard=False``:
+   BOX_OPS a box test, MT_OPS or PLUCKER_OPS a triangle test, a segment's
+   three reciprocals and kernel 8's set-up; the guards' operations
+   printed apart) and the full scan's, the plain version's tests up to
+   each segment's first occluder; the table's rows are the flagship's for
+   kernel 6 and the torus soup's for kernel 8. Kernel 8's constants are
+   kept with the soup (``ops.trace.plucker_blocks``): their build, at a
+   soup's first call, is timed apart. ``torch.matmul`` of the [5T, 16]
+   constants by the [16, N] rays is kernel 8's library column, labelled
+   "product only" (it computes no sign test); kernel 12 on its Philox
+   stream, with one advanced-indexing gather at the clamped coordinates as
+   the library call. Kernels 3 and 14 are
    also timed on Philox, the mode of every frame and step, each beside its
    Philox bound (no uniform planes read; a Philox4x32-10 call and four
    uniforms a candidate, the replay a second call for its fifth uniform);
@@ -349,6 +364,12 @@ GUARD_OPS, GUARD_CONE_OPS, GUARD_TRI_OPS = 11, 8, 7
 # once per ray.
 PLUCKER_OPS = 3 * 11 + 7 + 5 + 11
 PLUCKER_RAY_OPS = 12
+# Kernel 8's guard where a box test fails (ops.trace._plucker_keeps): the
+# range checks, l0, the box rule's reach, the line's distance delta (a
+# cross product and its norm) and the line rule's reach with its division;
+# its pairs' cones and normals as kernel 7's (GUARD_CONE_OPS,
+# GUARD_TRI_OPS).
+PLUCKER_GUARD_OPS = 40 + SQRT_OPS + DIV_OPS
 PLUCKER_MT_SHARE = 1e-3  # kernel 8 vs kernel 6, the reference's budget
 MATMUL_CHUNK = 1 << 18  # rays per torch.matmul of the "product only" call
 COORD = 4096  # kernel 12's coordinate plane y·4096 + x, exact in float32
@@ -424,6 +445,11 @@ PATHS = {
     "animated": {"closest_hit": 1, "gather_rows": 2, "ris": 1, "any_hit": 1,
                  "halo_gather": 1, "spatial_pass_unbiased": 2,
                  "final_shade": 1},
+    # The animated features on the one-torus soup (vischeck_torus's):
+    # kernels 1, 6 and 4 on a culled soup of 970 triangles.
+    "animated_torus": {"closest_hit": 1, "gather_rows": 2, "ris": 1,
+                       "any_hit": 1, "halo_gather": 1,
+                       "spatial_pass_unbiased": 2, "final_shade": 1},
     "grad_surrogate": {"closest_hit": 1, "gather_rows": 9, "ris_replay": 1,
                        "final_shade": 1, "any_hit": 1,
                        "scatter_rows_add": 8},
@@ -482,7 +508,8 @@ PATHS.update({
     "plucker_op": {"any_hit_plucker": 1},
     "neighbour_gather_op": {"neighbour_gather": 1},
 })
-FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "grad_surrogate": 2,
+FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "animated_torus": 2,
+          "grad_surrogate": 2,
           "grad_per_pixel": 2, "romis": 2, "romis_progressive": 2,
           "rmis_equal": 2, "rmis_balance": 2, "large_config5": 2,
           "large_animated": 2, "large_k1": 2, "large_romis": 2,
@@ -494,7 +521,7 @@ OP_PATHS = ("plucker_op", "neighbour_gather_op")
 MIS_PATHS = ("romis", "romis_progressive", "rmis_equal", "rmis_balance",
              "large_romis", "large_rmis_equal")
 # ReSTIR paths whose plain run is at LH x LW on injected noise.
-SMALL_PLAIN = ("vischeck_torus", "large_vischeck")
+SMALL_PLAIN = ("vischeck_torus", "large_vischeck", "animated_torus")
 
 
 def fail(msg: str):
@@ -662,6 +689,52 @@ def hard_z_rays(rng, kind, cols, r1=3, k=2, h=6, w=16):
     o = p[None] - s_o * u[None] + delta * nrm[None]
     t = p[None] + s_t * u[None] - delta * nrm[None]
     return o.astype(np.float32), t.astype(np.float32)
+
+
+def seg_rays(torch, origins, targets):
+    """``hard_z_rays``' origins [1, 3, H, W] and targets [K, 3, H, W] →
+    the K segments between them: (origins, unit directions, t_max), [K,
+    ...] contiguous."""
+    to = targets - origins[0]
+    dist = torch.linalg.vector_norm(to, dim=1)
+    return (origins[0].expand(to.shape).contiguous(),
+            (to / dist.clamp_min(1e-20)[:, None]).contiguous(),
+            dist.contiguous())
+
+
+# Offsets of moved_soup: where kernel 8's Plucker sides round the most.
+MOVED_OFFSETS = (100.0, 1000.0)
+
+
+def moved_soup(offset: float):
+    """A SubMesh of 300 small random triangles (~0.04 across, in a box of
+    0.12) moved ``offset`` units from the origin along (1, 0.5, -1): its
+    Plucker sides carry rounding far beyond the blocks' growth, which
+    kernel 8's guard must cover (``ops.trace.any_hit_plucker_culled``)."""
+    import numpy as np
+
+    mesh = random_soup(300, (0.0, 0.0, 0.0), 0.6, seed=5)
+    mesh.positions[:] = mesh.positions * 0.1 + np.float32(offset) * np.asarray(
+        [1.0, 0.5, -1.0], np.float32)
+    return mesh
+
+
+def box_segments(torch, geometry, rng, planes, h, w, pad):
+    """Segments between random points of the soup's box grown by ``pad``:
+    (origins [planes, 3, h, w], unit directions, t_max [planes, h, w]) on
+    the geometry's device."""
+    cols = geometry.tri_cols.cpu().numpy()
+    act = cols[9] > 0.0
+    lo = cols[0:3, act].min(axis=1) - pad
+    hi = cols[0:3, act].max(axis=1) + pad
+    a, b = (torch.from_numpy(rng.uniform(
+        lo[None, :, None, None], hi[None, :, None, None],
+        (planes, 3, h, w)).astype("float32")).to(geometry.tri_cols.device)
+        for _ in range(2))
+    to = b - a
+    dist = torch.linalg.vector_norm(to, dim=1)
+    return (a.contiguous(), (to / dist.clamp_min(1e-20)[:, None]).contiguous(),
+            dist.contiguous())
 
 
 def hard_shade_inputs(torch, position, targets):
@@ -1277,7 +1350,7 @@ def main() -> None:
         print(f"check any_hit[{label}]: rays {occ_k.numel()}, occluded "
               f"{occ_p.float().mean().item():.4f}, agree {same:.6f}, "
               f"bit-exact {bool(torch.equal(occ_k, occ_p))}")
-        require(same >= MIN_AGREE, f"any-hit {label}: agree {same}")
+        require(torch.equal(occ_k, occ_p), f"any-hit {label}: agree {same}")
         return 1.0 - same
 
     errs["any_hit"] = max(check_any(ctx, res_main, scene.geometry, "flagship"),
@@ -2269,47 +2342,70 @@ def main() -> None:
     sshadow = shadow_rays(soup_ctx_s, gen_canonical_samples_plain(
         soup_ctx_s, scene.lights, scene.num_lights, feats, generator=gen))
 
-    def check_plucker(label, c, rays_, geometry, all_rays):
-        """Kernel 8 against its plain version (the same bool on every ray)
-        and against kernel 6 on the rays of the pixels that hit and, with
-        ``all_rays``, on every ray (on the flagship a missed pixel's ray
-        runs from the camera to the light sample's default, a point on the
-        ground plane: it ends on a triangle, where the two tests round
-        either way) → the plain version's triangle tests."""
+    def check_soup_any(label, geometry, rays_, valid=None, share=None):
+        """Kernels 6 and 8 against their plain versions: the same bool on
+        every segment. Kernel 8 also against kernel 6: within
+        PLUCKER_MT_SHARE of the hit pixels' segments (``valid``) with
+        ``share``, and of all segments with ``share="all"`` (on the
+        flagship a missed pixel's segment runs from the camera to the light
+        sample's default, a point on the ground plane: it ends on a
+        triangle, where the two tests round either way); elsewhere (hard
+        segments at the tests' boundaries, a soup far from the origin) the
+        share is printed → kernel 8's plain counts."""
         cnt = {}
-        occ_k = trace.any_hit_plucker(*rays_, geometry)
-        occ_p = trace.any_hit_plucker_plain(*rays_, geometry, counts=cnt)
         occ_6 = trace.any_hit(*rays_, geometry)
+        occ_k = trace.any_hit_plucker(*rays_, geometry)
+        plain6 = trace.any_hit_plain(*rays_, geometry)
+        occ_p = trace.any_hit_plucker_plain(*rays_, geometry, counts=cnt)
         torch.cuda.synchronize()
-        exact = torch.equal(occ_k, occ_p)
-        valid = c.valid.expand(occ_k.shape)
-        apart = (occ_k != occ_6)[valid].float().mean().item()
+        exact6, exact = torch.equal(occ_6, plain6), torch.equal(occ_k, occ_p)
+        hit = (valid.expand(occ_k.shape) if valid is not None
+               else torch.ones_like(occ_k))
+        apart = (occ_k != occ_6)[hit].float().mean().item()
         apart_all = (occ_k != occ_6).float().mean().item()
-        print(f"check any_hit_plucker[{label}]: rays {occ_k.numel()}, "
-              f"triangles {geometry.tri_cols.shape[1]}, occluded "
-              f"{occ_p.float().mean().item():.4f}, the same bool on every "
-              f"ray {exact}; vs kernel 6 (Moller-Trumbore) {apart:.2e} of "
-              f"the hit pixels' {valid.sum().item()} rays apart "
-              f"({(occ_k != occ_6)[valid].sum().item()}; "
-              f"{(occ_k != occ_6).sum().item()} of all rays); triangle "
-              f"tests per ray {cnt['tests'].float().mean().item():.1f}")
+        print(f"check any_hit, any_hit_plucker[{label}]: segments "
+              f"{occ_k.numel()}, triangles {geometry.tri_cols.shape[1]}, "
+              f"occluded {plain6.float().mean().item():.4f} (Moller-Trumbore)"
+              f" {occ_p.float().mean().item():.4f} (Plucker); kernel 6 the "
+              f"plain bool on every segment {exact6}, kernel 8 {exact}; "
+              f"kernel 8 vs kernel 6 {apart:.2e} of the hit pixels' "
+              f"{int(hit.sum().item())} segments apart, {apart_all:.2e} of "
+              f"all; plain Plucker tests per segment "
+              f"{cnt['tests'].float().mean().item():.1f}")
+        require(exact6, f"any_hit {label}: kernel 6 and its plain version "
+                f"differ on {(occ_6 != plain6).sum().item()} segments")
         require(exact, f"any_hit_plucker {label}: kernel 8 and its plain "
-                f"version differ on {(occ_k != occ_p).sum().item()} rays")
-        require(apart <= PLUCKER_MT_SHARE,
-                f"any_hit_plucker {label}: {apart} of the hit pixels' rays "
-                f"apart from kernel 6")
-        require(not all_rays or apart_all <= PLUCKER_MT_SHARE,
-                f"any_hit_plucker {label}: {apart_all} of all rays apart "
-                f"from kernel 6")
+                f"version differ on {(occ_k != occ_p).sum().item()} segments")
+        require(share is None or apart <= PLUCKER_MT_SHARE,
+                f"any_hit_plucker {label}: {apart} of the hit pixels' "
+                "segments apart from kernel 6")
+        require(share != "all" or apart_all <= PLUCKER_MT_SHARE,
+                f"any_hit_plucker {label}: {apart_all} of all segments apart "
+                "from kernel 6")
         return cnt
 
-    check_plucker("flagship 1080p", ctx, shadow_rays(ctx, res_main),
-                  scene.geometry, False)
-    plucker_counts = check_plucker("torus soup 1080p", tctx, tshadow,
-                                   torus1.geometry, True)
-    check_plucker("soup2048 480x270", soup_ctx_s, sshadow, soup, True)
+    check_soup_any("flagship 1080p", scene.geometry,
+                   shadow_rays(ctx, res_main), ctx.valid, "hit")
+    check_soup_any("torus soup 1080p", torus1.geometry, tshadow, tctx.valid,
+                   "all")
+    check_soup_any("soup2048 480x270", soup, sshadow, soup_ctx_s.valid,
+                   "all")
+    # Where the culls' guards decide: hard_z_rays' segments (one origin, two
+    # targets) on the torus soup and the 2048-soup, and small triangles far
+    # from the origin (moved_soup), where the Plucker sides round the most.
+    for g_label, g_ in (("torus soup", torus1.geometry), ("soup2048", soup)):
+        cols_np = g_.tri_cols.cpu().numpy()
+        for i, kind in enumerate(HARD_RAY_KINDS):
+            check_soup_any(f"{g_label}, {kind} segments", g_, seg_rays(
+                torch, *(torch.from_numpy(a).to(dev) for a in hard_z_rays(
+                    np.random.default_rng(130 + i), kind, cols_np, 1, 2, 64,
+                    128))))
+    for off in MOVED_OFFSETS:
+        g_ = build_geometry([moved_soup(off)], dev)
+        check_soup_any(f"soup moved {off:g} from the origin", g_, box_segments(
+            torch, g_, np.random.default_rng(140), 2, 270, 480, 0.05))
+        del g_
     errs["any_hit_plucker"] = 0.0  # the checks above require the same bools
-    del sshadow
 
     # Kernel 12 on config 5's pack: plane 0 holds each pixel's coordinate
     # y·COORD + x, then the K reservoirs and the 18 context planes.
@@ -2390,6 +2486,7 @@ def main() -> None:
         "vischeck": vfeats,
         "vischeck_torus": vfeats,
         "large_vischeck": vfeats,
+        "animated_torus": path_feats["animated"],
     })
     cam_path = interpolate_cameras(
         cam, make_camera(look_at=(2.57, 1.23, -1.35),
@@ -2397,6 +2494,11 @@ def main() -> None:
                                        * (FRAMES["animated"] - 1), 0.0),
                          distance=25.0, fov_deg=30.0, resolution=(H, W),
                          device=dev), FRAMES["animated"])
+    tcam_path = interpolate_cameras(
+        tcam, make_camera(resolution=(H, W), device=dev, **dict(
+            TORUS_CAM, rotation_deg=(25.0, 30.0 + PAN_DEG
+                                     * (FRAMES["animated_torus"] - 1), 0.0))),
+        FRAMES["animated_torus"])
     lcam_path = interpolate_cameras(
         lcam, make_camera(look_at=(0, 0, 0), rotation_deg=(
             25.0, 30.0 + PAN_DEG * (FRAMES["large_animated"] - 1), 0.0),
@@ -2409,11 +2511,13 @@ def main() -> None:
             return large, lcam, lcam_path
         if path == "vischeck_torus":
             return torus1, tcam, None
+        if path == "animated_torus":
+            return torus1, tcam, tcam_path
         return scene, cam, cam_path
 
     def small_cam(path, h_, w_):
         """A path's camera at h_ x w_ (the plain comparison's size)."""
-        if path == "vischeck_torus":
+        if path in ("vischeck_torus", "animated_torus"):
             return make_camera(resolution=(h_, w_), device=dev, **TORUS_CAM)
         return torus_field_camera(h_, w_, dev)
 
@@ -2440,7 +2544,7 @@ def main() -> None:
         g = torch.Generator(device=dev).manual_seed(seed)
         f = path_feats[path]
         sc, c, c_path = path_scene(path)
-        if path.endswith("animated"):
+        if "animated" in path:
             imgs, state = render_animation(g, c_path, sc.geometry, sc.lights,
                                            sc.num_lights, H, W, f, ops=ops)
             img = imgs[-1]
@@ -2799,7 +2903,7 @@ def main() -> None:
         def run():
             nonlocal st, i
             c = camera_at(c_path, i % FRAMES[path]) \
-                if path.endswith("animated") else c0
+                if "animated" in path else c0
             _, st = render_frame(g, c, sc, *hw, f, st, ops=ops)
             i += 1
         return run
@@ -2863,6 +2967,7 @@ def main() -> None:
 
     profile_frames("romis", 3)
     profile_frames("animated", FRAMES["animated"])
+    profile_frames("animated_torus", FRAMES["animated_torus"])
     profile_frames("large_config5", 5)
     profile_frames("large_romis", 2)
     for path in ("vischeck", "vischeck_torus", "large_vischeck"):
@@ -3141,41 +3246,86 @@ def main() -> None:
         geometry=torus1.geometry), 10)
     print(f"time vis-check pass (kernel 11 + kernel 7 + Z subtraction, torus "
           f"soup 1080p): {ms:.4f} ms [{card}]")
-    # Kernel 8 on the torus soup's 1080p shadow rays, beside its plain
-    # version and beside kernel 6 on the same rays (and on the flagship's).
+    # Kernels 6 and 8 on the torus soup's 1080p shadow rays, the 2048-soup's
+    # (480x270) and the flagship's, side by side, each beside two bounds:
+    # the tests its cull needs (the box alone deciding: ops.trace's
+    # any_hit_culled and any_hit_plucker_culled with guard=False; BOX_OPS a
+    # box test, MT_OPS or PLUCKER_OPS a triangle test, a segment's three
+    # reciprocals and kernel 8's set-up; the guards' operations printed
+    # apart) and the full scan's, each plain version's tests up to each
+    # segment's first occluder. Kernel 8's constants are kept with the
+    # soup: their build, at a soup's first call, is timed apart.
     tgeo = torus1.geometry
+    for label, geo_ in (("torus soup", tgeo), ("soup2048", soup),
+                        ("flagship", scene.geometry)):
+        ms = cuda_ms(torch, lambda: (setattr(geo_, "plucker", None),
+                                     trace.plucker_blocks(geo_)), 5)
+        first = cuda_ms(torch, lambda: (setattr(geo_, "plucker", None),
+                                        trace.any_hit_plucker(
+                                            *tshadow if geo_ is tgeo else
+                                            (o, d, tm), geo_)), 3)
+        print(f"time plucker_blocks[{label}] (kernel 8's kept constants, "
+              f"slots and guard, built at a soup's first call): {ms:.4f} ms; "
+              f"a first call with its build {first:.4f} ms [{card}]")
     timings["any_hit_plucker"] = ab_ms(
         torch, lambda: trace.any_hit_plucker(*tshadow, tgeo),
         lambda: trace.any_hit_plucker_plain(*tshadow, tgeo), 10, 1)
+    soup_any_rows = {}
     for label, rays_, geo_ in (
             ("torus soup 1080p, 970 triangles", tshadow, tgeo),
+            ("soup2048 480x270, 2048 triangles", sshadow, soup),
             ("flagship 1080p, 2 triangles", (o, d, tm), scene.geometry)):
         m8, m6 = ab_ms(torch, lambda: trace.any_hit_plucker(*rays_, geo_),
                        lambda: trace.any_hit(*rays_, geo_), 10, 10)
+        n_seg = rays_[2].numel()
+        n_traced = int((rays_[2] > 0).sum().item())
+        seg_bytes = n_seg * 29 + geo_.tri_cols.numel() * 4
+        c6, c6b, c6p, c8, c8b, c8p = {}, {}, {}, {}, {}, {}
+        require(torch.equal(trace.any_hit_culled(*rays_, geo_, c6,
+                                                 lazy=False),
+                            trace.any_hit_plain(*rays_, geo_, c6p))
+                and torch.equal(trace.any_hit_plucker_culled(*rays_, geo_, c8),
+                                trace.any_hit_plucker_plain(*rays_, geo_,
+                                                            c8p)),
+                f"{label}: a culled model differs from its plain version")
+        trace.any_hit_culled(*rays_, geo_, c6b, guard=False)
+        trace.any_hit_plucker_culled(*rays_, geo_, c8b, guard=False)
+        recip = 3 * (SFU_OPS + 1)
+        b6 = bound(seg_bytes, c6b["box"].sum().item() * BOX_OPS
+                   + c6b["tri"].sum().item() * MT_OPS + n_traced * recip)
+        b6f = bound(seg_bytes, c6p["tests"].sum().item() * MT_OPS)
+        b8 = bound(seg_bytes, c8b["box"].sum().item() * BOX_OPS
+                   + c8b["tri"].sum().item() * PLUCKER_OPS
+                   + n_traced * (PLUCKER_RAY_OPS + recip))
+        b8f = bound(seg_bytes, c8p["tests"].sum().item() * PLUCKER_OPS
+                    + n_seg * PLUCKER_RAY_OPS)
+        g6 = (c6["guard"].sum().item() * GUARD_OPS
+              + c6["guard_cone"].sum().item() * GUARD_CONE_OPS
+              + c6["guard_tri"].sum().item() * GUARD_TRI_OPS)
+        g8 = (c8["guard"].sum().item() * PLUCKER_GUARD_OPS
+              + c8["guard_cone"].sum().item() * GUARD_CONE_OPS
+              + c8["guard_tri"].sum().item() * GUARD_TRI_OPS)
+        for name_, ms_, bc, bf, cb, cg, gops in (
+                ("any_hit", m6, b6, b6f, c6b, c6, g6),
+                ("any_hit_plucker", m8, b8, b8f, c8b, c8, g8)):
+            print(f"time {name_}[{label}]: {ms_:.4f} ms; bound of the culled "
+                  f"walk {bc[0]:.4f} ms ({bc[1]}; per segment "
+                  f"{cb['box'].float().mean().item():.2f} box and "
+                  f"{cb['tri'].float().mean().item():.2f} triangle tests, "
+                  f"{n_traced} traced), {ms_ / bc[0]:.2f}x it; bound of the "
+                  f"full scan {bf[0]:.4f} ms ({bf[1]}); with the guard "
+                  f"{cg['tri'].float().mean().item():.2f} triangle tests and "
+                  f"{cg['guard'].float().mean().item():.2f} blocks guarded a "
+                  f"segment, its operations alone (not in the bound) "
+                  f"{gops:.4e}, {1e3 * gops / FP32_OPS_S:.4f} ms at the float "
+                  f"peak [{card}]")
         print(f"time any_hit_plucker vs any_hit (kernel 8 vs kernel 6, the "
-              f"same rays; {label}): {m8:.4f} ms vs {m6:.4f} ms, ratio "
+              f"same segments; {label}): {m8:.4f} ms vs {m6:.4f} ms, ratio "
               f"{m8 / m6:.2f} [{card}]")
-        ms = cuda_ms(torch, lambda: trace.plucker_matrix(geo_), 10)
-        print(f"time plucker_matrix (the table any_hit_plucker builds in "
-              f"each call; {label}): {ms:.4f} ms [{card}]")
-        if geo_ is tgeo:
-            m6_torus = m6
-    # Kernel 6's bound on the torus soup's shadow rays: the Moller-Trumbore
-    # tests each ray makes up to its first occluder (its plain version
-    # counts them), the rays in and the bools out, the triangles once.
-    cnt6 = {}
-    occ6 = trace.any_hit_plain(*tshadow, tgeo, counts=cnt6)
-    agree6 = (occ6 == trace.any_hit(*tshadow, tgeo)).float().mean().item()
-    require(agree6 >= MIN_AGREE, f"any_hit torus soup: agree {agree6}")
-    tests6 = cnt6["tests"]
-    b6 = bound(tests6.numel() * 29 + tgeo.tri_cols.numel() * 4,
-               tests6.sum().item() * MT_OPS)
-    print(f"bound any_hit (torus soup 1080p shadow rays, "
-          f"{tests6.float().mean().item():.1f} tests a ray up to its first "
-          f"occluder; the kernel's bool on {agree6:.6f} of them): "
-          f"{b6[0]:.4f} ms ({b6[1]}); kernel 6 {m6_torus:.4f} ms, "
-          f"{m6_torus / b6[0]:.2f}x the bound [{card}]")
-    del occ6, tests6, cnt6
+        soup_any_rows[label] = dict(b6=b6, b8=b8)
+        del c6, c6b, c6p, c8, c8b, c8p
+    plucker_bound = soup_any_rows["torus soup 1080p, 970 triangles"]["b8"]
+    del sshadow
     # Kernel 4 on the one-torus soup (vischeck_torus's receivers, K = 2),
     # beside two bounds: the culled walk's tests on the lanes it traces
     # (the box alone deciding, as kernel 7's row counts; the guard's
@@ -3501,16 +3651,10 @@ def main() -> None:
         print(f"time mis_iteration[{label}]: {k_ms:.4f} ms kernel, "
               f"{p_ms:.4f} ms plain, bound {b_ms:.4f} ms ({b_by}), "
               f"{k_ms / b_ms:.2f}x the bound [{card}]")
-    # Kernel 8: the tests the torus soup's shadow rays make up to their
-    # first occluder (its plain version counts them), a set-up per ray;
-    # 7 floats in and a byte out per ray, the triangles' v0, e1, e2 and
-    # active flag once. Kernel 12 on
-    # Philox: the C planes read once, R·C written, a Philox call and two
-    # uniforms per neighbour.
-    tests8 = plucker_counts["tests"]
-    bounds["any_hit_plucker"] = bound(
-        tests8.numel() * 29 + tgeo.v0.shape[0] * (3 * 3 * 4 + 1),
-        tests8.sum().item() * PLUCKER_OPS + tests8.numel() * PLUCKER_RAY_OPS)
+    # Kernel 8: the torus soup's shadow rays' culled bound (above). Kernel
+    # 12 on Philox: the C planes read once, R·C written, a Philox call and
+    # two uniforms per neighbour.
+    bounds["any_hit_plucker"] = plucker_bound
     bounds["neighbour_gather"] = bound(
         hw * 4 * gpack.shape[0] * (1 + n_nbr),
         hw * n_nbr * (PHILOX_OPS + 2 * UNIFORM_OPS))

@@ -1,13 +1,15 @@
-// The soup's block cull, shared by kernel 7 (zcount.cu), kernel 4
-// (shade.cu) and kernel 1 (trace.cu): ops/trace.soup_blocks cuts the soup
-// into blocks of kZBlock
-// triangles, each with a grown box and the near-parallel guard's data. A
-// ray tests a block's box over its window [0, dist] before the block's
-// triangles; where the box test fails, the guard still keeps the block if
-// the ray is within the rounding's reach of parallel to one of its
-// triangles (zcount_blocks derives the bound; it covers both the
-// division-free test of kernel 7 and the division form mt_tri of kernels 4
-// and 1, ops/trace.any_hit_culled and closest_hit_culled).
+// The soup's block cull, shared by kernel 7 (zcount.cu), kernels 4
+// (shade.cu), 6 (any.cu), 8 (plucker.cu) and 1 (trace.cu):
+// ops/trace.soup_blocks cuts the soup into blocks of kZBlock triangles,
+// each with a grown box and the near-parallel guard's data. A ray tests a
+// block's box over its window [0, dist] before the block's triangles;
+// where the box test fails, the guard still keeps the block if the ray is
+// within the rounding's reach of parallel to one of its triangles
+// (zcount_blocks derives the bound; it covers both the division-free test
+// of kernel 7 and the division form mt_tri of kernels 4, 6 and 1,
+// ops/trace.any_hit_culled and closest_hit_culled; kernel 8's Plücker test
+// has its own guard on the same boxes, ops/trace.any_hit_plucker_culled).
+// soup_any, below, is the any-hit walk kernels 4, 6 and 8 share.
 #pragma once
 
 #include <mutex>
@@ -153,5 +155,190 @@ int persistent_blocks(PersistentGrid& g, Kernel kernel, int threads, size_t smem
   blocks = g.blocks[dev];
   return 0;
 }
+
+// ---- The any-hit walk of kernels 4, 6 and 8 (ops/trace.any_hit_culled,
+// any_hit_plucker_culled) ----
+
+// A segment: origin, direction (of any length) and window [0, tm].
+struct SegRay {
+  float ox, oy, oz, dx, dy, dz, tm;
+};
+
+__device__ __forceinline__ SegRay shfl_seg(const SegRay& r, int from) {
+  return SegRay{__shfl_sync(kFull, r.ox, from), __shfl_sync(kFull, r.oy, from),
+                __shfl_sync(kFull, r.oz, from), __shfl_sync(kFull, r.dx, from),
+                __shfl_sync(kFull, r.dy, from), __shfl_sync(kFull, r.dz, from),
+                __shfl_sync(kFull, r.tm, from)};
+}
+
+// What the guards read of a segment (ops/trace._guard_rays): the unit
+// direction (0 for a zero one), the window's length tm·|d| and the
+// origin's norm (kernel 8's reach).
+struct GuardRay {
+  float ux, uy, uz, len, norm_o;
+};
+
+__device__ __forceinline__ GuardRay guard_ray(const SegRay& r) {
+  const float n = sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+  const bool ok = n > 0.0f;
+  return GuardRay{ok ? r.dx / n : 0.0f, ok ? r.dy / n : 0.0f, ok ? r.dz / n : 0.0f,
+                  r.tm * n, sqrtf(r.ox * r.ox + r.oy * r.oy + r.oz * r.oz)};
+}
+
+// Moller-Trumbore against the staged [10, T] columns (kernels 4 and 6):
+// mt_tri, the plain any-hit's test, t in (0, tm).
+struct MtTris {
+  const float* tri;
+  int n_tris;
+  using Ray = SegRay;
+  __device__ __forceinline__ Ray ray(const SegRay& r) const { return r; }
+  __device__ __forceinline__ static Ray shfl(const Ray& r, int from) {
+    return shfl_seg(r, from);
+  }
+  __device__ __forceinline__ bool hit(int j, const Ray& r) const {
+    float t, u, v;
+    return mt_hit(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tri + j, n_tris, t, u, v) &&
+           t < r.tm;
+  }
+};
+
+// Which blocks' guard the walk defers to its second pass: none, all, the
+// blocks zcount_blocks flags (row 12: those whose pairs mostly lack a
+// cone), or the blocks it does not flag.
+constexpr int kDeferNone = 0, kDeferAll = 1, kDeferFlagged = 2, kDeferUnflagged = 3;
+
+template <int kDefer>
+__device__ __forceinline__ bool defers(const CullSoup& s, int b) {
+  if (kDefer == kDeferNone || kDefer == kDeferAll) return kDefer == kDeferAll;
+  return (s.box[12 * s.nb + b] > 0.5f) == (kDefer == kDeferFlagged);
+}
+
+// The Moller-Trumbore guard (zcount_blocks' bound), deferred as kDefer
+// says. kUnit: the caller's directions are unit vectors (kernel 4's, made
+// so by the division by their norm, as the bound assumes), taken as they
+// are; else each is divided by its norm and the window scaled by it
+// (guard_ray).
+template <bool kUnit, int kDefer = kDeferFlagged>
+struct MtGuard {
+  CullSoup s;
+  __device__ __forceinline__ GuardRay ray(const SegRay& r) const {
+    return kUnit ? GuardRay{r.dx, r.dy, r.dz, r.tm, 0.0f} : guard_ray(r);
+  }
+  __device__ __forceinline__ bool deferred(int b) const { return defers<kDefer>(s, b); }
+  __device__ __forceinline__ bool keeps(int b, const SegRay& r, const GuardRay& g) const {
+    return guard_keeps_at(s, b, g.ux, g.uy, g.uz, guard_l0(s, b, r.ox, r.oy, r.oz) + g.len);
+  }
+};
+
+template <class Tris>
+__device__ __forceinline__ bool tris_hit(const Tris& tris, int j0, int j1,
+                                         const typename Tris::Ray& r) {
+  for (int j = j0; j < j1; ++j)
+    if (tris.hit(j, r)) return true;
+  return false;
+}
+
+// One pending segment's walk over the culled soup (kMany: more than one
+// block) → occluded. Every lane of the warp calls it (its block loops end
+// by warp votes); `pending` says whether this lane's segment is traced.
+// Per block, in order: the box test over [0, tm], then, where it fails
+// and the block is not deferred, the guard. Where at most kDealMax lanes
+// need a block, its triangles are dealt out to the warp as kernel 7 deals
+// them: two segments a round, a half-warp each, a lane a triangle, the
+// hits gathered by a vote; else each lane tests the block's triangles for
+// its own segment (the warp waits for its slowest lane). Then the
+// deferred blocks' guard, for the segments left pending. Without kMany
+// (at most one block, stage_direct) the triangles up to direct_end are
+// tested directly.
+constexpr int kDealMax = 16;
+
+template <bool kMany, class Tris, class Guard>
+__device__ __forceinline__ bool soup_any(const CullSoup& s, const Tris& tris,
+                                         const Guard& guard, int direct_end,
+                                         bool pending, const SegRay& r) {
+  const typename Tris::Ray tr = tris.ray(r);
+  if (!kMany) return pending && tris_hit(tris, 0, direct_end, tr);
+  const int nb = s.nb;
+  const int lane = threadIdx.x & 31;
+  const float ix = slab_inv(r.dx), iy = slab_inv(r.dy), iz = slab_inv(r.dz);
+  const GuardRay g = guard.ray(r);
+  bool occluded = false, any_deferred = false;
+  for (int b = 0; b < nb; ++b) {
+    if (!__any_sync(kFull, pending)) break;
+    const bool deferred = guard.deferred(b);  // uniform
+    any_deferred = any_deferred || deferred;
+    const bool pass = pending && (box_hit(s.box, nb, b, r.ox, r.oy, r.oz, ix, iy, iz, r.tm) ||
+                                  (!deferred && guard.keeps(b, r, g)));
+    const int end = b * kZBlock + static_cast<int>(s.box[11 * nb + b]);
+    unsigned need = __ballot_sync(kFull, pass);
+    if (__popc(need) <= kDealMax) {  // uniform: a warp vote
+      const int half = lane >> 4, j = b * kZBlock + (lane & 15);
+      while (need != 0u) {
+        const int src0 = __ffs(need) - 1;
+        need &= need - 1u;
+        const int src1 = need != 0u ? __ffs(need) - 1 : -1;
+        if (src1 >= 0) need &= need - 1u;
+        const int src = half ? src1 : src0;
+        const typename Tris::Ray q = Tris::shfl(tr, src < 0 ? src0 : src);
+        const bool hit = src >= 0 && j < end && tris.hit(j, q);
+        const unsigned hits = __ballot_sync(kFull, hit);
+        if ((lane == src0 && (hits & 0xffffu)) || (lane == src1 && (hits >> 16))) {
+          occluded = true;
+          pending = false;
+        }
+      }
+    } else if (pass && tris_hit(tris, b * kZBlock, end, tr)) {
+      occluded = true;
+      pending = false;
+    }
+  }
+  // The deferred guard: the deferred blocks whose box the segment failed,
+  // for the segments the walk left unoccluded (a hit ends a segment
+  // whatever the other blocks hold).
+  for (int b = 0; any_deferred && b < nb; ++b) {  // any_deferred is uniform
+    if (!__any_sync(kFull, pending)) break;
+    if (!pending || !guard.deferred(b)) continue;
+    if (!box_hit(s.box, nb, b, r.ox, r.oy, r.oz, ix, iy, iz, r.tm) && guard.keeps(b, r, g) &&
+        tris_hit(tris, b * kZBlock, b * kZBlock + static_cast<int>(s.box[11 * nb + b]), tr)) {
+      occluded = true;
+      pending = false;
+    }
+  }
+  return occluded;
+}
+
+// A soup of at most one block, staged as given: its [10, n_tris] columns
+// alone (no boxes, no guard), tested directly (kernels 4 and 6).
+__device__ __forceinline__ CullSoup stage_direct(float* smem, const float* __restrict__ cols,
+                                                 int n_tris) {
+  for (int i = threadIdx.x; i < 10 * n_tris; i += blockDim.x) smem[i] = cols[i];
+  return CullSoup{smem, nullptr, nullptr, nullptr, n_tris, 0};
+}
+
+// One past the staged soup's last active triangle (after the staging's
+// __syncthreads): a soup's padding, inactive, is not tested (the
+// flagship's 2 triangles come padded to 8).
+__device__ __forceinline__ int active_end(const CullSoup& s) {
+  int end = 0;
+  for (int j = 0; j < s.n_tris; ++j)
+    if (s.tri[9 * s.n_tris + j] > 0.0f) end = j + 1;
+  return end;
+}
+
+// The any-hit kernels' segments [planes, H, W] (kernels 6 and 8), a
+// pixel's planes in adjacent slots, the pixels row by row (the initial
+// check's segments of a pixel leave nearly one point): slot i of a launch
+// → the segment's flat index plane·H·W + pixel, or -1 (no segment); the
+// slots come in whole warps.
+struct PixelMap {
+  __host__ __device__ static long long slots(int h, int w, int planes) {
+    return (static_cast<long long>(h) * w * planes + 31) / 32 * 32;
+  }
+  __device__ __forceinline__ static long long seg(long long i, int h, int w, int planes) {
+    const long long n = static_cast<long long>(h) * w;
+    const long long p = i / planes;
+    return p < n ? (i - p * planes) * n + p : -1;
+  }
+};
 
 }  // namespace romis

@@ -21,13 +21,14 @@
 // copies. The soup is culled as kernel 7 culls it (cull.cuh): the
 // wrapper's blocks (ops/trace.zcount_blocks, built once a soup) are staged
 // with their grown boxes and guard data into shared memory once a
-// persistent thread block; a pending ray tests a block's box over
-// [0, t_max] before the block's triangles, the near-parallel guard keeps a
-// block the box rejects where mt_tri's rounding could still accept one of
-// its triangles (deferred to a second pass for a soup's flagged blocks),
-// and the ray stops at its first hit. The triangle test is mt_tri, the
-// plain version's (ops/intersect._mt), so the bool is any_hit_plain's on
-// every ray (ops/trace.any_hit_culled is the plain model of this walk). A
+// persistent thread block; a pending ray walks them with soup_any, the
+// walk kernel 6 shares: a block's box over [0, t_max] before the block's
+// triangles, the near-parallel guard keeping a block the box rejects where
+// mt_tri's rounding could still accept one of its triangles (deferred to a
+// second pass for a soup's flagged blocks), and the ray stops at its first
+// hit. The triangle test is mt_tri, the plain version's
+// (ops/intersect._mt), so the bool is any_hit_plain's on every ray
+// (ops/trace.any_hit_culled is the plain model of this walk). A
 // soup of at most one block (the flagship's 2 triangles), or none (every
 // lane visible), has nothing to cull: it is staged as given, without the
 // blocks, so the wrapper builds none, and its rays test its triangles
@@ -209,92 +210,6 @@ __device__ __forceinline__ void write_pixel(const float (&term)[3], int slot,
   for (int c = 0; c < 3; ++c) out[c * n + p] = acc[c] / kf;
 }
 
-// mt_tri of the shadow ray against the staged triangles [j0, j1) up to
-// the first one at t in (0, t_max).
-__device__ __forceinline__ bool tris_hit(const CullSoup& s, int j0, int j1,
-                                         const ShadowRay& r) {
-  for (int j = j0; j < j1; ++j) {
-    float t, u, v;
-    if (mt_hit(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, s.tri + j, s.n_tris, t, u, v) &&
-        t < r.tm)
-      return true;
-  }
-  return false;
-}
-
-// Kernel 4's walk of one shadow ray over the culled soup (kMany: more than
-// one block) → occluded. Every lane of the warp calls it (its block loops
-// end by warp votes); `pending` says whether this lane's ray is traced.
-// Where at most kDealMax lanes need a block (its box passed, or its guard
-// kept it), the block's triangles are dealt out to the warp as kernel 7
-// deals them: two rays a round, a half-warp each, a lane a triangle, the
-// hits gathered by a vote; else each lane tests the block's triangles for
-// its own ray (the warp waits for its slowest lane).
-constexpr int kDealMax = 16;
-
-template <bool kMany>
-__device__ __forceinline__ bool soup_any(const CullSoup& s, int direct_end,
-                                         bool pending, const ShadowRay& r) {
-  if (!kMany)  // at most one block (stage_direct): up to its last active one
-    return pending && tris_hit(s, 0, direct_end, r);
-  const int nb = s.nb;
-  const int lane = threadIdx.x & 31;
-  const float ix = slab_inv(r.dx), iy = slab_inv(r.dy), iz = slab_inv(r.dz);
-  bool occluded = false, any_deferred = false;
-  for (int b = 0; b < nb; ++b) {
-    if (!__any_sync(kFull, pending)) break;
-    const bool deferred = s.box[12 * nb + b] > 0.5f;  // uniform
-    any_deferred = any_deferred || deferred;
-    // The box (and, unless deferred, the guard) decides whether the ray
-    // tests block b's triangles.
-    const bool pass =
-        pending &&
-        (box_hit(s.box, nb, b, r.ox, r.oy, r.oz, ix, iy, iz, r.tm) ||
-         (!deferred && guard_keeps(s, b, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tm)));
-    const int end = b * kZBlock + static_cast<int>(s.box[11 * nb + b]);
-    unsigned need = __ballot_sync(kFull, pass);
-    if (__popc(need) <= kDealMax) {  // uniform: a warp vote
-      const int half = lane >> 4, j = b * kZBlock + (lane & 15);
-      while (need != 0u) {
-        const int src0 = __ffs(need) - 1;
-        need &= need - 1u;
-        const int src1 = need != 0u ? __ffs(need) - 1 : -1;
-        if (src1 >= 0) need &= need - 1u;
-        const int src = half ? src1 : src0;
-        const int from = src < 0 ? src0 : src;
-        const ShadowRay q{__shfl_sync(kFull, r.ox, from), __shfl_sync(kFull, r.oy, from),
-                          __shfl_sync(kFull, r.oz, from), __shfl_sync(kFull, r.dx, from),
-                          __shfl_sync(kFull, r.dy, from), __shfl_sync(kFull, r.dz, from),
-                          __shfl_sync(kFull, r.tm, from), true, true};
-        const bool hit = src >= 0 && j < end && tris_hit(s, j, j + 1, q);
-        const unsigned hits = __ballot_sync(kFull, hit);
-        if ((lane == src0 && (hits & 0xffffu)) || (lane == src1 && (hits >> 16))) {
-          occluded = true;
-          pending = false;
-        }
-      }
-    } else if (pass && tris_hit(s, b * kZBlock, end, r)) {
-      occluded = true;
-      pending = false;
-    }
-  }
-  // The deferred guard: the flagged blocks whose box the ray failed, for
-  // the rays the walk left unoccluded (a hit ends a ray whatever the other
-  // blocks hold).
-  for (int b = 0; any_deferred && b < nb; ++b) {  // any_deferred is uniform
-    if (!__any_sync(kFull, pending)) break;
-    if (!pending || !(s.box[12 * nb + b] > 0.5f)) continue;
-    if (!box_hit(s.box, nb, b, r.ox, r.oy, r.oz, ix, iy, iz, r.tm) &&
-        guard_keeps(s, b, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tm) &&
-        tris_hit(s, b * kZBlock, b * kZBlock + static_cast<int>(s.box[11 * nb + b]),
-                 r)) {
-      occluded = true;
-      pending = false;
-    }
-  }
-  return occluded;
-}
-
 // Kernel 4: persistent blocks, each staging the culled soup once, whose
 // warps take 32 / K pixels at a time (thread slot * K + lane of a warp
 // shades lane `lane` of the pixel `slot`); occ, where given, gets each
@@ -306,24 +221,6 @@ template <bool kMany>
 constexpr int shade_threads() { return kMany ? 1024 : 256; }
 
 extern __shared__ float shade_smem[];
-
-// A soup of at most one block, staged as given: its [10, n_tris] columns
-// alone (no boxes, no guard), tested directly.
-__device__ __forceinline__ CullSoup stage_direct(float* smem, const float* __restrict__ cols,
-                                                 int n_tris) {
-  for (int i = threadIdx.x; i < 10 * n_tris; i += blockDim.x) smem[i] = cols[i];
-  return CullSoup{smem, nullptr, nullptr, nullptr, n_tris, 0};
-}
-
-// One past the staged soup's last active triangle (after the staging's
-// __syncthreads): a soup's padding, inactive, is not tested (the
-// flagship's 2 triangles come padded to 8).
-__device__ __forceinline__ int active_end(const CullSoup& s) {
-  int end = 0;
-  for (int j = 0; j < s.n_tris; ++j)
-    if (s.tri[9 * s.n_tris + j] > 0.0f) end = j + 1;
-  return end;
-}
 
 template <int K, bool kMany>
 __global__ void __launch_bounds__(shade_threads<kMany>())
@@ -350,7 +247,9 @@ final_shade_kernel(const ShadeFields f, long long n, const float* __restrict__ c
       a = load_lane(f, n, p, lane);
       r = lane_ray(a, unshaded);
     }
-    const bool occluded = soup_any<kMany>(s, end, in_range && r.pending, r);
+    const bool occluded =
+        soup_any<kMany>(s, MtTris{s.tri, s.n_tris}, MtGuard<true>{s}, end, in_range && r.pending,
+                        SegRay{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.tm});
     float term[3] = {0.f, 0.f, 0.f};
     if (in_range) {
       if (kMany) a = load_lane(f, n, p, lane);

@@ -63,8 +63,10 @@ SIGNATURES = {
     # occlusion bytes [K, N] or null, stream
     "romis_final_shade": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
                           _P, _P, _P, _I, _I, _P, _P, _P),
-    # origins, dirs, t_max, n_pix, n_rays, tri_cols, n_tris, out, stream
-    "romis_any_hit": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
+    # origins, dirs, t_max, h, w, planes, tri_cols (block-ordered), boxes,
+    # guard normals (ops/trace.zcount_blocks; both null for a soup of at
+    # most 16 triangles, its columns as given), n_tris, out, stream
+    "romis_any_hit": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P),
     # planes, c, h, w, d, dy, dx, out, stream
     "romis_halo_gather": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     # ct, d, c, h, w, dy, dx, out (zero-filled), stream
@@ -111,8 +113,12 @@ SIGNATURES = {
     # boxes, normals, n_tris, eps, out, stream
     "romis_zcount_occ": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P,
                          _P),
-    # origins, dirs, t_max, n_pix, n_rays, cmat [5T, 16], n_tris, out, stream
-    "romis_any_hit_plucker": (_P, _P, _P, _LL, _LL, _P, _I, _P, _P),
+    # origins, dirs, t_max, h, w, planes, slots [T, 32], block-ordered
+    # tri_cols, boxes, guard [5, T], guard blocks [2, nb]
+    # (ops/trace.plucker_blocks; the last four null for a soup of at most
+    # 16 triangles), n_tris, out, stream
+    "romis_any_hit_plucker": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _I, _P, _P),
     # planes, c, h, w, n_nbr, radius, offs, key, tag, out, stream
     "romis_neighbour_gather": (_P, _I, _I, _I, _I, _I, _P, _P, _U, _P, _P),
 }

@@ -17,12 +17,16 @@ scatter backward are kernels 2 and 13 on CUDA).
 
 Kernel 6 (``csrc/any.cu``) replaces the Pallas ``_any_kernel``: boolean
 occlusion at t in (0, t_max) with an early exit per ray, leading sample
-axes kept, the same contract as ``ops.intersect.intersect_any``.
+axes kept, the same contract as ``ops.intersect.intersect_any``. A soup of
+more than ``ZCOUNT_BLOCK`` triangles is culled as the TPU kernel culls it,
+by the blocks of ``zcount_blocks`` and the walk kernel 4 shares
+(``any_hit_culled`` is its plain model); a smaller soup is tested
+directly.
 
 Bound on the H100: the triangle columns are a shared-memory broadcast, so
 device memory sees only rays in and hits out (~40 B per pixel for the
 closest hit, 29 B per ray for the any-hit); operations, the ray-triangle
-tests (and kernel 1's box and guard tests on a culled soup).
+tests (and the box tests of a culled soup; the guards' printed apart).
 
 Kernel 7 (``csrc/zcount.cu``, ``zcount_occ``) replaces the Pallas
 ``_zcount_kernel``: the Z-count occlusion of the unbiased pass's visibility
@@ -55,8 +59,13 @@ sum only those, in the same order, so the two give the same bool. Leaving
 out a term that is exactly zero changes no finite side but the sign of a
 zero, which no test reads, so the bools are those of the full 10-term
 products. Against Möller–Trumbore they differ only on rays at a sign
-boundary. Bound: operations, the non-zero terms of the five products per
-ray-triangle test up to the first hit.
+boundary. The constants are kept with the soup (``plucker_blocks``); a
+soup of more than ``ZCOUNT_BLOCK`` triangles is culled by the same blocks
+with kernel 8's own near-parallel guard, which
+``any_hit_plucker_culled`` (the walk's plain model) derives from the
+Plücker test's rounding. Bound: operations, the box tests and the
+non-zero terms of the five products per ray-triangle test of the culled
+walk.
 
 Geometry with a BVH (``ops.bvh.with_bvh``) goes to the BVH walk kernels
 instead (``ops/walk.py``): the closest hit to kernel 18, the any-hit to
@@ -184,7 +193,12 @@ def any_hit_plain(origins, dirs, t_max, geometry,
 def any_hit(origins, dirs, t_max, geometry) -> torch.Tensor:
     """Occlusion: True where a triangle lies at t in (0, t_max).
     origins [..., 3, H, W], dirs broadcastable to them, t_max [..., H, W]
-    → bool [..., H, W]; the leading axes are kept."""
+    → bool [..., H, W]; the leading axes are kept. Kernel 6 for CUDA
+    tensors on a soup (more than ``ZCOUNT_BLOCK`` triangles culled by the
+    blocks of ``zcount_blocks``, built at the soup's first call;
+    ``any_hit_culled(..., lazy=False)`` is the plain model of its walk),
+    the BVH walks on geometry with a BVH, the plain version for CPU
+    tensors."""
     if not origins.is_cuda:
         return any_hit_plain(origins, dirs, t_max, geometry)
     if geometry.bvh is not None:
@@ -192,26 +206,19 @@ def any_hit(origins, dirs, t_max, geometry) -> torch.Tensor:
         if 2 <= rays_per_pixel <= walk.K_MAX:
             return walk.any_hit_bvh_k(origins, dirs, t_max, geometry)
         return walk.any_hit_bvh(origins, dirs, t_max, geometry)
-    lead = tuple(origins.shape[:-3])
-    h, w = origins.shape[-2:]
-    if origins.shape[-3] != 3 or tuple(t_max.shape) != lead + (h, w):
-        raise ValueError(f"any_hit: origins {tuple(origins.shape)} and t_max "
-                         f"{tuple(t_max.shape)} do not match")
-    o = origins.contiguous()
-    d = dirs.expand(origins.shape).contiguous()
-    tm = t_max.contiguous()
-    _build.check(o, "origins", torch.float32)
-    _build.check(d, "dirs", torch.float32)
-    _build.check(tm, "t_max", torch.float32)
-    cols = geometry.tri_cols
-    _build.check(cols, "tri_cols", torch.float32)
+    o, d, tm, h, w, planes = _ray_args(origins, dirs, t_max, "any_hit")
+    _build.check(geometry.tri_cols, "tri_cols", torch.float32)
     check_soup(geometry, "any_hit")
-    n_tris = cols.shape[1]
-    out = torch.empty(lead + (h, w), dtype=torch.bool, device=o.device)
+    if geometry.tri_cols.shape[1] <= ZCOUNT_BLOCK:  # nothing to cull
+        cols, boxes, guard = geometry.tri_cols, None, None
+    else:
+        cols, boxes, guard = zcount_blocks(geometry)
+    out = torch.empty(tuple(t_max.shape), dtype=torch.bool, device=o.device)
     if out.numel():
         _build.launch("romis_any_hit", o.data_ptr(), d.data_ptr(),
-                      tm.data_ptr(), h * w, out.numel(), cols.data_ptr(),
-                      n_tris, out.data_ptr())
+                      tm.data_ptr(), h, w, planes, cols.data_ptr(),
+                      _ptr(boxes), _ptr(guard), cols.shape[1],
+                      out.data_ptr())
         any_hit.launches += 1
     return out
 
@@ -531,20 +538,21 @@ def _walk_counts(shape, device):
             for name in ("box", "tri", "guard", "guard_tri", "guard_cone")}
 
 
-def _culled_walk(o, d, dist, boxes, guard_data, defer, test, guard=True,
+def _culled_walk(o, d, dist, boxes, defer, test, keeps=None,
                  direct=False):
-    """The culled walk of kernels 7 and 4 over the blocks of
-    ``zcount_blocks``, on flat rays: origins ``o`` and unit directions
-    ``d`` (three [N] tensors each), the window [0, dist] [N], every ray
-    with ``dist`` > 0 traced. Per block, in order, a pending ray's slab
-    test of the block's box, then (where the box rejects it and the block
-    is not deferred) the near-parallel guard, then ``test(b, rays)`` → (hit
+    """The culled walk of kernels 7, 4, 6 and 8 over the blocks of
+    ``soup_blocks``, on flat rays: origins ``o`` and directions ``d``
+    (three [N] tensors each), the window [0, dist] [N], every ray with
+    ``dist`` > 0 traced. Per block, in order, a pending ray's slab test of
+    the block's box, then (where the box rejects it and the block is not
+    deferred) the near-parallel guard ``keeps(n, b, idx)`` → bool [idx]
+    (None: no guard, the box alone decides), then ``test(b, rays)`` → (hit
     [n] bool, triangles tested up to the first hit [n]); a hit ends the
     ray. The deferred blocks' guard runs in a second pass for the rays
-    left pending. ``direct`` (a soup of one block, kernel 4): no box test,
-    the block's triangles tested at once. → (occluded [N], counts: box,
-    guard (blocks guarded), guard_cone and guard_tri (its products), tri,
-    each [N] int64)."""
+    left pending. ``direct`` (a soup of one block): no box test, the
+    block's triangles tested at once. → (occluded [N], counts: box, guard
+    (blocks guarded), guard_cone and guard_tri (its products), tri, each
+    [N] int64)."""
     inv = [_inv_dir(a) for a in d]
     pending = dist > 0.0
     occluded = torch.zeros_like(pending)
@@ -567,19 +575,27 @@ def _culled_walk(o, d, dist, boxes, guard_data, defer, test, guard=True,
         if idx.numel() == 0:
             break
         ok = _box_ok(n, boxes, b, o, inv, dist[idx], idx)
-        if guard and not defer[b]:
-            fail = idx[~ok]
-            ok[~ok] = _guard_keeps(n, boxes, guard_data, b, o, d, dist[fail],
-                                   fail)
+        if keeps is not None and not defer[b]:
+            ok[~ok] = keeps(n, b, idx[~ok])
         run(b, idx[ok])
-    for b in (b for b in range(boxes.shape[1]) if guard and defer[b]):
+    for b in (b for b in range(boxes.shape[1])
+              if keeps is not None and defer[b]):
         idx = pending.nonzero().squeeze(1)
         if idx.numel() == 0:
             break
         cand = idx[~_box_ok(n, boxes, b, o, inv, dist[idx], idx)]
-        run(b, cand[_guard_keeps(n, boxes, guard_data, b, o, d, dist[cand],
-                                 cand)])
+        run(b, cand[keeps(n, b, cand)])
     return occluded, n
+
+
+def _guard_rays(d, dist):
+    """The guards' view of rays of any length: the unit directions (0 for
+    a zero direction) and the window's length dist·|d|, as kernels 6 and
+    8 form them."""
+    norm = (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]).sqrt()
+    ok = norm > 0.0
+    unit = [torch.where(ok, a / torch.where(ok, norm, 1.0), 0.0) for a in d]
+    return unit, dist * norm
 
 
 def _first_tests(hit, act):
@@ -652,8 +668,13 @@ def zcount_occ_culled(origins, targets, geometry, eps: float = 1e-3,
         return hit.any(dim=0), tests
 
     # A ray is traced where its window reaches past eps (kernel 7's test).
-    occluded, n = _culled_walk(o, d, torch.where(dist > eps, dist, 0.0),
-                               boxes, guard_data, defer, test, guard)
+    dist = torch.where(dist > eps, dist, 0.0)
+
+    def keeps(n, b, idx):
+        return _guard_keeps(n, boxes, guard_data, b, o, d, dist[idx], idx)
+
+    occluded, n = _culled_walk(o, d, dist, boxes, defer, test,
+                               keeps if guard else None)
     if counts is not None:
         counts.update({name: v.reshape(r1, k, h, w) for name, v in n.items()})
         counts["origin"] = n_origin.reshape(r1, h, w)
@@ -661,21 +682,30 @@ def zcount_occ_culled(origins, targets, geometry, eps: float = 1e-3,
 
 
 def any_hit_culled(origins, dirs, t_max, geometry, counts=None,
-                   guard: bool = True) -> torch.Tensor:
-    """A plain model of kernel 4's walk of its shadow rays
-    (``_culled_walk`` over the blocks of ``zcount_blocks``, the soup's
-    default order, the flagged blocks' guard deferred): each ray's box
-    test over [0, t_max], the guard where the box rejects it, then the
-    block's triangles in order with the plain any-hit's Möller–Trumbore
+                   guard: bool = True,
+                   lazy: bool | None = None) -> torch.Tensor:
+    """A plain model of the culled walk of kernels 4 (its shadow rays) and
+    6 (``any_hit``), ``csrc/cull.cuh``'s ``soup_any`` over the blocks of
+    ``zcount_blocks`` (the soup's default order; the guard deferred to a
+    second pass over the rays left pending for every block with
+    ``lazy``, for none without (kernel 6), by default for the blocks
+    ``zcount_blocks`` flags (kernel 4)): each ray's box test over [0,
+    t_max], the guard where the box rejects it, then the block's
+    triangles in order with the plain any-hit's Möller–Trumbore
     (``ops.intersect._mt``, the division form ``mt_tri`` of the kernels),
     t in (0, t_max); a soup of at most one block (or none) tests its
     triangles as given, directly.
     origins [..., 3, H, W], dirs broadcastable to them, t_max [..., H, W]
     → bool [..., H, W], ``any_hit_plain``'s on every ray traced (t_max >
     0; the others are False). With a ``counts`` dict it records the tests
-    kernel 4 makes per ray (``box``, ``guard``, ``guard_cone``,
+    the kernels make per ray (``box``, ``guard``, ``guard_cone``,
     ``guard_tri``, ``tri``, each [..., H, W]); ``guard=False`` lets the
-    box alone decide (the tests the cull itself needs).
+    box alone decide (the tests the cull itself needs). The box test is
+    parametric in the direction as given; the guard takes the unit
+    direction and the window's length t_max·|d| (``_guard_rays``), so the
+    bound below, stated for unit directions, holds for any (kernel 4,
+    whose directions are unit vectors by construction, takes them as they
+    are).
 
     The guard's bound (``zcount_blocks``) holds for this test too. With
     s = sin θ·|cos| (θ the triangle's corner angle, cos = d·n̂) and L as
@@ -713,9 +743,16 @@ def any_hit_culled(origins, dirs, t_max, geometry, counts=None,
         hit = t[:, 0] < dist[live]
         return hit.any(dim=0), _first_tests(hit, tri[9, :, 0, 0] > 0.0)
 
-    occluded, n = _culled_walk(o, d, dist, boxes, guard_data,
-                               (boxes[12] > 0.5).tolist(), test, guard,
-                               direct=direct)
+    unit, length = _guard_rays(d, dist)
+
+    def keeps(n, b, idx):
+        return _guard_keeps(n, boxes, guard_data, b, o, unit, length[idx],
+                            idx)
+
+    defer = ([bool(lazy)] * boxes.shape[1] if lazy is not None
+             else (boxes[12] > 0.5).tolist())
+    occluded, n = _culled_walk(o, d, dist, boxes, defer, test,
+                               keeps if guard else None, direct=direct)
     if counts is not None:
         counts.update({name: v.reshape(lead) for name, v in n.items()})
     return occluded.reshape(lead)
@@ -909,15 +946,9 @@ def _cross_rows(p, q):
                         p[..., 0] * q[..., 1] - p[..., 1] * q[..., 0]], dim=-1)
 
 
-def plucker_matrix(geometry) -> torch.Tensor:
-    """[5T, 16] side constants of kernel 8 (the reference's
-    ``pallas_trace.plucker_matrix``, built here with torch on the geometry's
-    device): for the segment p0 → p0 + D, R = [D, M = p0 × D, p0, 1, 0...],
-    rows [0, 3T) give the three Plücker edge sides [m_e, d_e]·R, rows
-    [3T, 4T) the plane value s0 = n·p0 − n·a, rows [4T, 5T) ds = n·D.
-    Inactive triangles get all-zero rows, which never occlude. The three
-    edges are built as one batch, to keep the launches of a call few."""
-    v0, e1, e2 = geometry.v0, geometry.e1, geometry.e2
+def plucker_rows(v0, e1, e2, active) -> torch.Tensor:
+    """``plucker_matrix`` of the triangles v0, e1, e2 [T, 3] and the bool
+    active [T] → [5T, 16]."""
     t = v0.shape[0]
     a, b, c = v0, v0 + e1, v0 + e2
     p, q = torch.stack([a, b, c]), torch.stack([b, c, a])  # [3, T, 3]
@@ -930,7 +961,19 @@ def plucker_matrix(geometry) -> torch.Tensor:
         torch.cat([zeros[:, :6], n, -((na[:, 0:1] + na[:, 1:2]) + na[:, 2:3]),
                    zeros[:, :6]], dim=1),
         torch.cat([n, zeros[:, :13]], dim=1)])
-    return rows * geometry.active.to(v0.dtype).repeat(5)[:, None]
+    return rows * active.to(v0.dtype).repeat(5)[:, None]
+
+
+def plucker_matrix(geometry) -> torch.Tensor:
+    """[5T, 16] side constants of kernel 8 (the reference's
+    ``pallas_trace.plucker_matrix``, built here with torch on the geometry's
+    device): for the segment p0 → p0 + D, R = [D, M = p0 × D, p0, 1, 0...],
+    rows [0, 3T) give the three Plücker edge sides [m_e, d_e]·R, rows
+    [3T, 4T) the plane value s0 = n·p0 − n·a, rows [4T, 5T) ds = n·D.
+    Inactive triangles get all-zero rows, which never occlude. The three
+    edges are built as one batch, to keep the launches of a call few."""
+    return plucker_rows(geometry.v0, geometry.e1, geometry.e2,
+                        geometry.active)
 
 
 # R's components in the order of C's columns: D, M, p0, 1.
@@ -992,15 +1035,369 @@ def any_hit_plucker_plain(origins, dirs, t_max, geometry,
     return occluded.reshape(t_max.shape)
 
 
+# The compact slots of a triangle's kernel-8 constants (csrc/plucker.cu):
+# the edge rows' columns 0-5 at 0, 8 and 16, the plane row's 6-9 at 24, the
+# n·D row's 0-2 at 28 (a triangle is 32 floats, eight float4).
+PLUCKER_SLOTS = 32
+_SLOT_OF = [(k, j, (8 * k + j) if k < 3 else (18 + j) if k == 3 else 28 + j)
+            for k, (lo, hi) in enumerate(PLUCKER_COLS) for j in range(lo, hi)]
+
+
+def plucker_slots(table: torch.Tensor) -> torch.Tensor:
+    """The [5T, 16] constants → [T, PLUCKER_SLOTS]: each triangle's
+    ``PLUCKER_COLS`` of its five rows in kernel 8's slots (the same
+    floats, zero elsewhere)."""
+    t = table.shape[0] // 5
+    c = table.reshape(5, t, 16)
+    out = table.new_zeros((t, PLUCKER_SLOTS))
+    for k, j, slot in _SLOT_OF:
+        out[:, slot] = c[k, :, j]
+    return out
+
+
+# Kernel 8's guard (any_hit_plucker_culled): the reach's terms in the
+# origin's norm and the window's length, and the share of the growth g
+# added for the roundings of the guard's own products.
+PLUCKER_REACH_O = 1.17
+PLUCKER_REACH_LEN = 0.17
+PLUCKER_REACH_G = 0.02
+# Where the guard's bound is kept (else every block the box rejects is
+# kept): the soup's vertices and the rays' origins within 1e12 of the
+# origin (no product overflows), a triangle's within 1e-4 of it or beyond
+# and of area above 1e-30 (no product underflows), windows in (1e-12,
+# 1e12).
+PLUCKER_FAR = 1e12
+PLUCKER_NEAR = 1e-4
+PLUCKER_LEN_MIN = 1e-12
+
+
+@torch.no_grad()
+def _plucker_guard(cols: torch.Tensor, boxes: torch.Tensor):
+    """Kernel 8's guard data of the block-ordered columns [10, T'] and
+    their boxes [13, nb] (``soup_blocks``) → (guard [5, T'], blocks [2,
+    nb]), float32, computed in float64 from the float32 vertices a = v0,
+    b = v0 + e1, c = v0 + e2 the constants are built from
+    (``any_hit_plucker_culled`` derives each term), in the layout of
+    ``zcount_blocks``' guard: rows 0-2 per triangle m = n·g /
+    (320u·diam²) (n = (b − a) × (c − a), diam its longest edge, g its
+    block's growth), 0 for an active triangle the bound does not cover,
+    which the guard then always keeps, inf for an inactive one, which
+    never occludes; rows 3-4 per pair of triangles the float4 (axis·μ,
+    ρ·μ) of the cone of its unit normals (radius ρ about the axis; μ the
+    smaller |m|; radius inf, no cone, where ρ > ``ZCOUNT_CONE``; −inf for
+    a pair with no active triangle). Per block: row 0 Q, the largest of
+    P²/diam + 0.26 P + 0.15 diam + (0.04 + 0.026 P/diam) g over its
+    triangles (P the largest vertex norm), row 1 Q', the largest
+    P²/diam, both grown by 1 %."""
+    f64 = torch.float64
+    u = 2.0 ** -24
+    nb = boxes.shape[1]
+    act = cols[9] > 0.0
+    a32 = cols[0:3]
+    a, b, c = (x.to(f64) for x in (a32, a32 + cols[3:6], a32 + cols[6:9]))
+    n = torch.linalg.cross(b - a, c - a, dim=0)
+    nn = torch.linalg.vector_norm(n, dim=0)
+    diam = torch.stack([torch.linalg.vector_norm(x, dim=0)
+                        for x in (b - a, c - b, a - c)]).amax(0)
+    big = torch.stack([torch.linalg.vector_norm(x, dim=0)
+                       for x in (a, b, c)]).amax(0)
+    g = (boxes[10].to(f64) * 2.0 ** -21).repeat_interleave(ZCOUNT_BLOCK)
+    live = (act & (nn > 1e-30) & (diam > 0.0) & (big >= PLUCKER_NEAR)
+            & (big < PLUCKER_FAR))
+    dsafe = torch.where(live, diam, 1.0)
+    inf = float("inf")
+    m = torch.where(live, n * g / (320.0 * u * dsafe * dsafe),
+                    torch.where(act, 0.0, inf))
+    p2d = big * big / dsafe
+    q = p2d + 0.26 * big + 0.15 * diam + (0.04 + 0.026 * big / dsafe) * g
+    q_b = torch.where(live, q, 0.0).reshape(nb, -1).amax(-1) * 1.01
+    q2_b = torch.where(live, p2d, 0.0).reshape(nb, -1).amax(-1) * 1.01
+    # The pairs' cones: the second unit normal turned toward the first.
+    unit = torch.where(live, n / torch.where(live, nn, 1.0), 0.0)
+    u0, u1 = unit[:, 0::2], unit[:, 1::2]
+    ok0, ok1 = live[0::2], live[1::2]
+    u1 = u1 * torch.where((u0 * u1).sum(0) < 0.0, -1.0, 1.0)
+    axis = torch.where(ok0 & ok1, u0 + u1, torch.where(ok0, u0, u1))
+    axis = axis / torch.linalg.vector_norm(axis, dim=0).clamp_min(1e-300)
+    rho = torch.maximum(
+        torch.where(ok0, torch.linalg.vector_norm(u0 - axis, dim=0), 0.0),
+        torch.where(ok1, torch.linalg.vector_norm(u1 - axis, dim=0), 0.0))
+    mag = torch.where(live, torch.linalg.vector_norm(m, dim=0),
+                      torch.where(act, 0.0, inf))
+    mu = torch.minimum(mag[0::2], mag[1::2])
+    some = act[0::2] | act[1::2]
+    mu = torch.where(some, mu, 0.0)
+    radius = torch.where(rho > ZCOUNT_CONE, inf,
+                         rho * mu * (1.0 + 2.0 ** -10) + 1e-30)
+    cone = torch.cat([axis * mu, torch.where(some, radius, -inf)[None]]).T
+    guard = torch.cat([m, cone.reshape(2, -1)])
+    return (guard.to(cols.dtype).contiguous(),
+            torch.stack([q_b, q2_b]).to(cols.dtype).contiguous())
+
+
+def plucker_blocks(geometry):
+    """Kernel 8's kept data of the soup → (table [5T', 16], slots [T',
+    PLUCKER_SLOTS], boxes, guard, blocks). Of a soup of more than
+    ``ZCOUNT_BLOCK`` triangles: the rows of ``plucker_matrix`` for the
+    columns in ``soup_blocks``' order (a row permutation of the geometry's
+    own, bit for bit, the padding zero rows), its slots, the blocks' boxes
+    (``soup_blocks``' own) and kernel 8's guard (``_plucker_guard``); of a
+    smaller soup the table and slots of the columns as given, the rest
+    None. Kept on the geometry (``Geometry.plucker``) with the columns
+    tensor it was built from, and rebuilt if the geometry's columns are
+    another tensor or were written to, as ``soup_blocks`` keeps its
+    blocks."""
+    cols = geometry.tri_cols
+    kept = geometry.plucker
+    if kept is None or kept[0] is not cols or kept[1] != cols._version:
+        with torch.no_grad():
+            if cols.shape[1] <= ZCOUNT_BLOCK:
+                c, boxes, guard, blocks = cols.detach(), None, None, None
+            else:
+                c, boxes, _ = zcount_blocks(geometry)
+                guard, blocks = _plucker_guard(c, boxes)
+            table = plucker_rows(c[0:3].T, c[3:6].T, c[6:9].T, c[9] > 0.0)
+            out = (table, plucker_slots(table).contiguous(), boxes, guard,
+                   blocks)
+        kept = geometry.plucker = (cols, cols._version, out)
+    return kept[2]
+
+
+def _plucker_sides(c, r):
+    """The five products of rays ``r`` [10, N] with triangles' constants
+    ``c`` [5, B, 16] over ``PLUCKER_COLS``, left to right → the sign test
+    and straddle's hit [B, N]."""
+    sides = []
+    for row, (lo, hi) in enumerate(PLUCKER_COLS):
+        acc = c[row, :, lo, None] * r[lo]
+        for j in range(lo + 1, hi):
+            acc = acc + c[row, :, j, None] * r[j]
+        sides.append(acc)
+    e0, e1, e2, s0, ds = sides
+    same = (((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0))
+            | ((e0 <= 0.0) & (e1 <= 0.0) & (e2 <= 0.0)))
+    return same & (s0 * (s0 + ds) < 0.0)
+
+
+def _pairs_keep(n, guard_data, b, unit, idx, reach):
+    """The pairs' cones of block b, then the normals of the pairs a cone
+    does not rule out, against ``reach`` [idx] → kept [idx]."""
+    ux, uy, uz = (a[idx] for a in unit)
+    nrm, cones = guard_data[:3], guard_data[3:].reshape(-1, 4)
+    near = torch.zeros_like(reach, dtype=torch.bool)
+    for q in range(ZCOUNT_BLOCK // 2):
+        c = cones[b * ZCOUNT_BLOCK // 2 + q]
+        pair = ~near
+        n["guard_cone"][idx[pair]] += 1
+        pair &= ~((ux * c[0] + uy * c[1] + uz * c[2]).abs() - c[3] > reach)
+        n["guard_tri"][idx[pair]] += 2
+        for j in range(b * ZCOUNT_BLOCK + 2 * q,
+                       b * ZCOUNT_BLOCK + 2 * q + 2):
+            near |= pair & ((ux * nrm[0, j] + uy * nrm[1, j]
+                             + uz * nrm[2, j]).abs() <= reach)
+    return near
+
+
+def _plucker_keeps(n, boxes, guard_data, blocks, b, o, unit, length,
+                   norm_o, idx):
+    """Kernel 8's guard of block b for the rays idx (their box test
+    failed), in the kernel's order: where the box rule holds, the pairs
+    against its reach (a block dropped there is dropped by the smaller
+    reach too); then, for the rays it keeps or that it does not cover,
+    the line rule's reach where it holds and is the smaller; the block is
+    kept wholly where neither rule holds or the segment lies outside the
+    bound's range (``any_hit_plucker_culled`` derives both)."""
+    n["guard"][idx] += 1
+    ox, oy, oz = (a[idx] for a in o)
+    ux, uy, uz = (a[idx] for a in unit)
+    ln, no = length[idx], norm_o[idx]
+    l0 = ((ox - boxes[6, b]).abs() + (oy - boxes[7, b]).abs()
+          + (oz - boxes[8, b]).abs() + boxes[9, b])
+    g = boxes[10, b] * 2.0 ** -21  # row 10 = g / 8u
+    ok = (ln > PLUCKER_LEN_MIN) & (ln < PLUCKER_FAR) & (no < PLUCKER_FAR)
+    box_rule = ok & (l0 + ln < boxes[10, b])
+    reach = torch.where(
+        box_rule, (blocks[0, b] + PLUCKER_REACH_O * no + PLUCKER_REACH_LEN * ln)
+        * 1.001 + PLUCKER_REACH_G * g, torch.inf)
+    keep = ~ok
+    first = box_rule.nonzero().squeeze(1)
+    held = torch.zeros_like(keep)
+    held[first] = _pairs_keep(n, guard_data, b, unit, idx[first],
+                              reach[first])
+    rest = ok & (~box_rule | held)  # the line rule may still drop these
+    cx, cy, cz = boxes[6, b] - ox, boxes[7, b] - oy, boxes[8, b] - oz
+    qx = cy * uz - cz * uy
+    qy = cz * ux - cx * uz
+    qz = cx * uy - cy * ux
+    delta = ((qx * qx + qy * qy + qz * qz).sqrt() * (1.0 - 2.0 ** -16)
+             - boxes[9, b] * (1.0 / 3.0)
+             - 2.0 ** -16 * (cx.abs() + cy.abs() + cz.abs()))
+    line = (g * 0.125 / delta) * (blocks[1, b] + no) * 1.001 + PLUCKER_REACH_G * g
+    try_line = rest & (delta > 0.0) & (line < reach)
+    keep |= rest & ~try_line
+    second = try_line.nonzero().squeeze(1)
+    keep[second] = _pairs_keep(n, guard_data, b, unit, idx[second],
+                               line[second])
+    return keep
+
+
+def any_hit_plucker_culled(origins, dirs, t_max, geometry, counts=None,
+                           guard: bool = True) -> torch.Tensor:
+    """A plain model of kernel 8's culled walk (``csrc/cull.cuh``'s
+    ``soup_any`` with the Plücker test): ``any_hit_plucker``'s contract,
+    origins [..., 3, H, W], dirs broadcastable to them, t_max [..., H, W]
+    → bool [..., H, W], ``any_hit_plucker_plain``'s on every ray (a
+    negative t_max is the segment (−d, −t_max), the same D and M bit for
+    bit; t_max = 0 never occludes). A soup of more than
+    ``ZCOUNT_BLOCK`` triangles is walked over the blocks of
+    ``soup_blocks`` (``plucker_blocks``: the constants are
+    ``plucker_matrix``'s rows in the blocks' order): each ray's slab test
+    of a block's box over [0, t_max], where it fails kernel 8's own
+    near-parallel guard (derived below; deferred to a second pass over
+    the rays left pending for the blocks ``zcount_blocks`` does not flag,
+    those whose pairs have cones), then the block's triangles
+    with ``any_hit_plucker_plain``'s products and sign test, up to the
+    first hit. A smaller soup tests its triangles as given. With a
+    ``counts`` dict it records the tests kernel 8 makes per ray (``box``,
+    ``guard``, ``guard_cone``, ``guard_tri``, ``tri``, each [..., H, W]);
+    ``guard=False`` lets the box alone decide (the tests the cull needs;
+    its bool may then miss a hit).
+
+    Why the cull leaves the bool unchanged. Kernels 1, 4, 6 and 7 bound
+    Möller–Trumbore's rounding by the origin's distance to the block
+    (``any_hit_culled``); the Plücker sides cancel world-frame terms, so
+    their guard does not serve here, and kernel 8 has its own, on the same
+    boxes. Write u = 2^-24; a, b, c the float32 vertices the constants are
+    built from (the box holds them: ``soup_blocks`` forms v0 + e1 and v0 +
+    e2 as ``plucker_rows`` does), n = (b − a) × (c − a) exactly, N its unit,
+    diam the longest edge, P the largest vertex norm; D̃ = fl(t_max·d);
+    d̂ = d/|d|, cos = d̂·N.
+
+    The sign test. An edge p → q's side fl(m·D̃ + d_e·M) (six products
+    left to right, m = fl(p × q), d_e = fl(q − p), M = fl(p0 × D̃)) is
+    within E = 10u|D|(P² + diam|p0|) of the exact D̃·((p − p0) × (q −
+    p0)) (a cross product's rounding is at most 2.83u|x||y|, the sum's
+    6u of its terms' magnitudes, the difference u|q − p|). With X the
+    point where the line crosses the plane of abc, that exact side is
+    (D̃·N)|q − p|σ, σ the signed distance of X from the edge's line in
+    the plane. So a wrong sign needs |σ| <= E/(|D̃·N||q − p|) = h_e κ_e,
+    κ_e = E/(|D̃·N|·|n|), h_e the edge's altitude; with κ the largest,
+    every barycentric coordinate of an accepted X is at least −2κ (all
+    signs ≥ 0: each ≥ −κ; all ≤ 0: each ≤ κ and they sum to 1), so X lies
+    within 4κ·diam of the triangle: r1 = K/|cos|, K = 40u·diam(P² +
+    diam|p0|)/|n|.
+    The straddle. fl(s0) and fl(s0 + ds) lie within ε = 7u|ñ|(|p0| + P
+    + |D|) of the exact values of ñ·(x − a) at the segment's ends, ñ =
+    fl(e1 × e2); so it accepts only a segment that crosses the plane of
+    ñ through a, or ends within ε/|ñ| of it. That plane leans on the
+    true one by τ <= u(6 diam² + 4.1 P diam)/|n| (ñ's rounding and b −
+    a = e1 within u|b|). So, where |cos| >= 2τ, a point Z of the segment
+    lies within (2K + 2ε/|ñ| + 2τ·diam)/|cos| of the triangle.
+    The box rule. A ray the slab test rejects over [0, t_max] stays g/2
+    from the block (while L = l0 + len < g/8u, row 10, ``zcount_blocks``;
+    len = t_max|d|), and the segment p0 → p0 + D̃ within uL < g/8 of it,
+    so the triangle accepts it only if |cos| <= max(2τ, 8(K + ε/|ñ| +
+    τ·diam)/g). With Y = 320u·diam²/|n| and m = N·g/Y (the guard's):
+    |d̂·m| <= P²/diam + |p0| + 0.152(|p0| + len) + 0.255P + 0.15 diam +
+    (0.0375 + 0.0257 P/diam)g (|n| <= 0.866 diam², so 56u/Y <= 0.152)
+    <= Q + 1.17|p0| + 0.17 len (row 0: Q).
+    The line rule. The sign test alone needs r1 >= the line's distance
+    δ from the triangle, i.e. |cos| <= K/δ, |d̂·m| <= (g/8δ)(P²/diam +
+    |p0|) <= (g/8δ)(Q' + |p0|) (row 1); δ is bounded below as kernel 1
+    bounds it (the line's distance from the block's centre less its L1
+    half-diagonal). It needs no box test: far from a block's line it is
+    the tighter.
+    A hit the cull would drop thus needs |d̂·m| at most the smaller reach
+    of the rules that hold; the guard keeps the block where a triangle
+    has it (a pair's cone first: |d̂·m| >= μ(|d̂·a| − ρ)), wholly
+    where neither rule holds, and 0.02g and 0.1 % cover the roundings of
+    cos, D̃ and the guard's own products. Overflow and underflow would
+    void the relative bounds: the guard keeps every block for a window
+    outside (1e-12, 1e12) or an origin beyond 1e12, and treats a
+    triangle beyond 1e12, within 1e-4 of the origin or of area under
+    1e-30 as always kept (m = 0). A block is thus dropped only where no
+    triangle of it can accept the segment, and the bool is the plain
+    version's on every ray. The error grows with P²/diam: for a soup far
+    from the origin the reach covers most directions and the guard keeps
+    most blocks; the bool stays exact."""
+    n_t = geometry.tri_cols.shape[1]
+    table, _, boxes, guard_data, blocks = plucker_blocks(geometry)
+    direct = n_t <= ZCOUNT_BLOCK
+    cols = geometry.tri_cols.detach() if direct else zcount_blocks(geometry)[0]
+    if direct:
+        boxes = cols.new_zeros((13, 1))
+    c = table.reshape(5, -1, 16)
+    lead = tuple(t_max.shape)
+    o = [origins.select(-3, k).expand(lead).reshape(-1) for k in range(3)]
+    dist = t_max.reshape(-1)
+    # A negative t_max: the segment (−d, −t_max), whose D and M are the
+    # same floats.
+    flip = torch.where(dist < 0.0, -1.0, 1.0)
+    d = [dirs.expand(origins.shape).select(-3, k).expand(lead).reshape(-1)
+         * flip for k in range(3)]
+    dist = dist.abs()
+    big = [dist * a for a in d]
+    r = torch.stack(big + [o[1] * big[2] - o[2] * big[1],
+                           o[2] * big[0] - o[0] * big[2],
+                           o[0] * big[1] - o[1] * big[0]]
+                    + o + [torch.ones_like(dist)])
+
+    def test(b, live):
+        cb = c[:, b * ZCOUNT_BLOCK:(b + 1) * ZCOUNT_BLOCK]
+        if cb.shape[1] == 0:  # an empty soup: nothing to hit
+            none = torch.zeros(live.shape, dtype=torch.int64,
+                               device=live.device)
+            return none.bool(), none
+        hit = _plucker_sides(cb, r[:, live])
+        act = cols[9, b * ZCOUNT_BLOCK:(b + 1) * ZCOUNT_BLOCK] > 0.0
+        return hit.any(dim=0), _first_tests(hit, act)
+
+    unit, length = _guard_rays(d, dist)
+    norm_o = (o[0] * o[0] + o[1] * o[1] + o[2] * o[2]).sqrt()
+
+    def keeps(n, b, idx):
+        return _plucker_keeps(n, boxes, guard_data, blocks, b, o, unit,
+                              length, norm_o, idx)
+
+    occluded, n = _culled_walk(o, d, dist, boxes, (boxes[12] <= 0.5).tolist(),
+                               test, keeps if guard else None, direct=direct)
+    if counts is not None:
+        counts.update({name: v.reshape(lead) for name, v in n.items()})
+    return occluded.reshape(lead)
+
+
+def _ray_args(origins, dirs, t_max, name):
+    """The kernels' flat ray planes: (o, d, t_max, h, w, planes) with
+    origins [..., 3, H, W] and dirs expanded to them, contiguous."""
+    lead = tuple(origins.shape[:-3])
+    h, w = origins.shape[-2:]
+    if origins.shape[-3] != 3 or tuple(t_max.shape) != lead + (h, w):
+        raise ValueError(f"{name}: origins {tuple(origins.shape)} and t_max "
+                         f"{tuple(t_max.shape)} do not match")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"{name}: {h}x{w} pixels exceed 32-bit indexing")
+    o = origins.contiguous()
+    d = dirs.expand(origins.shape).contiguous()
+    tm = t_max.contiguous()
+    _build.check(o, "origins", torch.float32)
+    _build.check(d, "dirs", torch.float32)
+    _build.check(tm, "t_max", torch.float32)
+    return o, d, tm, h, w, math.prod(lead)
+
+
 def any_hit_plucker(origins, dirs, t_max, geometry) -> torch.Tensor:
     """Occlusion by the Plücker sign test (the reference's
     ``pallas_any_mxu``), ``any_hit``'s contract: origins [..., 3, H, W],
     dirs broadcastable to them, t_max [..., H, W] → bool [..., H, W], True
     where the segment p0 → p0 + t_max·d crosses an active triangle; the
-    leading axes are kept. The side constants (``plucker_matrix``) are
-    built from the geometry on every call, as the reference builds them.
-    Soup only, at most ``MAX_SOUP_TRIS`` triangles on the card. Kernel 8
-    for CUDA tensors, the plain version for CPU tensors."""
+    leading axes are kept. The side constants are ``plucker_matrix``'s
+    rows, kept with the soup (``plucker_blocks``: built at the soup's
+    first call, in the blocks' order for a culled soup, and rebuilt when
+    its columns are written to); the result is the plain version's
+    whichever call builds them. Soup only, at most ``MAX_SOUP_TRIS``
+    triangles on the card. Kernel 8 for CUDA tensors (a soup of more than
+    ``ZCOUNT_BLOCK`` triangles culled, ``any_hit_plucker_culled``), the
+    plain version for CPU tensors."""
     if geometry.bvh is not None:
         raise ValueError("any_hit_plucker: kernel 8 tests a soup; geometry "
                          "with a BVH takes any_hit")
@@ -1012,20 +1409,23 @@ def any_hit_plucker(origins, dirs, t_max, geometry) -> torch.Tensor:
     if not origins.is_cuda:
         return any_hit_plucker_plain(origins, dirs, t_max, geometry)
     check_soup(geometry, "any_hit_plucker")
-    c = plucker_matrix(geometry)
-    o = origins.contiguous()
-    d = dirs.expand(origins.shape).contiguous()
-    tm = t_max.contiguous()
-    _build.check(o, "origins", torch.float32)
-    _build.check(d, "dirs", torch.float32)
-    _build.check(tm, "t_max", torch.float32)
+    _build.check(geometry.tri_cols, "tri_cols", torch.float32)
+    o, d, tm, h, w, planes = _ray_args(origins, dirs, t_max,
+                                       "any_hit_plucker")
+    _, slots, boxes, guard, blocks = plucker_blocks(geometry)
+    cols = None if boxes is None else zcount_blocks(geometry)[0]
     out = torch.empty(lead + (h, w), dtype=torch.bool, device=o.device)
     if out.numel():
         _build.launch("romis_any_hit_plucker", o.data_ptr(), d.data_ptr(),
-                      tm.data_ptr(), h * w, out.numel(), c.data_ptr(),
-                      c.shape[0] // 5, out.data_ptr())
+                      tm.data_ptr(), h, w, planes, slots.data_ptr(),
+                      _ptr(cols), _ptr(boxes), _ptr(guard), _ptr(blocks),
+                      slots.shape[0], out.data_ptr())
         any_hit_plucker.launches += 1
     return out
 
 
 any_hit_plucker.launches = 0
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()

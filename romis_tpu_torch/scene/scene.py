@@ -76,6 +76,10 @@ class Geometry:
     # came from.
     zcount: object = dataclasses.field(default=None, repr=False,
                                        compare=False)
+    # Kernel 8's constants in the blocks' order and its guard
+    # (ops.trace.plucker_blocks), kept the same way.
+    plucker: object = dataclasses.field(default=None, repr=False,
+                                        compare=False)
     # Kernel 18's leaf-triangle records (ops.walk.kept_records), kept the
     # same way.
     records: object = dataclasses.field(default=None, repr=False,

@@ -3,13 +3,32 @@
 one call on one NVIDIA GPU, at the shapes of ``chip_smoke.py``.
 
     mkdir -p build/parent && git archive <parent> | tar -x -C build/parent
-    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 9,19]
+    python3 scripts/torch_ab_kernels.py --parent build/parent [--kernels 6,8]
 
 Both trees' kernel libraries are built (the parent's with its own
 ``ops/_build.py``, into its own ``build/``), the registers and spill stores
 of the compared kernels are printed from both builds' ``-Xptxas -v`` logs,
 and the kernels are called on the same tensors, in turns (parent, this
-tree, this tree, parent). ``--kernels`` picks the sections (default 9,19):
+tree, this tree, parent). Before a section calls one of the parent's C
+entries, the entry's ``extern "C"`` prototype is read from the parent
+tree's ``csrc/*.cu`` and held to the arguments passed (``check_prototype``:
+their number and kinds, pointer, integer, float, stream); where they
+differ the script refuses with a message instead of calling.
+``--kernels`` picks the sections (default 6,8):
+- 6, the soup any-hit, on the K = 2 shadow rays of the 1080p frames of the
+  one-torus soup, the 2048-triangle soup and the flagship, and on
+  ``chip_smoke.hard_z_rays``' four kinds made segments on the first two:
+  the same bool as the parent's and the plain version's, the main sets
+  beside the culled walk's and the full scan's bounds; then the frames
+  ``animated`` and ``animated_torus`` and the step ``grad_surrogate``
+  with either tree's kernel 6 (``--kernels 6,8,4`` adds kernel 4, which
+  shares kernel 6's walk);
+- 8, the Plücker any-hit, on the same sets and on small triangles 100 and
+  1000 units from the origin (``chip_smoke.moved_soup``): the same bool as
+  the parent's and the plain version's; this tree's call (its constants
+  kept with the soup) against the parent's entry (the table built in it),
+  beside the parent's kernel alone and this tree's first call, and the
+  main sets' two bounds;
 - 9, the halo offset gather, at 1920x1080 on the flagship frame's planes
   at every shape the frames give it (``chip_smoke.halo_cases``: D = 1
   through a camera shift, D = 5 at random and at selected neighbours'
@@ -152,20 +171,78 @@ def ptxas_lines(log: Path, names) -> list[str]:
     return out
 
 
+def c_prototypes(tree: Path) -> dict:
+    """The ``extern "C"`` entries of a tree's ``romis_tpu_torch/csrc/*.cu``
+    → name → their parameters' kinds, one letter each: p a pointer, i an
+    integer, f a float, s the stream."""
+    import re
+
+    def kind(param):
+        if "cudaStream_t" in param:
+            return "s"
+        if "*" in param:
+            return "p"
+        return "f" if "float" in param or "double" in param else "i"
+
+    out = {}
+    for src in sorted((tree / "romis_tpu_torch" / "csrc").glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                             src.read_text()):
+            out[m.group(1)] = "".join(
+                kind(p) for p in m.group(2).split(",") if p.strip())
+    return out
+
+
+def signature_kinds(argtypes) -> str:
+    """A ``SIGNATURES`` entry (ctypes types, the stream last) → its kinds
+    as ``c_prototypes`` writes them."""
+    import ctypes
+
+    kinds = {ctypes.c_void_p: "p", ctypes.c_float: "f"}
+    return "".join(kinds.get(t, "i") for t in argtypes[:-1]) + "s"
+
+
+def check_prototype(protos: dict, name: str, passed: str) -> None:
+    """Refuse, with a message, to call the parent's ``name`` where its
+    ``extern "C"`` parameter list (``protos``) differs from ``passed``, the
+    kinds the caller passes; an ``x`` in ``passed`` is an integer or a
+    pointer (a data pointer passed as an int)."""
+    proto = protos.get(name)
+    if proto is None:
+        chip_smoke.fail(f"the parent tree's csrc has no extern \"C\" {name}: "
+                        "refusing to call it")
+    if len(proto) != len(passed) or any(
+            q != p and not (q == "x" and p in "ip")
+            for p, q in zip(proto, passed)):
+        chip_smoke.fail(f"the parent's {name} takes ({proto}), this section "
+                        f"passes ({passed}) (p pointer, i integer, f float, "
+                        "s stream): the section does not match the parent "
+                        "tree; refusing to call it")
+
+
 class Ctx:
     """What the sections share: torch, the device, the card line, the
-    parent's library and its entries' signatures, a generator, the
-    results."""
+    parent's library, its entries' signatures and their ``extern "C"``
+    prototypes, a generator, the results."""
 
-    def __init__(self, torch, parent_lib, card, parent_signatures):
+    def __init__(self, torch, parent_lib, card, parent_signatures,
+                 parent_protos):
         self.torch, self.plib, self.card = torch, parent_lib, card
         self.psig = parent_signatures
+        self.protos = parent_protos
         self.dev = torch.device("cuda", 0)
         self.gen = torch.Generator(device=self.dev).manual_seed(8)
         self.ms = {}
 
-    def call(self, fn, *a):
-        """A C entry of the parent's library on the current stream."""
+    def call(self, fn, *a, kinds=None):
+        """A C entry of the parent's library on the current stream, after
+        its prototype is checked against what is passed: ``kinds`` (as
+        ``c_prototypes`` writes them, the stream left out), or the kinds of
+        the values (None a pointer, a float a float, an int either)."""
+        if kinds is None:
+            kinds = "".join("p" if v is None else "f" if isinstance(v, float)
+                            else "x" for v in a)
+        check_prototype(self.protos, fn.__name__, kinds + "s")
         err = fn(*a, self.torch.cuda.current_stream().cuda_stream)
         if err != 0:
             chip_smoke.fail(f"{fn.__name__}: CUDA error {err}")
@@ -356,16 +433,19 @@ class ParentLib:
     ..., rres, rctx, stream, its biased pass reading no records) is called
     without the gate records' pointer."""
 
-    def __init__(self, lib, signatures):
-        self.lib, self.sig = lib, signatures
+    def __init__(self, lib, signatures, protos):
+        self.lib, self.sig, self.protos = lib, signatures, protos
 
     def __getattr__(self, name):
         from romis_tpu_torch.ops import _build
 
         fn = getattr(self.lib, name)
+        mine = signature_kinds(_build.SIGNATURES[name])
         if (name != "romis_spatial_pass"
                 or len(self.sig[name]) == len(_build.SIGNATURES[name])):
+            check_prototype(self.protos, name, mine)
             return fn
+        check_prototype(self.protos, name, mine[:-2] + mine[-1])
         return lambda *a: fn(*a[:-2], a[-1])
 
 
@@ -375,7 +455,7 @@ def parent_launch(c: Ctx, fn):
     kernel."""
     from romis_tpu_torch.ops import _build
 
-    plib = ParentLib(c.plib, c.psig)
+    plib = ParentLib(c.plib, c.psig, c.protos)
 
     def run(*a, **kw):
         saved = _build.library
@@ -1417,42 +1497,24 @@ def section_21(c: Ctx) -> None:
     time_steps(c, "21", swap=(shade, "final_shade_bvh", parent_bvh_shade))
 
 
-def parent_soup_shade(c: Ctx):
-    """The parent's kernel 4, called as its wrapper called it: the context
-    and the reservoirs packed into 18 + 10K planes inside the call, the
-    soup's [10, T] columns in their own order."""
-    torch = c.torch
-    from romis_tpu_torch.core.types import pack_reservoir_planes
-    from romis_tpu_torch.ops import shade
-
-    def run(ctx, res, geometry, features):
-        cp = shade.pack_center_ctx(ctx)
-        rp = pack_reservoir_planes(res)
-        cols = geometry.tri_cols
-        out = torch.empty((3,) + tuple(ctx.depth_t.shape[-2:]),
-                          device=c.dev)
-        c.call(c.plib.romis_final_shade, cp.data_ptr(), rp.data_ptr(),
-               out[0].numel(), res.k, cols.data_ptr(), cols.shape[1],
-               int(not features.enable_shading), out.data_ptr())
-        return out
-    return run
-
-
 def section_4(c: Ctx) -> None:
     """Kernel 4 at 1080p on the flagship (2 triangles), the 2048-triangle
     soup and the one-torus soup (970 triangles, chip_smoke's TORUS_CAM, the
     vischeck_torus frame's receivers), K = 1, 2 and 4, shaded and
-    unshaded: bit-equal to the parent's, in turns, the parent first; the
-    one-torus soup's time also beside its two bounds (the culled walk's
-    tests and the full scan's, chip_smoke's counts). Kernels 21 and 19
-    bit-equal to the parent's and timed beside them. Then the frames
-    ``config5``, ``slice1``, ``vischeck`` and ``vischeck_torus`` and the
-    steps ``grad_surrogate`` and ``grad_per_pixel`` with either tree's
-    kernel 4."""
+    unshaded: bit-equal to the parent's (called through this tree's
+    wrapper: the entries share their signature, checked against the
+    parent's prototype), in turns, the parent first. Kernels 21 and 19,
+    and kernels 1 and 7, which share kernel 4's cull, bit-equal to the
+    parent's and timed beside them. Then the frames ``config5``,
+    ``slice1``, ``vischeck`` and ``vischeck_torus`` and the steps
+    ``grad_surrogate`` and ``grad_per_pixel`` with either tree's kernel
+    4."""
     torch, dev, gen, card, ms = c.torch, c.dev, c.gen, c.card, c.ms
+    import math
+
     from romis_tpu_torch import Features
     from romis_tpu_torch.core.camera import generate_rays, make_camera
-    from romis_tpu_torch.ops import ris, shade, walk
+    from romis_tpu_torch.ops import ris, shade, trace, walk
     from romis_tpu_torch.ops.bvh import with_bvh
     from romis_tpu_torch.render import restir
     from romis_tpu_torch.scene.scene import (
@@ -1460,7 +1522,8 @@ def section_4(c: Ctx) -> None:
         torus_field_camera,
     )
 
-    theirs = parent_soup_shade(c)
+    theirs = parent_launch(c, shade.final_shade_soup)
+    theirs.launches = 0  # the wrapper counts on its module's name, swapped
     scene = flagship_scene(dev)
     soup = build_geometry([chip_smoke.random_soup(
         chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)
@@ -1513,7 +1576,8 @@ def section_4(c: Ctx) -> None:
                                                             f)),
             ("bvh_any_hit[1 plane] (kernel 19)",
              lambda: walk.any_hit_bvh(o[:1], d[:1], tm[:1], lgeo),
-             lambda: parent_any19(c)(o[:1], d[:1], tm[:1], lgeo))):
+             lambda: parent_launch(c, walk.any_hit_bvh)(o[:1], d[:1], tm[:1],
+                                                        lgeo))):
         chip_smoke.require(torch.equal(mine(), them()),
                            f"{name}: outputs differ from the parent's")
         new, old = chip_smoke.ab_ms(torch, mine, them, 10, 10)
@@ -1521,6 +1585,33 @@ def section_4(c: Ctx) -> None:
               f"({new / old:.3f} of it); bit-equal [{card}]")
         ms[name] = dict(change=new, parent=old)
     del res, to, d, o, tm, large, lctx
+    # Kernels 1 and 7 share kernel 4's cull (cull.cuh): on the one-torus
+    # soup's primary rays and the Z rays of 6 origins to its K = 2 winners.
+    _, tctx = restir.trace_primary(generate_rays(tcam, H, W),
+                                   torus1.geometry, f, restir.KERNELS)
+    tres = ris.gen_canonical_samples_ris(tctx, torus1.lights,
+                                         torus1.num_lights, f, generator=gen)
+    origins = torch.stack([tctx.position] + [
+        tctx.position.roll(sh, dims=-1) for sh in (3, -3, 7, -7, 11)])
+    trays = generate_rays(tcam, H, W)
+    forward = trace._closest_hit_forward
+    for name, mine, them, same in (
+            ("closest_hit[torus soup] (kernel 1)",
+             lambda: forward(trays, torus1.geometry, math.inf),
+             lambda: parent_launch(c, forward)(trays, torus1.geometry,
+                                               math.inf),
+             lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))),
+            ("zcount_occ[torus soup, R+1=6, K=2] (kernel 7)",
+             lambda: trace.zcount_occ(origins, tres.pos, torus1.geometry),
+             lambda: parent_launch(c, trace.zcount_occ)(
+                 origins, tres.pos, torus1.geometry), torch.equal)):
+        chip_smoke.require(same(mine(), them()),
+                           f"{name}: outputs differ from the parent's")
+        new, old = chip_smoke.ab_ms(torch, mine, them, 5, 5)
+        print(f"time {name}: {new:.4f} ms this tree, {old:.4f} ms parent "
+              f"({new / old:.3f} of it); bit-equal [{card}]")
+        ms[name] = dict(change=new, parent=old)
+    del tctx, tres, origins, trays
     vfeats = Features(unbiased_combination=True,
                       spatial_reuse_visibility_check=True)
     cam = flagship_camera(H, W, dev)
@@ -1857,7 +1948,254 @@ def section_1(c: Ctx) -> None:
                paths=("grad_surrogate",))
 
 
-SECTIONS = {"9": (section_9, ("halo_gather", "halo_scatter")),
+def soup_any_sets(c: Ctx):
+    """The segment sets of sections 6 and 8: the K = 2 shadow rays of the
+    1080p frames of the one-torus soup (970 triangles, TORUS_CAM), the
+    2048-triangle soup and the flagship (2 triangles), and hard_z_rays'
+    four kinds made segments (one origin, two targets, 270x480) on the
+    first two → label → (geometry, (origins, dirs, t_max))."""
+    torch, dev, gen = c.torch, c.dev, c.gen
+    import numpy as np
+
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays, make_camera
+    from romis_tpu_torch.ops import ris
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import (
+        build_geometry, flagship_camera, flagship_scene, torus_field,
+    )
+
+    f = Features()
+
+    def shadow(sc, geo, cam):
+        _, ctx = restir.trace_primary(generate_rays(cam, H, W), geo, f,
+                                      restir.KERNELS)
+        res = ris.gen_canonical_samples_ris(ctx, sc.lights, sc.num_lights, f,
+                                            generator=gen)
+        to = res.pos - ctx.position
+        d = to / torch.linalg.vector_norm(to, dim=-3).clamp_min(
+            1e-20)[:, None]
+        o = ctx.position + 1e-3 * d
+        return (o.contiguous(), d.contiguous(),
+                torch.linalg.vector_norm(res.pos - o, dim=-3).contiguous())
+
+    scene = flagship_scene(dev)
+    torus1 = torus_field(1, dev)
+    soup = build_geometry([chip_smoke.random_soup(
+        chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)
+    tcam = make_camera(resolution=(H, W), device=dev, **chip_smoke.TORUS_CAM)
+    fcam = flagship_camera(H, W, dev)
+    sets = {"torus soup": (torus1.geometry, shadow(torus1, torus1.geometry,
+                                                   tcam)),
+            "soup2048": (soup, shadow(scene, soup, fcam)),
+            "flagship": (scene.geometry, shadow(scene, scene.geometry,
+                                                fcam))}
+    for i, kind in enumerate(chip_smoke.HARD_RAY_KINDS):
+        for label, geo in (("torus soup", torus1.geometry),
+                           ("soup2048", soup)):
+            sets[f"{label}, {kind} segments"] = (geo, chip_smoke.seg_rays(
+                torch, *(torch.from_numpy(a).to(dev) for a in
+                         chip_smoke.hard_z_rays(
+                             np.random.default_rng(150 + i), kind,
+                             geo.tri_cols.cpu().numpy(), 1, 2,
+                             chip_smoke.LH, chip_smoke.LW))))
+    return sets, scene, torus1, tcam
+
+
+def soup_any_bounds(c: Ctx, name, rays, geo):
+    """Kernel 6's (``name`` "any_hit") or 8's ("any_hit_plucker") two
+    bounds on the segments (chip_smoke's): the culled walk's tests, the
+    box alone deciding, and the full scan's → (culled, full) ms and the
+    walk's tests a segment."""
+    from romis_tpu_torch.ops import trace
+
+    cs = chip_smoke
+    n_seg = rays[2].numel()
+    n_traced = int((rays[2] > 0).sum().item())
+    seg_bytes = n_seg * 29 + geo.tri_cols.numel() * 4
+    cb, cp = {}, {}
+    recip = 3 * (cs.SFU_OPS + 1)
+    if name == "any_hit":
+        trace.any_hit_culled(*rays, geo, cb, guard=False)
+        trace.any_hit_plain(*rays, geo, cp)
+        tri_ops, ray_ops = cs.MT_OPS, recip
+        full = cs.bound(seg_bytes, cp["tests"].sum().item() * cs.MT_OPS)
+    else:
+        trace.any_hit_plucker_culled(*rays, geo, cb, guard=False)
+        trace.any_hit_plucker_plain(*rays, geo, cp)
+        tri_ops, ray_ops = cs.PLUCKER_OPS, cs.PLUCKER_RAY_OPS + recip
+        full = cs.bound(seg_bytes, cp["tests"].sum().item() * cs.PLUCKER_OPS
+                        + n_seg * cs.PLUCKER_RAY_OPS)
+    culled = cs.bound(seg_bytes, cb["box"].sum().item() * cs.BOX_OPS
+                      + cb["tri"].sum().item() * tri_ops + n_traced * ray_ops)
+    return (culled[0], full[0], cb["box"].float().mean().item(),
+            cb["tri"].float().mean().item())
+
+
+def parent_any6(c: Ctx):
+    """The parent's kernel 6 (a thread a segment, every triangle, no
+    cull), called as its wrapper called it; BVH geometry as this tree's."""
+    torch = c.torch
+    from romis_tpu_torch.ops import trace
+
+    def run(origins, dirs, t_max, geometry):
+        if geometry.bvh is not None:
+            return trace.any_hit(origins, dirs, t_max, geometry)
+        o = origins.contiguous()
+        d = dirs.expand(origins.shape).contiguous()
+        tm = t_max.contiguous()
+        cols = geometry.tri_cols
+        out = torch.empty(tuple(t_max.shape), dtype=torch.bool,
+                          device=o.device)
+        if out.numel():
+            c.call(c.plib.romis_any_hit, o.data_ptr(), d.data_ptr(),
+                   tm.data_ptr(), o.shape[-2] * o.shape[-1], out.numel(),
+                   cols.data_ptr(), cols.shape[1], out.data_ptr(),
+                   kinds="pppiipip")
+        return out
+    return run
+
+
+def parent_plucker8(c: Ctx):
+    """The parent's kernel 8 (a thread a segment, every triangle's [5T,
+    16] constants staged in chunks), called as its wrapper called it: the
+    table built in the call, or given (``cmat``)."""
+    torch = c.torch
+    from romis_tpu_torch.ops import trace
+
+    def run(origins, dirs, t_max, geometry, cmat=None):
+        cm = trace.plucker_matrix(geometry) if cmat is None else cmat
+        o = origins.contiguous()
+        d = dirs.expand(origins.shape).contiguous()
+        tm = t_max.contiguous()
+        out = torch.empty(tuple(t_max.shape), dtype=torch.bool,
+                          device=o.device)
+        if out.numel():
+            c.call(c.plib.romis_any_hit_plucker, o.data_ptr(), d.data_ptr(),
+                   tm.data_ptr(), o.shape[-2] * o.shape[-1], out.numel(),
+                   cm.data_ptr(), cm.shape[0] // 5, out.data_ptr(),
+                   kinds="pppiipip")
+        return out
+    return run
+
+
+def section_6(c: Ctx) -> None:
+    """Kernel 6 (the soup any-hit) on the sets of ``soup_any_sets``: the
+    same bool as the parent's and the plain version's on every segment, in
+    turns, the parent first; the main sets beside the culled walk's and
+    the full scan's bounds. Then the frames ``animated`` and
+    ``animated_torus`` and the step ``grad_surrogate`` (the shade
+    backward's shadow rays) with either tree's kernel 6."""
+    torch, dev, card, ms = c.torch, c.dev, c.card, c.ms
+    from dataclasses import replace
+
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.ops import shade, trace
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.render.animation import interpolate_cameras
+    from romis_tpu_torch.scene.scene import flagship_camera
+    from romis_tpu_torch.core.camera import make_camera
+
+    theirs = parent_any6(c)
+    sets, scene, torus1, tcam = soup_any_sets(c)
+    for label, (geo, rays) in sets.items():
+        mine = trace.any_hit(*rays, geo)
+        chip_smoke.require(
+            torch.equal(mine, theirs(*rays, geo))
+            and torch.equal(mine, trace.any_hit_plain(*rays, geo)),
+            f"kernel 6 {label}: the bool differs from the parent's or the "
+            "plain version's")
+        new, old = chip_smoke.ab_ms(torch, lambda: trace.any_hit(*rays, geo),
+                                    lambda: theirs(*rays, geo), 10, 10)
+        row = dict(change=new, parent=old)
+        line = (f"time any_hit[{label}]: {new:.4f} ms this tree, {old:.4f} "
+                f"ms parent ({old / new:.2f}x); the same bool as the "
+                f"parent's and the plain version's")
+        if "segments" not in label:
+            b_c, b_f, box, tri = soup_any_bounds(c, "any_hit", rays, geo)
+            row.update(bound=b_c, full_scan_bound=b_f)
+            line += (f"; bound of the culled walk {b_c:.4f} ms ({box:.2f} "
+                     f"box and {tri:.2f} triangle tests a segment), "
+                     f"{new / b_c:.2f}x it; of the full scan {b_f:.4f} ms")
+        print(line + f" [{card}]")
+        ms[f"any_hit[{label}]"] = row
+    del sets
+    f = Features(temporal_reprojection=True, unbiased_combination=True,
+                 initial_samples_visibility_check=True)
+    cam = flagship_camera(H, W, dev)
+    pan = chip_smoke.PAN_DEG
+    fpath = interpolate_cameras(cam, make_camera(
+        look_at=(2.57, 1.23, -1.35), rotation_deg=(10.3, 30.0 + 3 * pan, 0.0),
+        distance=25.0, fov_deg=30.0, resolution=(H, W), device=dev), 4)
+    tpath = interpolate_cameras(tcam, make_camera(
+        resolution=(H, W), device=dev, **dict(
+            chip_smoke.TORUS_CAM, rotation_deg=(25.0, 30.0 + pan, 0.0))), 2)
+    time_frames(c, "6", {"animated": (scene, fpath, f),
+                         "animated_torus": (torus1, tpath, f)},
+                theirs_ops=replace(restir.KERNELS, any_hit=theirs))
+    time_steps(c, "6", swap=(shade, "any_hit", theirs),
+               paths=("grad_surrogate",))
+
+
+def section_8(c: Ctx) -> None:
+    """Kernel 8 (the Plücker any-hit) on the sets of ``soup_any_sets`` and
+    on small triangles moved 100 and 1000 units from the origin
+    (chip_smoke's ``moved_soup``): the same bool as the parent's and the
+    plain version's on every segment; this tree's call (its constants kept
+    with the soup) in turns with the parent's as its entry ran (the table
+    built in the call), the parent first; the parent's kernel alone (the
+    table given) and this tree's first call (its build in it) beside them;
+    the main sets beside the culled walk's and the full scan's bounds."""
+    torch, dev, card, ms = c.torch, c.dev, c.card, c.ms
+    import numpy as np
+
+    from romis_tpu_torch.ops import trace
+    from romis_tpu_torch.scene.scene import build_geometry
+
+    theirs = parent_plucker8(c)
+    sets = soup_any_sets(c)[0]
+    for off in chip_smoke.MOVED_OFFSETS:
+        geo = build_geometry([chip_smoke.moved_soup(off)], dev)
+        sets[f"soup moved {off:g}"] = (geo, chip_smoke.box_segments(
+            torch, geo, np.random.default_rng(160), 2, 270, 480, 0.05))
+    for label, (geo, rays) in sets.items():
+        mine = trace.any_hit_plucker(*rays, geo)
+        chip_smoke.require(
+            torch.equal(mine, theirs(*rays, geo))
+            and torch.equal(mine, trace.any_hit_plucker_plain(*rays, geo)),
+            f"kernel 8 {label}: the bool differs from the parent's or the "
+            "plain version's")
+        new, old = chip_smoke.ab_ms(
+            torch, lambda: trace.any_hit_plucker(*rays, geo),
+            lambda: theirs(*rays, geo), 10, 10)
+        cmat = trace.plucker_matrix(geo)
+        kernel_only = chip_smoke.cuda_ms(
+            torch, lambda: theirs(*rays, geo, cmat), 10)
+        first = chip_smoke.cuda_ms(torch, lambda: (
+            setattr(geo, "plucker", None),
+            trace.any_hit_plucker(*rays, geo)), 3)
+        row = dict(change=new, parent=old, parent_kernel=kernel_only,
+                   first_call=first)
+        line = (f"time any_hit_plucker[{label}]: {new:.4f} ms this tree (its "
+                f"constants kept), {old:.4f} ms the parent's entry (the "
+                f"table built in it; {old / new:.2f}x), {kernel_only:.4f} ms "
+                f"the parent's kernel alone; this tree's first call, its "
+                f"build in it, {first:.4f} ms; the same bool as the "
+                f"parent's and the plain version's")
+        if "segments" not in label and "moved" not in label:
+            b_c, b_f, box, tri = soup_any_bounds(c, "any_hit_plucker", rays,
+                                                 geo)
+            row.update(bound=b_c, full_scan_bound=b_f)
+            line += (f"; bound of the culled walk {b_c:.4f} ms ({box:.2f} "
+                     f"box and {tri:.2f} triangle tests a segment), "
+                     f"{new / b_c:.2f}x it; of the full scan {b_f:.4f} ms")
+        print(line + f" [{card}]")
+        ms[f"any_hit_plucker[{label}]"] = row
+
+
+SECTIONS = {"6": (section_6, ("any_hit_kernel",)),
+            "8": (section_8, ("any_hit_plucker",)),
+            "9": (section_9, ("halo_gather", "halo_scatter")),
             "19": (section_19, ("bvh_any", "bvh_closest", "final_shade")),
             "18": (section_18, ("bvh_closest", "bvh_any", "final_shade")),
             "1": (section_1, ("closest_hit", "final_shade", "zcount_kernel")),
@@ -1883,9 +2221,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="root of the other tree (e.g. build/parent)")
-    ap.add_argument("--kernels", default="9,19",
-                    help="comma-separated sections: 9, 19, 18, 1, 4, 5, 13, "
-                    "21, 16, 11, 14, 17, 7, 10, 20")
+    ap.add_argument("--kernels", default="6,8",
+                    help="comma-separated sections: 6, 8, 9, 19, 18, 1, 4, "
+                    "5, 13, 21, 16, 11, 14, 17, 7, 10, 20")
     args = ap.parse_args()
     picked = args.kernels.split(",")
     if not torch.cuda.is_available():
@@ -1906,7 +2244,8 @@ def main() -> None:
                        ("parent", parent.BUILD_DIR / "build.log")):
         for line in ptxas_lines(log, names):
             print(f"ptxas {label}: {line}")
-    c = Ctx(torch, parent.library(), card, parent.SIGNATURES)
+    c = Ctx(torch, parent.library(), card, parent.SIGNATURES,
+            c_prototypes(args.parent.resolve()))
     for p in picked:
         SECTIONS[p][0](c)
         torch.cuda.empty_cache()
