@@ -13,7 +13,9 @@ GPU.
    every ray, the rays that differ counted), final shade and any-hit also
    on a random soup of 2048 triangles; the halo gather at every shape the
    frames give it (``halo_cases``: D = 1 through a camera shift, D = 5 at
-   random and at selected neighbours' offsets), on a field beyond its
+   random and at selected neighbours' offsets, the MIS gradient steps'
+   R-OMIS w_sum | chosen_w and the banded step's band rows), on a field
+   beyond its
    window's margin, a ±100 field and planes holding infinities, NaNs and
    signed zeros, bit for bit as 32-bit patterns, each shape timed beside
    its bound and launches; the biased and unbiased spatial
@@ -25,11 +27,15 @@ GPU.
    packed vertices (later also the torus field's tables: 3 light rows, its
    material rows, 24,202 triangle rows at C = 9 and 24), each within
    SCATTER_REL of the plain version and SCATTER_F64_REL of a float64 sum,
-   and timed beside its bound and ``index_add_``; the halo scatter at D=5,
+   and timed beside its bound and ``index_add_``; the MIS records path's
+   light rows (the surrogate's records gathered at the selection's
+   offsets: D1·K indices a pixel) through the row gather bit for bit and
+   the row scatter-add, both timed there too; the halo scatter at D=5,
    C=2 on offsets within
    ±10, on the smooth field of a large camera shift (every source beyond
    the kernel's margin) and on offsets clamped at all four borders, each
-   with its share of sources beyond the margin; the replay RIS on
+   with its share of sources beyond the margin, and at every halo-gather
+   shape a gradient step scatters at (``HALO_SCATTERED``); the replay RIS on
    injected uniforms (records exact) and on Philox; and one
    ``torch.autograd.grad`` through each autograd wrapper (row gather, halo
    gather, closest hit, final shade) against autograd of the plain
@@ -112,7 +118,7 @@ GPU.
    plain Philox draw's (``neighbour_offsets``), each of the 2r + 1 values
    of dy and of dx within NBR_SHARE_REL of 1/(2r + 1) over the interior
    pixels, and dx not shared down columns (as the TPU kernel shares it).
-4. Twenty-four main paths, each at 1920x1080, once through the kernels and
+4. Twenty-eight main paths, each at 1920x1080, once through the kernels and
    once through the plain versions, with the launch counters set to 0 just
    before and read just after the kernels' run:
    - slice 1: ``Features(spatial_reuse=False)``, 2 frames;
@@ -170,6 +176,18 @@ GPU.
      op paths ``plucker_op`` (kernel 8 on the torus soup's 1080p shadow
      rays) and ``neighbour_gather_op`` (kernel 12 on config 5's pack, pass
      indices 0 and 1), 2 calls each.
+   - the MIS gradient steps at the reference defaults without
+     tone mapping (``mis_grad_features``), against a target rendered with
+     the light colours x 0.8, 2 steps each (one on injected noise, one on
+     the Philox streams): ``mis_grad_rmis`` (``make_mis_grad_fn``, R-MIS
+     balance with the surrogate: the replay RIS, the replay-records
+     gather, kernels 9, 10, 2, 13, 14 and 6), ``mis_grad_romis`` (R-OMIS
+     direct, the same), ``mis_grad_banded`` (``diff.banded``, progressive
+     R-OMIS at MIS_BANDS = 8 bands of 135 rows, the plain candidate
+     loop) and ``large_mis_grad`` (R-OMIS direct on the 5x5 torus field
+     with its BVH: kernels 18 and 20; its plain comparison at 480x270 on
+     injected noise), each with the ms and the peak device memory of its
+     Philox step and of the plain step.
    Every pixel is finite, the last images' means (the losses) agree within
    2 %, the launch counters rose by exactly the per-frame (per-step) counts
    in PATHS, and every gradient leaf is finite, reaches the image where it
@@ -185,9 +203,11 @@ GPU.
    where one PyTorch call computes the same function, that call; then
    ``torch.profiler`` over 3 R-OMIS frames, the 4 animated frames, the 2
    animated frames of the one-torus soup, a
-   large config-5 frame, a large R-OMIS frame and the three vis-check
-   paths (device busy and idle
-   share, kernels per frame, the top kernels by device time). Kernel 17 is
+   large config-5 frame, a large R-OMIS frame, the three vis-check
+   paths and one step of each whole-frame MIS gradient path after a
+   warm-up step, and one band of the banded step (the step at 1920x135 in
+   one band, timed by events too) (device busy and idle share, kernels per
+   frame, the top kernels by device time). Kernel 17 is
    timed in its four frame modes (R-OMIS, progressive, equal, balance) on
    the flagship and in its ext_vis R-OMIS on the torus field, each printed
    beside its own bound (the table's row is R-OMIS). Kernel 7 is
@@ -508,6 +528,44 @@ PATHS.update({
     "plucker_op": {"any_hit_plucker": 1},
     "neighbour_gather_op": {"neighbour_gather": 1},
 })
+# The MIS gradient steps (``mis_grad_fn``). Each iteration runs
+# under a checkpoint whose backward recomputes it, so a kernel in an
+# iteration launches twice an iteration a step: the replay RIS, its two
+# light-row gathers and the records' one, the records' and the stats' halo
+# gathers, the D1·K shadow rays; the backward kernels once: the three
+# light-row scatters, the stats' halo scatter. Once a step: the closest hit
+# and its re-evaluation's row gather, the attribute and material rows, the
+# scatters of the triangle and material rows, the selection, the
+# neighbours' contexts' halo gather and scatter. The banded step checkpoints
+# each of its MIS_BANDS bands, and each iteration of a band again inside
+# it: a band's contexts' gather runs twice (forward, the band's recompute),
+# an iteration's stats gather and shadow rays three times (forward, the
+# band's recompute, its own), but for the last iteration, which the band's
+# recompute stops short of (its last saved tensor is the α solve before
+# it: torch.utils.checkpoint's early stop); their scatters once. Its RIS is
+# the plain candidate loop.
+MIS_BANDS = 8
+_MIS_IT = 5  # the reference's max_iterations_mis
+_BAND_IT = 3 * _MIS_IT - 1  # an iteration body's runs a band, a step
+_MIS_GRAD = {"closest_hit": 1, "gather_rows": 3 + 3 * 2 * _MIS_IT,
+             "scatter_rows_add": 2 + 3 * _MIS_IT, "neighbour_select": 1,
+             "ris_replay": 2 * _MIS_IT, "halo_gather": 1 + 2 * 2 * _MIS_IT,
+             "halo_scatter": 1 + _MIS_IT, "any_hit": 2 * _MIS_IT}
+PATHS.update({
+    "mis_grad_rmis": _MIS_GRAD,
+    "mis_grad_romis": _MIS_GRAD,
+    "mis_grad_banded": {
+        "closest_hit": 1, "gather_rows": 3, "scatter_rows_add": 2,
+        "neighbour_select": 1,
+        "halo_gather": MIS_BANDS * (2 + _BAND_IT),
+        "halo_scatter": MIS_BANDS * (1 + _MIS_IT),
+        "any_hit": MIS_BANDS * _BAND_IT},
+    # The BVH walks instead of kernels 1 and 6: 12 shadow rays a pixel take
+    # the K-ray walk (kernel 20).
+    "large_mis_grad": {**{n: c for n, c in _MIS_GRAD.items()
+                          if n not in ("closest_hit", "any_hit")},
+                       "bvh_closest_hit": 1, "bvh_any_hit_k": 2 * _MIS_IT},
+})
 FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "animated_torus": 2,
           "grad_surrogate": 2,
           "grad_per_pixel": 2, "romis": 2, "romis_progressive": 2,
@@ -515,8 +573,12 @@ FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "animated_torus": 2,
           "large_animated": 2, "large_k1": 2, "large_romis": 2,
           "large_rmis_equal": 2, "config5_gather": 2, "unshaded": 2,
           "vischeck": 2, "vischeck_torus": 2, "large_vischeck": 2, "cli": 4,
-          "large_grad": 2, "plucker_op": 2, "neighbour_gather_op": 2}
+          "large_grad": 2, "plucker_op": 2, "neighbour_gather_op": 2,
+          "mis_grad_rmis": 2, "mis_grad_romis": 2, "mis_grad_banded": 2,
+          "large_mis_grad": 2}
 GRAD_PATHS = ("grad_surrogate", "grad_per_pixel", "large_grad")
+MIS_GRAD_PATHS = ("mis_grad_rmis", "mis_grad_romis", "mis_grad_banded",
+                  "large_mis_grad")
 OP_PATHS = ("plucker_op", "neighbour_gather_op")
 MIS_PATHS = ("romis", "romis_progressive", "rmis_equal", "rmis_balance",
              "large_romis", "large_rmis_equal")
@@ -763,15 +825,29 @@ def hard_shade_inputs(torch, position, targets):
 
 
 # Kernel 9's frame shapes (PERF.md row 9): label → launches over the
-# frame and step paths (PATHS x FRAMES).
+# frame and step paths (PATHS x FRAMES). The MIS gradient steps' gathers
+# count with the shapes they share: their records' (5 x 6) with
+# mis_ext_vis's, R-MIS's big_w (5 x 2) with grad_per_pixel's, their
+# contexts' with resolve_neighbour_ctx's; the banded step's at any band
+# with the band it is checked on.
 HALO_FRAME_LAUNCHES = {
-    "reprojection 1x25, camera shift": 6,
+    "reprojection 1x25, camera shift": 8,
     "config5_gather 5x39, random +-10": 4,
     "grad_per_pixel 5x45, random +-10": 4,
-    "grad_per_pixel big_w 5x2, random +-10": 4,
-    "resolve_neighbour_ctx 5x14, selected": 8,
-    "mis_ext_vis 5x6, selected": 20,
+    "grad_per_pixel big_w 5x2, random +-10": 24,
+    "resolve_neighbour_ctx 5x14, selected": 14,
+    "mis_ext_vis 5x6, selected": 80,
+    "R-OMIS w_sum | chosen 5x4, selected": 40,
+    "banded contexts 5x14, band 0 rows": 32,
+    "banded reservoirs 5x16, band 3 rows": 224,
 }
+# The shapes at which a gradient step also scatters (kernel 10 is held
+# against its plain version on each, with the same offsets).
+HALO_SCATTERED = ("grad_per_pixel big_w 5x2, random +-10",
+                  "resolve_neighbour_ctx 5x14, selected",
+                  "R-OMIS w_sum | chosen 5x4, selected",
+                  "banded contexts 5x14, band 0 rows",
+                  "banded reservoirs 5x16, band 3 rows")
 
 
 def halo_cases(torch, gen, ctx, res, feats, pan_cam):
@@ -782,11 +858,17 @@ def halo_cases(torch, gen, ctx, res, feats, pan_cam):
     the reprojection radius); the gather route's 39 pixel planes, the
     per-pixel gradient path's 39 + 3K and its K big_w planes at the spatial
     pass's random offsets within the radius, clamped into the image; the
-    sweep's 14 neighbour-context planes and 3K sample positions at the
-    neighbour selection's offsets."""
+    sweep's 14 neighbour-context planes and 3K sample positions, and the
+    MIS gradient step's 2K R-OMIS w_sum | chosen_w planes, at the neighbour
+    selection's offsets; and the banded step's (``diff.banded``, MIS_BANDS
+    bands) gathers of the contexts and the 8K-plane R-OMIS pack on a
+    band's rows and halo, as it slices them: the top band, whose halo
+    above is zero rows, and a middle band."""
     from romis_tpu_torch.core.camera import project_to_pixel
     from romis_tpu_torch.core.types import pack_reservoir_planes
+    from romis_tpu_torch.diff.banded import pad_rows
     from romis_tpu_torch.ops import nbrsel, shade, spatial
+    from romis_tpu_torch.ops.mis import pack_mis_reservoirs
     from romis_tpu_torch.render.neighbours import select_neighbour_indices
     from romis_tpu_torch.render.restir import pack_pixel_planes
     from romis_tpu_torch.render.rmis import mis_offsets
@@ -810,7 +892,18 @@ def halo_cases(torch, gen, ctx, res, feats, pan_cam):
     sdy, sdx = sel[:d].contiguous(), sel[d:].contiguous()
     pix = pack_pixel_planes(res, ctx)
     cen = shade.pack_center_ctx(ctx)
+    nbr_planes = torch.cat([cen[0:6], cen[9:16], cen[17:18]])
     pos = res.pos.reshape(3 * k, h, w)
+    rad, h_b = feats.spatial_resample_radius, h // MIS_BANDS
+
+    def band(planes, b):
+        """Band b's planes (its rows and halo of the zero-padded frame)
+        and offsets (the halo rows' 0), as ``diff.banded`` slices them."""
+        z = torch.zeros((2 * d, rad, w), dtype=sel.dtype, device=dev)
+        offs_b = torch.cat([z, sel[:, b * h_b:(b + 1) * h_b], z], dim=1)
+        return (pad_rows(planes, rad)[:, b * h_b:b * h_b + h_b + 2 * rad]
+                .contiguous(), offs_b[:d].contiguous(),
+                offs_b[d:].contiguous())
     return {
         "reprojection 1x25, camera shift": (
             torch.cat([pack_reservoir_planes(res), spatial.pack_gates(ctx)]),
@@ -820,9 +913,13 @@ def halo_cases(torch, gen, ctx, res, feats, pan_cam):
                                              rdx),
         "grad_per_pixel big_w 5x2, random +-10": (res.big_w.contiguous(),
                                                   rdy, rdx),
-        "resolve_neighbour_ctx 5x14, selected": (torch.cat(
-            [cen[0:6], cen[9:16], cen[17:18]]), sdy, sdx),
+        "resolve_neighbour_ctx 5x14, selected": (nbr_planes, sdy, sdx),
         "mis_ext_vis 5x6, selected": (pos.contiguous(), sdy, sdx),
+        "R-OMIS w_sum | chosen 5x4, selected": (torch.cat(
+            [res.w_sum, res.chosen_w]), sdy, sdx),
+        "banded contexts 5x14, band 0 rows": band(nbr_planes, 0),
+        "banded reservoirs 5x16, band 3 rows": band(
+            pack_mis_reservoirs(res, True), 3),
     }
 
 
@@ -1090,11 +1187,151 @@ def filtered_race(gates, d: int, radius: int, two_classes: bool,
     return s[0], p[0]
 
 
+def profile_run(torch, label: str, run, n: int, card: str, unit="frame",
+                cuda_only=False, warm=True) -> None:
+    """Device busy and idle share over n calls of ``run`` (after one
+    warm-up unless ``warm`` is False), and the top kernels, from
+    ``torch.profiler`` (the device's activity alone with ``cuda_only``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        run()
+    torch.cuda.synchronize()
+    ev_a = torch.cuda.Event(enable_timing=True)
+    ev_b = torch.cuda.Event(enable_timing=True)
+    activities = [ProfilerActivity.CUDA] if cuda_only else [
+        ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        ev_a.record()
+        for _ in range(n):
+            run()
+        ev_b.record()
+        torch.cuda.synchronize()
+    span = ev_a.elapsed_time(ev_b) / n
+    dev_rows = sorted(((e.key, e.self_device_time_total / 1e3 / n,
+                        e.count / n) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+    busy = sum(r[1] for r in dev_rows)
+    print(f"profile {unit}[{label}]: span {span:.3f} ms/{unit}, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / span:.3f}, "
+          f"{sum(r[2] for r in dev_rows):.0f} device kernels/{unit} [{card}]"
+          if busy else f"profile {unit}[{label}]: no device time recorded")
+    for key_, ms_, n_ in dev_rows[:8]:
+        print(f"profile {unit}[{label}]: {ms_:.3f} ms in {n_:.0f} x "
+              f"{key_[:70]}")
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper (its ``launches`` count), by KERNELS name."""
+    from romis_tpu_torch.ops import (
+        mis, nbrsel, rows, ris, scatter, shade, spatial, trace, walk,
+    )
+
+    return {"closest_hit": trace.closest_hit,
+            "gather_rows": rows.gather_rows,
+            "ris": ris.gen_canonical_samples_ris,
+            "final_shade": shade.final_shade_soup,
+            "spatial_pass": spatial.spatial_pass_fused,
+            "spatial_pass_unbiased": spatial.spatial_pass_unbiased_fused,
+            "halo_gather": spatial.halo_offset_gather,
+            "any_hit": trace.any_hit,
+            "scatter_rows_add": scatter.scatter_rows_add,
+            "halo_scatter": spatial.halo_offset_scatter,
+            "ris_replay": ris.gen_canonical_replay,
+            "neighbour_select": nbrsel.neighbour_select,
+            "mis_ris": ris.gen_mis_reservoir_planes,
+            "mis_iteration": mis.mis_iteration,
+            "bvh_closest_hit": walk.closest_hit_bvh,
+            "bvh_any_hit": walk.any_hit_bvh,
+            "bvh_any_hit_k": walk.any_hit_bvh_k,
+            "bvh_final_shade": shade.final_shade_bvh,
+            "zcount_occ": trace.zcount_occ,
+            "any_hit_plucker": trace.any_hit_plucker,
+            "neighbour_gather": spatial.neighbour_gather}
+
+
+def mis_grad_features(path: str):
+    """The Features of an MIS gradient path: the reference defaults (D = 5,
+    r = 10, K = 2, S = 32, 5 iterations) without tone mapping; R-MIS
+    balance (EQUAL_SIMILAR_DISSIMILAR) and R-OMIS direct with the
+    surrogate (the replay-records path), progressive R-OMIS banded on the
+    plain candidate loop."""
+    from romis_tpu_torch import (
+        Features, MISWeight, NeighbourSelectionStrategy, RayTraceMode,
+    )
+
+    if path == "mis_grad_banded":
+        return Features(enable_tone_mapping=False,
+                        ray_trace_mode=RayTraceMode.ROMIS,
+                        use_progressive_romis=True)
+    if path == "mis_grad_rmis":
+        return Features(
+            enable_tone_mapping=False, surrogate_resampling_grad=True,
+            ray_trace_mode=RayTraceMode.RMIS,
+            mis_weight_rmis=MISWeight.BALANCE,
+            neighbour_selection_strategy=(
+                NeighbourSelectionStrategy.EQUAL_SIMILAR_DISSIMILAR))
+    return Features(enable_tone_mapping=False, surrogate_resampling_grad=True,
+                    ray_trace_mode=RayTraceMode.ROMIS)
+
+
+def mis_grad_fn(path: str, scene, hw, ops, bands: int = MIS_BANDS):
+    """An MIS gradient path's step: ``make_mis_grad_fn``, or for
+    ``mis_grad_banded`` ``make_mis_banded_grad_fn`` in ``bands`` bands."""
+    from romis_tpu_torch.diff.banded import make_mis_banded_grad_fn
+    from romis_tpu_torch.diff.grad import make_mis_grad_fn
+
+    args = (scene.geometry, scene.lights, scene.num_lights, *hw,
+            mis_grad_features(path))
+    if path == "mis_grad_banded":
+        return make_mis_banded_grad_fn(*args, bands, ops=ops)
+    return make_mis_grad_fn(*args, ops=ops)
+
+
+def mis_grad_setup(torch, path: str, scene, cam, hw, dev):
+    """(params, target, one step's injected noise) of an MIS gradient path
+    at hw: the target rendered with the light colours x 0.8, the noise the
+    selection's score planes and, but for the banded step (whose RIS draws
+    from the generator), every iteration's replay uniforms."""
+    from romis_tpu_torch.diff.grad import (
+        extract_params, render_mis_with_params,
+    )
+    from romis_tpu_torch.ops.nbrsel import selection_noise
+    from romis_tpu_torch.ops.wrs import replay_uniforms
+
+    f = mis_grad_features(path)
+    p = extract_params(scene.geometry, scene.lights)
+    dim = replace(p, **{n: getattr(p, n) * 0.8 for n in (
+        "light_c0", "light_c1", "light_c2", "light_c3")})
+    g = torch.Generator(device=dev).manual_seed(11)
+    with torch.no_grad():
+        target = render_mis_with_params(dim, g, cam, scene.geometry,
+                                        scene.lights, scene.num_lights, *hw,
+                                        f)
+    sel = selection_noise(g, f.spatial_resample_radius, *hw)
+    if path == "mis_grad_banded":
+        return p, target, sel
+    return p, target, (sel, torch.stack([
+        replay_uniforms(g, f.initial_light_samples,
+                        f.num_samples_in_reservoir, *hw)
+        for _ in range(f.max_iterations_mis)]))
+
+
 def main() -> None:
     import numpy as np
     import torch
 
     # ---- 1. the device ----
+    sys.stdout.reconfigure(line_buffering=True)
+    t_run = time.perf_counter()
+
+    def section(label):
+        print(f"section {label}: {time.perf_counter() - t_run:.1f} s into "
+              f"the run")
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke run needs a GPU")
     sys.path.insert(0, str(ROOT))
@@ -1118,8 +1355,9 @@ def main() -> None:
         bvh_any, bvh_any_wide, bvh_closest, bvh_closest_ordered,
     )
     from romis_tpu_torch.ops.wrs import (
-        gen_canonical_replay_plain, gen_canonical_samples_plain, gumbel_noise,
-        replay_uniforms, visibility, visibility_from,
+        gen_canonical_replay_plain, gen_canonical_samples_plain,
+        gen_canonical_surrogate, gumbel_noise, replay_uniforms, visibility,
+        visibility_from,
     )
     from romis_tpu_torch.render import restir
     from romis_tpu_torch.render.animation import (
@@ -1146,6 +1384,7 @@ def main() -> None:
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     # ---- 2. the build ----
+    section("2")
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
@@ -1173,29 +1412,10 @@ def main() -> None:
     print(f"build: host BVH builder {time.perf_counter() - t0:.1f} s -> "
           f"{host.name}")
 
-    wrappers = {"closest_hit": trace.closest_hit,
-                "gather_rows": rows.gather_rows,
-                "ris": ris.gen_canonical_samples_ris,
-                "final_shade": shade.final_shade_soup,
-                "spatial_pass": spatial.spatial_pass_fused,
-                "spatial_pass_unbiased": spatial.spatial_pass_unbiased_fused,
-                "halo_gather": spatial.halo_offset_gather,
-                "any_hit": trace.any_hit,
-                "scatter_rows_add": scatter.scatter_rows_add,
-                "halo_scatter": spatial.halo_offset_scatter,
-                "ris_replay": ris.gen_canonical_replay,
-                "neighbour_select": nbrsel.neighbour_select,
-                "mis_ris": ris.gen_mis_reservoir_planes,
-                "mis_iteration": mis.mis_iteration,
-                "bvh_closest_hit": walk.closest_hit_bvh,
-                "bvh_any_hit": walk.any_hit_bvh,
-                "bvh_any_hit_k": walk.any_hit_bvh_k,
-                "bvh_final_shade": shade.final_shade_bvh,
-                "zcount_occ": trace.zcount_occ,
-                "any_hit_plucker": trace.any_hit_plucker,
-                "neighbour_gather": spatial.neighbour_gather}
+    wrappers = kernel_wrappers()
 
     # ---- 3. each kernel against its plain version ----
+    section("3")
     feats = Features()
     k, s = feats.num_samples_in_reservoir, feats.initial_light_samples
     n_nbr, radius = feats.num_neighbours_to_sample, \
@@ -1549,25 +1769,67 @@ def main() -> None:
         -5000, 5001, (2, n_nbr, H, W), generator=gen, device=dev,
         dtype=torch.int32)
     errs["halo_scatter"] = 0.0
-    for label, (hdy, hdx) in {
-            f"±{radius}": (sdy, sdx), "camera shift (37, -53)": (shift_dy,
-                                                                 shift_dx),
-            "±5000, clamped at the borders": (border_dy, border_dx)}.items():
-        hs_k = spatial.halo_offset_scatter(halo_ct, hdy, hdx)
-        hs_p = spatial.halo_offset_scatter_plain(halo_ct, hdy, hdx)
-        hs_mag = spatial.halo_offset_scatter_plain(halo_ct.abs(), hdy,
+
+    def check_halo_scatter(label, ct, hdy, hdx):
+        hs_k = spatial.halo_offset_scatter(ct, hdy, hdx)
+        hs_p = spatial.halo_offset_scatter_plain(ct, hdy, hdx)
+        hs_mag = spatial.halo_offset_scatter_plain(ct.abs(), hdy,
                                                    hdx).clamp_min(1e-30)
         torch.cuda.synchronize()
         hs_rel = ((hs_k - hs_p).abs() / hs_mag).max().item()
         far = spatial.beyond_margin(hdy, hdx).float().mean().item()
-        print(f"check halo_scatter[{label}]: D={n_nbr}, C={k}, max err / "
+        print(f"check halo_scatter[{label}]: D={ct.shape[0]}, C="
+              f"{ct.shape[1]}, {ct.shape[2]}x{ct.shape[3]}, max err / "
               f"sum|ct| {hs_rel:.2e}, sources beyond the margin "
               f"{far:.4f}")
         require(hs_rel <= HALO_SCATTER_REL, f"halo scatter {label}: "
                 f"{hs_rel}")
         errs["halo_scatter"] = max(errs["halo_scatter"],
                                    (hs_k - hs_p).abs().max().item())
-    del hs_k, hs_p, hs_mag, shift_dy, shift_dx, border_dy, border_dx
+
+    for label, (hdy, hdx) in {
+            f"±{radius}": (sdy, sdx), "camera shift (37, -53)": (shift_dy,
+                                                                 shift_dx),
+            "±5000, clamped at the borders": (border_dy, border_dx)}.items():
+        check_halo_scatter(label, halo_ct, hdy, hdx)
+    del shift_dy, shift_dx, border_dy, border_dx
+    # The gradient steps' own shapes (HALO_SCATTERED): cotangents
+    # [D, C, h, w] of each gather, at the offsets kernel 9 gathered with.
+    for label in HALO_SCATTERED:
+        pl, hdy, hdx = halo[label]
+        check_halo_scatter(label, torch.randn(
+            (hdy.shape[0], *pl.shape), generator=gen, device=dev), hdy, hdx)
+
+    # The MIS gradient step's records path (render.rmis.gather_nb_records):
+    # the surrogate's winner records of the flagship frame, gathered at
+    # the neighbour selection's offsets, self first, give D1·K light
+    # indices a pixel into the light table, through kernel 2 and back
+    # through kernel 13.
+    _, rec = gen_canonical_surrogate(
+        ctx, scene.lights, scene.num_lights, scene.geometry,
+        feats.replace(surrogate_resampling_grad=True), generator=gen)
+    rec_pl = rec[:, 0].contiguous()  # [K, H, W] light index (-1: none)
+    rec_idx = torch.clamp_min(torch.cat([
+        rec_pl[None], spatial.halo_offset_gather(
+            rec_pl, *halo["mis_ext_vis 5x6, selected"][1:])]), 0.0).int()
+    del rec, rec_pl
+    l_tab = scene.lights.rows
+    exact = torch.equal(rows.gather_rows(l_tab, rec_idx),
+                        rows.gather_rows_plain(l_tab, rec_idx))
+    torch.cuda.synchronize()
+    print(f"check gather_rows[records]: {tuple(rec_idx.shape)} = "
+          f"{rec_idx.numel()} light indices, bit-exact {exact}")
+    require(exact, "gather_rows at the records' indices is not bit-exact")
+
+    def records_ct():
+        """Kernel 13's cotangents at the records' indices [24, D1, K, H,
+        W]."""
+        return torch.randn((l_tab.shape[1], *rec_idx.shape), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               17))
+
+    errs["scatter_rows_add"] = max(errs["scatter_rows_add"], check_scatter(
+        "records lights", records_ct(), rec_idx, l_tab.shape[0]))
 
     # Replay RIS: injected uniforms (records exact), then Philox.
     def check_replay(c, label, f=feats):
@@ -2458,6 +2720,7 @@ def main() -> None:
     del g_k, g_p, src, sy, sx, rec, drawn, inner
 
     # ---- 4. the main paths through the entry points ----
+    section("4")
     path_feats = {
         "slice1": Features(spatial_reuse=False),
         "config5": Features(),
@@ -2581,8 +2844,8 @@ def main() -> None:
                 f"{path}: calls {'differ' if path == 'plucker_op' else 'equal'}")
         del outs
     for path, per_frame in PATHS.items():
-        if (path in GRAD_PATHS or path in MIS_PATHS or path in OP_PATHS
-                or path == "cli"):
+        if (path in GRAD_PATHS or path in MIS_GRAD_PATHS or path in MIS_PATHS
+                or path in OP_PATHS or path == "cli"):
             continue
         for fn in wrappers.values():
             fn.launches = 0
@@ -2632,6 +2895,7 @@ def main() -> None:
             save_image(str(png), img_k)
             print(f"path {path}: wrote {png.relative_to(ROOT)}")
 
+    section("frame paths")
     # The app: python -m romis_tpu_torch.cli in-process, on a TOML with the
     # visibility check and the 5x5 torus field's lights, and an OBJ + MTL of
     # the field (24,202 triangles: the CLI attaches the BVH). 4 frames with a
@@ -2734,6 +2998,7 @@ def main() -> None:
     print(f"path cli: wrote {png.relative_to(ROOT)}")
     del imgs_r, csc
 
+    section("cli")
     # The gradient paths: make_grad_fn from one forward frame's state,
     # against a target rendered with the light colours x 0.8; large_grad
     # on the 5x5 torus field with its BVH (the tree as built).
@@ -2777,28 +3042,15 @@ def main() -> None:
                             grad_feats[path], ops=ops)
 
     grad_reach = ("light_c0", "light_v0", "mat_kd", "tri_v0")
-    for path in GRAD_PATHS:
-        f, sc, c, p, prev, target, noise = grad_setup(path)
-        fn_k = grad_fn(path, sc, (H, W))
-        for fn in wrappers.values():
-            fn.launches = 0
-        loss_k, g_k = fn_k(p, target, None, c, prev, noise)
-        loss_k2, g_k2 = fn_k(p, target,
-                             torch.Generator(device=dev).manual_seed(12),
-                             c, prev)
-        torch.cuda.synchronize()
-        got = {n: fn.launches for n, fn in wrappers.items()}
-        hw = (H, W)
-        if path == "large_grad":
-            # The plain step at 480x270 (the plain traversal walks the
-            # tree in lockstep), against the kernels' on the same noise.
-            hw = (LH, LW)
-            f, sc, c, p, prev, target, noise = grad_setup(path, hw)
-            loss_k, g_k = grad_fn(path, sc, hw)(p, target, None, c, prev,
-                                                noise)
-        loss_p, g_p = grad_fn(path, sc, hw, restir.PLAIN)(
-            p, target, None, c, prev, noise)
-        torch.cuda.synchronize()
+
+    def check_steps(path, got, hw, steps):
+        """The launch counts of a gradient path's kernel steps, and the
+        steps (loss, gradients) of the kernels and the plain versions at
+        hw (on the same noise) and of the kernels on the Philox streams at
+        W x H: finite, the losses within FRAME_REL, each leaf within
+        GRAD_REL of its largest element and reaching the image where it
+        should."""
+        (loss_k, g_k), (loss_p, g_p), (loss_k2, g_k2) = steps
         expect = {n: PATHS[path].get(n, 0) * FRAMES[path] for n in KERNELS}
         print(f"path {path}: launches over {FRAMES[path]} steps "
               f"{ {n: c for n, c in got.items() if c} }")
@@ -2828,8 +3080,93 @@ def main() -> None:
                 require(scale > 0 and a2.abs().max().item() > 0,
                         f"{path}: no gradient reaches {leaf}")
         print(f"path {path}: worst gradient leaf err / max |g| {worst:.2e}")
-        del g_k, g_k2, g_p, prev, target, noise
 
+    for path in GRAD_PATHS:
+        f, sc, c, p, prev, target, noise = grad_setup(path)
+        fn_k = grad_fn(path, sc, (H, W))
+        for fn in wrappers.values():
+            fn.launches = 0
+        step_k = fn_k(p, target, None, c, prev, noise)
+        step_k2 = fn_k(p, target, torch.Generator(device=dev).manual_seed(12),
+                       c, prev)
+        torch.cuda.synchronize()
+        got = {n: fn.launches for n, fn in wrappers.items()}
+        hw = (H, W)
+        if path == "large_grad":
+            # The plain step at 480x270 (the plain traversal walks the
+            # tree in lockstep), against the kernels' on the same noise.
+            hw = (LH, LW)
+            f, sc, c, p, prev, target, noise = grad_setup(path, hw)
+            step_k = grad_fn(path, sc, hw)(p, target, None, c, prev, noise)
+        step_p = grad_fn(path, sc, hw, restir.PLAIN)(
+            p, target, None, c, prev, noise)
+        torch.cuda.synchronize()
+        check_steps(path, got, hw, (step_k, step_p, step_k2))
+        del step_k, step_k2, step_p, prev, target, noise
+
+    section("gradient paths")
+    # The MIS gradient steps: step 1 on injected noise (the selection's
+    # score planes and every iteration's replay uniforms; the banded
+    # step's RIS on a generator seeded alike), step 2 on the Philox
+    # streams, against a target rendered with the light colours x 0.8;
+    # the plain step takes step 1's noise (large_mis_grad's at LH x LW on
+    # both sides: the plain 12-ray walk is a lockstep loop).
+    def timed(step):
+        """(the step's result, its ms by CUDA events, its peak device
+        memory, and what was held before it)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev_a = torch.cuda.Event(enable_timing=True)
+        ev_b = torch.cuda.Event(enable_timing=True)
+        ev_a.record()
+        out = step()
+        ev_b.record()
+        torch.cuda.synchronize()
+        return (out, ev_a.elapsed_time(ev_b),
+                torch.cuda.max_memory_allocated(), base)
+
+    mis_setups = {}
+    for path in MIS_GRAD_PATHS:
+        sc, c, _ = path_scene(path)
+        p, target, noise = mis_grad_setup(torch, path, sc, c, (H, W), dev)
+        mis_setups[path] = (sc, c, p, target)
+        fn_k = mis_grad_fn(path, sc, (H, W), restir.KERNELS)
+        for fn in wrappers.values():
+            fn.launches = 0
+        step_k = fn_k(p, target, torch.Generator(device=dev).manual_seed(13),
+                      c, noise=noise)
+        step_k2, ms_k, pk, bk = timed(lambda: fn_k(
+            p, target, torch.Generator(device=dev).manual_seed(12), c))
+        got = {n: fn.launches for n, fn in wrappers.items()}
+        hw = (H, W)
+        if path.startswith("large_"):
+            hw = (LH, LW)
+            c = torus_field_camera(LH, LW, dev)
+            p, target, noise = mis_grad_setup(torch, path, sc, c, hw, dev)
+            step_k = mis_grad_fn(path, sc, hw, restir.KERNELS)(
+                p, target, torch.Generator(device=dev).manual_seed(13), c,
+                noise=noise)
+        step_p, ms_p, pp, bp = timed(lambda: mis_grad_fn(
+            path, sc, hw, restir.PLAIN)(
+                p, target, torch.Generator(device=dev).manual_seed(13), c,
+                noise=noise))
+        at_p = "" if hw == (H, W) else f" at {LW}x{LH}"
+        nbr_ctx = mis.NBR_CTX_PLANES * n_nbr * H * W * 4
+        print(f"time grad[{path}]: {ms_k:.3f} ms/step kernels (the Philox "
+              f"step, the second), {ms_p:.3f} ms/step plain{at_p} (injected "
+              f"noise) [{card}]")
+        print(f"memory grad[{path}]: peak {pk / 2**30:.3f} GiB kernels, "
+              f"Philox step ({(pk - bk) / 2**30:.3f} above the "
+              f"{bk / 2**30:.3f} GiB held before it), {pp / 2**30:.3f} GiB "
+              f"plain{at_p}, injected noise ({(pp - bp) / 2**30:.3f} above); "
+              f"the neighbours' contexts gathered once a step "
+              f"{nbr_ctx / 2**30:.3f} GiB, their cotangent as much [{card}]")
+        check_steps(path, got, hw, (step_k, step_p, step_k2))
+        del step_k, step_k2, step_p, target, noise
+        section(f"path {path}")
+
+    section("MIS gradient paths")
     # R-MIS / R-OMIS: frame 1 on injected noise (the selection's score
     # planes, every iteration's RIS uniforms), frame 2 on the Philox
     # streams; the plain run takes frame 1's noise.
@@ -2890,6 +3227,7 @@ def main() -> None:
     del mis_noise, small_noise
 
     # ---- 5. timing ----
+    section("5")
     def one_frame(path, ops, hw=(H, W)):
         g = torch.Generator(device=dev).manual_seed(5)
         f = path_feats[path]
@@ -2909,7 +3247,8 @@ def main() -> None:
         return run
 
     for path in PATHS:
-        if path in GRAD_PATHS or path in OP_PATHS or path == "cli":
+        if (path in GRAD_PATHS or path in MIS_GRAD_PATHS or path in OP_PATHS
+                or path == "cli"):
             continue
         if path.startswith("large_") and path in MIS_PATHS \
                 or path in SMALL_PLAIN:
@@ -2932,38 +3271,10 @@ def main() -> None:
               f"ms/frame plain ({H * W * (1 + k) / f_k / 1e3:.1f} Mrays/s) "
               f"[{card}]")
 
+    section("frame timings")
     # Where a frame's time goes: torch.profiler over a few frames.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def profile_frames(path, n):
-        run = one_frame(path, restir.KERNELS)
-        run()
-        torch.cuda.synchronize()
-        ev_a = torch.cuda.Event(enable_timing=True)
-        ev_b = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            ev_a.record()
-            for _ in range(n):
-                run()
-            ev_b.record()
-            torch.cuda.synchronize()
-        span = ev_a.elapsed_time(ev_b) / n
-        dev_rows = sorted(((e.key, e.self_device_time_total / 1e3 / n,
-                            e.count / n) for e in prof.key_averages()
-                           if e.device_type == DeviceType.CUDA
-                           and e.self_device_time_total > 0),
-                          key=lambda r: -r[1])
-        busy = sum(r[1] for r in dev_rows)
-        print(f"profile frame[{path}]: span {span:.3f} ms/frame, device busy "
-              f"{busy:.3f} ms, idle share {1 - busy / span:.3f}, "
-              f"{sum(r[2] for r in dev_rows):.0f} device kernels/frame "
-              f"[{card}]" if busy
-              else f"profile frame[{path}]: no device time recorded")
-        for key_, ms_, n_ in dev_rows[:8]:
-            print(f"profile frame[{path}]: {ms_:.3f} ms in {n_:.0f} x "
-                  f"{key_[:70]}")
+        profile_run(torch, path, one_frame(path, restir.KERNELS), n, card)
 
     profile_frames("romis", 3)
     profile_frames("animated", FRAMES["animated"])
@@ -3019,6 +3330,31 @@ def main() -> None:
               f"({(pp - bp) / 2**30:.3f} above) [{card}]")
         del setups
 
+    # One whole-frame MIS gradient step of each path on the Philox
+    # streams, profiled on the device's activity alone after a warm-up
+    # step. Its ms by events and the plain step's are in section 4's lines.
+    # The banded step's ~10^6 launches would keep the profiler busy for
+    # minutes: one band's work is profiled instead, the step at
+    # W x (H / MIS_BANDS) in one band (the same band shapes, the flagship
+    # camera at that size), timed by events and profiled alike.
+    for path, (sc, c, p, target) in mis_setups.items():
+        bands, hw = MIS_BANDS, (H, W)
+        if path == "mis_grad_banded":
+            bands, hw = 1, (H // MIS_BANDS, W)
+            c = flagship_camera(*hw, dev)
+            p, target, _ = mis_grad_setup(torch, path, sc, c, hw, dev)
+        fn = mis_grad_fn(path, sc, hw, restir.KERNELS, bands)
+        g = torch.Generator(device=dev).manual_seed(5)
+        label = path
+        if bands == 1:  # warmed up by its timing
+            label = f"{path}, one band {W}x{hw[0]}"
+            ms = cuda_ms(torch, lambda: fn(p, target, g, c), 2)
+            print(f"time grad[{label}]: {ms:.3f} ms/step [{card}]")
+        profile_run(torch, label, lambda: fn(p, target, g, c), 1, card,
+                    "step", cuda_only=True, warm=bands != 1)
+    del mis_setups
+
+    section("step timings and profiles")
     uni = torch.rand((sk, 4, k, H, W), generator=gen, device=dev)
     o, d, tm = shadow_rays(ctx, res_main)
     key = spatial.philox_key(gen)
@@ -3060,6 +3396,21 @@ def main() -> None:
         timings[label] = ab_ms(torch, lambda: kernel_fn(generator=gen,
                                                         key=key),
                                lambda: plain_fn(generator=gen), 10, 3)
+    # Kernel 2 at the MIS records path's light indices, and kernel 13 back
+    # (the last of the cases below).
+    ms = ab_ms(torch, lambda: rows.gather_rows(l_tab, rec_idx),
+               lambda: rows.gather_rows_plain(l_tab, rec_idx).contiguous(),
+               20, 5)
+    flat = rec_idx.reshape(-1).long()
+    lib = cuda_ms(torch, lambda: torch.index_select(l_tab, 0, flat), 20)
+    b_ms, b_by = bound(rec_idx.numel() * 4 * (1 + l_tab.shape[1])
+                       + l_tab.numel() * 4, 0)
+    print(f"time gather_rows[records]: {ms[0]:.4f} ms kernel, {ms[1]:.4f} "
+          f"ms plain, index_select {lib:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {ms[0] / b_ms:.2f}x the bound; {rec_idx.numel()} "
+          f"indices [{card}]")
+    del flat
+    scatter_cases["records lights"] = (records_ct(), rec_idx, l_tab.shape[0])
     for label, (ct, idx_s, n_rows) in scatter_cases.items():
         ms = ab_ms(torch, lambda: scatter.scatter_rows_add(ct, idx_s, n_rows),
                    lambda: scatter.scatter_rows_add_plain(ct, idx_s, n_rows),
@@ -3075,7 +3426,7 @@ def main() -> None:
               f"[{card}]")
         if label == "lights":
             timings["scatter_rows_add"] = ms
-    del src, flat
+    del src, flat, ct, scatter_cases["records lights"]
     timings["halo_scatter"] = ab_ms(
         torch, lambda: spatial.halo_offset_scatter(halo_ct, sdy, sdx),
         lambda: spatial.halo_offset_scatter_plain(halo_ct, sdy, sdx), 20, 5)
@@ -3788,6 +4139,7 @@ def main() -> None:
     print(f"time neighbour_select (two classes, philox): {ms:.4f} ms "
           f"[{card}]")
 
+    section("kernel table")
     table_rows = [{"name": n, "route": "cuda", "source": SOURCES[n][0],
                    "replaces": SOURCES[n][1], "launches": launches[n],
                    "max_abs_err": errs[n], "ms": timings[n][0],

@@ -1,6 +1,7 @@
 """Differentiable rendering: gradients of the rendered image with respect to
-the scene's parameters (reference ``romis_tpu/diff/grad.py``, the ReSTIR
-half; R-MIS and R-OMIS come with the MIS slice).
+the scene's parameters (reference ``romis_tpu/diff/grad.py``): the ReSTIR
+step (``make_grad_fn``) and the R-MIS / R-OMIS step
+(``make_mis_grad_fn``; its band-sequential form is ``diff.banded``).
 
 The parameters are light emission (the four corner colours of every light),
 light placement (v0 / edge01 / edge02), the material tables (kd, ks,
@@ -17,6 +18,17 @@ with a BVH by the walk kernels through ``ops.trace.any_hit``). The resampling
 phases run their differentiable formulation (``fused_resampling=False``):
 with ``surrogate_resampling_grad`` the detached replay RIS (kernel 14) and
 the winner-replay combines.
+
+The MIS step (``render_mis_with_params``) runs the same way: the
+differentiable formulation of ``render.rmis`` (``fused_resampling=False``)
+in place of the MIS RIS and sweep kernels (15, 17), which have no
+backward; with ``surrogate_resampling_grad`` the replay RIS (kernel 14)
+and the replay-records gather, the light rows through kernels 2 and 13;
+the neighbourhood's stats and contexts through the halo gather and its
+scatter (kernels 9, 10); the shadow rays through kernel 6 (the BVH walks
+on geometry with a BVH), their visibility detached. The neighbour
+selection (kernel 16) is discrete and detached. Each iteration runs under
+a checkpoint, so its kernels launch again in the backward.
 """
 
 from __future__ import annotations
@@ -25,12 +37,14 @@ from dataclasses import dataclass, fields, replace
 
 import torch
 
-from ..core.features import Features
+from ..core.features import Features, RayTraceMode
 
 from ..core.camera import CameraParams
 from ..render.restir import (
     KERNELS, FrameOps, TemporalState, render_restir_frame,
 )
+from ..render.rmis import render_rmis
+from ..render.romis import render_romis
 from ..scene import lights as lights_mod
 from ..scene import scene as scene_mod
 
@@ -132,13 +146,70 @@ def make_grad_fn(geometry, lights, num_lights: int, height: int, width: int,
 
     def value_and_grad(params: SceneParams, target, generator, cam,
                        prev: TemporalState, noise=None):
-        leaves = [p.detach().requires_grad_() for p in params.leaves()]
-        loss = l2_image_loss(SceneParams(*leaves), target, generator, cam,
-                             geometry, lights, num_lights, height, width,
-                             features, prev, noise, ops)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), SceneParams(*(
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)))
+        return _value_and_grad(
+            lambda p: l2_image_loss(p, target, generator, cam, geometry,
+                                    lights, num_lights, height, width,
+                                    features, prev, noise, ops), params)
+
+    return value_and_grad
+
+
+def _value_and_grad(loss_fn, params: SceneParams):
+    """(loss, SceneParams of gradients) of ``loss_fn`` at ``params``, with
+    zeros where a parameter does not reach the loss."""
+    leaves = [p.detach().requires_grad_() for p in params.leaves()]
+    loss = loss_fn(SceneParams(*leaves))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), SceneParams(*(
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)))
+
+
+def render_mis_with_params(params: SceneParams, generator,
+                           cam: CameraParams, geometry, lights,
+                           num_lights: int, height: int, width: int,
+                           features: Features, inject=None, noise=None,
+                           ops: FrameOps = KERNELS) -> torch.Tensor:
+    """Forward R-MIS or R-OMIS render (by ``features.ray_trace_mode``: R-MIS,
+    else R-OMIS) with ``params`` substituted into the scene, on the
+    differentiable formulation (``fused_resampling=False``) → image
+    [H, W, 3]. ``inject`` and ``noise`` are ``render.rmis.render_rmis``'
+    test hooks."""
+    geometry, lights = apply_params(geometry, lights, params)
+    features = features.replace(fused_resampling=False)
+    render = render_rmis if features.ray_trace_mode == RayTraceMode.RMIS \
+        else render_romis
+    return render(generator, cam, geometry, lights, num_lights, height,
+                  width, features, inject=inject, noise=noise, ops=ops)
+
+
+def mis_l2_image_loss(params: SceneParams, target, generator, cam, geometry,
+                      lights, num_lights: int, height: int, width: int,
+                      features: Features, inject=None, noise=None,
+                      ops: FrameOps = KERNELS) -> torch.Tensor:
+    """Mean-squared error of an R-MIS / R-OMIS render against a target
+    image [H, W, 3]."""
+    img = render_mis_with_params(params, generator, cam, geometry, lights,
+                                 num_lights, height, width, features, inject,
+                                 noise, ops)
+    return torch.mean((img - target) ** 2)
+
+
+def make_mis_grad_fn(geometry, lights, num_lights: int, height: int,
+                     width: int, features: Features,
+                     ops: FrameOps = KERNELS):
+    """The value and gradient of the MIS L2 loss with respect to
+    SceneParams: ``fn(params, target, generator, cam, inject=None,
+    noise=None)`` → (loss, SceneParams of gradients, zeros where a
+    parameter does not reach the image). There is no temporal state.
+    Geometry with a BVH is taken as ``make_grad_fn`` takes it."""
+
+    def value_and_grad(params: SceneParams, target, generator, cam,
+                       inject=None, noise=None):
+        return _value_and_grad(
+            lambda p: mis_l2_image_loss(p, target, generator, cam, geometry,
+                                        lights, num_lights, height, width,
+                                        features, inject, noise, ops),
+            params)
 
     return value_and_grad

@@ -131,18 +131,20 @@ def _check_mode(mode, nbr_ctx, alphas):
 
 
 def gather_neighbourhood(res_planes: torch.Tensor, offs: torch.Tensor,
-                         mode: str, k: int, it_block: int = 0):
+                         mode: str, k: int, it_block: int = 0,
+                         gather=halo_offset_gather_plain):
     """Block ``it_block`` of the pack at the neighbourhood, self first →
     SimpleNamespace of fields [D1, K, (3,) H, W]: pos, color and big_w
-    (R-MIS) or w_sum and chosen_w (R-OMIS)."""
+    (R-MIS) or w_sum and chosen_w (R-OMIS). ``gather`` fetches the
+    neighbours (the plain halo gather; the differentiable formulation
+    passes ``ops.halo_gather``, kernel 9 with kernel 10 as its backward)."""
     from types import SimpleNamespace
 
     c_res = mis_pack_planes(mode, k)
     block = res_planes[it_block * c_res:(it_block + 1) * c_res]
     d = offs.shape[0] // 2
     h, w = block.shape[-2:]
-    g = torch.cat([block[None], halo_offset_gather_plain(
-        block, offs[:d], offs[d:])])  # [D1, C, H, W]
+    g = torch.cat([block[None], gather(block, offs[:d], offs[d:])])
     nb = SimpleNamespace(pos=g[:, :3 * k].reshape(d + 1, k, 3, h, w),
                          color=g[:, 3 * k:6 * k].reshape(d + 1, k, 3, h, w))
     if mode == "romis":

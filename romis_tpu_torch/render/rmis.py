@@ -29,20 +29,40 @@ gathers the neighbours' sample positions (``ops.halo_gather``) and traces
 the D1·K shadow rays of every pixel in one batch (``ops.any_hit``: kernel
 20, the shared BVH walk), and the sweep reads those visibility planes. A
 soup above the soup kernels' 2048 triangles without a BVH is refused,
-naming ``with_bvh``; so is the MIS gradient formulation
-(``surrogate_resampling_grad``), not ported yet.
+naming ``with_bvh``.
+
+With ``fused_resampling=False`` (``diff.grad.make_mis_grad_fn`` sets it,
+as the reference does) the iterations run the reference's differentiable
+formulation instead of kernels 15 and 17, which have no backward: per
+iteration the canonical RIS (with ``surrogate_resampling_grad`` the
+detached replay RIS, kernel 14, and the winner-replay tail; else the plain
+candidate loop), the neighbourhood gather (``ops.halo_gather``: kernel 9,
+kernel 10 as its backward; with the surrogate in replay-records mode,
+``gather_nb_records``, whose light rows take kernel 2 and kernel 13), the
+D1·K shadow rays of every pixel (``ops.any_hit``: kernel 6, or the BVH
+walks) and the sweep's arithmetic as tensor code (``rmis_sample_contrib``,
+``render.romis.romis_iteration_terms``). The neighbours' contexts are
+gathered once a frame (``ops.mis.resolve_neighbour_ctx``, 14 planes a
+neighbour). Each iteration runs under ``torch.utils.checkpoint``
+(``checkpointed``), so the backward holds one iteration's intermediates
+at a time; its random numbers come from a seed drawn before the body
+(``canonical_draws``), so that the recompute draws what the forward drew.
 """
 
 from __future__ import annotations
 
+from dataclasses import fields
+from types import SimpleNamespace
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.camera import CameraParams, generate_rays
 from ..core.features import Features, MISWeight
 from ..core.types import ShadeCtx
 from ..ops.mis import (
-    MAX_NEIGHBOURS, mis_pack_planes, pack_mis_reservoirs,
-    resolve_neighbour_ctx,
+    MAX_NEIGHBOURS, gather_neighbourhood, mis_pack_planes,
+    pack_mis_reservoirs, resolve_neighbour_ctx,
 )
 from ..ops.shade import pack_center_ctx
 from ..ops.shading import (
@@ -50,8 +70,10 @@ from ..ops.shading import (
 )
 from ..ops.trace import MAX_SOUP_TRIS
 from ..ops.wrs import (
-    gen_canonical_samples, gen_canonical_samples_plain, visibility,
+    _lane_layout, gen_canonical_samples, gen_canonical_samples_plain,
+    gen_canonical_surrogate, visibility,
 )
+from ..scene.lights import sample_lights_planes
 from .neighbours import select_neighbour_indices
 from .restir import KERNELS, PLAIN, FrameOps, trace_primary
 
@@ -148,21 +170,16 @@ def rmis_sample_contrib(ctx: ShadeCtx, get_j, nb, geometry,
 
 
 def check_mis(features: Features, geometry, ops: FrameOps) -> None:
-    """Refuse what belongs to a later slice, and the XLA-formulation flags
-    on the card: there ``ops`` alone picks the kernels or the plain
-    versions (``restir.PLAIN``)."""
+    """Refuse what the port does not run: on CUDA tensors the reference's
+    XLA gathers (``fused_spatial_gather=False``; there ``ops`` alone picks
+    the kernels or the plain versions, ``restir.PLAIN``), a large soup
+    without a BVH, and D outside the sweep kernel's range."""
     if (geometry.tri_cols.is_cuda and ops is not PLAIN
-            and not (features.fused_resampling
-                     and features.fused_spatial_gather)):
+            and not features.fused_spatial_gather):
         raise ValueError(
-            "R-MIS / R-OMIS on CUDA tensors runs the kernels; for the plain "
-            "versions pass ops=restir.PLAIN instead of fused_resampling="
-            "False or fused_spatial_gather=False")
-    if features.surrogate_resampling_grad:
-        raise NotImplementedError(
-            "R-MIS / R-OMIS with surrogate_resampling_grad is the MIS "
-            "gradient formulation (gather_nb_records, slim_ctx_stream), "
-            "not ported yet")
+            "R-MIS / R-OMIS on CUDA tensors gathers through the kernels; for "
+            "the plain versions pass ops=restir.PLAIN instead of "
+            "fused_spatial_gather=False")
     if geometry.bvh is None and geometry.tri_cols.shape[1] > MAX_SOUP_TRIS:
         raise ValueError(
             f"R-MIS / R-OMIS above {MAX_SOUP_TRIS} triangles traces its "
@@ -251,6 +268,184 @@ def neighbourhood(generator, cam: CameraParams, geometry, height: int,
     return ctx, pack_center_ctx(ctx), mis_offsets(ny, nx)
 
 
+def checkpointed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward recomputes the body instead of holding its intermediates, so
+    its kernels launch again there. The body draws from no caller's
+    generator (``canonical_draws``); the global RNG states are not kept."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def canonical(ctx: ShadeCtx, lights, num_lights: int, geometry,
+              features: Features, ops: FrameOps, generator=None,
+              uniforms=None, records: bool = False):
+    """One iteration's canonical reservoirs on the differentiable path →
+    (Reservoirs, replay records [K, 3, H, W] or None): with
+    ``surrogate_resampling_grad`` the winner-replay surrogate (the
+    detached replay RIS ``ops.ris_replay``, uniforms [S/K, 5, K, H, W]),
+    its records kept with ``records``; else the plain candidate loop
+    (uniforms [S/K, 4, K, H, W]), as the reference's
+    ``gen_canonical_samples`` chooses."""
+    if features.surrogate_resampling_grad:
+        res, rec = gen_canonical_surrogate(
+            ctx, lights, num_lights, geometry, features, generator=generator,
+            uniforms=uniforms, replay=ops.ris_replay, gather=ops.gather_rows,
+            any_hit=ops.any_hit)
+        return res, rec if records else None
+    return gen_canonical_samples(
+        ctx, lights, num_lights, geometry, features, generator=generator,
+        uniforms=uniforms, ris=gen_canonical_samples_plain,
+        any_hit=ops.any_hit), None
+
+
+def draw_seeds(generator, n: int) -> list[int]:
+    """``n`` seeds from ``generator``, drawn before the checkpointed bodies
+    that seed their own generators from them."""
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def canonical_draws(generator, ctx: ShadeCtx, lights, num_lights: int,
+                    geometry, features: Features, ops: FrameOps, inject=None,
+                    uniforms=None, records: bool = True):
+    """it → iteration ``it``'s (Reservoirs, replay records or None) on
+    ``ctx``'s pixels (the whole frame, or a band's rows): the injected
+    reservoirs (no records, as in the reference), or ``canonical`` on the
+    iteration's uniforms [iterations, S/K, 4 or 5, K, H, W], or on a
+    generator seeded inside the call from a seed drawn here; the records
+    kept with ``records``. The per-iteration checkpoint's recompute then
+    draws what the forward drew, and the caller's generator is not drawn
+    from by the backward."""
+    if inject is not None:
+        return lambda it: (inject[2][it], None)
+    seeds = None if uniforms is not None else draw_seeds(
+        generator, features.max_iterations_mis)
+    dev = ctx.position.device
+
+    def draw(it):
+        gen = None if seeds is None else \
+            torch.Generator(device=dev).manual_seed(seeds[it])
+        return canonical(ctx, lights, num_lights, geometry, features, ops,
+                         gen, None if uniforms is None else uniforms[it],
+                         records)
+    return draw
+
+
+def gather_nb_records(rec: torch.Tensor, diff: torch.Tensor,
+                      offs: torch.Tensor, lights, ops: FrameOps):
+    """The neighbourhood gather in replay-records mode (reference
+    ``rmis.gather_nb_records``): the winners' records [K, 3, H, W] (light
+    index | u | v, index -1 for none) gathered as data, only ``diff``
+    [C, H, W] (big_w, or w_sum | chosen_w) differentiably, and every
+    sample's position and colour re-derived at the receiver from the light
+    table through ``ops.gather_rows`` (kernel 2; kernel 13 its backward),
+    zero where the record has none. Under the surrogate the canonical
+    planes are derived so (``ops.wrs.surrogate_tail``), so these are bit
+    for bit the stored planes and the gradient's composition is theirs,
+    while the halo gather's backward shrinks to C planes → (pos
+    [D1, K, 3, H, W], color, diff [D1, C, H, W]), self first."""
+    d = offs.shape[0] // 2
+    k, _, h, w = rec.shape
+    planes = rec.detach().reshape(3 * k, h, w)
+    g_rec = torch.cat([planes[None], ops.halo_gather(
+        planes, offs[:d], offs[d:])]).reshape(d + 1, k, 3, h, w)
+    g_dif = torch.cat([diff[None], ops.halo_gather(diff, offs[:d],
+                                                   offs[d:])])
+    idxf = g_rec[:, :, 0]
+    has = idxf >= 0.0
+    comps = sample_lights_planes(lights, torch.clamp_min(idxf, 0.0).int(),
+                                 g_rec[:, :, 1], g_rec[:, :, 2],
+                                 gather=ops.gather_rows)
+    pos = torch.stack([torch.where(has, c, 0.0) for c in comps[0:3]], dim=2)
+    color = torch.stack([torch.where(has, c, 0.0) for c in comps[3:6]],
+                        dim=2)
+    return pos, color, g_dif
+
+
+def gather_nb(res, rec, offs: torch.Tensor, lights, romis: bool,
+              ops: FrameOps):
+    """The neighbourhood reservoirs of the differentiable path, fields
+    [D1, K, (3,) H, W], self first: pos, color and big_w (R-MIS) or w_sum
+    and chosen_w (R-OMIS), the slim pack through ``ops.halo_gather``, or
+    with replay records ``gather_nb_records``."""
+    k = res.k
+    if rec is None:
+        return gather_neighbourhood(pack_mis_reservoirs(res, romis), offs,
+                                    "romis" if romis else "rmis_equal", k,
+                                    gather=ops.halo_gather)
+    diff = torch.cat([res.w_sum, res.chosen_w]) if romis else res.big_w
+    pos, color, g = gather_nb_records(rec, diff, offs, lights, ops)
+    if romis:
+        return SimpleNamespace(pos=pos, color=color, w_sum=g[:, :k],
+                               chosen_w=g[:, k:])
+    return SimpleNamespace(pos=pos, color=color, big_w=g)
+
+
+def differentiable_iteration(ctx: ShadeCtx, offs: torch.Tensor, lights,
+                             num_lights: int, geometry, features: Features,
+                             mode: str, ops: FrameOps, draw, nbr_ctx=None,
+                             center=None):
+    """One iteration of the reference's differentiable formulation →
+    body(it, alphas=None), giving what ``ops.mis_iteration`` gives for
+    that iteration (the R-MIS contribution, or A's upper triangle, b and
+    with ``alphas`` the progressive sum). ``draw(it)`` gives the
+    iteration's reservoirs and records on ``ctx``'s pixels, which the
+    neighbourhood is gathered over; ``nbr_ctx`` is
+    ``resolve_neighbour_ctx`` on them. ``center`` slices the receiving
+    pixels from those (a band's rows in ``diff.banded``; all of them by
+    default)."""
+    from ..render.romis import romis_iteration_terms
+
+    romis = mode == "romis"
+    k = features.num_samples_in_reservoir
+    _, lane_counts, _ = _lane_layout(features.initial_light_samples, k)
+    rctx = ctx
+    if center is not None:
+        rctx = ShadeCtx(**{f.name: center(getattr(ctx, f.name))
+                           for f in fields(ctx)})
+        nbr_ctx = None if nbr_ctx is None else center(nbr_ctx)
+    get_j = ctx_j_getter(rctx, nbr_ctx)
+
+    def body(it, alphas=None):
+        res, rec = draw(it)
+        nb = gather_nb(res, rec, offs, lights, romis, ops)
+        if center is not None:
+            nb = SimpleNamespace(**{f: center(v) for f, v in vars(nb).items()})
+        vis = visibility(rctx.position, nb.pos, geometry, ops.any_hit)
+        if romis:
+            return romis_iteration_terms(rctx, get_j, nb, alphas, lane_counts,
+                                         num_lights, geometry, features, vis)
+        return rmis_sample_contrib(rctx, get_j, nb, geometry, features,
+                                   mode == "rmis_balance", vis)
+    return body
+
+
+def iteration_step(generator, ctx: ShadeCtx, cen: torch.Tensor,
+                   offs: torch.Tensor, lights, num_lights: int, geometry,
+                   features: Features, mode: str, ops: FrameOps, inject,
+                   uniforms, nbr_ctx):
+    """step(it, alphas=None) → iteration ``it``'s sweep outputs: with
+    ``fused_resampling`` the sweep on the iteration packs (``ops.mis_ris``
+    and ``ops.mis_iteration``, in order), else the differentiable
+    formulation, each iteration ``checkpointed``."""
+    if features.fused_resampling:
+        packs = iteration_packs(generator, ctx, lights, num_lights, geometry,
+                                features, mode == "romis", ops, inject,
+                                uniforms)
+
+        def step(it, alphas=None):
+            pack, block = next(packs)
+            return sweep(ops, ctx, cen, pack, block, offs, geometry, mode,
+                         num_lights, features, nbr_ctx=nbr_ctx, alphas=alphas)
+        return step
+    draw = canonical_draws(generator, ctx, lights, num_lights, geometry,
+                           features, ops, inject, uniforms)
+    body = differentiable_iteration(ctx, offs, lights, num_lights, geometry,
+                                    features, mode, ops, draw, nbr_ctx)
+    return lambda it, alphas=None: checkpointed(body, it, alphas)
+
+
 def render_rmis(generator, cam: CameraParams, geometry, lights,
                 num_lights: int, height: int, width: int, features: Features,
                 inject=None, noise=None, ops: FrameOps = KERNELS):
@@ -260,7 +455,9 @@ def render_rmis(generator, cam: CameraParams, geometry, lights,
     iteration]) replaces the neighbour selection and the canonical
     reservoirs (the reference's golden-test hook); ``noise`` = (the
     selection's noise, see ``render.neighbours``; RIS uniforms
-    [iterations, S/K, 4, K, H, W]) replaces the draws."""
+    [iterations, S/K, 4, K, H, W], on the differentiable path with
+    ``surrogate_resampling_grad`` the replay's [iterations, S/K, 5, K, H,
+    W]) replaces the draws."""
     check_mis(features, geometry, ops)
     nbr_noise, ris_u = (None, None) if noise is None else noise
     ctx, cen, offs = neighbourhood(generator, cam, geometry, height, width,
@@ -269,12 +466,12 @@ def render_rmis(generator, cam: CameraParams, geometry, lights,
     mode = "rmis_balance" if balance else "rmis_equal"
     nbr_ctx = resolve_neighbour_ctx(cen, offs, ops.halo_gather) \
         if balance else None
+    step = iteration_step(generator, ctx, cen, offs, lights, num_lights,
+                          geometry, features, mode, ops, inject, ris_u,
+                          nbr_ctx)
     acc = torch.zeros((3, height, width), device=cen.device)
-    for pack, block in iteration_packs(generator, ctx, lights, num_lights,
-                                       geometry, features, False, ops,
-                                       inject, ris_u):
-        acc = acc + sweep(ops, ctx, cen, pack, block, offs, geometry, mode,
-                          num_lights, features, nbr_ctx=nbr_ctx)
+    for it in range(features.max_iterations_mis):
+        acc = acc + step(it)
     color = acc / features.max_iterations_mis
     if features.enable_tone_mapping:
         color = exposure_tone_mapping(color, features)

@@ -21,8 +21,14 @@ The frame runs as ``render.rmis`` does, with the R-OMIS sweep: kernel 17
 accumulates A's upper triangle and b (and the progressive sum) per
 iteration (on geometry with a BVH in its ``ext_vis`` mode,
 ``render.rmis.sweep``); ``solve_alpha`` stays plain tensor code between
-iterations, as in the reference. The sweep's plain version is ``romis_iteration_terms``
-on the gathered neighbourhood (``ops.mis.mis_iteration_plain``).
+iterations, as in the reference. The sweep's plain version is
+``romis_iteration_terms`` on the gathered neighbourhood
+(``ops.mis.mis_iteration_plain``). With ``fused_resampling=False`` the
+iterations run the differentiable formulation of ``render.rmis``
+(``iteration_step``), each under a checkpoint; the α solve stays outside
+them and runs only on the refresh iterations, so no iteration solves the
+all-zero system of iteration 0 (the reference's scan solves every
+iteration and bumps that system to keep its backward finite).
 """
 
 from __future__ import annotations
@@ -36,8 +42,8 @@ from ..ops.mis import expand_a_upper, resolve_neighbour_ctx
 from ..ops.shading import exposure_tone_mapping
 from .restir import KERNELS, FrameOps
 from .rmis import (
-    FLT_MIN, check_mis, iteration_packs, neighbour_phat, neighbourhood,
-    samples, shade_neighbourhood, sweep,
+    FLT_MIN, check_mis, iteration_step, neighbour_phat, neighbourhood,
+    samples, shade_neighbourhood,
 )
 
 
@@ -168,6 +174,38 @@ def romis_iteration_terms(ctx, get_j, nb, alphas, lane_counts,
     return romis_ab_from_colvec(nb, colvec, f, alphas)
 
 
+def romis_estimate(step, d1: int, k: int, height: int, width: int,
+                   features: Features, device):
+    """The R-OMIS accumulation over ``step(it, alphas)`` (the sweep's
+    outputs for iteration ``it``) → (colour [3, H, W], α [3, D1, H, W]):
+    A and b summed over the iterations and solved once (direct), or the
+    progressive estimate with α re-solved on the reference's schedule."""
+    progressive = features.use_progressive_romis
+    a_up = torch.zeros((d1 * (d1 + 1) // 2, height, width), device=device)
+    b_vec = torch.zeros((3 * d1, height, width), device=device)
+    final = torch.zeros((3, height, width), device=device)
+    alphas = torch.zeros((3, d1, height, width), device=device)
+    total = float(d1 * k)
+    for it in range(features.max_iterations_mis):
+        if (progressive and it >= 1
+                and it % features.progressive_update_mod == 0):
+            alphas = solve_alpha(expand_a_upper(a_up, d1),
+                                 b_vec.reshape(3, d1, height, width))
+        if progressive:
+            final = final + alphas.sum(dim=1)
+        outs = step(it, alphas.reshape(3 * d1, height, width)
+                    if progressive else None)
+        a_up = a_up + outs[0]
+        b_vec = b_vec + outs[1]
+        if progressive:
+            final = final + outs[2] / total
+    if progressive:
+        return final / features.max_iterations_mis, alphas
+    alpha_out = solve_alpha(expand_a_upper(a_up, d1),
+                            b_vec.reshape(3, d1, height, width))
+    return alpha_out.sum(dim=1), alpha_out
+
+
 def render_romis(generator, cam: CameraParams, geometry, lights,
                  num_lights: int, height: int, width: int,
                  features: Features, return_alphas: bool = False,
@@ -180,39 +218,13 @@ def render_romis(generator, cam: CameraParams, geometry, lights,
     ctx, cen, offs = neighbourhood(generator, cam, geometry, height, width,
                                    features, ops, inject, nbr_noise)
     d1 = features.num_neighbours_to_sample + 1
-    k = features.num_samples_in_reservoir
     nbr_ctx = resolve_neighbour_ctx(cen, offs, ops.halo_gather)
-    progressive = features.use_progressive_romis
-    dev = cen.device
-    a_up = torch.zeros((d1 * (d1 + 1) // 2, height, width), device=dev)
-    b_vec = torch.zeros((3 * d1, height, width), device=dev)
-    final = torch.zeros((3, height, width), device=dev)
-    alphas = torch.zeros((3, d1, height, width), device=dev)
-    total = float(d1 * k)
-    packs = iteration_packs(generator, ctx, lights, num_lights, geometry,
-                            features, True, ops, inject, ris_u)
-    for it, (pack, block) in enumerate(packs):
-        if (progressive and it >= 1
-                and it % features.progressive_update_mod == 0):
-            alphas = solve_alpha(expand_a_upper(a_up, d1),
-                                 b_vec.reshape(3, d1, height, width))
-        if progressive:
-            final = final + alphas.sum(dim=1)
-        outs = sweep(ops, ctx, cen, pack, block, offs, geometry, "romis",
-                     num_lights, features, nbr_ctx=nbr_ctx,
-                     alphas=alphas.reshape(3 * d1, height, width)
-                     if progressive else None)
-        a_up = a_up + outs[0]
-        b_vec = b_vec + outs[1]
-        if progressive:
-            final = final + outs[2] / total
-    if progressive:
-        color = final / features.max_iterations_mis
-        alpha_out = alphas
-    else:
-        alpha_out = solve_alpha(expand_a_upper(a_up, d1),
-                                b_vec.reshape(3, d1, height, width))
-        color = alpha_out.sum(dim=1)
+    step = iteration_step(generator, ctx, cen, offs, lights, num_lights,
+                          geometry, features, "romis", ops, inject, ris_u,
+                          nbr_ctx)
+    color, alpha_out = romis_estimate(
+        step, d1, features.num_samples_in_reservoir, height, width,
+        features, cen.device)
     if features.enable_tone_mapping:
         color = exposure_tone_mapping(color, features)
     image = color.permute(1, 2, 0)

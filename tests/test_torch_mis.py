@@ -38,6 +38,7 @@ from romis_tpu.render.romis import (
     solve_alpha as jax_solve_alpha,
 )
 from romis_tpu_torch.core.camera import generate_rays as port_generate_rays
+from romis_tpu_torch.diff.grad import extract_params, make_mis_grad_fn
 from romis_tpu_torch.ops import mis, ris
 from romis_tpu_torch.ops.shade import pack_center_ctx
 from romis_tpu_torch.render import restir
@@ -374,18 +375,25 @@ def test_return_alphas():
 
 @pytest.mark.parametrize("later", ["surrogate", "large_scene"])
 def test_later_slices_refuse(later):
-    """The MIS gradient formulation refuses, naming its slice (7); a soup
-    above the soup kernels' 2048 triangles without a BVH refuses, naming
-    ``with_bvh`` (with one it renders: ``test_torch_large_mis.py``)."""
+    """A soup above the soup kernels' 2048 triangles without a BVH refuses,
+    naming ``with_bvh`` (with one it renders: ``test_torch_large_mis.py``).
+    The MIS gradient formulation, which refused here until it was ported,
+    now renders: the surrogate R-MIS frame is finite, and its gradient step
+    (``make_mis_grad_fn``) reaches the lights' colours."""
     feats = port_features(FEATS.replace(ray_trace_mode=RayTraceMode.RMIS))
     scene, cam = flagship_scene("cpu"), flagship_camera(4, 4, "cpu")
     if later == "surrogate":
         feats = feats.replace(surrogate_resampling_grad=True)
-        error, match = NotImplementedError, "not ported yet"
-    else:
-        soup = build_geometry([random_soup(np.random.default_rng(0), 2100)],
-                              "cpu")
-        scene = replace(scene, geometry=soup)
-        error, match = ValueError, "with_bvh"
-    with pytest.raises(error, match=match):
+        img, _ = render_frame(torch.Generator(), cam, scene, 4, 4, feats)
+        assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
+        fn = make_mis_grad_fn(scene.geometry, scene.lights, scene.num_lights,
+                              4, 4, feats)
+        _, grads = fn(extract_params(scene.geometry, scene.lights),
+                      torch.zeros((4, 4, 3)), torch.Generator(), cam)
+        assert float(grads.light_c0.abs().max()) > 0
+        return
+    soup = build_geometry([random_soup(np.random.default_rng(0), 2100)],
+                          "cpu")
+    scene = replace(scene, geometry=soup)
+    with pytest.raises(ValueError, match="with_bvh"):
         render_frame(torch.Generator(), cam, scene, 4, 4, feats)

@@ -38,17 +38,17 @@ def jax_ctx():
     return ctx
 
 
-def jax_selection_noise(key, strategy):
+def jax_selection_noise(key, strategy, d=D, r=R):
     """The draws of the JAX XLA path for ``key``: RANDOM's uniforms
-    [2, D, H, W] (split(key) → rows, cols), else one Gumbel plane per box
-    offset from the scan's per-block keys (split(key, n_blocks), blocks of
-    8 offsets)."""
+    [2, d, H, W] (split(key) → rows, cols), else one Gumbel plane per box
+    offset of radius ``r`` from the scan's per-block keys (split(key,
+    n_blocks), blocks of 8 offsets)."""
     if strategy == NeighbourSelectionStrategy.RANDOM:
         ky, kx = jax.random.split(key)
         return torch.from_numpy(np.stack([
-            np.asarray(jax.random.uniform(ky, (D, H, W))),
-            np.asarray(jax.random.uniform(kx, (D, H, W)))]))
-    n_off = (2 * R + 1) ** 2 - 1
+            np.asarray(jax.random.uniform(ky, (d, H, W))),
+            np.asarray(jax.random.uniform(kx, (d, H, W)))]))
+    n_off = (2 * r + 1) ** 2 - 1
     keys = jax.random.split(key, -(-n_off // 8))
     return torch.from_numpy(np.concatenate([
         np.asarray(jax.random.gumbel(k, (8, H, W))) for k in keys])[:n_off])
