@@ -276,6 +276,29 @@ GPU.
    receiver's one draw) and the planes in and out; its records' bytes are
    printed apart. Both are printed beside their earlier designs' bounds.
 
+6. The row bands of ``parallel/`` in one process (``band_phase``): config
+   5, the vis-check frame (kernel 11), the animated frames (reprojection's
+   16-row halo), R-MIS balance, progressive R-OMIS and ``large_romis`` (the
+   torus field's BVH, ext_vis) at 1920x1080, each rendered whole and as 2
+   and as 4 row bands through the kernels' band entries, each band's halo
+   exchange replaced by slices of the whole frame's own tensors (recorded
+   from the frame rendered as one band): the reassembled images and carry
+   bit-equal to ``render_frame``'s, each kernel of the path launched by the
+   bands, the sum of the bands' ms beside the whole frame's by CUDA events.
+   Then each band entry of kernels 3, 15, 5, 11, 16 and 17 on an inner band
+   of 4 and the bottom band of 2, against its plain version at the band's
+   shape (BAND_RTOL, BAND_ATOL; kernel 16 bit-exact; kernel 17 MIS_REL)
+   and on its Philox stream against the whole frame's kernel's rows, bit
+   for bit, each timed beside a quarter of the whole frame's.
+7. A real NCCL process group (``group_phase``): one rank in this process
+   through a ``file://`` store, ``render_frame_sharded`` and
+   ``render_romis_sharded`` bit-equal to ``render_frame``; with two or more
+   cards two ranks, one a card (``torch.multiprocessing``), held to the
+   same and the halo exchange of a pass's reservoir planes timed (and four
+   ranks with four cards); with one card a line says that it was skipped.
+   ``python3 chip_smoke.py --bands`` runs sections 1, 2, 6 and 7 alone,
+   ``--group`` sections 1, 2 and 7.
+
 Any failed check raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table.
 """
@@ -1318,6 +1341,544 @@ def mis_grad_setup(torch, path: str, scene, cam, hw, dev):
         replay_uniforms(g, f.initial_light_samples,
                         f.num_samples_in_reservoir, *hw)
         for _ in range(f.max_iterations_mis)]))
+
+
+# ---- 6 and 7: the row bands of parallel/ ----
+# The band phase renders each of these paths at 1920x1080 whole and as
+# BAND_SPLITS row bands in one process (each band through the kernels'
+# band entries), and holds the bands' images and carry to the whole frame's
+# bit for bit: (frames, the kernels its bands must launch).
+BAND_SPLITS = (2, 4)
+BAND_PATHS = {
+    "config5": (2, ("ris", "spatial_pass")),
+    "vischeck": (2, ("ris", "spatial_pass_unbiased", "zcount_occ")),
+    "animated": (3, ("ris", "spatial_pass_unbiased", "halo_gather",
+                     "any_hit")),
+    "rmis_balance": (1, ("neighbour_select", "halo_gather", "mis_ris",
+                         "mis_iteration")),
+    "romis_progressive": (1, ("neighbour_select", "halo_gather", "mis_ris",
+                              "mis_iteration")),
+    "large_romis": (1, ("bvh_closest_hit", "neighbour_select", "halo_gather",
+                        "mis_ris", "mis_iteration", "bvh_any_hit_k")),
+}
+# A band entry against its plain version at the band's shape, on the same
+# injected numbers: every output plane of MIN_AGREE of the pixels within
+# BAND_RTOL (relative) and BAND_ATOL, as the whole frame's checks above
+# hold the RIS and the passes (powf and logf of CUDA and of PyTorch may
+# part by an ulp, and the plain sums over streams run in another order).
+BAND_RTOL, BAND_ATOL = 1e-4, 1e-6
+NCCL_TIMEOUT_S = 300
+
+
+class HaloRecorder:
+    """The halo exchange of a frame rendered as one band: records every
+    whole-frame tensor it is asked to extend, with its radius, and pads it
+    with zero rows, as a world of one does."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __call__(self, x, radius, bands):
+        import torch
+
+        self.seen.append((x, radius))
+        return torch.nn.functional.pad(x, (0, 0, radius, radius))
+
+
+def halo_replay(torch, seen, bands, check: bool):
+    """A band's halo exchange in one process: its k-th call returns the
+    rows of the k-th recorded whole-frame tensor that the band and its halo
+    cover (zeros beyond the frame), cut beforehand; with ``check`` it
+    requires the rows the band passes in to be the whole frame's."""
+    prepared = []
+    for x, r in seen:
+        pad = torch.nn.functional.pad(x, (0, 0, r, r))
+        prepared.append(pad[..., bands.row_base:bands.row_base + bands.h_loc
+                            + 2 * r, :].contiguous())
+    calls = iter(prepared)
+
+    def exchange(x, radius, b):
+        out = next(calls, None)
+        require(out is not None and out.shape[-2] == x.shape[-2] + 2 * radius,
+                f"band {b.rank} of {b.world}: halo exchange out of step")
+        if check:
+            require(torch.equal(out[..., radius:radius + x.shape[-2], :], x),
+                    f"band {b.rank} of {b.world}: its rows before a halo "
+                    f"exchange differ from the whole frame's")
+        return out
+    return exchange
+
+
+def band_frames(torch, sc, cams, feats, bands, seed: int, dev):
+    """A path's frames at H x W, whole (``bands`` None, ``render_frame``)
+    or one row band (the frames' band entries) → (images, the last state's
+    reservoir planes or None)."""
+    from romis_tpu_torch import RayTraceMode
+    from romis_tpu_torch.core.types import pack_reservoir_planes
+    from romis_tpu_torch.parallel.halo import render_frame_band
+    from romis_tpu_torch.render.pipeline import render_frame
+    from romis_tpu_torch.render.rmis import render_rmis
+    from romis_tpu_torch.render.romis import render_romis
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g, li, nl = sc.geometry, sc.lights, sc.num_lights
+    images, state = [], None
+    for c in cams:
+        if bands is None:
+            img, state = render_frame(gen, c, sc, H, W, feats, state)
+        elif feats.ray_trace_mode == RayTraceMode.RMIS:
+            img = render_rmis(gen, c, g, li, nl, H, W, feats, band=bands)
+        elif feats.ray_trace_mode == RayTraceMode.ROMIS:
+            img = render_romis(gen, c, g, li, nl, H, W, feats, band=bands)
+        else:
+            img, state = render_frame_band(gen, c, g, li, nl, H, W, feats,
+                                           state, bands)
+        images.append(img)
+    return images, None if state is None else pack_reservoir_planes(
+        state.reservoirs)
+
+
+def band_phase(torch, dev, card: str, wrappers: dict, large=None) -> None:
+    """Section 6: the frames as row bands in one process (see BAND_PATHS),
+    each band's halo exchange replaced by slices of the whole frame's own
+    tensors (recorded from the frame rendered as one band, which must be
+    render_frame's bit for bit): nothing but the package's band entries
+    computes a band. Per path and split the bands' launches and the sum of
+    their ms against the whole frame's, by CUDA events (the cost of the 2r
+    extra rows a band computes in its halo). Then each band entry of kernels
+    3, 15, 5, 11, 16 and 17 against its plain version at the band's shape
+    and against the whole frame's kernel's rows."""
+    from romis_tpu_torch import (
+        Features, MISWeight, NeighbourSelectionStrategy, RayTraceMode,
+    )
+    from romis_tpu_torch.core.camera import make_camera
+    from romis_tpu_torch.ops.bvh import with_bvh
+    from romis_tpu_torch.parallel.mesh import Bands
+    from romis_tpu_torch.scene.scene import (
+        flagship_camera, flagship_scene, torus_field, torus_field_camera,
+    )
+
+    scene, cam = flagship_scene(dev), flagship_camera(H, W, dev)
+    if large is None:
+        large = torus_field(LARGE_N, dev)
+        large.geometry = with_bvh(large.geometry)
+    pan = [make_camera(look_at=(2.57, 1.23, -1.35), rotation_deg=(
+        10.3 + PAN_DEG * f, 30.0 + PAN_DEG * f, 0.0), distance=25.0,
+        fov_deg=30.0, resolution=(H, W), device=dev) for f in range(3)]
+    romis = RayTraceMode.ROMIS
+    cases = {
+        "config5": (scene, [cam] * 2, Features()),
+        "vischeck": (scene, [cam] * 2, Features(
+            unbiased_combination=True, spatial_reuse_visibility_check=True)),
+        "animated": (scene, pan, Features(
+            temporal_reprojection=True, unbiased_combination=True,
+            initial_samples_visibility_check=True)),
+        "rmis_balance": (scene, [cam], Features(
+            ray_trace_mode=RayTraceMode.RMIS,
+            mis_weight_rmis=MISWeight.BALANCE,
+            neighbour_selection_strategy=(
+                NeighbourSelectionStrategy.EQUAL_SIMILAR_DISSIMILAR))),
+        "romis_progressive": (scene, [cam], Features(
+            ray_trace_mode=romis, use_progressive_romis=True)),
+        "large_romis": (large, [torus_field_camera(H, W, dev)],
+                        Features(ray_trace_mode=romis)),
+    }
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    for path, (n_frames, must) in BAND_PATHS.items():
+        sc, cams, feats = cases[path]
+        require(len(cams) == n_frames, f"band[{path}]: frames")
+        whole, whole_ms = timed(lambda: band_frames(torch, sc, cams, feats,
+                                                    None, 17, dev))
+        rec = HaloRecorder()
+        one = band_frames(torch, sc, cams, feats, Bands(H, exchange=rec), 17,
+                          dev)
+        same = all(torch.equal(a, b) for a, b in zip(one[0], whole[0])) \
+            and (whole[1] is None or torch.equal(one[1], whole[1]))
+        require(same, f"band[{path}]: the one-band frame differs from "
+                      f"render_frame's")
+        r_list = sorted({r for _, r in rec.seen})
+        mb = sum(x.numel() * x.element_size() * 2 * r / x.shape[-2]
+                 for x, r in rec.seen) / 1e6
+        _, whole_ms = timed(lambda: band_frames(torch, sc, cams, feats, None,
+                                                17, dev))
+        for n in BAND_SPLITS:
+            for fn in wrappers.values():
+                fn.launches = 0
+            parts = [band_frames(torch, sc, cams, feats, Bands(
+                H, n, b, exchange=halo_replay(torch, rec.seen, Bands(H, n, b),
+                                              True)), 17, dev)
+                     for b in range(n)]
+            got = {k_: fn.launches for k_, fn in wrappers.items()
+                   if fn.launches}
+            imgs = [torch.cat([p[0][f] for p in parts]) for f in
+                    range(n_frames)]
+            same = all(torch.equal(a, b) for a, b in zip(imgs, whole[0]))
+            if whole[1] is not None:
+                same &= torch.equal(torch.cat([p[1] for p in parts], dim=-2),
+                                    whole[1])
+            require(same, f"band[{path}]: {n} bands differ from the whole "
+                          f"frame")
+            missing = [k_ for k_ in must if not got.get(k_)]
+            require(not missing, f"band[{path}]: {n} bands launched no "
+                                 f"{missing}")
+            band_ms = 0.0
+            for b in range(n):
+                bands = Bands(H, n, b, exchange=halo_replay(
+                    torch, rec.seen, Bands(H, n, b), False))
+                band_ms += timed(lambda: band_frames(
+                    torch, sc, cams, feats, bands, 17, dev))[1]
+            print(f"band[{path}]: {n} bands bit-equal to render_frame over "
+                  f"{n_frames} frame(s) (images"
+                  f"{' and carry' if whole[1] is not None else ''}); "
+                  f"launches of the {n} bands {got}; {len(rec.seen)} halo "
+                  f"exchanges a band of radius {r_list} rows, "
+                  f"{mb / n_frames:.2f} MB a frame, both sides; sum of the "
+                  f"bands {band_ms / n_frames:.3f} ms/frame vs whole "
+                  f"{whole_ms / n_frames:.3f} ms/frame "
+                  f"({100 * (band_ms / whole_ms - 1):+.1f} %) [{card}]")
+        del whole, one, rec, parts, imgs
+    band_entry_checks(torch, dev, card, scene, cam)
+
+
+def band_entry_checks(torch, dev, card: str, scene, cam) -> None:
+    """Each band entry of kernels 3, 15, 5, 11, 16 and 17 at 1080p on the
+    flagship: on an inner band of 4 and the bottom band of 2, against its
+    plain version with the same band arguments on the same injected
+    numbers, and on its Philox stream against the whole frame's kernel's
+    rows (bit for bit); the inner band's kernel ms beside a quarter of the
+    whole frame's."""
+    from dataclasses import fields, replace as dc_replace
+
+    from romis_tpu_torch import Features, MISWeight
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.core.types import pack_reservoir_planes
+    from romis_tpu_torch.ops import mis, nbrsel, ris, spatial
+    from romis_tpu_torch.ops.shade import pack_center_ctx
+    from romis_tpu_torch.ops.wrs import gen_canonical_samples_plain
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.render.neighbours import select_neighbour_indices
+    from romis_tpu_torch.render.rmis import mis_offsets
+
+    feats = Features(mis_weight_rmis=MISWeight.BALANCE)
+    k, s = feats.num_samples_in_reservoir, feats.initial_light_samples
+    n_nbr, radius = feats.num_neighbours_to_sample, \
+        feats.spatial_resample_radius
+    it_n, sk = feats.max_iterations_mis, -(-s // k)
+    li, nl = scene.lights, scene.num_lights
+    _, ctx = restir.trace_primary(generate_rays(cam, H, W), scene.geometry,
+                                  feats)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    res = ris.gen_canonical_samples_ris(ctx, li, nl, feats, generator=gen)
+    res_planes = pack_reservoir_planes(res)
+    gates, cen = spatial.pack_gates(ctx), pack_center_ctx(ctx)
+    sel_gates = nbrsel.selection_gates(ctx)
+    sel_args = (n_nbr, radius, False, True, True,
+                feats.neighbour_max_depth_difference_fraction,
+                float(math.cos(
+                    feats.neighbour_max_normal_angle_difference_radians)))
+    ny, nx = select_neighbour_indices(gen, ctx, H, W, feats)
+    offs = mis_offsets(ny, nx)
+    nbr_ctx = mis.resolve_neighbour_ctx(cen, offs)
+
+    def close(a, b):
+        """Share of pixels whose every plane is within the band
+        tolerance."""
+        ok = (a - b).abs() <= BAND_ATOL + BAND_RTOL * b.abs()
+        return ok.reshape(-1, *a.shape[-2:]).all(dim=0).float().mean().item()
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    for n, b in ((4, 1), (2, 1)):
+        h, base = H // n, (H // n) * b
+        band = dict(row_base=base, h_global=H)
+
+        def rows(t):
+            return t[..., base:base + h, :].contiguous()
+
+        def ext(t):
+            pad = torch.nn.functional.pad(t, (0, 0, radius, radius))
+            return pad[..., base:base + h + 2 * radius, :].contiguous()
+
+        bctx = dc_replace(ctx, **{f.name: rows(getattr(ctx, f.name))
+                                  for f in fields(ctx)})
+        label = f"{b} of {n}"
+        out = {}
+        # Kernel 3.
+        uni = torch.rand((sk, 4, k, h, W), generator=gen, device=dev)
+        out["ris"] = (
+            close(pack_reservoir_planes(ris.gen_canonical_samples_ris(
+                bctx, li, nl, feats, uniforms=uni, **band)),
+                pack_reservoir_planes(gen_canonical_samples_plain(
+                    bctx, li, nl, feats, uniforms=uni, **band))),
+            torch.equal(pack_reservoir_planes(ris.gen_canonical_samples_ris(
+                bctx, li, nl, feats, generator=seeded(1), **band)),
+                rows(pack_reservoir_planes(ris.gen_canonical_samples_ris(
+                    ctx, li, nl, feats, generator=seeded(1))))))
+        # Kernel 15.
+        uni = torch.rand((it_n, sk, 4, k, h, W), generator=gen, device=dev)
+        out["mis_ris"] = (
+            close(ris.gen_mis_reservoir_planes(
+                bctx, li, nl, feats, it_n, True, uniforms=uni, **band),
+                ris.gen_mis_reservoir_planes_plain(
+                    bctx, li, nl, feats, it_n, True, uniforms=uni, **band)),
+            torch.equal(ris.gen_mis_reservoir_planes(
+                bctx, li, nl, feats, it_n, True, generator=seeded(2),
+                **band), rows(ris.gen_mis_reservoir_planes(
+                    ctx, li, nl, feats, it_n, True, generator=seeded(2)))))
+        # Kernels 5 and 11.
+        inject = tuple(rows(t) for t in spatial.spatial_noise(
+            gen, n_nbr, k, radius, H, W))
+        key = spatial.philox_key(gen)
+        ub = feats.replace(unbiased_combination=True)
+        for name, kern, plain, ins, f in (
+                ("spatial_pass", spatial.spatial_pass_fused,
+                 spatial.spatial_pass_plain, (res_planes, gates, cen), feats),
+                ("spatial_pass_unbiased", spatial.spatial_pass_unbiased_fused,
+                 spatial.spatial_pass_unbiased_plain, (res_planes, cen), ub)):
+            args = (k, n_nbr, radius, f)
+            out[name] = (
+                close(kern(*(ext(t) for t in ins), *args, inject=inject,
+                           **band),
+                      plain(*(ext(t) for t in ins), *args, inject=inject,
+                            **band)),
+                torch.equal(kern(*(ext(t) for t in ins), *args, key=key,
+                                 generator=seeded(7), pass_index=1, **band),
+                            rows(kern(*ins, *args, key=key,
+                                      generator=seeded(7), pass_index=1))))
+        # Kernel 16, on the kernel's own Philox keys given as scores too.
+        sel_key = spatial.philox_key(gen)
+        scores = rows(nbrsel.gumbel_of_keys(nbrsel.selection_keys(
+            sel_key, radius, H, W)))
+        band_k = nbrsel.neighbour_select(ext(sel_gates), *sel_args,
+                                         scores=scores, **band)
+        band_p = nbrsel.neighbour_select_plain(ext(sel_gates), *sel_args,
+                                               scores=scores, **band)
+        band_x = nbrsel.neighbour_select(ext(sel_gates), *sel_args,
+                                         key=sel_key, generator=seeded(8),
+                                         **band)
+        whole_x = nbrsel.neighbour_select(sel_gates, *sel_args, key=sel_key,
+                                          generator=seeded(8))
+        out["neighbour_select"] = (
+            float(all(torch.equal(a, c) for a, c in zip(band_k, band_p))),
+            all(torch.equal(a, rows(c)) for a, c in zip(band_x, whole_x)))
+        # Kernel 17, R-OMIS and balance, on the pack of kernel 15.
+        pack = ris.gen_mis_reservoir_planes(ctx, li, nl, feats, 2, True,
+                                            generator=seeded(3))
+        pack_b = ris.gen_mis_reservoir_planes(ctx, li, nl, feats, 2, False,
+                                              generator=seeded(3))
+        sweep_rel = 0.0
+        sweep_same = True
+        for mode, pk in (("romis", pack), ("rmis_balance", pack_b)):
+            a_ = (scene.geometry, k, mode, nl, feats)
+            kw = dict(nbr_ctx=rows(nbr_ctx), it_block=1)
+            got_k = mis.mis_iteration(rows(cen), ext(pk), rows(offs), *a_,
+                                      **kw, **band)
+            got_p = mis.mis_iteration_plain(rows(cen), ext(pk), rows(offs),
+                                            *a_, **kw, **band)
+            whole_k = mis.mis_iteration(cen, pk, offs, *a_, nbr_ctx=nbr_ctx,
+                                        it_block=1)
+            if mode != "romis":
+                got_k, got_p, whole_k = (got_k,), (got_p,), (whole_k,)
+            for gk, gp, wk in zip(got_k, got_p, whole_k):
+                sweep_rel = max(sweep_rel, ((gk - gp).abs().amax(dim=(1, 2))
+                                            / gp.abs().amax(dim=(1, 2))
+                                            .clamp_min(1e-30)).max().item())
+                sweep_same &= torch.equal(gk, rows(wk))
+        torch.cuda.synchronize()
+        for name, (share, exact) in out.items():
+            print(f"check band entry {name}[{label}]: pixels within "
+                  f"rtol {BAND_RTOL} of the plain version at the band's "
+                  f"shape {share:.6f}; Philox band bit-equal to the whole "
+                  f"frame's rows {exact}")
+            require(share >= MIN_AGREE if name != "neighbour_select"
+                    else share == 1.0, f"band entry {name} [{label}]: "
+                    f"{share} of the pixels agree with the plain version")
+            require(exact, f"band entry {name} [{label}]: the band's rows "
+                           f"differ from the whole frame's")
+        print(f"check band entry mis_iteration[{label}]: max plane error "
+              f"{sweep_rel:.2e} of the plane's largest value against the "
+              f"plain version; bit-equal to the whole frame's rows "
+              f"{sweep_same}")
+        require(sweep_rel <= MIS_REL, f"band entry mis_iteration [{label}]: "
+                                      f"{sweep_rel}")
+        require(sweep_same, f"band entry mis_iteration [{label}]: the band's "
+                            f"rows differ from the whole frame's")
+        if (n, b) != (4, 1):
+            continue
+        # The inner band's kernels beside a quarter of the whole frame's,
+        # their inputs cut beforehand.
+        e_res, e_gates, e_cen, e_sel, e_pack = (ext(t) for t in (
+            res_planes, gates, cen, sel_gates, pack))
+        r_cen, r_offs, r_nbr = rows(cen), rows(offs), rows(nbr_ctx)
+        kw = dict(key=key, generator=gen)
+        timings = {
+            "ris": (lambda: ris.gen_canonical_samples_ris(
+                bctx, li, nl, feats, generator=gen, **band),
+                lambda: ris.gen_canonical_samples_ris(
+                    ctx, li, nl, feats, generator=gen)),
+            "mis_ris": (lambda: ris.gen_mis_reservoir_planes(
+                bctx, li, nl, feats, it_n, True, generator=gen, **band),
+                lambda: ris.gen_mis_reservoir_planes(
+                    ctx, li, nl, feats, it_n, True, generator=gen)),
+            "spatial_pass": (lambda: spatial.spatial_pass_fused(
+                e_res, e_gates, e_cen, k, n_nbr, radius, feats, **kw,
+                **band), lambda: spatial.spatial_pass_fused(
+                    res_planes, gates, cen, k, n_nbr, radius, feats, **kw)),
+            "spatial_pass_unbiased": (
+                lambda: spatial.spatial_pass_unbiased_fused(
+                    e_res, e_cen, k, n_nbr, radius, ub, **kw, **band),
+                lambda: spatial.spatial_pass_unbiased_fused(
+                    res_planes, cen, k, n_nbr, radius, ub, **kw)),
+            "neighbour_select": (lambda: nbrsel.neighbour_select(
+                e_sel, *sel_args, key=sel_key, generator=gen, **band),
+                lambda: nbrsel.neighbour_select(
+                    sel_gates, *sel_args, key=sel_key, generator=gen)),
+            "mis_iteration": (lambda: mis.mis_iteration(
+                r_cen, e_pack, r_offs, scene.geometry, k, "romis", nl, feats,
+                nbr_ctx=r_nbr, it_block=1, **band),
+                lambda: mis.mis_iteration(
+                    cen, pack, offs, scene.geometry, k, "romis", nl, feats,
+                    nbr_ctx=nbr_ctx, it_block=1)),
+        }
+        for name, (band_fn, whole_fn) in timings.items():
+            b_ms = cuda_ms(torch, band_fn, 5)
+            w_ms = cuda_ms(torch, whole_fn, 5)
+            print(f"time band entry {name}[{label}]: {b_ms:.4f} ms for "
+                  f"{h} + 2x{radius} rows vs {w_ms / n:.4f} ms, a quarter of "
+                  f"the whole frame's {w_ms:.4f} ms [{card}]")
+
+
+def nccl_rank(rank: int, world: int, store: str, out: str) -> None:
+    """A rank of the NCCL phase on card ``rank``: the config-5 frame and
+    R-OMIS through the sharded entry points, rank 0 holding them to the
+    single-device frames bit for bit, and the halo exchange of the
+    spatial passes' reservoir planes timed → a JSON line in ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=NCCL_TIMEOUT_S))
+    result = group_frames(torch, dev, world)
+    if rank == 0:
+        Path(out).write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def group_frames(torch, dev, world: int) -> dict:
+    """The sharded frames on the default process group against the
+    single-device frames (compared where the rank is 0), and the
+    exchange's time."""
+    import torch.distributed as dist
+
+    from romis_tpu_torch import Features, RayTraceMode
+    from romis_tpu_torch.parallel.halo import halo_extend
+    from romis_tpu_torch.parallel.launch import global_bands
+    from romis_tpu_torch.parallel.mis import render_romis_sharded
+    from romis_tpu_torch.parallel.shard import render_frame_sharded
+    from romis_tpu_torch.render.pipeline import render_frame
+    from romis_tpu_torch.scene.scene import flagship_camera, flagship_scene
+
+    scene, cam = flagship_scene(dev), flagship_camera(H, W, dev)
+    g, li, nl = scene.geometry, scene.lights, scene.num_lights
+    bands = global_bands(H)
+    require(bands.world == world, f"group of {bands.world}, not {world}")
+    feats = Features()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    state, imgs = None, []
+    for _ in range(2):
+        img, state = render_frame_sharded(gen, cam, g, li, nl, H, W, feats,
+                                          state, bands)
+        imgs.append(img)
+    rfeats = Features(ray_trace_mode=RayTraceMode.ROMIS)
+    rimg = render_romis_sharded(torch.Generator(device=dev).manual_seed(29),
+                                cam, g, li, nl, H, W, rfeats, bands)
+    same = None
+    if bands.rank == 0:
+        gen = torch.Generator(device=dev).manual_seed(23)
+        ref, st = None, None
+        same = True
+        for img in imgs:
+            ref, st = render_frame(gen, cam, scene, H, W, feats, st)
+            same &= torch.equal(img, ref)
+        ref, _ = render_frame(torch.Generator(device=dev).manual_seed(29),
+                              cam, scene, H, W, rfeats)
+        same &= torch.equal(rimg, ref)
+    # The exchange of one pass's reservoir planes [10K, h_loc, W].
+    k, radius = feats.num_samples_in_reservoir, feats.spatial_resample_radius
+    planes = torch.rand((10 * k, bands.h_loc, W), device=dev)
+    halo_extend(planes, radius, bands)
+    dist.barrier()
+    ms = cuda_ms(torch, lambda: halo_extend(planes, radius, bands), 20)
+    return {"world": world, "same": same, "exchange_ms": ms,
+            "radius": radius, "planes": 10 * k,
+            "exchange_mb": 2 * 10 * k * radius * W * 4 / 1e6}
+
+
+def group_phase(torch, card: str) -> None:
+    """Section 7: the sharded frames through a real NCCL process group:
+    of one rank in this process (a file:// store), bit-equal to the
+    single-device frames; and, on a machine with two or more cards, of two
+    ranks (and of four, with four cards), one a card, with the halo
+    exchange timed."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        x = torch.ones(4, device=dev)
+        dist.all_reduce(x)
+        r = group_frames(torch, dev, 1)
+        dist.destroy_process_group()
+    print(f"group[nccl, 1 rank]: all_reduce {x.tolist()}; sharded config-5 "
+          f"frames and R-OMIS bit-equal to render_frame {r['same']}")
+    require(r["same"] and x.tolist() == [1.0] * 4,
+            "group[nccl, 1 rank]: the sharded frames differ")
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"group[nccl, 2 ranks]: skipped: this machine has {n_cards} "
+              f"CUDA device; NCCL puts each rank on a card of its own")
+        return
+    import torch.multiprocessing as mp
+
+    for world in (2, 4):
+        if world > n_cards:
+            continue
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            out = Path(tmp) / "rank0.json"
+            t0 = time.perf_counter()
+            mp.spawn(nccl_rank, args=(world, f"{tmp}/store", str(out)),
+                     nprocs=world, join=True)
+            r = json.loads(out.read_text())
+        print(f"group[nccl, {world} ranks]: sharded config-5 frames and "
+              f"R-OMIS bit-equal to render_frame {r['same']}; halo exchange "
+              f"of {r['planes']} reservoir planes x {r['radius']} rows a side"
+              f" ({r['exchange_mb']:.2f} MB both sides of an inner band) "
+              f"{r['exchange_ms']:.4f} ms; {time.perf_counter() - t0:.1f} s "
+              f"with the ranks' start [{card}]")
+        require(r["same"], f"group[nccl, {world} ranks]: the sharded frames "
+                           f"differ")
 
 
 def main() -> None:
@@ -4139,6 +4700,11 @@ def main() -> None:
     print(f"time neighbour_select (two classes, philox): {ms:.4f} ms "
           f"[{card}]")
 
+    section("6: row bands")
+    band_phase(torch, dev, card, wrappers, large)
+    section("7: process group")
+    group_phase(torch, card)
+
     section("kernel table")
     table_rows = [{"name": n, "route": "cuda", "source": SOURCES[n][0],
                    "replaces": SOURCES[n][1], "launches": launches[n],
@@ -4158,5 +4724,41 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def bands_main(bands: bool) -> None:
+    """``--bands``: the device and the build (sections 1 and 2), then the
+    row bands and the process group (sections 6 and 7) alone; ``--group``:
+    section 7 alone after them."""
+    import torch
+
+    sys.stdout.reconfigure(line_buffering=True)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False; this smoke run needs a GPU")
+    sys.path.insert(0, str(ROOT))
+    from romis_tpu_torch.ops import _build
+
+    card = card_line()
+    print(f"device: {torch.cuda.get_device_name(0)} (count "
+          f"{torch.cuda.device_count()})")
+    print(card)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    _build.build_host()
+    _build.host_library()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
+    t0 = time.perf_counter()
+    if bands:
+        band_phase(torch, torch.device("cuda", 0), card, kernel_wrappers())
+    group_phase(torch, card)
+    print(f"{'sections 6 and' if bands else 'section'} 7: "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] in (["--bands"], ["--group"]):
+        bands_main(sys.argv[1] == "--bands")
+    else:
+        main()

@@ -6,7 +6,10 @@ the output directory, print per-image and total timings.
 As the reference CLI: cameras render one after another; ``--frames N``
 renders N temporally reused frames per camera (ReSTIR, through
 ``render_animation``), optionally checkpointed and resumed bit for bit;
-``--seed`` fixes every draw. It runs in one process.
+``--seed`` fixes every draw. Started as several processes with the cluster
+variables (``parallel/launch.py``: ``torchrun``'s, or the reference's), each
+first joins the ranks and takes its GPU, as the reference's CLI does; the
+renders themselves are each process's whole images.
 
 One adaptation of the port: the reference's soup path has no size limit,
 while the port's soup kernels hold at most ``ops.trace.MAX_SOUP_TRIS``
@@ -63,6 +66,13 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     import torch
+
+    # Several processes: a no-op unless the cluster variables are set
+    # (parallel/launch.py); it takes the rank's GPU before anything touches
+    # the card, so the same CLI serves one GPU and several.
+    from .parallel.launch import maybe_init_distributed
+
+    maybe_init_distributed(args.device)
 
     from .core.camera import make_camera
     from .core.device import resolve_device

@@ -57,6 +57,17 @@
 // non-decreasing: chip_smoke.py requires table[i + 1] >= table[i] over the
 // whole table, and a toolkit whose logf broke that would fail there.
 //
+// The band entry (romis_neighbour_select_band, parallel/): a launch may
+// cover a row band of a frame of h_global rows whose first row is
+// row_base. Its gate planes then hold the band inside a halo of `halo` >=
+// radius rows above and below (parallel/halo.halo_extend), its score
+// planes and outputs the band's rows only. A box cell is in the image when
+// its frame row lies in [0, h_global) (an edge band's outer halo is never
+// read), its gates are read at frame row - row_base + halo, and the
+// Philox counter takes the frame's pixel index: a band's pixels select
+// what the whole frame's launch selects for them, bit for bit. Without a
+// band halo = row_base = 0, h_global = h.
+//
 // Bound: operations. Per cell (440 at r = 10): with Philox a quarter of a
 // Philox call and the key test, the gates where the race needs the class;
 // 2 logarithms and the conversion per scored cell; device memory sees 5
@@ -87,6 +98,9 @@ struct SelArgs {
   // The depth gate by products (both noise modes): c/d passes inside
   // [d·lo_in, d·hi_in], fails outside [d·lo_out, d·hi_out] (depth_factors).
   float lo_in, hi_in, lo_out, hi_out;
+  // The band: the gate planes' rows (h + 2·halo), the halo, the band's
+  // first frame row, the frame's rows (h, 0, 0, h for the whole frame).
+  int h_in, halo, row_base, h_global;
 };
 
 // The products that decide the depth gate |1 - c/d| <= f for a cell of
@@ -193,15 +207,17 @@ nbrsel_kernel(SelArgs a) {
   extern __shared__ float tile[];
   const int r = a.radius, side = 2 * r + 1;
   const int th = kTileH + 2 * r, tw = kTileW + 2 * r, cells = th * tw;
-  const int x0 = blockIdx.x * kTileW - r, y0 = blockIdx.y * kTileH - r;
-  const long long n = static_cast<long long>(a.h) * a.w;
+  // The window's first row and column in the gate planes.
+  const int x0 = blockIdx.x * kTileW - r, y0 = blockIdx.y * kTileH - r + a.halo;
+  const long long n = static_cast<long long>(a.h) * a.w;  // scores, outputs
+  const long long n_in = static_cast<long long>(a.h_in) * a.w;  // gates
   if (kStaged) {
     for (int i = threadIdx.y * kTileW + threadIdx.x; i < 5 * cells;
          i += kTileW * kTileH) {
       const int c = i / cells, rem = i - c * cells;
-      const int yy = min(max(y0 + rem / tw, 0), a.h - 1);
+      const int yy = min(max(y0 + rem / tw, 0), a.h_in - 1);
       const int xx = min(max(x0 + rem % tw, 0), a.w - 1);
-      tile[i] = a.gates[c * n + static_cast<long long>(yy) * a.w + xx];
+      tile[i] = a.gates[c * n_in + static_cast<long long>(yy) * a.w + xx];
     }
     __syncthreads();
   }
@@ -212,11 +228,16 @@ nbrsel_kernel(SelArgs a) {
   const unsigned warp = kPhilox ? __ballot_sync(0xffffffffu, x < a.w && y < a.h) : 0u;
   if (x >= a.w || y >= a.h) return;
   const long long p = static_cast<long long>(y) * a.w + x;
+  const long long p_in = p + static_cast<long long>(a.halo) * a.w;
+  const long long pg = p + static_cast<long long>(a.row_base) * a.w;
+  const int yg = a.row_base + y;  // the pixel's frame row
+  const int y_in = y + a.halo;    // its row in the gate planes
 
-  const float c_geom = a.gates[p], c_depth = a.gates[n + p];
-  const float c_nx = a.gates[2 * n + p], c_ny = a.gates[3 * n + p],
-              c_nz = a.gates[4 * n + p];
-  // The similarity gates of cell (yy, xx) (render/neighbours._similar_planes):
+  const float c_geom = a.gates[p_in], c_depth = a.gates[n_in + p_in];
+  const float c_nx = a.gates[2 * n_in + p_in], c_ny = a.gates[3 * n_in + p_in],
+              c_nz = a.gates[4 * n_in + p_in];
+  // The similarity gates of cell (yy, xx) of the gate planes
+  // (render/neighbours._similar_planes):
   // its 5 gates from one window index, or from the planes; the depth gate
   // by products where they decide it (depth_gate).
   auto similar = [&](int yy, int xx) -> bool {
@@ -228,7 +249,7 @@ nbrsel_kernel(SelArgs a) {
     } else {
       const float* t = a.gates + static_cast<long long>(yy) * a.w + xx;
 #pragma unroll
-      for (int c = 0; c < 5; ++c) g[c] = __ldg(t + c * n);
+      for (int c = 0; c < 5; ++c) g[c] = __ldg(t + c * n_in);
     }
     bool sim = true;
     if (a.same_geom) sim = g[0] == c_geom;
@@ -247,8 +268,8 @@ nbrsel_kernel(SelArgs a) {
   if (!kPhilox) {
     int o = 0;  // offset index in the walk's order
     for (int dy = -r; dy <= r; ++dy) {
-      const int yy = y + dy;
-      const bool row_ok = yy >= 0 && yy < a.h;
+      const int yy = y_in + dy;
+      const bool row_ok = yg + dy >= 0 && yg + dy < a.h_global;
       for (int dx = -r; dx <= r; ++dx) {
         if (dy == 0 && dx == 0) continue;
         const int xx = x + dx;
@@ -300,8 +321,8 @@ nbrsel_kernel(SelArgs a) {
     U4 bits{0u, 0u, 0u, 0u};
     int o = 0;  // offset index in the walk's order
     for (int dy = -r; dy <= r; ++dy) {
-      const int yy = y + dy;
-      const bool row_ok = yy >= 0 && yy < a.h;
+      const int yy = y_in + dy;
+      const bool row_ok = yg + dy >= 0 && yg + dy < a.h_global;
       for (int dx = -r; dx <= r; ++dx) {
         if (dy == 0 && dx == 0) continue;
         const int xx = x + dx;
@@ -309,8 +330,8 @@ nbrsel_kernel(SelArgs a) {
         const int q = o & 3;
         if (q == 0) {
           bits = philox4x32_10(
-              U4{static_cast<uint32_t>(o >> 2), static_cast<uint32_t>(p),
-                 static_cast<uint32_t>(p >> 32), a.tag}, k0, k1);
+              U4{static_cast<uint32_t>(o >> 2), static_cast<uint32_t>(pg),
+                 static_cast<uint32_t>(pg >> 32), a.tag}, k0, k1);
         }
         ++o;
         const uint32_t b = q == 0 ? bits.x : q == 1 ? bits.y : q == 2 ? bits.z : bits.w;
@@ -395,19 +416,24 @@ int launch_nbrsel(const SelArgs& a, bool two, cudaStream_t stream) {
 
 }  // namespace romis
 
-extern "C" int romis_neighbour_select(const float* gates, int h, int w, int d,
-                                      int radius, int two_classes,
-                                      int prefer_similar, int same_geom,
-                                      float depth_frac, float normal_cos,
-                                      const long long* key, unsigned int tag,
-                                      const float* scores, float* s_out,
-                                      int* p_out, int* cnt,
-                                      cudaStream_t stream) {
+namespace {
+
+int neighbour_select_entry(const float* gates, int h, int w, int d, int radius,
+                           int two_classes, int prefer_similar, int same_geom,
+                           float depth_frac, float normal_cos,
+                           const long long* key, unsigned int tag,
+                           const float* scores, float* s_out, int* p_out,
+                           int* cnt, int halo, int row_base, int h_global,
+                           cudaStream_t stream) {
   using namespace romis;
   if (scores == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  // A band's halo covers the box's rows, inside the frame.
+  if (halo < 0 || row_base < 0 || row_base + h > h_global ||
+      (halo < radius && (row_base > 0 || row_base + h < h_global)))
+    return static_cast<int>(cudaErrorInvalidValue);
   SelArgs a{gates, h, w, radius, prefer_similar != 0, same_geom != 0,
             depth_frac, normal_cos, key, tag, scores, s_out, p_out, cnt,
-            0.0f, 0.0f, 0.0f, 0.0f};
+            0.0f, 0.0f, 0.0f, 0.0f, h + 2 * halo, halo, row_base, h_global};
   depth_factors(depth_frac, a.lo_in, a.hi_in, a.lo_out, a.hi_out);
   const bool two = two_classes != 0;
   switch (d) {
@@ -421,6 +447,41 @@ extern "C" int romis_neighbour_select(const float* gates, int h, int w, int d,
     case 8: return launch_nbrsel<8>(a, two, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+extern "C" int romis_neighbour_select(const float* gates, int h, int w, int d,
+                                      int radius, int two_classes,
+                                      int prefer_similar, int same_geom,
+                                      float depth_frac, float normal_cos,
+                                      const long long* key, unsigned int tag,
+                                      const float* scores, float* s_out,
+                                      int* p_out, int* cnt,
+                                      cudaStream_t stream) {
+  return neighbour_select_entry(gates, h, w, d, radius, two_classes,
+                                prefer_similar, same_geom, depth_frac,
+                                normal_cos, key, tag, scores, s_out, p_out,
+                                cnt, 0, 0, h, stream);
+}
+
+// The band entry: romis_neighbour_select's arguments for the band's h rows,
+// the gates over its h + 2·halo rows, then halo, row_base and h_global
+// (the frame's rows).
+extern "C" int romis_neighbour_select_band(const float* gates, int h, int w,
+                                           int d, int radius, int two_classes,
+                                           int prefer_similar, int same_geom,
+                                           float depth_frac, float normal_cos,
+                                           const long long* key,
+                                           unsigned int tag,
+                                           const float* scores, float* s_out,
+                                           int* p_out, int* cnt, int halo,
+                                           int row_base, int h_global,
+                                           cudaStream_t stream) {
+  return neighbour_select_entry(gates, h, w, d, radius, two_classes,
+                                prefer_similar, same_geom, depth_frac,
+                                normal_cos, key, tag, scores, s_out, p_out,
+                                cnt, halo, row_base, h_global, stream);
 }
 
 // out [2^24] f32: g of every key (gumbel_of_key).

@@ -51,6 +51,13 @@
 // Every mode takes the unshaded flag (Features.enable_shading=False): the
 // target p-hat of a candidate is then the norm of the receiver's kd
 // (Receiver::unshaded, phong_rgb), as in the plain version.
+//
+// The band entry (kernels 3 and 15, parallel/): a launch may cover a row
+// band of the frame, whose first pixel is `pix_base` = row_base * W in the
+// frame. The Philox counter takes the frame's pixel index pix_base + p, so
+// a band draws the numbers the whole frame's launch draws for its pixels;
+// the RIS is pixel-local, so the band needs no halo. Without a band
+// pix_base is 0.
 #include "common.cuh"
 
 namespace romis {
@@ -67,7 +74,7 @@ ris_kernel(const float* __restrict__ ctx, long long n,
            const float* __restrict__ rows, int n_rows, int num_lights, int s,
            int k, uint32_t key0, uint32_t key1,
            const float* __restrict__ uniforms, float* __restrict__ out,
-           int iters, bool romis, bool unshaded) {
+           int iters, bool romis, bool unshaded, long long pix_base) {
   constexpr bool kReplay = kMode == kReplayMode;
   constexpr int kUniforms = kReplay ? 5 : 4;
   extern __shared__ float s_rows[];
@@ -78,6 +85,7 @@ ris_kernel(const float* __restrict__ ctx, long long n,
   }
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= n) return;
+  const long long pg = pix_base + p;  // the pixel's index in the frame
 
   Receiver r;
   r.px = ctx[p]; r.py = ctx[n + p]; r.pz = ctx[2 * n + p];
@@ -120,8 +128,8 @@ ris_kernel(const float* __restrict__ ctx, long long n,
           ur = u_it[base + 3 * k * n];
           if (kReplay) ur2 = u_it[base + 4 * k * n];
         } else {
-          const U4 ctr{static_cast<uint32_t>(t * k + lane), static_cast<uint32_t>(p),
-                       static_cast<uint32_t>(p >> 32), tag};
+          const U4 ctr{static_cast<uint32_t>(t * k + lane), static_cast<uint32_t>(pg),
+                       static_cast<uint32_t>(pg >> 32), tag};
           const U4 b = philox4x32_10(ctr, key0, key1);
           ui = u01(b.x); u = u01(b.y); v = u01(b.z); ur = u01(b.w);
           if (kReplay) {
@@ -223,7 +231,7 @@ template <int kMode>
 int launch_ris(const float* ctx, long long n, const float* rows, int n_rows,
                int num_lights, int s, int k, unsigned long long seed,
                const float* uniforms, float* out, int iters, bool romis,
-               bool unshaded, cudaStream_t stream) {
+               bool unshaded, long long pix_base, cudaStream_t stream) {
   using namespace romis;
   const uint32_t key0 = static_cast<uint32_t>(seed);
   const uint32_t key1 = static_cast<uint32_t>(seed >> 32);
@@ -236,11 +244,11 @@ int launch_ris(const float* ctx, long long n, const float* rows, int n_rows,
     }
     ris_kernel<true, kMode><<<blocks_for(n), kThreads, smem, stream>>>(
         ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out,
-        iters, romis, unshaded);
+        iters, romis, unshaded, pix_base);
   } else {
     ris_kernel<false, kMode><<<blocks_for(n), kThreads, 0, stream>>>(
         ctx, n, rows, n_rows, num_lights, s, k, key0, key1, uniforms, out,
-        iters, romis, unshaded);
+        iters, romis, unshaded, pix_base);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -253,7 +261,19 @@ extern "C" int romis_ris(const float* ctx, long long n, const float* rows,
                          float* out, int unshaded, cudaStream_t stream) {
   return launch_ris<romis::kCanonical>(ctx, n, rows, n_rows, num_lights, s, k,
                                        seed, uniforms, out, 1, false,
-                                       unshaded != 0, stream);
+                                       unshaded != 0, 0, stream);
+}
+
+// The band entry of kernel 3: romis_ris's arguments and pix_base, the
+// frame's index of the launch's first pixel (a row band's row_base * W).
+extern "C" int romis_ris_band(const float* ctx, long long n, const float* rows,
+                              int n_rows, int num_lights, int s, int k,
+                              unsigned long long seed, const float* uniforms,
+                              float* out, int unshaded, long long pix_base,
+                              cudaStream_t stream) {
+  return launch_ris<romis::kCanonical>(ctx, n, rows, n_rows, num_lights, s, k,
+                                       seed, uniforms, out, 1, false,
+                                       unshaded != 0, pix_base, stream);
 }
 
 extern "C" int romis_ris_replay(const float* ctx, long long n, const float* rows,
@@ -262,7 +282,7 @@ extern "C" int romis_ris_replay(const float* ctx, long long n, const float* rows
                                 float* out, int unshaded, cudaStream_t stream) {
   return launch_ris<romis::kReplayMode>(ctx, n, rows, n_rows, num_lights, s,
                                         k, seed, uniforms, out, 1, false,
-                                        unshaded != 0, stream);
+                                        unshaded != 0, 0, stream);
 }
 
 extern "C" int romis_ris_mis(const float* ctx, long long n, const float* rows,
@@ -272,5 +292,19 @@ extern "C" int romis_ris_mis(const float* ctx, long long n, const float* rows,
                              int unshaded, cudaStream_t stream) {
   return launch_ris<romis::kMis>(ctx, n, rows, n_rows, num_lights, s, k, seed,
                                  uniforms, out, iters, romis_pack != 0,
-                                 unshaded != 0, stream);
+                                 unshaded != 0, 0, stream);
+}
+
+// The band entry of kernel 15: romis_ris_mis's arguments and pix_base, as
+// in romis_ris_band.
+extern "C" int romis_ris_mis_band(const float* ctx, long long n,
+                                  const float* rows, int n_rows,
+                                  int num_lights, int s, int k,
+                                  unsigned long long seed,
+                                  const float* uniforms, float* out,
+                                  int iters, int romis_pack, int unshaded,
+                                  long long pix_base, cudaStream_t stream) {
+  return launch_ris<romis::kMis>(ctx, n, rows, n_rows, num_lights, s, k, seed,
+                                 uniforms, out, iters, romis_pack != 0,
+                                 unshaded != 0, pix_base, stream);
 }

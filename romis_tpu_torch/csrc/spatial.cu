@@ -39,6 +39,18 @@
 // (2·stream + hi, pixel, tag): tag = 0x5350 | unbiased in the high half and
 // the pass index in the low half, disjoint from RIS's counters (tag 0).
 //
+// The band entry (romis_spatial_pass_band, parallel/): a launch may cover a
+// row band of a frame of h_global rows, whose first row is row_base. Its
+// input planes (reservoirs, gates, context) then hold the band inside a
+// halo of `halo` >= radius rows above and below (the neighbours' rows,
+// parallel/halo.halo_extend; an edge band's outer halo is never read), and
+// its outputs, noise and vis_check block the band's rows only. The records
+// pre-pass runs over every input row; a neighbour row is clamped to the
+// frame, [0, h_global), in frame rows and read at frame row - row_base +
+// halo; the Philox counter takes the frame's pixel index. So a band's
+// pixels draw, read and compute what the whole frame's launch does for
+// them, bit for bit. Without a band halo = row_base = 0, h_global = h.
+//
 // Kernel 5 reads its neighbours from pixel-major records, as kernel 11
 // does: its offsets are random per pixel, so in the plane layout each of a
 // neighbour's 5 gate floats and 8K reservoir floats cost a 32-byte sector
@@ -103,6 +115,9 @@ struct PassArgs {
   float* rres;          // [N, 8K] reservoir records
   float* rctx;          // unbiased: [N, 16] context records
   float* rgate;         // biased: [N, 4] gate records
+  // The band: input rows (h + 2·halo), the halo, the band's first frame
+  // row and the frame's rows (h_in = h, 0, 0, h for the whole frame).
+  int h_in, halo, row_base, h_global;
 };
 
 struct Lane {
@@ -145,11 +160,13 @@ struct StreamNoise {
   float g[K];
 };
 
-// Offsets and race noise of stream s (s == R is self: no offsets).
+// Offsets and race noise of stream s (s == R is self: no offsets): the
+// injected planes at output pixel p of n, or Philox at frame pixel pg.
 template <int K>
 __device__ __forceinline__ StreamNoise<K> stream_noise(const PassArgs& a, int s,
                                                        long long n, long long p,
-                                                       uint32_t k0, uint32_t k1) {
+                                                       long long pg, uint32_t k0,
+                                                       uint32_t k1) {
   StreamNoise<K> z;
   z.dy = 0; z.dx = 0;
   if (a.gumbel != nullptr) {
@@ -160,19 +177,27 @@ __device__ __forceinline__ StreamNoise<K> stream_noise(const PassArgs& a, int s,
     }
     return z;
   }
-  const U4 b = philox4x32_10(U4{static_cast<uint32_t>(2 * s), static_cast<uint32_t>(p),
-                                static_cast<uint32_t>(p >> 32), a.tag}, k0, k1);
+  const U4 b = philox4x32_10(U4{static_cast<uint32_t>(2 * s), static_cast<uint32_t>(pg),
+                                static_cast<uint32_t>(pg >> 32), a.tag}, k0, k1);
   z.dy = offset_from(b.x, a.radius);
   z.dx = offset_from(b.y, a.radius);
   z.g[0] = gumbel_from(b.z);
   if constexpr (K > 1) z.g[1] = gumbel_from(b.w);
   if constexpr (K > 2) {
-    const U4 c = philox4x32_10(U4{static_cast<uint32_t>(2 * s + 1), static_cast<uint32_t>(p),
-                                  static_cast<uint32_t>(p >> 32), a.tag}, k0, k1);
+    const U4 c = philox4x32_10(U4{static_cast<uint32_t>(2 * s + 1), static_cast<uint32_t>(pg),
+                                  static_cast<uint32_t>(pg >> 32), a.tag}, k0, k1);
     z.g[2] = gumbel_from(c.x);
     if constexpr (K > 3) z.g[3] = gumbel_from(c.y);
   }
   return z;
+}
+
+// The input row of the neighbour dy rows from output row i: the frame row
+// clamped to the frame, then its row in the input planes.
+__device__ __forceinline__ long long source_row(const PassArgs& a, int i, int dy) {
+  const long long gy = min(max(static_cast<long long>(a.row_base) + i + dy, 0LL),
+                           static_cast<long long>(a.h_global - 1));
+  return gy - a.row_base + a.halo;
 }
 
 // One lane of one input stream: its sample (pos, col), W and m into the
@@ -269,12 +294,15 @@ spatial_pass_kernel(const PassArgs a) {
   const int j = blockIdx.x * kPassX + threadIdx.x;
   const int i = blockIdx.y * kPassY + threadIdx.y;
   if (i >= a.h || j >= a.w) return;
-  const long long n = static_cast<long long>(a.h) * a.w;
+  const long long n = static_cast<long long>(a.h) * a.w;  // outputs, noise
+  const long long n_in = static_cast<long long>(a.h_in) * a.w;
   const long long p = static_cast<long long>(i) * a.w + j;
-  const Receiver r = load_receiver(a.cen, n, p, a.unshaded);
+  const long long p_in = p + static_cast<long long>(a.halo) * a.w;
+  const long long pg = p + static_cast<long long>(a.row_base) * a.w;
+  const Receiver r = load_receiver(a.cen, n_in, p_in, a.unshaded);
   float vx, vy, vz;
   unit_view(r, vx, vy, vz);
-  const float recv_depth = a.cen[16 * n + p];
+  const float recv_depth = a.cen[16 * n_in + p_in];
   const float4* gate = reinterpret_cast<const float4*>(a.rgate);
   uint32_t k0, k1;
   philox_key_words(a.key, k0, k1);
@@ -286,11 +314,11 @@ spatial_pass_kernel(const PassArgs a) {
     // p-hat is 0, so no weight is positive and the race keeps stream 0's
     // sample (w = 0, p-hat 0); w_sum and m sum stream 0's 0 and the self
     // stream's w = 0·W·m and m, the full race's operations.
-    const StreamNoise<K> z = stream_noise<K>(a, 0, n, p, k0, k1);
-    const long long y = min(max(static_cast<long long>(i) + z.dy, 0LL), static_cast<long long>(a.h - 1));
+    const StreamNoise<K> z = stream_noise<K>(a, 0, n, p, pg, k0, k1);
+    const long long y = source_row(a, i, z.dy);
     const long long x = min(max(static_cast<long long>(j) + z.dx, 0LL), static_cast<long long>(a.w - 1));
     const float4* src = reinterpret_cast<const float4*>(a.rres + (y * a.w + x) * 8 * K);
-    const float4* own = reinterpret_cast<const float4*>(a.rres + p * 8 * K);
+    const float4* own = reinterpret_cast<const float4*>(a.rres + p_in * 8 * K);
 #pragma unroll
     for (int l = 0; l < K; ++l) {
       const float4 f0 = __ldg(src + 2 * l), f1 = __ldg(src + 2 * l + 1);
@@ -302,9 +330,9 @@ spatial_pass_kernel(const PassArgs a) {
     }
   }
   for (int s = 0; s < nn && (r.valid || a.unshaded); ++s) {
-    const StreamNoise<K> z = stream_noise<K>(a, s, n, p, k0, k1);
+    const StreamNoise<K> z = stream_noise<K>(a, s, n, p, pg, k0, k1);
     // Source pixel of neighbour s, clamped to the screen.
-    const long long y = min(max(static_cast<long long>(i) + z.dy, 0LL), static_cast<long long>(a.h - 1));
+    const long long y = source_row(a, i, z.dy);
     const long long x = min(max(static_cast<long long>(j) + z.dx, 0LL), static_cast<long long>(a.w - 1));
     const long long q = y * a.w + x;
     // Similarity gates (render/restir.spatial_pass); an invalid
@@ -317,8 +345,8 @@ spatial_pass_kernel(const PassArgs a) {
       race_record<K>(L, s == 0, mask, a.rres, q, r, vx, vy, vz, z.g, nullptr, 0);
   }
   if (r.valid || a.unshaded || nn == 0) {
-    const StreamNoise<K> z = stream_noise<K>(a, nn, n, p, k0, k1);
-    race_record<K>(L, nn == 0, true, a.rres, p, r, vx, vy, vz, z.g, nullptr, 0);
+    const StreamNoise<K> z = stream_noise<K>(a, nn, n, p, pg, k0, k1);
+    race_record<K>(L, nn == 0, true, a.rres, p_in, r, vx, vy, vz, z.g, nullptr, 0);
   }
   float denom_m[K];
 #pragma unroll
@@ -341,7 +369,7 @@ records_kernel(const PassArgs a) {
   constexpr int CR = kUnbiased ? kCtxRecord : kGateRecord, CW = CR + 1;
   __shared__ float sres[kRecThreads * RW];
   __shared__ float sctx[kRecThreads * CW];
-  const long long n = static_cast<long long>(a.h) * a.w;
+  const long long n = static_cast<long long>(a.h_in) * a.w;  // every input row
   const long long p0 = static_cast<long long>(blockIdx.x) * kRecThreads;
   const long long p = p0 + threadIdx.x;
   if (p < n) {
@@ -416,12 +444,15 @@ spatial_unbiased_kernel(const PassArgs a) {
   const int j = blockIdx.x * kPassX + threadIdx.x;
   const int i = blockIdx.y * kPassY + threadIdx.y;
   if (i >= a.h || j >= a.w) return;
-  const long long n = static_cast<long long>(a.h) * a.w;
+  const long long n = static_cast<long long>(a.h) * a.w;  // outputs, noise
+  const long long n_in = static_cast<long long>(a.h_in) * a.w;
   const long long p = static_cast<long long>(i) * a.w + j;
+  const long long p_in = p + static_cast<long long>(a.halo) * a.w;
+  const long long pg = p + static_cast<long long>(a.row_base) * a.w;
   int* qs = qs_s + threadIdx.y * kPassX + threadIdx.x;
   float* ms = ms_s + threadIdx.y * kPassX + threadIdx.x;
   float vx, vy, vz;
-  const Receiver r = ctx_record(a.rctx, p, a.unshaded, vx, vy, vz);
+  const Receiver r = ctx_record(a.rctx, p_in, a.unshaded, vx, vy, vz);
   uint32_t k0, k1;
   philox_key_words(a.key, k0, k1);
   Lane L[K];
@@ -430,9 +461,9 @@ spatial_unbiased_kernel(const PassArgs a) {
 #pragma unroll
   for (int s = 0; s < kMaxNbr; ++s) {
     if (s < nn) {
-      const StreamNoise<K> z = stream_noise<K>(a, s, n, p, k0, k1);
+      const StreamNoise<K> z = stream_noise<K>(a, s, n, p, pg, k0, k1);
       // Source pixel of neighbour s, clamped to the screen.
-      const long long y = min(max(static_cast<long long>(i) + z.dy, 0LL), static_cast<long long>(a.h - 1));
+      const long long y = source_row(a, i, z.dy);
       const long long x = min(max(static_cast<long long>(j) + z.dx, 0LL), static_cast<long long>(a.w - 1));
       const int q = static_cast<int>(y * a.w + x);
       qs[s * kStride] = q;
@@ -441,8 +472,8 @@ spatial_unbiased_kernel(const PassArgs a) {
     }
   }
   {
-    const StreamNoise<K> z = stream_noise<K>(a, nn, n, p, k0, k1);
-    race_record<K>(L, nn == 0, true, a.rres, p, r, vx, vy, vz, z.g, nullptr, 0);
+    const StreamNoise<K> z = stream_noise<K>(a, nn, n, p, pg, k0, k1);
+    race_record<K>(L, nn == 0, true, a.rres, p_in, r, vx, vy, vz, z.g, nullptr, 0);
   }
 
   // Z-count: each input's pre-pass m where its own p-hat of the winner is
@@ -473,7 +504,7 @@ spatial_unbiased_kernel(const PassArgs a) {
   float denom_m[K];
 #pragma unroll
   for (int l = 0; l < K; ++l) {
-    const float m_self = a.res[(7 * K + l) * n + p];
+    const float m_self = a.res[(7 * K + l) * n_in + p_in];
     denom_m[l] = z[l] + (L[l].sel_ph > 0.0f ? m_self : 0.0f);
     if (a.vis != nullptr) {
       a.vis[l * n + p] = denom_m[l];
@@ -486,7 +517,7 @@ spatial_unbiased_kernel(const PassArgs a) {
 template <int K>
 cudaError_t launch_pass(const PassArgs& a, bool unbiased, cudaStream_t stream) {
   const int rec_blocks = static_cast<int>(
-      (static_cast<long long>(a.h) * a.w + kRecThreads - 1) / kRecThreads);
+      (static_cast<long long>(a.h_in) * a.w + kRecThreads - 1) / kRecThreads);
   if (unbiased)
     records_kernel<K, true><<<rec_blocks, kRecThreads, 0, stream>>>(a);
   else
@@ -504,6 +535,44 @@ cudaError_t launch_pass(const PassArgs& a, bool unbiased, cudaStream_t stream) {
 
 }  // namespace romis
 
+namespace {
+
+int spatial_pass_entry(const float* res, const float* gates, const float* cen,
+                       int h, int w, int k, int n_nbr, int radius,
+                       int unbiased, const long long* key, unsigned int tag,
+                       const int* offs, const float* gumbel, int unshaded,
+                       float* out, float* vis, float* rres, float* rctx,
+                       float* rgate, int halo, int row_base, int h_global,
+                       cudaStream_t stream) {
+  using namespace romis;
+  if (unbiased && n_nbr > kMaxNbr) return static_cast<int>(cudaErrorInvalidValue);
+  if (rres == nullptr || (rctx == nullptr) != (unbiased == 0) ||
+      (rgate == nullptr) != (unbiased != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!unbiased && vis != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (!unbiased && gates == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if ((offs == nullptr) != (gumbel == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (offs == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  // A band's halo covers the neighbours' rows, inside the frame.
+  if (halo < 0 || row_base < 0 || row_base + h > h_global ||
+      (halo < radius && (row_base > 0 || row_base + h < h_global)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PassArgs a{res,   gates,        cen,  h,    w,   n_nbr,
+                   radius, key,         tag,  offs, gumbel, unshaded != 0,
+                   out,    vis,         rres, rctx, rgate,
+                   h + 2 * halo, halo,  row_base, h_global};
+  const bool ub = unbiased != 0;
+  switch (k) {
+    case 1: return static_cast<int>(launch_pass<1>(a, ub, stream));
+    case 2: return static_cast<int>(launch_pass<2>(a, ub, stream));
+    case 3: return static_cast<int>(launch_pass<3>(a, ub, stream));
+    case 4: return static_cast<int>(launch_pass<4>(a, ub, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
 // Scratch the pre-pass writes: rres [N, 8K] reservoir records; rctx
 // [N, 16] context records (unbiased; null when biased); rgate [N, 4] gate
 // records (biased; null when unbiased).
@@ -515,24 +584,24 @@ extern "C" int romis_spatial_pass(const float* res, const float* gates,
                                   int unshaded, float* out, float* vis,
                                   float* rres, float* rctx, float* rgate,
                                   cudaStream_t stream) {
-  using namespace romis;
-  if (unbiased && n_nbr > kMaxNbr) return static_cast<int>(cudaErrorInvalidValue);
-  if (rres == nullptr || (rctx == nullptr) != (unbiased == 0) ||
-      (rgate == nullptr) != (unbiased != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!unbiased && vis != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (!unbiased && gates == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if ((offs == nullptr) != (gumbel == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (offs == nullptr && key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const PassArgs a{res,   gates,        cen,  h,    w,   n_nbr,
-                   radius, key,         tag,  offs, gumbel, unshaded != 0,
-                   out,    vis,         rres, rctx, rgate};
-  const bool ub = unbiased != 0;
-  switch (k) {
-    case 1: return static_cast<int>(launch_pass<1>(a, ub, stream));
-    case 2: return static_cast<int>(launch_pass<2>(a, ub, stream));
-    case 3: return static_cast<int>(launch_pass<3>(a, ub, stream));
-    case 4: return static_cast<int>(launch_pass<4>(a, ub, stream));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return spatial_pass_entry(res, gates, cen, h, w, k, n_nbr, radius, unbiased,
+                            key, tag, offs, gumbel, unshaded, out, vis, rres,
+                            rctx, rgate, 0, 0, h, stream);
+}
+
+// The band entry: romis_spatial_pass's arguments for the band's h output
+// rows, its inputs and the records over its h + 2·halo rows, then halo,
+// row_base and h_global (the frame's rows).
+extern "C" int romis_spatial_pass_band(const float* res, const float* gates,
+                                       const float* cen, int h, int w, int k,
+                                       int n_nbr, int radius, int unbiased,
+                                       const long long* key, unsigned int tag,
+                                       const int* offs, const float* gumbel,
+                                       int unshaded, float* out, float* vis,
+                                       float* rres, float* rctx, float* rgate,
+                                       int halo, int row_base, int h_global,
+                                       cudaStream_t stream) {
+  return spatial_pass_entry(res, gates, cen, h, w, k, n_nbr, radius, unbiased,
+                            key, tag, offs, gumbel, unshaded, out, vis, rres,
+                            rctx, rgate, halo, row_base, h_global, stream);
 }

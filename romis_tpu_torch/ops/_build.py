@@ -55,7 +55,11 @@ SIGNATURES = {
     # ctx17, n_pix, light_rows, n_rows, num_lights, s, k, seed, uniforms,
     # out, unshaded, stream
     "romis_ris": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _P),
-    # the same arguments; out holds the 7K replay-record planes
+    # romis_ris's arguments, then the frame's index of the first pixel
+    # (a row band's row_base · W), stream
+    "romis_ris_band": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _LL,
+                       _P),
+    # the same arguments as romis_ris; out holds the 7K replay-record planes
     "romis_ris_replay": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _P),
     # position, normal, view_origin, kd, ks, shininess, valid (bool),
     # sample pos, colour, big_w, n_pix, k, block-ordered tri_cols, boxes,
@@ -78,16 +82,28 @@ SIGNATURES = {
     # pack blocks
     "romis_ris_mis": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _I, _I,
                       _P),
+    # romis_ris_mis's arguments, then the first pixel's frame index, stream
+    "romis_ris_mis_band": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _I,
+                           _I, _LL, _P),
     # gates, h, w, d, radius, two_classes, prefer_similar, same_geom,
     # depth_frac, normal_cos, key, tag, scores, s_out, p_out, cnt, stream
     "romis_neighbour_select": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
                                _U, _P, _P, _P, _P, _P),
+    # romis_neighbour_select's arguments for a band of h rows (the gates
+    # over h + 2·halo rows), then halo, row_base, the frame's rows, stream
+    "romis_neighbour_select_band": (_P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                    _P, _U, _P, _P, _P, _P, _I, _I, _I, _P),
     # out [2^24] (kernel 16's Gumbel score of every key), stream
     "romis_gumbel_table": (_P, _P),
     # cen, res, offs, nbr, alphas, ext_vis, tri_cols, n_tris, h, w, d1, k,
     # s, num_lights, mode, unshaded, out0, out1, out2, stream
     "romis_mis_iteration": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P, _P, _P, _P),
+    # romis_mis_iteration's arguments for a band of h rows (the pack over
+    # h + 2·halo rows), then halo, row_base, the frame's rows, stream
+    "romis_mis_iteration_band": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                                 _P),
     # o, d, h, w, nodes, wide (ops/bvh.wide_record), tri_records [T, 12],
     # t_max, t, tri, u, v, stream
     "romis_bvh_closest": (_P, _P, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P,
@@ -109,6 +125,12 @@ SIGNATURES = {
     # gate records [N, 4] (biased, else null) (scratch), stream
     "romis_spatial_pass": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U, _P,
                            _P, _I, _P, _P, _P, _P, _P, _P),
+    # romis_spatial_pass's arguments for a band of h rows (the inputs and
+    # records over h + 2·halo rows), then halo, row_base, the frame's rows,
+    # stream
+    "romis_spatial_pass_band": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _U,
+                                _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _P),
     # origins, targets, mask, h, w, n_origins, k, tri_cols (block-ordered),
     # boxes, normals, n_tris, eps, out, stream
     "romis_zcount_occ": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _F, _P,

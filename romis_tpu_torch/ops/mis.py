@@ -43,6 +43,13 @@ sample sums written out in the kernel's order (d-major, then lane), so the
 two round alike; the receiver's p̂ is the norm of its shade planes, as in
 the reference kernel.
 
+A row band (``row_base``, ``h_global``: ``ops.band``): the pack then holds
+the band inside a halo of rows (``parallel.halo.halo_extend``, once a frame
+for every iteration's block), every other input and the outputs its rows;
+the offsets are the frame's, and a member's row is clamped to the frame in
+frame rows, so the band's sums are the frame's, bit for bit. The plain
+version takes the same arguments.
+
 The kernel has the unshaded mode of ``Features(enable_shading=False)``:
 every shade is the receiver's kd and every p̂ the norm of a kd, as the plain
 formulation computes them, so every shadow ray is traced.
@@ -70,8 +77,10 @@ import torch
 from ..core.features import Features
 from ..core.types import Reservoirs
 from . import _build
+from .band import check_band
 from .spatial import (
-    halo_offset_gather, halo_offset_gather_plain, unpack_center_ctx,
+    clamped_offsets, halo_band_gather, halo_offset_gather,
+    halo_offset_gather_plain, unpack_center_ctx,
 )
 from .trace import check_soup
 from .wrs import _lane_layout
@@ -130,21 +139,42 @@ def _check_mode(mode, nbr_ctx, alphas):
         raise ValueError("alphas are read by the progressive R-OMIS only")
 
 
+def pack_halo(res_planes: torch.Tensor, h: int) -> int:
+    """The halo rows of a pack that holds a band of h rows inside it."""
+    halo, odd = divmod(res_planes.shape[-2] - h, 2)
+    if halo < 0 or odd:
+        raise ValueError(f"mis_iteration: a pack of {res_planes.shape[-2]} "
+                         f"rows cannot hold {h} rows inside a halo")
+    return halo
+
+
 def gather_neighbourhood(res_planes: torch.Tensor, offs: torch.Tensor,
                          mode: str, k: int, it_block: int = 0,
-                         gather=halo_offset_gather_plain):
+                         gather=halo_offset_gather_plain, row_base: int = 0,
+                         h_global=None):
     """Block ``it_block`` of the pack at the neighbourhood, self first →
     SimpleNamespace of fields [D1, K, (3,) H, W]: pos, color and big_w
     (R-MIS) or w_sum and chosen_w (R-OMIS). ``gather`` fetches the
     neighbours (the plain halo gather; the differentiable formulation
-    passes ``ops.halo_gather``, kernel 9 with kernel 10 as its backward)."""
+    passes ``ops.halo_gather``, kernel 9 with kernel 10 as its backward).
+    With ``h_global`` the pack holds the row band from frame row
+    ``row_base`` on inside a halo, and ``offs`` are its rows' (the
+    gather runs over the extended pack, ``ops.spatial.halo_band_gather``)."""
     from types import SimpleNamespace
 
     c_res = mis_pack_planes(mode, k)
     block = res_planes[it_block * c_res:(it_block + 1) * c_res]
     d = offs.shape[0] // 2
-    h, w = block.shape[-2:]
-    g = torch.cat([block[None], gather(block, offs[:d], offs[d:])])
+    h, w = offs.shape[-2:]
+    h_frame = check_band("mis_iteration", h, row_base, h_global)
+    halo = pack_halo(block, h)
+    if h_global is None:
+        g = torch.cat([block[None], gather(block, offs[:d], offs[d:])])
+    else:
+        dy, dx = clamped_offsets(offs.reshape(2, d, h, w), h_frame, w,
+                                 row_base)
+        g = torch.cat([block[None, :, halo:halo + h],
+                       halo_band_gather(block, dy, dx, halo, gather)])
     nb = SimpleNamespace(pos=g[:, :3 * k].reshape(d + 1, k, 3, h, w),
                          color=g[:, 3 * k:6 * k].reshape(d + 1, k, 3, h, w))
     if mode == "romis":
@@ -157,17 +187,20 @@ def gather_neighbourhood(res_planes: torch.Tensor, offs: torch.Tensor,
 def mis_iteration_plain(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
                         offs: torch.Tensor, geometry, k: int, mode: str,
                         num_lights: int, features: Features, nbr_ctx=None,
-                        alphas=None, it_block: int = 0, ext_vis=None):
+                        alphas=None, it_block: int = 0, ext_vis=None,
+                        row_base: int = 0, h_global=None):
     """The plain version: the neighbourhood gather, then
     ``render.rmis.rmis_sample_contrib`` or
     ``render.romis.romis_iteration_terms`` (shadow rays by the plain block
     scan or traversal, or read from ``ext_vis``), with the lane layout of
-    ``features.initial_light_samples``."""
+    ``features.initial_light_samples``; a row band's as in
+    ``mis_iteration``."""
     from ..render.rmis import ctx_j_getter, rmis_sample_contrib
     from ..render.romis import romis_iteration_terms
 
     _check_mode(mode, nbr_ctx, alphas)
-    nb = gather_neighbourhood(res_planes, offs, mode, k, it_block)
+    nb = gather_neighbourhood(res_planes, offs, mode, k, it_block,
+                              row_base=row_base, h_global=h_global)
     ctx = unpack_center_ctx(cen_ctx)
     get_j = ctx_j_getter(ctx, nbr_ctx)
     vis = None
@@ -184,7 +217,8 @@ def mis_iteration_plain(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
 def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
                   offs: torch.Tensor, geometry, k: int, mode: str,
                   num_lights: int, features: Features, nbr_ctx=None,
-                  alphas=None, it_block: int = 0, ext_vis=None):
+                  alphas=None, it_block: int = 0, ext_vis=None,
+                  row_base: int = 0, h_global=None):
     """One fused iteration: cen_ctx [18, H, W], res_planes [n·C_res, H, W]
     (``pack_mis_reservoirs`` blocks; ``it_block`` picks one), offs
     [2D, H, W] int32, nbr_ctx [14D, H, W] (balance and R-OMIS), alphas
@@ -192,25 +226,35 @@ def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
     visibility, 1 = visible, d-major; required for geometry with a BVH)
     → the R-MIS contribution [3, H, W], or (A upper [D1(D1+1)/2, H, W], b
     [3·D1, H, W][, progressive sum [3, H, W]]); the samples' M is the lane
-    layout of ``features.initial_light_samples`` over K. Kernel 17 for
-    CUDA tensors, the plain version for CPU tensors."""
+    layout of ``features.initial_light_samples`` over K. With ``h_global``
+    (a frame of that many rows) ``res_planes`` holds the row band from
+    frame row ``row_base`` on inside a halo of rows ([n·C_res, h + 2·halo,
+    W]; the neighbours are within ±halo rows), every other input and the
+    outputs its h rows; ``offs`` are the frame's, pre-clipped to it. Kernel
+    17 for CUDA tensors, the plain version for CPU tensors."""
     if not cen_ctx.is_cuda:
         return mis_iteration_plain(cen_ctx, res_planes, offs, geometry, k,
                                    mode, num_lights, features, nbr_ctx,
-                                   alphas, it_block, ext_vis)
+                                   alphas, it_block, ext_vis, row_base,
+                                   h_global)
     _check_mode(mode, nbr_ctx, alphas)
     d = offs.shape[0] // 2
     d1 = d + 1
     h, w = cen_ctx.shape[-2:]
+    check_band("mis_iteration", h, row_base, h_global)
+    halo = pack_halo(res_planes, h)
+    if h_global is None and halo:
+        raise ValueError("mis_iteration: a pack with halo rows is a band's; "
+                         "pass row_base and h_global")
     if not 1 <= k <= MAX_LANES or not 1 <= d <= MAX_NEIGHBOURS:
         raise ValueError(f"mis_iteration: K={k}, D={d} outside "
                          f"1..{MAX_LANES}, 1..{MAX_NEIGHBOURS}")
-    if h * w >= 2 ** 31:
-        raise ValueError(f"mis_iteration: {h}x{w} pixels exceed 32-bit "
-                         "indexing")
+    if (h + 2 * halo) * w >= 2 ** 31:
+        raise ValueError(f"mis_iteration: {h + 2 * halo}x{w} pixels exceed "
+                         "32-bit indexing")
     s = features.initial_light_samples
     c_res = mis_pack_planes(mode, k)
-    if res_planes.dim() != 3 or tuple(res_planes.shape[1:]) != (h, w):
+    if res_planes.dim() != 3 or res_planes.shape[-1] != w:
         raise ValueError(f"mis_iteration: pack {tuple(res_planes.shape)} "
                          f"does not match {h}x{w} pixels")
     if res_planes.shape[0] % c_res or not \
@@ -255,11 +299,16 @@ def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
     if h * w:
         block = res_planes[it_block * c_res:(it_block + 1) * c_res]
-        _build.launch("romis_mis_iteration", cen_ctx.data_ptr(),
-                      block.data_ptr(), offs.data_ptr(), nbr_ptr, al_ptr,
-                      vis_ptr, None if cols is None else cols.data_ptr(),
-                      n_tris, h, w, d1, k, s, num_lights, MODES.index(mode),
-                      int(not features.enable_shading), *ptrs)
+        args = (cen_ctx.data_ptr(), block.data_ptr(), offs.data_ptr(),
+                nbr_ptr, al_ptr, vis_ptr,
+                None if cols is None else cols.data_ptr(), n_tris, h, w, d1,
+                k, s, num_lights, MODES.index(mode),
+                int(not features.enable_shading), *ptrs)
+        if h_global is None:
+            _build.launch("romis_mis_iteration", *args)
+        else:
+            _build.launch("romis_mis_iteration_band", *args, halo, row_base,
+                          h_global)
         mis_iteration.launches += 1
     return outs[0] if not romis else tuple(outs)
 

@@ -40,6 +40,14 @@ versions identically. Without them the plain version draws standard Gumbel
 noise from ``generator`` and the kernel the same distribution from Philox
 keyed by ``key`` (``ops.spatial.philox_key``), counter tag 0x4E53.
 
+A row band (``row_base``, ``h_global``: ``ops.band``): the gate planes hold
+the band inside a halo of ``radius`` rows (``parallel.halo.halo_extend``),
+the score planes and the outputs its rows; a box cell is in the image when
+its frame row is, and the Philox counter takes the frame's pixel, so the
+band's slots are the frame's, bit for bit. The plain version takes the
+same arguments and draws the whole frame's noise, of which the band takes
+its rows.
+
 Bound on the H100: compute. Each pixel draws a Philox word for each of
 the (2r+1)²-1 cells (440 at r = 10), evaluates the gates where the race
 needs the class and 2 logarithms per entrant (all cells with injected
@@ -54,6 +62,7 @@ import torch
 
 from ..core.types import ShadeCtx
 from . import _build
+from .band import band_of, frame_rows, inner_rows
 
 CLASS_OFFSET = 1e6  # ranks the preferred class above the other
 MAX_NEIGHBOURS = 8  # the kernel is instantiated for D = 1..8
@@ -164,24 +173,33 @@ def neighbour_select_plain(gates: torch.Tensor, d: int, radius: int,
                            two_classes: bool, prefer_similar: bool,
                            same_geom: bool, depth_frac: float,
                            normal_cos: float, generator=None, key=None,
-                           scores=None):
+                           scores=None, row_base: int = 0, h_global=None):
     """The plain version: the XLA path's streamed top-D → (scores, packs)
     or, with ``two_classes``, (sim scores, sim packs, dis scores, dis packs,
-    counts). ``key`` (the kernel's Philox key) is not read."""
-    _, h, w = gates.shape
+    counts); a row band's as in ``neighbour_select``. ``key`` (the kernel's
+    Philox key) is not read."""
+    _, h_in, w = gates.shape
+    h = inner_rows("neighbour_select", h_in, radius, row_base, h_global)
+    halo = (h_in - h) // 2
+    h_frame = h if h_global is None else h_global
     dev = gates.device
     offs = box_offsets(radius)
     if scores is None:
-        scores = selection_noise(generator, radius, h, w)
+        scores = band_of(selection_noise(generator, radius, h_frame, w),
+                         row_base, h)
     if tuple(scores.shape) != (len(offs), h, w):
         raise ValueError(f"scores: expected {(len(offs), h, w)}, got "
                          f"{tuple(scores.shape)}")
     side = 2 * radius + 1
     dfrac = torch.tensor(depth_frac, dtype=torch.float32, device=dev)
     ncos = torch.tensor(normal_cos, dtype=torch.float32, device=dev)
-    rows = torch.arange(h, device=dev)[:, None]
+    rows = frame_rows(h, row_base, dev)
     cols = torch.arange(w, device=dev)[None, :]
-    gpad = torch.nn.functional.pad(gates, (radius, radius, radius, radius))
+    # The gates padded to ±radius around the band's rows (a band's own
+    # halo holds its neighbours' rows).
+    gpad = torch.nn.functional.pad(gates, (radius, radius, radius - halo,
+                                           radius - halo))
+    centre = gpad[:, radius:radius + h, radius:radius + w]
 
     def empty():
         return (torch.full((d, h, w), -torch.inf, device=dev),
@@ -193,11 +211,11 @@ def neighbour_select_plain(gates: torch.Tensor, d: int, radius: int,
         s_a, s_b, packs = [], [], []
         for o in range(b0, min(b0 + BLOCK, len(offs))):
             dy, dx = int(offs[o, 0]), int(offs[o, 1])
-            in_b = ((rows + dy >= 0) & (rows + dy < h) & (cols + dx >= 0)
-                    & (cols + dx < w))
+            in_b = ((rows + dy >= 0) & (rows + dy < h_frame)
+                    & (cols + dx >= 0) & (cols + dx < w))
             nb = gpad[:, radius + dy:radius + dy + h,
                       radius + dx:radius + dx + w]
-            sim = _similar(gates, nb, same_geom, dfrac, ncos)
+            sim = _similar(centre, nb, same_geom, dfrac, ncos)
             g = scores[o]
             packs.append(torch.full((h, w), (dy + radius) * side
                                     + (dx + radius), dtype=torch.int32,
@@ -228,25 +246,30 @@ def neighbour_select_plain(gates: torch.Tensor, d: int, radius: int,
 def neighbour_select(gates: torch.Tensor, d: int, radius: int,
                      two_classes: bool, prefer_similar: bool, same_geom: bool,
                      depth_frac: float, normal_cos: float, generator=None,
-                     key=None, scores=None):
+                     key=None, scores=None, row_base: int = 0, h_global=None):
     """Top-D neighbour slots per class over the ±radius box: gates
     [5, H, W] (``selection_gates``) → (scores, packs) or, with
     ``two_classes``, (sim scores, sim packs, dis scores, dis packs, counts).
+    With ``h_global`` (a frame of that many rows) the gates hold the row
+    band from frame row ``row_base`` on inside a halo of ``radius`` rows,
+    [5, h + 2·radius, W], and ``scores`` and the outputs its h rows.
     Kernel 16 for CUDA tensors (Philox ``key`` or ``scores``), the plain
     version for CPU tensors (``generator`` or ``scores``)."""
     if not gates.is_cuda:
         return neighbour_select_plain(gates, d, radius, two_classes,
                                       prefer_similar, same_geom, depth_frac,
-                                      normal_cos, generator, key, scores)
-    _, h, w = gates.shape
+                                      normal_cos, generator, key, scores,
+                                      row_base, h_global)
+    _, h_in, w = gates.shape
+    h = inner_rows("neighbour_select", h_in, radius, row_base, h_global)
     if not 1 <= d <= MAX_NEIGHBOURS:
         raise ValueError(f"neighbour_select: D={d} outside "
                          f"1..{MAX_NEIGHBOURS}")
-    if h * w >= 2 ** 31:
-        raise ValueError(f"neighbour_select: {h}x{w} pixels exceed 32-bit "
-                         "indexing")
+    if h_in * w >= 2 ** 31:
+        raise ValueError(f"neighbour_select: {h_in}x{w} pixels exceed "
+                         "32-bit indexing")
     gates = gates.contiguous()
-    _build.check(gates, "gates", torch.float32, (5, h, w))
+    _build.check(gates, "gates", torch.float32, (5, h_in, w))
     n_off = (2 * radius + 1) ** 2 - 1
     if scores is not None:
         scores = scores.contiguous()
@@ -264,12 +287,16 @@ def neighbour_select(gates: torch.Tensor, d: int, radius: int,
     p_out = torch.empty((n_cls, d, h, w), dtype=torch.int32, device=dev)
     cnt = torch.empty((2, h, w), dtype=torch.int32, device=dev)
     if h * w:
-        _build.launch("romis_neighbour_select", gates.data_ptr(), h, w, d,
-                      radius, int(two_classes), int(prefer_similar),
-                      int(same_geom), float(np.float32(depth_frac)),
-                      float(np.float32(normal_cos)), key_ptr, _TAG << 16,
-                      s_ptr, s_out.data_ptr(), p_out.data_ptr(),
-                      cnt.data_ptr())
+        args = (gates.data_ptr(), h, w, d, radius, int(two_classes),
+                int(prefer_similar), int(same_geom),
+                float(np.float32(depth_frac)), float(np.float32(normal_cos)),
+                key_ptr, _TAG << 16, s_ptr, s_out.data_ptr(),
+                p_out.data_ptr(), cnt.data_ptr())
+        if h_global is None:
+            _build.launch("romis_neighbour_select", *args)
+        else:
+            _build.launch("romis_neighbour_select_band", *args,
+                          (h_in - h) // 2, row_base, h_global)
         neighbour_select.launches += 1
     if two_classes:
         return s_out[0], p_out[0], s_out[1], p_out[1], cnt

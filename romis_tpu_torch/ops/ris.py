@@ -24,6 +24,13 @@ Every mode has the unshaded mode of ``Features(enable_shading=False)``: the
 target p̂ is the norm of the receiver's kd, as the plain versions compute
 it (``ops.shading.phong_shade_planes``).
 
+Kernels 3 and 15 take a row band (``row_base``, ``h_global``: ``ops.band``)
+of the frame: the RIS is pixel-local, so a band is the frame's rows
+``row_base`` on, and the kernel's Philox counter takes the frame's pixel
+index; the plain versions draw the whole frame's uniforms and take the
+band's rows. Either way a band's reservoirs are the frame's, bit for
+bit.
+
 Bound on the H100: compute, S Phong evaluations (one ``powf`` each) per
 pixel with the whole reservoir state in registers; device memory sees 17
 context planes in and 10K reservoir planes out.
@@ -37,6 +44,7 @@ from ..core.features import Features
 
 from ..core.types import Reservoirs, ShadeCtx, unpack_reservoir_planes
 from . import _build
+from .band import check_band
 
 CTX_PLANES = 17
 
@@ -79,22 +87,27 @@ def _seed(generator: torch.Generator) -> int:
 
 def gen_canonical_samples_ris(ctx: ShadeCtx, lights, num_lights: int,
                               features: Features, generator=None,
-                              uniforms=None) -> Reservoirs:
+                              uniforms=None, row_base: int = 0,
+                              h_global=None) -> Reservoirs:
     """S = initial_light_samples candidates over K = num_samples_in_reservoir
     lanes per pixel → Reservoirs [K, ..., H, W]. Random numbers: the
     ``uniforms`` [S/K, 4, K, H, W] when given, else drawn from
     ``generator`` (the plain version draws the uniforms themselves, the
-    kernel a Philox key)."""
+    kernel a Philox key). With ``h_global`` the context is the row band
+    from ``row_base`` on of a frame of ``h_global`` rows, whose draws it
+    takes."""
     from .wrs import gen_canonical_samples_plain
 
     h, w = ctx.depth_t.shape[-2:]
     s = features.initial_light_samples
     k = features.num_samples_in_reservoir
+    check_band("RIS", h, row_base, h_global)
     if uniforms is None and generator is None:
         raise ValueError("RIS needs a torch.Generator or the uniforms")
     if not ctx.position.is_cuda:
         return gen_canonical_samples_plain(ctx, lights, num_lights, features,
-                                           generator, uniforms)
+                                           generator, uniforms, row_base,
+                                           h_global)
 
     packed, rows = _check_launch(ctx, lights, uniforms, 4, features)
     if uniforms is not None:
@@ -103,9 +116,13 @@ def gen_canonical_samples_ris(ctx: ShadeCtx, lights, num_lights: int,
         seed, u_ptr = _seed(generator), None
     out = torch.empty((10 * k, h, w), dtype=torch.float32, device=packed.device)
     if h * w:
-        _build.launch("romis_ris", packed.data_ptr(), h * w, rows.data_ptr(),
-                      rows.shape[0], num_lights, s, k, seed, u_ptr,
-                      out.data_ptr(), int(not features.enable_shading))
+        args = (packed.data_ptr(), h * w, rows.data_ptr(), rows.shape[0],
+                num_lights, s, k, seed, u_ptr, out.data_ptr(),
+                int(not features.enable_shading))
+        if h_global is None:
+            _build.launch("romis_ris", *args)
+        else:
+            _build.launch("romis_ris_band", *args, row_base * w)
         gen_canonical_samples_ris.launches += 1
     return unpack_reservoir_planes(out, k)
 
@@ -154,7 +171,8 @@ gen_canonical_replay.launches = 0
 def gen_mis_reservoir_planes_plain(ctx: ShadeCtx, lights, num_lights: int,
                                    features: Features, iterations: int,
                                    romis: bool, generator=None,
-                                   uniforms=None) -> torch.Tensor:
+                                   uniforms=None, row_base: int = 0,
+                                   h_global=None) -> torch.Tensor:
     """The plain version: ``iterations`` canonical RIS calls (uniforms
     [iterations, S/K, 4, K, H, W] when given), each packed."""
     from .mis import pack_mis_reservoirs
@@ -162,28 +180,32 @@ def gen_mis_reservoir_planes_plain(ctx: ShadeCtx, lights, num_lights: int,
 
     return torch.cat([pack_mis_reservoirs(gen_canonical_samples_plain(
         ctx, lights, num_lights, features, generator,
-        None if uniforms is None else uniforms[it]), romis)
-        for it in range(iterations)])
+        None if uniforms is None else uniforms[it], row_base, h_global),
+        romis) for it in range(iterations)])
 
 
 def gen_mis_reservoir_planes(ctx: ShadeCtx, lights, num_lights: int,
                              features: Features, iterations: int, romis: bool,
-                             generator=None, uniforms=None) -> torch.Tensor:
+                             generator=None, uniforms=None, row_base: int = 0,
+                             h_global=None) -> torch.Tensor:
     """Every MIS iteration's canonical reservoirs in the sweep's pack →
     [iterations · 7K, H, W] (R-MIS) or [iterations · 8K, H, W] (R-OMIS).
     Random numbers: ``uniforms`` [iterations, S/K, 4, K, H, W], which give
     what ``iterations`` canonical calls on their slices give, else drawn
-    from ``generator`` (a Philox key for the kernel). Kernel 15 for CUDA
+    from ``generator`` (a Philox key for the kernel). ``row_base`` and
+    ``h_global`` as in ``gen_canonical_samples_ris``. Kernel 15 for CUDA
     tensors, the plain version for CPU tensors."""
     h, w = ctx.depth_t.shape[-2:]
     s = features.initial_light_samples
     k = features.num_samples_in_reservoir
+    check_band("MIS RIS", h, row_base, h_global)
     if uniforms is None and generator is None:
         raise ValueError("MIS RIS needs a torch.Generator or the uniforms")
     if not ctx.position.is_cuda:
         return gen_mis_reservoir_planes_plain(ctx, lights, num_lights,
                                               features, iterations, romis,
-                                              generator, uniforms)
+                                              generator, uniforms, row_base,
+                                              h_global)
     packed, rows = _check_launch(ctx, lights, None, 4, features)
     if uniforms is not None:
         uniforms = uniforms.contiguous()
@@ -195,10 +217,13 @@ def gen_mis_reservoir_planes(ctx: ShadeCtx, lights, num_lights: int,
     out = torch.empty(((8 if romis else 7) * k * iterations, h, w),
                       dtype=torch.float32, device=packed.device)
     if h * w and iterations:
-        _build.launch("romis_ris_mis", packed.data_ptr(), h * w,
-                      rows.data_ptr(), rows.shape[0], num_lights, s, k, seed,
-                      u_ptr, out.data_ptr(), iterations, int(romis),
-                      int(not features.enable_shading))
+        args = (packed.data_ptr(), h * w, rows.data_ptr(), rows.shape[0],
+                num_lights, s, k, seed, u_ptr, out.data_ptr(), iterations,
+                int(romis), int(not features.enable_shading))
+        if h_global is None:
+            _build.launch("romis_ris_mis", *args)
+        else:
+            _build.launch("romis_ris_mis_band", *args, row_base * w)
         gen_mis_reservoir_planes.launches += 1
     return out
 

@@ -107,7 +107,8 @@ def _gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
 
 def gen_canonical_samples_plain(ctx: ShadeCtx, lights, num_lights: int,
                                 features: Features, generator=None,
-                                uniforms=None) -> Reservoirs:
+                                uniforms=None, row_base: int = 0,
+                                h_global=None) -> Reservoirs:
     """The plain version of the RIS kernel: S candidates per pixel streamed
     slot by slot (one candidate per lane per slot, all K lanes at once),
     uniform light pick, uniform point on the light, weight p_hat·L, running
@@ -115,8 +116,10 @@ def gen_canonical_samples_plain(ctx: ShadeCtx, lights, num_lights: int,
 
     ``uniforms`` [S/K, 4, K, H, W] holds, per slot, what the JAX path draws
     as ``u4`` (light pick, u, v, race); without it they are drawn from
-    ``generator``."""
+    ``generator``: for a row band (``h_global``, ``ops.band``) the whole
+    frame's, of which the band takes its rows."""
     from ..scene.lights import sample_lights_planes
+    from .band import band_of, check_band
     from .rows import gather_rows_plain
 
     h, w_img = ctx.depth_t.shape[-2:]
@@ -124,8 +127,10 @@ def gen_canonical_samples_plain(ctx: ShadeCtx, lights, num_lights: int,
     k = features.num_samples_in_reservoir
     sk, lane_counts, lane_real = _lane_layout(s, k)
     dev = ctx.position.device
+    h_frame = check_band("RIS", h, row_base, h_global)
     if uniforms is None:
-        uniforms = ris_uniforms(generator, s, k, h, w_img)
+        uniforms = band_of(ris_uniforms(generator, s, k, h_frame, w_img),
+                           row_base, h)
     if tuple(uniforms.shape) != (sk, 4, k, h, w_img):
         raise ValueError(f"uniforms: expected {(sk, 4, k, h, w_img)}, got "
                          f"{tuple(uniforms.shape)}")

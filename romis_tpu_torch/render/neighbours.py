@@ -14,6 +14,11 @@ The similarity strategies run ``ops.nbrsel``: kernel 16 for CUDA tensors,
 the plain streamed top-D for CPU tensors (or with ``select`` set to it);
 the deficit tail below is torch code for both, as in the reference.
 
+On a row band (``band``, ``parallel.mesh.Bands``) the selection runs on
+the band's rows with the gates extended by a halo of ``radius`` rows
+(kernel 16's band entry), the draws made for the whole frame and cut to
+the band's rows, and the coordinates are the frame's.
+
 Random numbers: ``noise`` replaces the draws — for RANDOM the uniforms
 [2, D, H, W] (rows, then columns), for the similarity strategies one score
 plane per box offset [(2r+1)²-1, H, W] in the XLA path's order (dy-major,
@@ -28,6 +33,7 @@ import torch
 from ..core.features import Features, NeighbourSelectionStrategy
 from ..core.types import ShadeCtx
 from ..ops import nbrsel
+from ..ops.band import frame_rows
 
 
 def _to_coords(packs, rows, cols, radius: int):
@@ -40,19 +46,23 @@ def _to_coords(packs, rows, cols, radius: int):
 
 def select_neighbour_indices(generator, ctx: ShadeCtx, height: int,
                              width: int, features: Features, noise=None,
-                             select=nbrsel.neighbour_select):
+                             select=nbrsel.neighbour_select, band=None):
     """Per-pixel neighbour coordinates (rows [D+1, H, W], cols [D+1, H, W],
     int32), self first. ``select`` is the box scan of the similarity
     strategies (``ops.nbrsel.neighbour_select`` by default, or its plain
     version). The context is read without gradient: neighbour choice is
-    discrete."""
+    discrete. On a row ``band`` the context and the outputs are the band's
+    rows (``height`` the frame's, ``noise`` the whole frame's), the
+    coordinates the frame's."""
     d = features.num_neighbours_to_sample
     radius = features.spatial_resample_radius
     dev = ctx.depth_t.device
-    rows = torch.arange(height, dtype=torch.int32, device=dev)[:, None]
+    h = ctx.depth_t.shape[-2]
+    cut = (lambda t: t) if band is None else band.band_rows
+    rows = frame_rows(h, 0 if band is None else band.row_base, dev)
     cols = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
-    self_r = rows.expand(height, width)[None]
-    self_c = cols.expand(height, width)[None]
+    self_r = rows.expand(h, width)[None]
+    self_c = cols.expand(h, width)[None]
     strategy = features.neighbour_selection_strategy
 
     if strategy == NeighbourSelectionStrategy.RANDOM:
@@ -64,6 +74,7 @@ def select_neighbour_indices(generator, ctx: ShadeCtx, height: int,
         if noise is None:
             noise = torch.rand((2, d, height, width), generator=generator,
                                device=generator.device)
+        noise = cut(noise)
         ny = lo_y + torch.floor(noise[0] * (hi_y - lo_y + 1)).int()
         nx = lo_x + torch.floor(noise[1] * (hi_x - lo_x + 1)).int()
         return torch.cat([self_r, ny]), torch.cat([self_c, nx])
@@ -78,12 +89,18 @@ def select_neighbour_indices(generator, ctx: ShadeCtx, height: int,
         key = philox_key(generator)
     normal_cos = float(np.cos(
         features.neighbour_max_normal_angle_difference_radians))
+    gates = nbrsel.selection_gates(ctx)
+    on_band = {}
+    if band is not None:
+        gates = band.extend(gates, radius)
+        noise = None if noise is None else cut(noise)
+        on_band = dict(row_base=band.row_base, h_global=height)
     with torch.no_grad():
         outs = select(
-            nbrsel.selection_gates(ctx), d, radius, two, prefer,
+            gates, d, radius, two, prefer,
             features.neighbour_same_geometry,
             features.neighbour_max_depth_difference_fraction, normal_cos,
-            generator=generator, key=key, scores=noise)
+            generator=generator, key=key, scores=noise, **on_band)
 
     if not two:
         s, p = outs

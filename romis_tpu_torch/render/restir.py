@@ -30,6 +30,15 @@ winner-replay combines, with replay records through the reuse phases on
 the biased non-fused path; with ``coherent_spatial_offsets`` one offset per
 (pass, neighbour) instead of per pixel.
 
+A frame may render one row band of itself (``band``: a
+``parallel.mesh.Bands``, for the sharded frame of ``parallel/``): the band's
+rows of the rays, every random draw made for the whole frame and cut to
+the band's rows, and each neighbour read (temporal reprojection, the
+spatial passes) on the band's planes extended by a halo of neighbouring
+rows (``band.extend``) through the kernels' band entries. Without
+injected noise a band's rows are the whole frame's, bit for bit, whatever
+the number of bands.
+
 ``FrameOps`` names the kernel entry points a frame calls. ``KERNELS`` (the
 default) holds the wrappers, which launch the CUDA kernels for CUDA tensors
 and run the plain versions for CPU tensors; ``PLAIN`` holds the plain
@@ -40,6 +49,7 @@ Under autograd the plain versions are differentiated by PyTorch directly.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Callable
 
 import torch
@@ -53,6 +63,7 @@ from ..core.types import (
 )
 from ..core.vec import vdot
 from ..ops import mis, nbrsel, rows, shade, spatial, trace
+from ..ops.band import frame_rows
 from ..ops.intersect import intersect_any, make_hit_record, make_shade_ctx
 from ..ops.ris import (
     gen_canonical_replay, gen_canonical_samples_ris, gen_mis_reservoir_planes,
@@ -164,6 +175,16 @@ def trace_primary(rays: Rays, geometry, features: Features,
     return hits, ctx
 
 
+def band_gather(band, radius: int, ops: FrameOps = KERNELS):
+    """The halo gather of a row ``band``: ``ops.halo_gather`` on its planes
+    extended by ``radius`` rows (``ops.spatial.halo_band_gather``), or
+    ``ops.halo_gather`` itself without one."""
+    if band is None:
+        return ops.halo_gather
+    return lambda planes, dy, dx: spatial.halo_band_gather(
+        band.extend(planes, radius), dy, dx, radius, ops.halo_gather)
+
+
 def _similar(ctx: ShadeCtx, depth, normal) -> torch.Tensor:
     """The similarity gates: depth within SPATIAL_DEPTH_FRAC of the
     receiver's and normal within 25° of it."""
@@ -175,7 +196,7 @@ def _similar(ctx: ShadeCtx, depth, normal) -> torch.Tensor:
 def temporal_reuse(gumbel: torch.Tensor, ctx: ShadeCtx, current: Reservoirs,
                    prev: TemporalState, height: int, width: int,
                    features: Features, ops: FrameOps = KERNELS,
-                   records=None):
+                   records=None, band=None):
     """Temporal reuse with M-clamping: clamp the predecessor's history, then
     a 2-way biased combine of {current, predecessor}. ``gumbel``
     [2, K, H, W] is the race noise.
@@ -189,8 +210,12 @@ def temporal_reuse(gumbel: torch.Tensor, ctx: ShadeCtx, current: Reservoirs,
     With the current reservoirs' replay ``records`` [K, 3, H, W] it returns
     (Reservoirs, the winners' records): the exact combine, which also
     selects the record (the predecessor has none: its sample is
-    previous-frame data)."""
+    previous-frame data).
+
+    On a row ``band`` (everything the band's rows; ``height`` the frame's)
+    the predecessor's planes take a halo of ``reprojection_radius`` rows."""
     dev = ctx.position.device
+    hw = tuple(ctx.depth_t.shape[-2:])
     if features.temporal_reprojection:
         rows_f, cols_f, in_front = project_to_pixel(prev.cam, ctx.position,
                                                     height, width)
@@ -200,7 +225,8 @@ def temporal_reuse(gumbel: torch.Tensor, ctx: ShadeCtx, current: Reservoirs,
         ci = torch.round(cols_f).clamp(0, width - 1).int()
         in_bounds = ((rows_f >= -0.5) & (rows_f <= height - 0.5)
                      & (cols_f >= -0.5) & (cols_f <= width - 0.5) & in_front)
-        dy = ri - torch.arange(height, dtype=torch.int32, device=dev)[:, None]
+        dy = ri - frame_rows(hw[0], 0 if band is None else band.row_base,
+                             dev)
         dx = ci - torch.arange(width, dtype=torch.int32, device=dev)[None, :]
         rr = features.reprojection_radius
         in_band = (dy.abs() <= rr) & (dx.abs() <= rr)
@@ -211,7 +237,7 @@ def temporal_reuse(gumbel: torch.Tensor, ctx: ShadeCtx, current: Reservoirs,
         planes = torch.cat([
             pack_reservoir_planes(prev.reservoirs), prev.ctx.normal,
             prev.ctx.depth_t[None], prev.ctx.valid.float()[None]], dim=0)
-        g = ops.halo_gather(planes, dy[None], dx[None])[0]
+        g = band_gather(band, rr, ops)(planes, dy[None], dx[None])[0]
         pred = unpack_reservoir_planes(g[:10 * k], k)
         p_normal = g[10 * k:10 * k + 3]
         p_depth = g[10 * k + 3]
@@ -220,7 +246,7 @@ def temporal_reuse(gumbel: torch.Tensor, ctx: ShadeCtx, current: Reservoirs,
                      & _similar(ctx, p_depth, p_normal))
     else:
         pred = prev.reservoirs
-        pred_mask = torch.ones((height, width), dtype=torch.bool, device=dev)
+        pred_mask = torch.ones(hw, dtype=torch.bool, device=dev)
     pred_mask = pred_mask & bool(prev.has_prev)
 
     pred = clamp_temporal_m(pred, current.total_m(),
@@ -231,7 +257,7 @@ def temporal_reuse(gumbel: torch.Tensor, ctx: ShadeCtx, current: Reservoirs,
         (pred.pos, pred.color, pred.w_sum, pred.m, pred.big_w,
          pred.chosen_w))))
     in_mask = torch.stack([
-        torch.ones((height, width), dtype=torch.bool, device=dev), pred_mask])
+        torch.ones(hw, dtype=torch.bool, device=dev), pred_mask])
     if records is not None:
         records = torch.stack([records, no_record(records)])
     return combine_biased(ctx, inputs, in_mask, features, gumbel, records)
@@ -346,7 +372,7 @@ def _pass_noise(generator, inject, p: int, features: Features, h: int,
 def spatial_reuse(generator, ctx: ShadeCtx, reservoirs: Reservoirs,
                   height: int, width: int, features: Features,
                   ops: FrameOps = KERNELS, inject=None, records=None,
-                  lights=None, geometry=None):
+                  lights=None, geometry=None, band=None):
     """Spatial reuse (reference spatialReuse, render_utils.cpp:87-140):
     ``spatial_resampling_passes`` passes, each drawing R offsets in the
     ±radius box (clamped to the screen) and combining {neighbours...,
@@ -361,37 +387,53 @@ def spatial_reuse(generator, ctx: ShadeCtx, reservoirs: Reservoirs,
     [K, 3, H, W] (returns (Reservoirs, records)): every gathered plane
     detached except big_w, the winners re-derived from ``lights``.
     Otherwise the differentiable gather (``coherent_gather`` or
-    ``ops.halo_gather``) and ``spatial_pass``."""
+    ``ops.halo_gather``) and ``spatial_pass``.
+
+    On a row ``band`` (the context and reservoirs the band's rows,
+    ``height`` the frame's; ``inject`` the whole frame's, cut to the
+    band's rows) every pass reads the planes extended by a halo of
+    ``spatial_resample_radius`` rows (``band.extend``): the context once,
+    the reservoirs every pass."""
     k = features.num_samples_in_reservoir
+    radius = features.spatial_resample_radius
+    cut = (lambda t: t) if band is None else band.band_rows
+
+    def ext(planes):
+        return planes if band is None else band.extend(planes, radius)
+
     if _fused_spatial(features, reservoirs.w_sum):
         r = features.num_neighbours_to_sample
-        radius = features.spatial_resample_radius
         key = None if inject is not None else spatial.philox_key(generator)
-        cen = shade.pack_center_ctx(ctx)
+        cen = ext(shade.pack_center_ctx(ctx))
         res_planes = pack_reservoir_planes(reservoirs)
         gates = None if features.unbiased_combination \
-            else spatial.pack_gates(ctx)
+            else ext(spatial.pack_gates(ctx))
+        on_band = {} if band is None else dict(row_base=band.row_base,
+                                               h_global=height)
         for p in range(features.spatial_resampling_passes):
             noise = dict(generator=generator, key=key, pass_index=p,
-                         inject=None if inject is None else inject[p][:2])
+                         inject=None if inject is None else tuple(
+                             cut(t) for t in inject[p][:2]), **on_band)
             if features.unbiased_combination:
                 res_planes = ops.spatial_pass_unbiased(
-                    res_planes, cen, k, r, radius, features,
+                    ext(res_planes), cen, k, r, radius, features,
                     geometry=geometry, **noise)
             else:
-                res_planes = ops.spatial_pass(res_planes, gates, cen, k, r,
-                                              radius, features, **noise)
+                res_planes = ops.spatial_pass(ext(res_planes), gates, cen, k,
+                                              r, radius, features, **noise)
         return unpack_reservoir_planes(res_planes, k)
 
     def gather(planes, offs):
         if features.coherent_spatial_offsets:
             return coherent_gather(planes, offs)
-        dy, dx = spatial.clamped_offsets(offs, height, width)
-        return ops.halo_gather(planes, dy, dx)
+        dy, dx = spatial.clamped_offsets(
+            offs, height, width, 0 if band is None else band.row_base)
+        return band_gather(band, radius, ops)(planes, dy, dx)
 
     for p in range(features.spatial_resampling_passes):
-        offs, gumbel, gumbel2 = _pass_noise(generator, inject, p, features,
-                                            height, width)
+        offs, gumbel, gumbel2 = (None if t is None else cut(t) for t in
+                                 _pass_noise(generator, inject, p, features,
+                                             height, width))
         planes = pack_pixel_planes(reservoirs, ctx)
         if records is None:
             nbr, nbr_ctx = unpack_pixel_planes(gather(planes, offs), k)
@@ -419,10 +461,21 @@ def final_shade(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     return ops.final_shade(ctx, reservoirs, geometry, features)
 
 
+def check_band_features(features: Features) -> None:
+    """Refuse the options of the gradient paths on a row band: the
+    sharded frame renders forward; the sharded training step is not
+    ported."""
+    if features.surrogate_resampling_grad or features.coherent_spatial_offsets:
+        raise ValueError(
+            "a row band renders the forward frame: surrogate_resampling_grad "
+            "and coherent_spatial_offsets belong to the training step, whose "
+            "sharded form is not ported")
+
+
 def render_restir_frame(generator, cam: CameraParams, geometry, lights,
                         num_lights: int, height: int, width: int,
                         features: Features, prev: TemporalState,
-                        noise=None, ops: FrameOps = KERNELS):
+                        noise=None, ops: FrameOps = KERNELS, band=None):
     """One ReSTIR frame → (image [H, W, 3], TemporalState for the next
     frame, detached).
 
@@ -433,10 +486,17 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
     race Gumbel noise [2, K, H, W], and with spatial reuse, per pass
     (offsets [2, R, H, W] ([2, R] with ``coherent_spatial_offsets``),
     Gumbel [R+1, K, H, W][, the surrogate's second Gumbel])); it is None on
-    the main path."""
+    the main path.
+
+    With ``band`` (``parallel.mesh.Bands``) the frame renders that row
+    band → (its image rows [h, W, 3], its TemporalState); ``prev`` is the
+    band's, ``noise`` the whole frame's."""
     k = features.num_samples_in_reservoir
     ris_u, temporal_g, spatial_inject = (None, None, None) if noise is None \
         else (tuple(noise) + (None,))[:3]
+    cut = (lambda t: t) if band is None else band.band_rows
+    if band is not None:
+        check_band_features(features)
     # Replay records ride through the reuse phases on the surrogate
     # gradient path when the reuse runs its differentiable formulation.
     use_records = (features.surrogate_resampling_grad
@@ -444,6 +504,9 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
                    and not features.fused_resampling)
 
     rays = generate_rays(cam, height, width)
+    if band is not None:
+        rays = Rays(cut(rays.origin).contiguous(),
+                    cut(rays.direction).contiguous())
     _, ctx = trace_primary(rays, geometry, features, ops)
     rec = None
     if features.surrogate_resampling_grad:
@@ -456,6 +519,9 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
     else:
         ris = ops.ris if _fused(features, ctx.position) \
             else gen_canonical_samples_plain
+        if band is not None:
+            ris = partial(ris, row_base=band.row_base, h_global=height)
+            ris_u = None if ris_u is None else cut(ris_u)
         res = gen_canonical_samples(ctx, lights, num_lights, geometry,
                                     features, generator=generator,
                                     uniforms=ris_u, ris=ris,
@@ -463,13 +529,13 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
     if features.temporal_reuse:
         if temporal_g is None:
             temporal_g = gumbel_noise(generator, (2, k, height, width))
-        res = temporal_reuse(temporal_g, ctx, res, prev, height, width,
-                             features, ops, rec)
+        res = temporal_reuse(cut(temporal_g), ctx, res, prev, height, width,
+                             features, ops, rec, band)
         if rec is not None:
             res, rec = res
     if features.spatial_reuse:
         res = spatial_reuse(generator, ctx, res, height, width, features,
-                            ops, spatial_inject, rec, lights, geometry)
+                            ops, spatial_inject, rec, lights, geometry, band)
         if rec is not None:
             res, rec = res
     color = final_shade(ctx, res, geometry, features, ops)

@@ -31,6 +31,16 @@ the D1·K shadow rays of every pixel in one batch (``ops.any_hit``: kernel
 soup above the soup kernels' 2048 triangles without a BVH is refused,
 naming ``with_bvh``.
 
+A frame may render one row band of itself (``band``, ``parallel.mesh.
+Bands``, for the sharded frames of ``parallel.mis``): the band's rows of
+the rays, the selection on the band's gates with a halo of radius rows
+(kernel 16's band entry), the neighbours' contexts through kernel 9 on the
+band's planes extended by that halo, every iteration's pack (kernel 15's
+band entry) extended by that halo once a frame, and each sweep on the
+band (kernel 17's band entry); draws are made for the whole frame and cut
+to the band's rows. Without injected noise a band's rows are the whole
+frame's, bit for bit.
+
 With ``fused_resampling=False`` (``diff.grad.make_mis_grad_fn`` sets it,
 as the reference does) the iterations run the reference's differentiable
 formulation instead of kernels 15 and 17, which have no backward: per
@@ -52,6 +62,7 @@ at a time; its random numbers come from a seed drawn before the body
 from __future__ import annotations
 
 from dataclasses import fields
+from functools import partial
 from types import SimpleNamespace
 
 import torch
@@ -59,11 +70,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.camera import CameraParams, generate_rays
 from ..core.features import Features, MISWeight
-from ..core.types import ShadeCtx
+from ..core.types import Rays, ShadeCtx
+from ..ops.band import frame_rows
 from ..ops.mis import (
     MAX_NEIGHBOURS, gather_neighbourhood, mis_pack_planes,
     pack_mis_reservoirs, resolve_neighbour_ctx,
 )
+from ..ops.spatial import halo_band_gather
 from ..ops.shade import pack_center_ctx
 from ..ops.shading import (
     exposure_tone_mapping, phong_shade_planes, target_pdf_planes,
@@ -75,16 +88,20 @@ from ..ops.wrs import (
 )
 from ..scene.lights import sample_lights_planes
 from .neighbours import select_neighbour_indices
-from .restir import KERNELS, PLAIN, FrameOps, trace_primary
+from .restir import (
+    KERNELS, PLAIN, FrameOps, _fused, band_gather, trace_primary,
+)
 
 FLT_MIN = 1.17549435e-38  # the reference's FLT_MIN denominators
 
 
-def mis_offsets(ny: torch.Tensor, nx: torch.Tensor) -> torch.Tensor:
+def mis_offsets(ny: torch.Tensor, nx: torch.Tensor,
+                row_base: int = 0) -> torch.Tensor:
     """Neighbour coordinates [D1, H, W] (self first) → the sweep's offsets
-    [2D, H, W] int32 (dy block, then dx block)."""
+    [2D, H, W] int32 (dy block, then dx block); for a row band its rows
+    from frame row ``row_base`` on."""
     h, w = ny.shape[-2:]
-    rows = torch.arange(h, dtype=torch.int32, device=ny.device)[:, None]
+    rows = frame_rows(h, row_base, ny.device)
     cols = torch.arange(w, dtype=torch.int32, device=ny.device)[None, :]
     return torch.cat([ny[1:].int() - rows, nx[1:].int() - cols])
 
@@ -192,80 +209,111 @@ def check_mis(features: Features, geometry, ops: FrameOps) -> None:
 
 def iteration_packs(generator, ctx: ShadeCtx, lights, num_lights: int,
                     geometry, features: Features, romis: bool,
-                    ops: FrameOps, inject=None, uniforms=None):
+                    ops: FrameOps, inject=None, uniforms=None, band=None,
+                    height=None):
     """Per iteration, (reservoir pack, block index): every block of one
     batched RIS (``ops.mis_ris``) on CUDA tensors without the initial
     visibility check, else one canonical RIS per iteration (with the
     check's any-hit; the plain RIS on CPU tensors, as the reference runs
-    its XLA path off the TPU), or the injected reservoirs."""
-    fused = ctx.position.is_cuda
+    its XLA path off the TPU), or the injected reservoirs. On a row
+    ``band`` (of a frame of ``height`` rows; ``inject`` and ``uniforms``
+    the whole frame's) each pack is the band's, extended by a halo of
+    radius rows: the batched pack once for every iteration."""
+    fused = _fused(features, ctx.position)
     it_n = features.max_iterations_mis
+    cut, ext, on_band = (lambda t: t), (lambda t: t), {}
+    if band is not None:
+        radius = features.spatial_resample_radius
+        cut = band.band_rows
+        on_band = dict(row_base=band.row_base, h_global=height)
+
+        def ext(t):
+            return band.extend(t, radius)
     if inject is not None:
         for res in inject[2]:
-            yield pack_mis_reservoirs(res, romis), 0
+            yield ext(cut(pack_mis_reservoirs(res, romis))), 0
         return
+    uniforms = None if uniforms is None else cut(uniforms)
     if fused and not features.initial_samples_visibility_check:
-        pack = ops.mis_ris(ctx, lights, num_lights, features, it_n, romis,
-                           generator=generator, uniforms=uniforms)
+        pack = ext(ops.mis_ris(ctx, lights, num_lights, features, it_n, romis,
+                               generator=generator, uniforms=uniforms,
+                               **on_band))
         for i in range(it_n):
             yield pack, i
         return
-    ris = ops.ris if fused else gen_canonical_samples_plain
+    ris = partial(ops.ris if fused else gen_canonical_samples_plain,
+                  **on_band)
     for i in range(it_n):
         res = gen_canonical_samples(
             ctx, lights, num_lights, geometry, features, generator=generator,
             uniforms=None if uniforms is None else uniforms[i], ris=ris,
             any_hit=ops.any_hit)
-        yield pack_mis_reservoirs(res, romis), 0
+        yield ext(pack_mis_reservoirs(res, romis)), 0
 
 
 def mis_ext_vis(ctx: ShadeCtx, pos_planes: torch.Tensor, offs: torch.Tensor,
-                geometry, k: int, ops: FrameOps = KERNELS) -> torch.Tensor:
+                geometry, k: int, ops: FrameOps = KERNELS,
+                halo: int = 0) -> torch.Tensor:
     """Visibility planes [D1·K, H, W] (1.0 = visible) for the sweep's
     ``ext_vis`` mode (reference ``rmis.mis_ext_vis``): the neighbours'
     sample positions through the per-pixel offsets (``ops.halo_gather``),
     then every pixel's D1·K shadow rays from the receiver in one batch
     (``ops.any_hit``; ``ops.wrs.visibility``, with the coincident-pair
     escape). ``pos_planes`` = an iteration block's pos planes [3K, H, W]
-    (the ``pack_mis_reservoirs`` order)."""
+    (the ``pack_mis_reservoirs`` order); for a row band they hold it inside
+    a halo of ``halo`` rows (``ops.spatial.halo_band_gather``)."""
     d = offs.shape[0] // 2
-    h, w = pos_planes.shape[-2:]
-    nbr_pos = ops.halo_gather(pos_planes, offs[:d], offs[d:])  # [D, 3K, ..]
-    targets = torch.cat([pos_planes[None], nbr_pos]).reshape(d + 1, k, 3, h,
-                                                             w)
+    h, w = offs.shape[-2:]
+    nbr_pos = halo_band_gather(pos_planes, offs[:d], offs[d:], halo,
+                               ops.halo_gather)  # [D, 3K, ..]
+    targets = torch.cat([pos_planes[None, :, halo:halo + h],
+                         nbr_pos]).reshape(d + 1, k, 3, h, w)
     vis = visibility(ctx.position, targets, geometry, ops.any_hit)
     return vis.reshape((d + 1) * k, h, w).float()
 
 
 def sweep(ops: FrameOps, ctx: ShadeCtx, cen, pack, block: int, offs,
-          geometry, mode: str, num_lights: int, features: Features, **kw):
+          geometry, mode: str, num_lights: int, features: Features,
+          band=None, height=None, **kw):
     """One ``ops.mis_iteration`` on iteration block ``block`` of ``pack``,
     in the ``ext_vis`` mode (``mis_ext_vis`` first) for geometry with a
-    BVH."""
+    BVH; on a row ``band`` of a frame of ``height`` rows, the pack
+    extended by a halo (``iteration_packs``)."""
     k = features.num_samples_in_reservoir
+    halo = (pack.shape[-2] - offs.shape[-2]) // 2
+    if band is not None:
+        kw.update(row_base=band.row_base, h_global=height)
     if geometry.bvh is not None:
         c_res = mis_pack_planes(mode, k)
         kw["ext_vis"] = mis_ext_vis(
             ctx, pack[block * c_res:block * c_res + 3 * k], offs, geometry, k,
-            ops)
+            ops, halo)
     return ops.mis_iteration(cen, pack, offs, geometry, k, mode, num_lights,
                              features, it_block=block, **kw)
 
 
 def neighbourhood(generator, cam: CameraParams, geometry, height: int,
                   width: int, features: Features, ops: FrameOps, inject,
-                  noise):
+                  noise, band=None):
     """The frame's receivers and fixed neighbourhoods → (ctx, packed
-    receiver [18, H, W], offsets [2D, H, W])."""
+    receiver [18, H, W], offsets [2D, H, W]); a row ``band``'s (``inject``
+    the whole frame's)."""
     rays = generate_rays(cam, height, width)
+    if band is not None:
+        rays = Rays(band.band_rows(rays.origin).contiguous(),
+                    band.band_rows(rays.direction).contiguous())
     _, ctx = trace_primary(rays, geometry, features, ops)
     if inject is not None:
         ny, nx = inject[0], inject[1]
+        if band is not None:
+            ny, nx = band.band_rows(ny), band.band_rows(nx)
     else:
         ny, nx = select_neighbour_indices(generator, ctx, height, width,
                                           features, noise=noise,
-                                          select=ops.neighbour_select)
-    return ctx, pack_center_ctx(ctx), mis_offsets(ny, nx)
+                                          select=ops.neighbour_select,
+                                          band=band)
+    return ctx, pack_center_ctx(ctx), mis_offsets(
+        ny, nx, 0 if band is None else band.row_base)
 
 
 def checkpointed(fn, *args):
@@ -424,20 +472,27 @@ def differentiable_iteration(ctx: ShadeCtx, offs: torch.Tensor, lights,
 def iteration_step(generator, ctx: ShadeCtx, cen: torch.Tensor,
                    offs: torch.Tensor, lights, num_lights: int, geometry,
                    features: Features, mode: str, ops: FrameOps, inject,
-                   uniforms, nbr_ctx):
+                   uniforms, nbr_ctx, band=None, height=None):
     """step(it, alphas=None) → iteration ``it``'s sweep outputs: with
     ``fused_resampling`` the sweep on the iteration packs (``ops.mis_ris``
     and ``ops.mis_iteration``, in order), else the differentiable
-    formulation, each iteration ``checkpointed``."""
+    formulation, each iteration ``checkpointed``. A row ``band`` (of a
+    frame of ``height`` rows) takes the first."""
+    if band is not None and not features.fused_resampling:
+        raise ValueError(
+            "a row band renders the forward frame: fused_resampling=False "
+            "is the training step's formulation, whose sharded form is not "
+            "ported")
     if features.fused_resampling:
         packs = iteration_packs(generator, ctx, lights, num_lights, geometry,
                                 features, mode == "romis", ops, inject,
-                                uniforms)
+                                uniforms, band, height)
 
         def step(it, alphas=None):
             pack, block = next(packs)
             return sweep(ops, ctx, cen, pack, block, offs, geometry, mode,
-                         num_lights, features, nbr_ctx=nbr_ctx, alphas=alphas)
+                         num_lights, features, band, height, nbr_ctx=nbr_ctx,
+                         alphas=alphas)
         return step
     draw = canonical_draws(generator, ctx, lights, num_lights, geometry,
                            features, ops, inject, uniforms)
@@ -448,7 +503,7 @@ def iteration_step(generator, ctx: ShadeCtx, cen: torch.Tensor,
 
 def render_rmis(generator, cam: CameraParams, geometry, lights,
                 num_lights: int, height: int, width: int, features: Features,
-                inject=None, noise=None, ops: FrameOps = KERNELS):
+                inject=None, noise=None, ops: FrameOps = KERNELS, band=None):
     """Full R-MIS render → tone-mapped image [H, W, 3].
 
     ``inject`` = (rows [D1, H, W], cols [D1, H, W], [Reservoirs per
@@ -457,19 +512,21 @@ def render_rmis(generator, cam: CameraParams, geometry, lights,
     selection's noise, see ``render.neighbours``; RIS uniforms
     [iterations, S/K, 4, K, H, W], on the differentiable path with
     ``surrogate_resampling_grad`` the replay's [iterations, S/K, 5, K, H,
-    W]) replaces the draws."""
+    W]) replaces the draws. With ``band`` (``parallel.mesh.Bands``) it
+    renders that row band → its image rows [h, W, 3]; ``inject`` and
+    ``noise`` are the whole frame's."""
     check_mis(features, geometry, ops)
     nbr_noise, ris_u = (None, None) if noise is None else noise
     ctx, cen, offs = neighbourhood(generator, cam, geometry, height, width,
-                                   features, ops, inject, nbr_noise)
+                                   features, ops, inject, nbr_noise, band)
     balance = features.mis_weight_rmis == MISWeight.BALANCE
     mode = "rmis_balance" if balance else "rmis_equal"
-    nbr_ctx = resolve_neighbour_ctx(cen, offs, ops.halo_gather) \
-        if balance else None
+    nbr_ctx = resolve_neighbour_ctx(cen, offs, band_gather(
+        band, features.spatial_resample_radius, ops)) if balance else None
     step = iteration_step(generator, ctx, cen, offs, lights, num_lights,
                           geometry, features, mode, ops, inject, ris_u,
-                          nbr_ctx)
-    acc = torch.zeros((3, height, width), device=cen.device)
+                          nbr_ctx, band, height)
+    acc = torch.zeros((3,) + tuple(cen.shape[-2:]), device=cen.device)
     for it in range(features.max_iterations_mis):
         acc = acc + step(it)
     color = acc / features.max_iterations_mis

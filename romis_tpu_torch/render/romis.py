@@ -40,7 +40,7 @@ from ..core.camera import CameraParams
 from ..core.features import Features
 from ..ops.mis import expand_a_upper, resolve_neighbour_ctx
 from ..ops.shading import exposure_tone_mapping
-from .restir import KERNELS, FrameOps
+from .restir import KERNELS, FrameOps, band_gather
 from .rmis import (
     FLT_MIN, check_mis, iteration_step, neighbour_phat, neighbourhood,
     samples, shade_neighbourhood,
@@ -209,21 +209,24 @@ def romis_estimate(step, d1: int, k: int, height: int, width: int,
 def render_romis(generator, cam: CameraParams, geometry, lights,
                  num_lights: int, height: int, width: int,
                  features: Features, return_alphas: bool = False,
-                 inject=None, noise=None, ops: FrameOps = KERNELS):
+                 inject=None, noise=None, ops: FrameOps = KERNELS,
+                 band=None):
     """Full R-OMIS render → tone-mapped image [H, W, 3] (and with
     ``return_alphas`` the per-technique α images [D1, H, W, 3]).
-    ``inject`` and ``noise`` as in ``render.rmis.render_rmis``."""
+    ``inject``, ``noise`` and ``band`` (the band's rows out) as in
+    ``render.rmis.render_rmis``."""
     check_mis(features, geometry, ops)
     nbr_noise, ris_u = (None, None) if noise is None else noise
     ctx, cen, offs = neighbourhood(generator, cam, geometry, height, width,
-                                   features, ops, inject, nbr_noise)
+                                   features, ops, inject, nbr_noise, band)
     d1 = features.num_neighbours_to_sample + 1
-    nbr_ctx = resolve_neighbour_ctx(cen, offs, ops.halo_gather)
+    nbr_ctx = resolve_neighbour_ctx(cen, offs, band_gather(
+        band, features.spatial_resample_radius, ops))
     step = iteration_step(generator, ctx, cen, offs, lights, num_lights,
                           geometry, features, "romis", ops, inject, ris_u,
-                          nbr_ctx)
+                          nbr_ctx, band, height)
     color, alpha_out = romis_estimate(
-        step, d1, features.num_samples_in_reservoir, height, width,
+        step, d1, features.num_samples_in_reservoir, cen.shape[-2], width,
         features, cen.device)
     if features.enable_tone_mapping:
         color = exposure_tone_mapping(color, features)

@@ -374,6 +374,28 @@ def test_port_imports_and_renders_without_jax(tmp_path):
         img, state = render_frame(gen, cam, scene, 8, 8, feats)
         assert bool(torch.isfinite(img).all())
 
+        # The multi-GPU modules, and their frames on one band (no group).
+        import romis_tpu_torch.parallel.halo
+        import romis_tpu_torch.parallel.launch
+        import romis_tpu_torch.parallel.mesh
+        import romis_tpu_torch.parallel.mis
+        import romis_tpu_torch.parallel.shard
+        from romis_tpu_torch.parallel.launch import global_bands
+        from romis_tpu_torch.parallel.mis import render_romis_sharded
+        from romis_tpu_torch.parallel.shard import render_frame_sharded
+        bands = global_bands(8)
+        feats = Features(initial_light_samples=8, spatial_resample_radius=2)
+        img, _ = render_frame_sharded(gen, cam, scene.geometry, scene.lights,
+                                      scene.num_lights, 8, 8, feats, None,
+                                      bands)
+        assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+        img = render_romis_sharded(
+            gen, cam, scene.geometry, scene.lights, scene.num_lights, 8, 8,
+            feats.replace(ray_trace_mode=RayTraceMode.ROMIS,
+                          num_neighbours_to_sample=3, max_iterations_mis=2),
+            bands)
+        assert bool(torch.isfinite(img).all())
+
         # The app: a TOML config and an OBJ scene through the CLI.
         from pathlib import Path
         from romis_tpu_torch import cli
