@@ -298,6 +298,26 @@ GPU.
    ranks with four cards); with one card a line says that it was skipped.
    ``python3 chip_smoke.py --bands`` runs sections 1, 2, 6 and 7 alone,
    ``--group`` sections 1, 2 and 7.
+8. The sharded training steps (``shard_grad_phase``): kernel 14's band
+   entry (``romis_ris_replay_band``) on an inner band of 4 and the bottom
+   band of 2 against its plain version (BAND_RTOL) and the whole frame's
+   kernel's rows (bit for bit), timed beside a quarter of the whole
+   frame's; through an NCCL group of one rank, at 1920x1080 on the
+   flagship, ``make_sharded_train_step`` with grad_surrogate's and
+   grad_per_pixel's features (2 steps each) and
+   ``make_sharded_mis_train_step`` in R-MIS balance and R-OMIS direct (1
+   step each), their images bit-equal to the single-device step's, loss
+   and leaves within SHARD_SPREAD times the single-device step's own spread
+   between two runs (at least SHARD_REL), launches asserted (PATHS), ms and
+   peak memory a step; the same steps as 2 and 4 bands in one process, the
+   MIS steps at SHARD_MIS_H rows, each band's exchange replayed
+   differentiably from the whole step's tensors (``grad_halo_replay``):
+   the bands' gradients sum to the whole step's; with two or more cards
+   NCCL groups of 2 and 4 ranks, one a card (``shard_rank``), held to the
+   same, with each rank's ms and peak memory a step and the share of an
+   instrumented step spent in the halo exchanges and the all_reduce; with
+   one card a line says that they were skipped. ``--shard-grad`` runs
+   sections 1, 2 and 8 alone.
 
 Any failed check raises, so the exit code is non-zero. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel table.
@@ -428,7 +448,7 @@ KERNELS = ("closest_hit", "gather_rows", "ris", "final_shade",
            "scatter_rows_add", "halo_scatter", "ris_replay",
            "neighbour_select", "mis_ris", "mis_iteration", "bvh_closest_hit",
            "bvh_any_hit", "bvh_any_hit_k", "bvh_final_shade", "zcount_occ",
-           "any_hit_plucker", "neighbour_gather")
+           "any_hit_plucker", "neighbour_gather", "ris_replay_band")
 SOURCES = {
     "closest_hit": ("romis_tpu_torch/csrc/trace.cu",
                     "romis_tpu/ops/pallas_trace.py:465"),
@@ -472,6 +492,9 @@ SOURCES = {
                         "romis_tpu/ops/pallas_trace.py:371"),
     "neighbour_gather": ("romis_tpu_torch/csrc/nbrgather.cu",
                          "romis_tpu/ops/pallas_spatial.py:145"),
+    # Kernel 14's band entry (romis_ris_replay_band), the sharded steps'.
+    "ris_replay_band": ("romis_tpu_torch/csrc/ris.cu",
+                        "romis_tpu/ops/pallas_ris.py:625"),
 }
 # Launches per frame (per gradient step) of each main path. A gradient
 # step's row gathers: hit attributes and materials, the closest hit's
@@ -589,6 +612,20 @@ PATHS.update({
                           if n not in ("closest_hit", "any_hit")},
                        "bvh_closest_hit": 1, "bvh_any_hit_k": 2 * _MIS_IT},
 })
+# The sharded training steps (section 8) on a group of one rank: the
+# whole-frame steps' kernels, kernel 14 through its band entry.
+def _on_band(counts: dict) -> dict:
+    out = dict(counts)
+    out["ris_replay_band"] = out.pop("ris_replay")
+    return out
+
+
+PATHS.update({
+    "shard_grad_surrogate": _on_band(PATHS["grad_surrogate"]),
+    "shard_grad_per_pixel": _on_band(PATHS["grad_per_pixel"]),
+    "shard_mis_rmis": _on_band(_MIS_GRAD),
+    "shard_mis_romis": _on_band(_MIS_GRAD),
+})
 FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "animated_torus": 2,
           "grad_surrogate": 2,
           "grad_per_pixel": 2, "romis": 2, "romis_progressive": 2,
@@ -598,7 +635,9 @@ FRAMES = {"slice1": 2, "config5": 4, "animated": 4, "animated_torus": 2,
           "vischeck": 2, "vischeck_torus": 2, "large_vischeck": 2, "cli": 4,
           "large_grad": 2, "plucker_op": 2, "neighbour_gather_op": 2,
           "mis_grad_rmis": 2, "mis_grad_romis": 2, "mis_grad_banded": 2,
-          "large_mis_grad": 2}
+          "large_mis_grad": 2, "shard_grad_surrogate": 2,
+          "shard_grad_per_pixel": 2, "shard_mis_rmis": 1,
+          "shard_mis_romis": 1}
 GRAD_PATHS = ("grad_surrogate", "grad_per_pixel", "large_grad")
 MIS_GRAD_PATHS = ("mis_grad_rmis", "mis_grad_romis", "mis_grad_banded",
                   "large_mis_grad")
@@ -1273,7 +1312,8 @@ def kernel_wrappers() -> dict:
             "bvh_final_shade": shade.final_shade_bvh,
             "zcount_occ": trace.zcount_occ,
             "any_hit_plucker": trace.any_hit_plucker,
-            "neighbour_gather": spatial.neighbour_gather}
+            "neighbour_gather": spatial.neighbour_gather,
+            "ris_replay_band": BandEntryCount(ris.gen_canonical_replay)}
 
 
 def mis_grad_features(path: str):
@@ -1879,6 +1919,605 @@ def group_phase(torch, card: str) -> None:
               f"with the ranks' start [{card}]")
         require(r["same"], f"group[nccl, {world} ranks]: the sharded frames "
                            f"differ")
+
+
+# ---- 8: the sharded training steps ----
+# Section 8 drives parallel.shard.make_sharded_train_step (grad_surrogate's
+# and grad_per_pixel's features, 2 steps each) and parallel.mis.
+# make_sharded_mis_train_step (R-MIS balance and R-OMIS direct with the
+# surrogate, 1 step each) at 1920x1080 on the flagship; the MIS steps' bands
+# in one process at SHARD_MIS_H rows, where the whole step's retained graph
+# and one band's fit the card. The steps' leaves are held to the
+# single-device step's within SHARD_SPREAD times its own spread between two
+# runs (kernel 13 adds with atomics), and never tighter than SHARD_REL
+# (float32 sums in another order, as the CPU tests hold them).
+SHARD_GRAD = ("shard_grad_surrogate", "shard_grad_per_pixel")
+SHARD_MIS = ("shard_mis_rmis", "shard_mis_romis")
+SHARD_MIS_H = 540
+SHARD_SPREAD, SHARD_REL = 4.0, 1e-5
+SHARD_LR = 1e-2
+
+
+def shard_features(path: str):
+    """The Features of a section-8 path: the whole-frame gradient path's it
+    stands beside."""
+    from romis_tpu_torch import Features
+
+    if path in SHARD_MIS:
+        return mis_grad_features(path.replace("shard_mis_", "mis_grad_"))
+    return Features(enable_tone_mapping=False, surrogate_resampling_grad=True,
+                    exact_gradients=path == "shard_grad_per_pixel")
+
+
+def shard_setup(torch, dev, scene, path: str, h: int):
+    """(features, camera, params, target) of a section-8 path at h rows:
+    the target rendered with the light colours x 0.8."""
+    from romis_tpu_torch.diff.grad import (
+        extract_params, render_mis_with_params, render_with_params,
+    )
+    from romis_tpu_torch.render import restir
+    from romis_tpu_torch.scene.scene import flagship_camera
+
+    f, cam = shard_features(path), flagship_camera(h, W, dev)
+    p = extract_params(scene.geometry, scene.lights)
+    dim = replace(p, **{n: getattr(p, n) * 0.8 for n in (
+        "light_c0", "light_c1", "light_c2", "light_c3")})
+    g = torch.Generator(device=dev).manual_seed(11)
+    args = (cam, scene.geometry, scene.lights, scene.num_lights, h, W, f)
+    with torch.no_grad():
+        if path in SHARD_MIS:
+            target = render_mis_with_params(dim, g, *args)
+        else:
+            target, _ = render_with_params(dim, g, *args,
+                                           restir.initial_temporal_state(
+                                               h, W, 2, cam))
+    return f, cam, p, target
+
+
+def shard_reference(torch, dev, scene, path: str, setup):
+    """The single-device step of a section-8 path at 1080p
+    (``shard_run`` without bands), run twice on the same draws → the
+    first run's {"images", "loss", "grads"} and "spread": per leaf the
+    largest difference of the two runs over the leaf's largest |g|."""
+    a, b = (shard_run(torch, dev, scene, path, setup) for _ in range(2))
+    for ia, ib in zip(a["images"], b["images"]):
+        require(torch.equal(ia, ib), f"{path}: two single-device runs "
+                                     f"render different images")
+    a["spread"] = {leaf: max(
+        (getattr(ga, leaf) - getattr(gb, leaf)).abs().max().item()
+        / max(getattr(gb, leaf).abs().max().item(), 1e-30)
+        for ga, gb in zip(a["grads"], b["grads"]))
+        for leaf in a["grads"][0].__dataclass_fields__}
+    return a
+
+
+def shard_tolerance(spread: dict) -> dict:
+    """Each leaf's tolerance (of its largest |g|) from the single-device
+    step's spread."""
+    return {n: max(SHARD_SPREAD * s, SHARD_REL) for n, s in spread.items()}
+
+
+def shard_close(label: str, got, want, tol: dict) -> float:
+    """Every leaf of ``got`` finite and within its tolerance of ``want``'s
+    largest |g| → the worst leaf's error over its tolerance."""
+    import torch
+
+    worst = 0.0
+    for leaf in want.__dataclass_fields__:
+        a, b = getattr(got, leaf), getattr(want, leaf)
+        require(bool(torch.isfinite(a).all()), f"{label}: non-finite {leaf}")
+        scale = b.abs().max().item()
+        rel = (a - b).abs().max().item() / max(scale, 1e-30)
+        require(rel <= tol[leaf] or scale == a.abs().max().item() == 0,
+                f"{label}: gradient {leaf} {rel:.3e} over its tolerance "
+                f"{tol[leaf]:.3e}")
+        worst = max(worst, rel / tol[leaf])
+    return worst
+
+
+def shard_run(torch, dev, scene, path: str, setup, bands=None):
+    """A section-8 path's step at 1080p on ``bands`` (without: the
+    single-device step) → {"images" (this rank's rows), "loss", "grads"}:
+    the ReSTIR path's value and gradient over 2 frames at fixed parameters,
+    the state carried (``make_sharded_grad_fn``, ``make_grad_fn``); the MIS
+    path's one step (``make_sharded_mis_train_step``, ``make_mis_grad_fn``).
+    Each frame's image is rendered again from the draws the step took (its
+    backward draws nothing)."""
+    from romis_tpu_torch.diff.grad import (
+        make_grad_fn, make_mis_grad_fn, render_mis_with_params,
+        render_with_params,
+    )
+    from romis_tpu_torch.parallel.mis import make_sharded_mis_train_step
+    from romis_tpu_torch.parallel.shard import make_sharded_grad_fn
+    from romis_tpu_torch.render import restir
+
+    f, cam, p, target = setup
+    args = (scene.geometry, scene.lights, scene.num_lights, H, W, f)
+    out = {"images": [], "loss": [], "grads": []}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    if path in SHARD_MIS:
+        if bands is None:
+            loss, grads = make_mis_grad_fn(*args)(p, target, gen, cam)
+        else:
+            _, loss, grads = make_sharded_mis_train_step(
+                *args, bands, lr=SHARD_LR)(p, target, gen, cam)
+        with torch.no_grad():
+            out["images"].append(render_mis_with_params(
+                p, torch.Generator(device=dev).manual_seed(31), cam, *args,
+                band=bands))
+        out["loss"].append(loss)
+        out["grads"].append(grads)
+        return out
+    fn = make_grad_fn(*args) if bands is None else \
+        make_sharded_grad_fn(*args, bands)
+    prev = restir.initial_temporal_state(H if bands is None else bands.h_loc,
+                                         W, 2, cam)
+    for _ in range(2):
+        drawn = gen.get_state()
+        loss, grads, *state = fn(p, target, gen, cam, prev)
+        with torch.no_grad():
+            img, prev = render_with_params(
+                p, torch.Generator(device=dev).set_state(drawn), cam, *args,
+                prev, band=bands)
+        require(not state or torch.equal(state[0].reservoirs.w_sum,
+                                          prev.reservoirs.w_sum),
+                f"{path}: the step's state differs from its frame's")
+        out["images"].append(img)
+        out["loss"].append(loss)
+        out["grads"].append(grads)
+    return out
+
+
+def shard_compare(label: str, got, ref, world: int) -> str:
+    """A sharded run's frame images (gathered, on rank 0), loss and
+    gradients against the single-device step's → a summary."""
+    import torch
+
+    for i, (img, want) in enumerate(zip(got["images"], ref["images"])):
+        require(torch.equal(img, want), f"{label}: frame {i + 1}'s image "
+                                        f"differs from the single device's")
+    tol = shard_tolerance(ref["spread"])
+    worst, loss_rel = 0.0, 0.0
+    for la, lb, ga, gb in zip(got["loss"], ref["loss"], got["grads"],
+                              ref["grads"]):
+        loss_rel = max(loss_rel, abs(la.item() - lb.item()) / abs(lb.item()))
+        worst = max(worst, shard_close(label, ga, gb, tol))
+    require(loss_rel <= SHARD_REL, f"{label}: loss {loss_rel:.3e} apart")
+    return (f"images bit-equal over {len(ref['images'])} frame(s), loss "
+            f"{loss_rel:.2e} apart, the worst leaf at {worst:.3f} of its "
+            f"tolerance (world {world})")
+
+
+def timed_steps(torch, step, n: int):
+    """(ms per step by CUDA events over ``n`` calls of ``step``, peak device
+    memory above what was held, what was held)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        step()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n, torch.cuda.max_memory_allocated() - held, \
+        held
+
+
+def exchange_share(torch, step):
+    """One call of ``step`` with every halo exchange (``parallel.halo.
+    _swap_rows``, forward and backward) and the gradients' all_reduce
+    (``Bands.all_reduce``) bracketed by synchronisations → (step ms, halo
+    ms, exchanges, all_reduce ms), host clock."""
+    from romis_tpu_torch.parallel import halo, mesh
+
+    acc = {"halo": 0.0, "n": 0, "reduce": 0.0}
+    swap, reduce_ = halo._swap_rows, mesh.Bands.all_reduce
+
+    def bracket(fn, key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            acc["n"] += key == "halo"
+            return out
+        return run
+    halo._swap_rows = bracket(swap, "halo")
+    mesh.Bands.all_reduce = bracket(reduce_, "reduce")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        halo._swap_rows, mesh.Bands.all_reduce = swap, reduce_
+    return 1e3 * total, 1e3 * acc["halo"], acc["n"], 1e3 * acc["reduce"]
+
+
+def shard_step_fn(torch, dev, scene, path: str, setup, bands):
+    """A closure taking one step of the section-8 path through the entry a
+    user calls (``make_sharded_train_step`` from the state it carries,
+    ``make_sharded_mis_train_step``)."""
+    from romis_tpu_torch.parallel.mis import make_sharded_mis_train_step
+    from romis_tpu_torch.parallel.shard import make_sharded_train_step
+
+    f, cam, p, target = setup
+    args = (scene.geometry, scene.lights, scene.num_lights, H, W, f, bands)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    if path in SHARD_MIS:
+        step = make_sharded_mis_train_step(*args, lr=SHARD_LR)
+        return lambda: step(p, target, gen, cam)
+    step = make_sharded_train_step(*args, lr=SHARD_LR)
+    carry = {"p": p, "state": None}
+
+    def one():
+        carry["p"], loss, carry["state"] = step(carry["p"], target, gen, cam,
+                                                carry["state"])
+        return loss
+    return one
+
+
+def grad_halo_replay(torch, seen, bands):
+    """A band's differentiable halo exchange in one process: its k-th call
+    returns the band's own rows (their graph kept) between the rows above
+    and below the band cut from the k-th recorded whole-frame tensor (zeros
+    beyond the frame; the whole step's graph kept), and requires the band's
+    rows to be the whole frame's. The sum over the bands of the gradients
+    into their own and the whole step's leaves is then the whole step's
+    gradient: every band's halo rows reach the parameters through the
+    whole step's graph, as they reach them through their neighbour's band
+    with a group."""
+    calls = iter(seen)
+
+    def exchange(x, radius, b):
+        rec = next(calls, None)
+        require(rec is not None and rec[1] == radius and rec[0].shape[:-2]
+                == x.shape[:-2], f"band {b.rank} of {b.world}: halo exchange "
+                                 f"out of step")
+        lo, h = b.row_base, b.h_loc
+        require(torch.equal(x, rec[0][..., lo:lo + h, :]),
+                f"band {b.rank} of {b.world}: its rows before a halo "
+                f"exchange differ from the whole frame's")
+        pad = torch.nn.functional.pad(rec[0], (0, 0, radius, radius))
+        return torch.cat([pad[..., lo:lo + radius, :], x,
+                          pad[..., lo + radius + h:lo + 2 * radius + h, :]],
+                         dim=-2)
+    return exchange
+
+
+def shard_bands_in_process(torch, dev, scene, path: str, h: int,
+                           spread: dict, card: str):
+    """A section-8 path's step at h rows as 2 and 4 bands in one process
+    (``grad_halo_replay``), each band's term of the loss differentiated
+    into its own leaves and the whole step's: the sum over the bands equals
+    the whole step's (one band, ``HaloRecorder``) gradient within the
+    tolerance of the single-device step's ``spread`` (``shard_reference``'s
+    at 1080p), and the sum of the terms its loss."""
+    from romis_tpu_torch.diff.grad import SceneParams
+    from romis_tpu_torch.parallel.mesh import Bands
+    from romis_tpu_torch.parallel.mis import mis_band_loss
+    from romis_tpu_torch.parallel.shard import band_loss
+
+    f, cam, p, target = shard_setup(torch, dev, scene, path, h)
+    args = (scene.geometry, scene.lights, scene.num_lights, h, W, f)
+
+    def term(params, bands):
+        gen = torch.Generator(device=dev).manual_seed(41)
+        if path in SHARD_MIS:
+            return mis_band_loss(params, target, gen, cam, *args, bands)
+        return band_loss(params, target, gen, cam, *args, None, bands)[0]
+
+    tol = shard_tolerance(spread)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = HaloRecorder()
+    leaves_w = [x.detach().requires_grad_() for x in p.leaves()]
+    t_w = term(SceneParams(*leaves_w), Bands(h, exchange=rec))
+    g_w = SceneParams(*(torch.zeros_like(x) if g is None else g for x, g in
+                        zip(leaves_w, torch.autograd.grad(
+                            t_w, leaves_w, retain_graph=True,
+                            allow_unused=True))))
+    seen = list(rec.seen)
+    lines = []
+    for n in BAND_SPLITS:
+        total = [torch.zeros_like(x) for x in leaves_w]
+        t_sum = 0.0
+        for b in range(n):
+            leaves_b = [x.detach().requires_grad_() for x in p.leaves()]
+            t_b = term(SceneParams(*leaves_b), Bands(
+                h, n, b, exchange=grad_halo_replay(torch, seen,
+                                                   Bands(h, n, b))))
+            grads = torch.autograd.grad(t_b, leaves_b + leaves_w,
+                                        retain_graph=True, allow_unused=True)
+            for i, g in enumerate(grads):
+                if g is not None:
+                    total[i % len(leaves_w)] += g
+            t_sum += t_b.item()
+            del t_b, grads
+        loss_rel = abs(t_sum - t_w.item()) / abs(t_w.item())
+        require(loss_rel <= SHARD_REL, f"{path} in {n} bands: the terms sum "
+                                       f"to {t_sum}, not {t_w.item()}")
+        worst = shard_close(f"{path} in {n} bands", SceneParams(*total), g_w,
+                            tol)
+        lines.append(f"{n} bands: terms {loss_rel:.2e} from the loss, the "
+                     f"worst leaf at {worst:.3f} of its tolerance")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"shard[{path}] in one process at {W}x{h}: the bands' gradients "
+          f"sum to the whole step's over {len(seen)} halo exchanges a band "
+          f"({'; '.join(lines)}); tolerance {SHARD_SPREAD} x the single "
+          f"device's spread, at least {SHARD_REL}; peak {peak / 2**30:.3f} "
+          f"GiB with the whole step's graph retained [{card}]")
+    del t_w, g_w, seen, rec, leaves_w
+
+
+def replay_band_checks(torch, dev, card: str, scene, cam) -> dict:
+    """Kernel 14's band entry (``romis_ris_replay_band``) at 1080p on the
+    flagship: on an inner band of 4 and the bottom band of 2, against its
+    plain version at the band's shape on the same uniforms (every plane
+    within BAND_RTOL on MIN_AGREE of the pixels) and on its Philox stream
+    against the whole frame's kernel's rows (bit for bit); the inner band
+    timed beside a quarter of the whole frame's → its kernel-table row."""
+    from dataclasses import fields
+
+    from romis_tpu_torch import Features
+    from romis_tpu_torch.core.camera import generate_rays
+    from romis_tpu_torch.ops import ris
+    from romis_tpu_torch.ops.wrs import gen_canonical_replay_plain
+    from romis_tpu_torch.render import restir
+
+    feats = Features(surrogate_resampling_grad=True)
+    k, s = feats.num_samples_in_reservoir, feats.initial_light_samples
+    sk = -(-s // k)
+    li, nl = scene.lights, scene.num_lights
+    _, ctx = restir.trace_primary(generate_rays(cam, H, W), scene.geometry,
+                                  feats)
+    gen = torch.Generator(device=dev).manual_seed(4327)
+
+    def flat(out):
+        return torch.stack([out[0], *out[1], *out[2]])
+
+    row = {}
+    for n, b in ((4, 1), (2, 1)):
+        h, base = H // n, (H // n) * b
+        band = dict(row_base=base, h_global=H)
+        bctx = replace(ctx, **{f.name: getattr(ctx, f.name)[
+            ..., base:base + h, :].contiguous() for f in fields(ctx)})
+        uni = torch.rand((sk, 5, k, h, W), generator=gen, device=dev)
+        got = flat(ris.gen_canonical_replay(bctx, li, nl, feats, uniforms=uni,
+                                            **band))
+        plain = flat(gen_canonical_replay_plain(bctx, li, nl, feats,
+                                                uniforms=uni, **band))
+        ok = (got - plain).abs() <= BAND_ATOL + BAND_RTOL * plain.abs()
+        share = ok.reshape(-1, h, W).all(dim=0).float().mean().item()
+        err = (got - plain).abs().max().item()
+        seeded = [torch.Generator(device=dev).manual_seed(5) for _ in
+                  range(2)]
+        band_x = flat(ris.gen_canonical_replay(bctx, li, nl, feats,
+                                               generator=seeded[0], **band))
+        whole_x = flat(ris.gen_canonical_replay(ctx, li, nl, feats,
+                                                generator=seeded[1]))
+        exact = torch.equal(band_x, whole_x[..., base:base + h, :])
+        print(f"check band entry ris_replay[{b} of {n}]: pixels within rtol "
+              f"{BAND_RTOL} of the plain version at the band's shape "
+              f"{share:.6f} (max abs err {err:.3e}); Philox band bit-equal "
+              f"to the whole frame's rows {exact}")
+        require(share >= MIN_AGREE, f"band entry ris_replay [{b} of {n}]: "
+                                    f"{share} of the pixels agree")
+        require(exact, f"band entry ris_replay [{b} of {n}]: the band's rows "
+                       f"differ from the whole frame's")
+        if (n, b) != (4, 1):
+            continue
+        b_ms = cuda_ms(torch, lambda: ris.gen_canonical_replay(
+            bctx, li, nl, feats, generator=gen, **band), 10)
+        w_ms = cuda_ms(torch, lambda: ris.gen_canonical_replay(
+            ctx, li, nl, feats, generator=gen), 10)
+        p_ms = cuda_ms(torch, lambda: gen_canonical_replay_plain(
+            bctx, li, nl, feats, generator=gen, **band), 2)
+        hw = h * W
+        bnd = bound(hw * 4 * (17 + 7 * k), hw * s * (
+            CANDIDATE_OPS + RACE_OPS + DRAW_OPS + PHILOX_OPS + UNIFORM_OPS))
+        print(f"time band entry ris_replay[{b} of {n}]: {b_ms:.4f} ms (Philox)"
+              f" for {h} rows vs {w_ms / n:.4f} ms, a quarter of the whole "
+              f"frame's {w_ms:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"{bnd[0] / b_ms:.2f} of it reached; plain {p_ms:.4f} ms "
+              f"[{card}]")
+        row = dict(max_abs_err=err, ms=b_ms, plain_ms=p_ms, bound=bnd)
+    return row
+
+
+class BandEntryCount:
+    """A band entry's launches that its wrapper counts apart
+    (``band_launches``), read and reset as a wrapper's ``launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.band_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.band_launches = n
+
+
+def shard_rank(rank: int, world: int, store: str, ref_file: str,
+               out: str) -> None:
+    """A rank of section 8's NCCL groups of 2 and 4 on card ``rank``: each
+    path's sharded step on the group (rank 0 holding its images, loss and
+    gradients to the single-device step's, read from ``ref_file``), its ms
+    and peak memory per step, and the share of an instrumented step spent
+    in the halo exchanges and the all_reduce → a JSON line per rank in
+    ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from romis_tpu_torch.parallel.halo import gather_image
+    from romis_tpu_torch.parallel.launch import global_bands
+    from romis_tpu_torch.scene.scene import flagship_scene
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=NCCL_TIMEOUT_S))
+    refs = torch.load(ref_file, map_location=dev, weights_only=False) \
+        if rank == 0 else None
+    scene = flagship_scene(dev)
+    bands = global_bands(H)
+    result = {}
+    for path in SHARD_GRAD + SHARD_MIS:
+        setup = shard_setup(torch, dev, scene, path, H)
+        got = shard_run(torch, dev, scene, path, setup, bands)
+        got["images"] = [gather_image(i, bands) for i in got["images"]]
+        summary = None
+        if rank == 0:
+            summary = shard_compare(f"{path} on {world} ranks", got,
+                                    refs[path], world)
+        del got
+        step = shard_step_fn(torch, dev, scene, path, setup, bands)
+        ms, peak, held = timed_steps(torch, step, FRAMES[path])
+        dist.barrier()
+        total, halo_ms, n_ex, red_ms = exchange_share(torch, step)
+        result[path] = dict(summary=summary, ms=ms, peak=peak, held=held,
+                            instrumented=total, halo=halo_ms, exchanges=n_ex,
+                            reduce=red_ms)
+        del step, setup
+        torch.cuda.empty_cache()
+    with open(out, "a") as fh:
+        fh.write(json.dumps({"rank": rank, **result}) + "\n")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def shard_grad_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Section 8: the sharded training steps. Kernel 14's band entry
+    (``replay_band_checks``); then through an NCCL group of one rank each
+    path of SHARD_GRAD and SHARD_MIS at 1920x1080, its images bit-equal to
+    the single-device step's, its loss and leaves within the tolerance of
+    the single-device step's spread, its launches asserted (PATHS), its
+    ms and peak memory per step; the bands in one process
+    (``shard_bands_in_process``: the ReSTIR paths at 1080p, the MIS paths
+    at SHARD_MIS_H rows); and with two or more cards NCCL groups of 2 and
+    4 ranks, one a card (``shard_rank``). → {kernel-table row of the band
+    entry, the paths' launches}."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from romis_tpu_torch.ops import ris
+    from romis_tpu_torch.parallel.launch import global_bands
+    from romis_tpu_torch.scene.scene import flagship_camera, flagship_scene
+
+    scene, cam = flagship_scene(dev), flagship_camera(H, W, dev)
+    row = replay_band_checks(torch, dev, card, scene, cam)
+    refs, launched = {}, {n: 0 for n in wrappers}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        bands = global_bands(H)
+        require(bands.world == 1, "group[nccl, 1 rank]: world")
+        for path in SHARD_GRAD + SHARD_MIS:
+            setup = shard_setup(torch, dev, scene, path, H)
+            refs[path] = shard_reference(torch, dev, scene, path, setup)
+            got = shard_run(torch, dev, scene, path, setup, bands)
+            summary = shard_compare(f"{path} on 1 rank", got, refs[path], 1)
+            del got
+            # The main path's run: the training step a user calls, with
+            # the counts set to 0 just before it and read just after, and
+            # timed.
+            step = shard_step_fn(torch, dev, scene, path, setup, bands)
+            for fn in wrappers.values():
+                fn.launches = 0
+            ms, peak, held = timed_steps(torch, step, FRAMES[path])
+            counts = {n: fn.launches for n, fn in wrappers.items()}
+            expect = {n: PATHS[path].get(n, 0) * FRAMES[path]
+                      for n in wrappers}
+            print(f"path {path}: launches over {FRAMES[path]} step(s) "
+                  f"{ {n: c for n, c in counts.items() if c} }")
+            require(counts == expect, f"{path}: launch counts {counts} != "
+                                      f"{expect}")
+            for n, c in counts.items():
+                launched[n] += c
+            tol = shard_tolerance(refs[path]["spread"])
+            spread = max(refs[path]["spread"].values())
+            print(f"shard[{path}] nccl, 1 rank at {W}x{H}: {summary}; "
+                  f"single-device spread {spread:.2e} at most, tolerances "
+                  f"{min(tol.values()):.1e}..{max(tol.values()):.1e}; "
+                  f"{ms:.3f} ms/step, peak {peak / 2**30:.3f} GiB above the "
+                  f"{held / 2**30:.3f} held; no halo exchange at one rank "
+                  f"[{card}]")
+            del step, setup
+            torch.cuda.empty_cache()
+        x = torch.ones(4, device=dev)
+        dist.all_reduce(x)
+        require(x.tolist() == [1.0] * 4, "group[nccl, 1 rank]: all_reduce")
+        dist.destroy_process_group()
+    for path in SHARD_GRAD:
+        shard_bands_in_process(torch, dev, scene, path, H,
+                               refs[path]["spread"], card)
+        torch.cuda.empty_cache()
+    print(f"shard: the MIS steps' bands in one process at {W}x{SHARD_MIS_H} "
+          f"(the whole step's graph retained beside one band's)")
+    for path in SHARD_MIS:
+        shard_bands_in_process(torch, dev, scene, path, SHARD_MIS_H,
+                               refs[path]["spread"], card)
+        torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"shard[nccl, 2 ranks]: skipped: this machine has {n_cards} "
+              f"CUDA device; NCCL puts each rank on a card of its own")
+    else:
+        import torch.multiprocessing as mp
+
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            ref_file = f"{tmp}/refs.pt"
+            torch.save({p: {k_: v for k_, v in r.items()}
+                        for p, r in refs.items()}, ref_file)
+            del refs
+            torch.cuda.empty_cache()
+            for world in (2, 4):
+                if world > n_cards:
+                    continue
+                out = Path(tmp) / f"ranks{world}.jsonl"
+                t0 = time.perf_counter()
+                mp.spawn(shard_rank, args=(world, f"{tmp}/store{world}",
+                                           ref_file, str(out)),
+                         nprocs=world, join=True)
+                res = sorted((json.loads(line) for line in
+                              out.read_text().splitlines()),
+                             key=lambda r: r["rank"])
+                for path in SHARD_GRAD + SHARD_MIS:
+                    r0 = res[0][path]
+                    print(f"shard[{path}] nccl, {world} ranks: "
+                          f"{r0['summary']}; ms/step per rank "
+                          + ", ".join(f"{r[path]['ms']:.3f}" for r in res)
+                          + "; peak GiB per rank "
+                          + ", ".join(f"{r[path]['peak'] / 2**30:.3f}"
+                                      for r in res)
+                          + f" above {r0['held'] / 2**30:.3f} held; an "
+                          f"instrumented step (synchronised around each "
+                          f"exchange) per rank: "
+                          + ", ".join(
+                              f"{r[path]['instrumented']:.1f} ms, halo "
+                              f"{r[path]['halo']:.1f} ms in "
+                              f"{r[path]['exchanges']} exchanges "
+                              f"({100 * r[path]['halo'] / r[path]['instrumented']:.1f} %), "
+                              f"all_reduce {r[path]['reduce']:.2f} ms"
+                              for r in res)
+                          + f" [{card}]")
+                print(f"shard[nccl, {world} ranks]: "
+                      f"{time.perf_counter() - t0:.1f} s with the ranks' "
+                      f"start")
+    return dict(row=row, launches=launched)
 
 
 def main() -> None:
@@ -3406,7 +4045,8 @@ def main() -> None:
         del outs
     for path, per_frame in PATHS.items():
         if (path in GRAD_PATHS or path in MIS_GRAD_PATHS or path in MIS_PATHS
-                or path in OP_PATHS or path == "cli"):
+                or path in OP_PATHS or path in SHARD_GRAD + SHARD_MIS
+                or path == "cli"):
             continue
         for fn in wrappers.values():
             fn.launches = 0
@@ -3809,7 +4449,7 @@ def main() -> None:
 
     for path in PATHS:
         if (path in GRAD_PATHS or path in MIS_GRAD_PATHS or path in OP_PATHS
-                or path == "cli"):
+                or path in SHARD_GRAD + SHARD_MIS or path == "cli"):
             continue
         if path.startswith("large_") and path in MIS_PATHS \
                 or path in SMALL_PLAIN:
@@ -4704,6 +5344,14 @@ def main() -> None:
     band_phase(torch, dev, card, wrappers, large)
     section("7: process group")
     group_phase(torch, card)
+    section("8: sharded training steps")
+    shard = shard_grad_phase(torch, dev, card, wrappers)
+    for n in KERNELS:
+        launches[n] += shard["launches"][n]
+    band = shard["row"]
+    errs["ris_replay_band"] = band["max_abs_err"]
+    timings["ris_replay_band"] = (band["ms"], band["plain_ms"])
+    bounds["ris_replay_band"] = band["bound"]
 
     section("kernel table")
     table_rows = [{"name": n, "route": "cuda", "source": SOURCES[n][0],
@@ -4724,10 +5372,11 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def bands_main(bands: bool) -> None:
+def bands_main(mode: str) -> None:
     """``--bands``: the device and the build (sections 1 and 2), then the
     row bands and the process group (sections 6 and 7) alone; ``--group``:
-    section 7 alone after them."""
+    section 7 alone after them; ``--shard-grad``: section 8 alone after
+    them."""
     import torch
 
     sys.stdout.reconfigure(line_buffering=True)
@@ -4747,18 +5396,24 @@ def bands_main(bands: bool) -> None:
     _build.host_library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
     t0 = time.perf_counter()
-    if bands:
-        band_phase(torch, torch.device("cuda", 0), card, kernel_wrappers())
-    group_phase(torch, card)
-    print(f"{'sections 6 and' if bands else 'section'} 7: "
-          f"{time.perf_counter() - t0:.1f} s")
+    if mode == "--shard-grad":
+        shard_grad_phase(torch, torch.device("cuda", 0), card,
+                         kernel_wrappers())
+        print(f"section 8: {time.perf_counter() - t0:.1f} s")
+    else:
+        if mode == "--bands":
+            band_phase(torch, torch.device("cuda", 0), card,
+                       kernel_wrappers())
+        group_phase(torch, card)
+        print(f"{'sections 6 and' if mode == '--bands' else 'section'} 7: "
+              f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--bands"], ["--group"]):
-        bands_main(sys.argv[1] == "--bands")
+    if sys.argv[1:] in (["--bands"], ["--group"], ["--shard-grad"]):
+        bands_main(sys.argv[1])
     else:
         main()

@@ -52,12 +52,12 @@
 // target p-hat of a candidate is then the norm of the receiver's kd
 // (Receiver::unshaded, phong_rgb), as in the plain version.
 //
-// The band entry (kernels 3 and 15, parallel/): a launch may cover a row
-// band of the frame, whose first pixel is `pix_base` = row_base * W in the
-// frame. The Philox counter takes the frame's pixel index pix_base + p, so
-// a band draws the numbers the whole frame's launch draws for its pixels;
-// the RIS is pixel-local, so the band needs no halo. Without a band
-// pix_base is 0.
+// The band entry (kernels 3, 14 and 15, parallel/): a launch may cover a
+// row band of the frame, whose first pixel is `pix_base` = row_base * W in
+// the frame. The Philox counter takes the frame's pixel index
+// pix_base + p, so a band draws the numbers the whole frame's launch draws
+// for its pixels; the RIS is pixel-local, so the band needs no halo.
+// Without a band pix_base is 0.
 #include "common.cuh"
 
 namespace romis {
@@ -283,6 +283,20 @@ extern "C" int romis_ris_replay(const float* ctx, long long n, const float* rows
   return launch_ris<romis::kReplayMode>(ctx, n, rows, n_rows, num_lights, s,
                                         k, seed, uniforms, out, 1, false,
                                         unshaded != 0, 0, stream);
+}
+
+// The band entry of kernel 14: romis_ris_replay's arguments and pix_base,
+// as in romis_ris_band.
+extern "C" int romis_ris_replay_band(const float* ctx, long long n,
+                                     const float* rows, int n_rows,
+                                     int num_lights, int s, int k,
+                                     unsigned long long seed,
+                                     const float* uniforms, float* out,
+                                     int unshaded, long long pix_base,
+                                     cudaStream_t stream) {
+  return launch_ris<romis::kReplayMode>(ctx, n, rows, n_rows, num_lights, s,
+                                        k, seed, uniforms, out, 1, false,
+                                        unshaded != 0, pix_base, stream);
 }
 
 extern "C" int romis_ris_mis(const float* ctx, long long n, const float* rows,

@@ -114,12 +114,9 @@ def render_mis_banded(generator, cam: CameraParams, geometry, lights,
             draw = canonical_draws(
                 torch.Generator(device=dev).manual_seed(seeds[b]), ctx_b,
                 lights, num_lights, geometry, features, ops, records=False)
-        body = differentiable_iteration(ctx_b, offs_b, lights, num_lights,
+        step = differentiable_iteration(ctx_b, offs_b, lights, num_lights,
                                         geometry, features, mode, ops, draw,
                                         nbr_ctx, center)
-
-        def step(it, alphas=None):
-            return checkpointed(body, it, alphas)
         if is_rmis:
             acc = torch.zeros((3, h_loc, width), device=dev)
             for it in range(features.max_iterations_mis):

@@ -29,6 +29,9 @@ scatter (kernels 9, 10); the shadow rays through kernel 6 (the BVH walks
 on geometry with a BVH), their visibility detached. The neighbour
 selection (kernel 16) is discrete and detached. Each iteration runs under
 a checkpoint, so its kernels launch again in the backward.
+
+Both renders take a row band (``band``); the sharded training steps of
+``parallel.shard`` and ``parallel.mis`` differentiate them on each rank.
 """
 
 from __future__ import annotations
@@ -100,20 +103,21 @@ def apply_params(geometry, lights, params: SceneParams):
 def render_with_params(params: SceneParams, generator, cam: CameraParams,
                        geometry, lights, num_lights: int, height: int,
                        width: int, features: Features, prev: TemporalState,
-                       noise=None, ops: FrameOps = KERNELS):
+                       noise=None, ops: FrameOps = KERNELS, band=None):
     """Forward render with ``params`` substituted into the scene → (image,
     detached TemporalState). As in the reference, the resampling phases run
     their differentiable formulation (``fused_resampling=False``) and the
     spatial offsets go coherent unless ``features.exact_gradients``. Tone
     mapping is typically disabled for optimisation (linear losses).
-    ``noise`` is ``render_restir_frame``'s test hook."""
+    ``noise`` is ``render_restir_frame``'s test hook; with ``band``
+    (``parallel.mesh.Bands``) the band's image rows and state, as there."""
     geometry, lights = apply_params(geometry, lights, params)
     features = features.replace(fused_resampling=False)
     if not features.exact_gradients:
         features = features.replace(coherent_spatial_offsets=True)
     return render_restir_frame(generator, cam, geometry, lights, num_lights,
                                height, width, features, prev, noise=noise,
-                               ops=ops)
+                               ops=ops, band=band)
 
 
 def l2_image_loss(params: SceneParams, target, generator, cam, geometry,
@@ -154,33 +158,39 @@ def make_grad_fn(geometry, lights, num_lights: int, height: int, width: int,
     return value_and_grad
 
 
-def _value_and_grad(loss_fn, params: SceneParams):
+def _value_and_grad(loss_fn, params: SceneParams, has_aux: bool = False):
     """(loss, SceneParams of gradients) of ``loss_fn`` at ``params``, with
-    zeros where a parameter does not reach the loss."""
+    zeros where a parameter does not reach the loss; with ``has_aux``
+    ``loss_fn`` gives (loss, aux) and the result is (loss, aux, grads)."""
     leaves = [p.detach().requires_grad_() for p in params.leaves()]
-    loss = loss_fn(SceneParams(*leaves))
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), SceneParams(*(
-        torch.zeros_like(p) if g is None else g
-        for p, g in zip(leaves, grads)))
+    out = loss_fn(SceneParams(*leaves))
+    loss = out[0] if has_aux else out
+    grads = SceneParams(*(
+        torch.zeros_like(p) if g is None else g for p, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))))
+    if has_aux:
+        return loss.detach(), out[1], grads
+    return loss.detach(), grads
 
 
 def render_mis_with_params(params: SceneParams, generator,
                            cam: CameraParams, geometry, lights,
                            num_lights: int, height: int, width: int,
                            features: Features, inject=None, noise=None,
-                           ops: FrameOps = KERNELS) -> torch.Tensor:
+                           ops: FrameOps = KERNELS, band=None) -> torch.Tensor:
     """Forward R-MIS or R-OMIS render (by ``features.ray_trace_mode``: R-MIS,
     else R-OMIS) with ``params`` substituted into the scene, on the
     differentiable formulation (``fused_resampling=False``) → image
     [H, W, 3]. ``inject`` and ``noise`` are ``render.rmis.render_rmis``'
-    test hooks."""
+    test hooks; with ``band`` (``parallel.mesh.Bands``) the band's image
+    rows, as there."""
     geometry, lights = apply_params(geometry, lights, params)
     features = features.replace(fused_resampling=False)
     render = render_rmis if features.ray_trace_mode == RayTraceMode.RMIS \
         else render_romis
     return render(generator, cam, geometry, lights, num_lights, height,
-                  width, features, inject=inject, noise=noise, ops=ops)
+                  width, features, inject=inject, noise=noise, ops=ops,
+                  band=band)
 
 
 def mis_l2_image_loss(params: SceneParams, target, generator, cam, geometry,

@@ -61,6 +61,9 @@ SIGNATURES = {
                        _P),
     # the same arguments as romis_ris; out holds the 7K replay-record planes
     "romis_ris_replay": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I, _P),
+    # romis_ris_replay's arguments, then the first pixel's frame index, stream
+    "romis_ris_replay_band": (_P, _LL, _P, _I, _I, _I, _I, _ULL, _P, _P, _I,
+                              _LL, _P),
     # position, normal, view_origin, kd, ks, shininess, valid (bool),
     # sample pos, colour, big_w, n_pix, k, block-ordered tri_cols, boxes,
     # guard normals (ops/trace.zcount_blocks), n_tris, unshaded, out,

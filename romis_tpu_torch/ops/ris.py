@@ -24,7 +24,7 @@ Every mode has the unshaded mode of ``Features(enable_shading=False)``: the
 target p̂ is the norm of the receiver's kd, as the plain versions compute
 it (``ops.shading.phong_shade_planes``).
 
-Kernels 3 and 15 take a row band (``row_base``, ``h_global``: ``ops.band``)
+Kernels 3, 14 and 15 take a row band (``row_base``, ``h_global``: ``ops.band``)
 of the frame: the RIS is pixel-local, so a band is the frame's rows
 ``row_base`` on, and the kernel's Philox counter takes the frame's pixel
 index; the plain versions draw the whole frame's uniforms and take the
@@ -132,24 +132,28 @@ gen_canonical_samples_ris.launches = 0
 
 @torch.no_grad()
 def gen_canonical_replay(ctx: ShadeCtx, lights, num_lights: int,
-                         features: Features, generator=None, uniforms=None):
+                         features: Features, generator=None, uniforms=None,
+                         row_base: int = 0, h_global=None):
     """The detached replay RIS → (w_sum [K, H, W], replay1, replay2), each
     replay a (light index as f32, u, v) tuple of [K, H, W] planes. Random
     numbers: ``uniforms`` [S/K, 5, K, H, W] when given, else drawn from
     ``generator`` (the plain version draws the uniforms themselves, the
-    kernel a Philox key). Kernel 14 for CUDA tensors, the plain version for
-    CPU tensors."""
+    kernel a Philox key). ``row_base`` and ``h_global`` as in
+    ``gen_canonical_samples_ris`` (the band entry ``romis_ris_replay_band``).
+    Kernel 14 for CUDA tensors, the plain version for CPU tensors."""
     from .wrs import gen_canonical_replay_plain
 
     h, w = ctx.depth_t.shape[-2:]
     s = features.initial_light_samples
     k = features.num_samples_in_reservoir
+    check_band("replay RIS", h, row_base, h_global)
     if uniforms is None and generator is None:
         raise ValueError("the replay RIS needs a torch.Generator or the "
                          "uniforms")
     if not ctx.position.is_cuda:
         return gen_canonical_replay_plain(ctx, lights, num_lights, features,
-                                          generator, uniforms)
+                                          generator, uniforms, row_base,
+                                          h_global)
     packed, rows = _check_launch(ctx, lights, uniforms, 5, features)
     if uniforms is not None:
         seed, u_ptr = 0, uniforms.data_ptr()
@@ -157,15 +161,22 @@ def gen_canonical_replay(ctx: ShadeCtx, lights, num_lights: int,
         seed, u_ptr = _seed(generator), None
     out = torch.empty((k, 7, h, w), dtype=torch.float32, device=packed.device)
     if h * w:
-        _build.launch("romis_ris_replay", packed.data_ptr(), h * w,
-                      rows.data_ptr(), rows.shape[0], num_lights, s, k, seed,
-                      u_ptr, out.data_ptr(), int(not features.enable_shading))
-        gen_canonical_replay.launches += 1
+        args = (packed.data_ptr(), h * w, rows.data_ptr(), rows.shape[0],
+                num_lights, s, k, seed, u_ptr, out.data_ptr(),
+                int(not features.enable_shading))
+        if h_global is None:
+            _build.launch("romis_ris_replay", *args)
+            gen_canonical_replay.launches += 1
+        else:
+            _build.launch("romis_ris_replay_band", *args, row_base * w)
+            gen_canonical_replay.band_launches += 1
     return out[:, 0], (out[:, 1], out[:, 2], out[:, 3]), \
         (out[:, 4], out[:, 5], out[:, 6])
 
 
+# Launches of kernel 14's whole-frame entry and of its band entry.
 gen_canonical_replay.launches = 0
+gen_canonical_replay.band_launches = 0
 
 
 def gen_mis_reservoir_planes_plain(ctx: ShadeCtx, lights, num_lights: int,

@@ -202,7 +202,8 @@ def replay_uniforms(generator: torch.Generator, s: int, k: int, height: int,
 @torch.no_grad()
 def gen_canonical_replay_plain(ctx: ShadeCtx, lights, num_lights: int,
                                features: Features, generator=None,
-                               uniforms=None):
+                               uniforms=None, row_base: int = 0,
+                               h_global=None):
     """The plain version of the replay kernel: the reference's detached
     surrogate scan (``ops/wrs._gen_canonical_surrogate``). S candidates per
     pixel as in ``gen_canonical_samples_plain``, two independent Gumbel-max
@@ -212,8 +213,10 @@ def gen_canonical_replay_plain(ctx: ShadeCtx, lights, num_lights: int,
 
     ``uniforms`` [S/K, 5, K, H, W] holds, per slot, the reference's ``u4``
     (pick, u, v, race 1) and the second race's uniform; without it they are
-    drawn from ``generator``."""
+    drawn from ``generator``: for a row band (``h_global``, ``ops.band``)
+    the whole frame's, of which the band takes its rows."""
     from ..scene.lights import sample_lights_planes
+    from .band import band_of, check_band
     from .rows import gather_rows_plain
 
     h, w_img = ctx.depth_t.shape[-2:]
@@ -221,8 +224,10 @@ def gen_canonical_replay_plain(ctx: ShadeCtx, lights, num_lights: int,
     k = features.num_samples_in_reservoir
     sk, _, lane_real = _lane_layout(s, k)
     dev = ctx.position.device
+    h_frame = check_band("replay RIS", h, row_base, h_global)
     if uniforms is None:
-        uniforms = replay_uniforms(generator, s, k, h, w_img)
+        uniforms = band_of(replay_uniforms(generator, s, k, h_frame, w_img),
+                           row_base, h)
     if tuple(uniforms.shape) != (sk, 5, k, h, w_img):
         raise ValueError(f"uniforms: expected {(sk, 5, k, h, w_img)}, got "
                          f"{tuple(uniforms.shape)}")
@@ -306,22 +311,26 @@ def surrogate_tail(ctx: ShadeCtx, lights, num_lights: int, features: Features,
 
 def gen_canonical_surrogate(ctx: ShadeCtx, lights, num_lights: int, geometry,
                             features: Features, generator=None, uniforms=None,
-                            replay=None, gather=None, any_hit=None):
+                            replay=None, gather=None, any_hit=None,
+                            row_base: int = 0, h_global=None):
     """gen_canonical_samples with the winner-replay surrogate gradient
     (reference ``ops/wrs._gen_canonical_surrogate`` and
     ``gen_canonical_with_records``) → (Reservoirs, replay records
     [K, 3, H, W]). The candidate loop runs detached through ``replay``
     (kernel 14 by default: the plain version for CPU tensors; ``uniforms``
-    [S/K, 5, K, H, W] is its test hook), then ``surrogate_tail``
-    re-derives the reservoir differentiably."""
+    [S/K, 5, K, H, W] is its test hook; ``row_base`` and ``h_global`` a
+    row band's, ``ops.band``), then ``surrogate_tail`` re-derives the
+    reservoir differentiably."""
     from .ris import gen_canonical_replay
     from .rows import gather_rows
     from .trace import any_hit as any_hit_kernel
 
     replay = replay or gen_canonical_replay
+    band = {} if h_global is None else dict(row_base=row_base,
+                                            h_global=h_global)
     w_sum, replay1, replay2 = replay(
         detached(ctx), detached(lights), num_lights, features,
-        generator=generator, uniforms=uniforms)
+        generator=generator, uniforms=uniforms, **band)
     return surrogate_tail(ctx, lights, num_lights, features, w_sum, replay1,
                           replay2, geometry, any_hit or any_hit_kernel,
                           gather or gather_rows)

@@ -33,12 +33,79 @@ from ..render.restir import (
 from .mesh import Bands
 
 
+def _peer(bands: Bands, rank: int) -> int:
+    """The global rank of rank ``rank`` of the bands' group."""
+    import torch.distributed as dist
+
+    return rank if bands.group is None else \
+        dist.get_global_rank(bands.group, rank)
+
+
+def _swap_rows(bands: Bands, up: torch.Tensor, down: torch.Tensor):
+    """Send ``up`` [..., r, W] to the rank above and ``down`` to the rank
+    below, in one ``dist.batch_isend_irecv`` → (the rows received from
+    above, from below), each zeros where there is no neighbour. Both
+    neighbours take part, so every rank's sends meet their receives."""
+    import torch.distributed as dist
+
+    up, down = up.contiguous(), down.contiguous()
+    from_above, from_below = torch.zeros_like(up), torch.zeros_like(down)
+    ops = []
+    if bands.rank > 0:
+        peer = _peer(bands, bands.rank - 1)
+        ops += [dist.P2POp(dist.isend, up, peer, bands.group),
+                dist.P2POp(dist.irecv, from_above, peer, bands.group)]
+    if bands.rank < bands.world - 1:
+        peer = _peer(bands, bands.rank + 1)
+        ops += [dist.P2POp(dist.isend, down, peer, bands.group),
+                dist.P2POp(dist.irecv, from_below, peer, bands.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return from_above, from_below
+
+
+class _HaloExchange(torch.autograd.Function):
+    """The exchange of a world of two or more, and its transpose.
+
+    Forward: a band's top rows go up (the rank above's bottom halo), its
+    bottom rows go down. Backward: the cotangent g [..., h + 2r, W] of the
+    extended band sends its halo rows' cotangents back to the ranks whose
+    rows they were (g[..., :r, :] up, g[..., -r:, :] down) and adds what
+    comes back to its own edge rows; with r ≤ h < 2r the top and bottom
+    edge rows overlap and both additions apply."""
+
+    @staticmethod
+    def forward(ctx, x, radius: int, bands: Bands):
+        ctx.radius, ctx.bands = radius, bands
+        above, below = _swap_rows(bands, x[..., :radius, :],
+                                  x[..., -radius:, :])
+        return torch.cat([above, x, below], dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, bands = ctx.radius, ctx.bands
+        from_above, from_below = _swap_rows(bands, g[..., :r, :],
+                                            g[..., -r:, :])
+        grad = g[..., r:-r, :].clone()
+        if bands.rank < bands.world - 1:
+            grad[..., -r:, :] += from_below
+        if bands.rank > 0:
+            grad[..., :r, :] += from_above
+        return grad, None, None
+
+
 def halo_extend(x: torch.Tensor, radius: int, bands: Bands) -> torch.Tensor:
     """Extend this rank's band [..., h_loc, W] with ``radius`` rows from
     the bands above and below → [..., h_loc + 2·radius, W]: one
     ``dist.batch_isend_irecv`` of the edge rows with each neighbouring rank.
     The edge ranks' outer rows are zeros, which the band entries never read
-    (they clamp to the frame). A world of 1 pads with zeros."""
+    (they clamp to the frame). A world of 1 pads with zeros.
+
+    Differentiable in ``x``: the backward is the exchange's transpose
+    (``_HaloExchange``), one ``batch_isend_irecv`` with each neighbour, so
+    gradients cross the band edges where the forward read across them.
+    Every rank runs the same sequence of exchanges, forward and backward,
+    which keeps the point-to-point sends of neighbouring ranks matched."""
     bands.check_halo(radius)
     if bands.exchange is not None:
         return bands.exchange(x, radius, bands)
@@ -46,27 +113,7 @@ def halo_extend(x: torch.Tensor, radius: int, bands: Bands) -> torch.Tensor:
         return x
     if bands.world == 1:
         return torch.nn.functional.pad(x, (0, 0, radius, radius))
-    import torch.distributed as dist
-
-    def peer(rank):
-        return rank if bands.group is None else \
-            dist.get_global_rank(bands.group, rank)
-
-    top = x[..., :radius, :].contiguous()
-    bottom = x[..., -radius:, :].contiguous()
-    above, below = torch.zeros_like(top), torch.zeros_like(bottom)
-    ops = []
-    if bands.rank > 0:
-        up = peer(bands.rank - 1)
-        ops += [dist.P2POp(dist.isend, top, up, bands.group),
-                dist.P2POp(dist.irecv, above, up, bands.group)]
-    if bands.rank < bands.world - 1:
-        down = peer(bands.rank + 1)
-        ops += [dist.P2POp(dist.isend, bottom, down, bands.group),
-                dist.P2POp(dist.irecv, below, down, bands.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return torch.cat([above, x, below], dim=-2)
+    return _HaloExchange.apply(x, radius, bands)
 
 
 def spatial_reuse_halo(generator, ctx: ShadeCtx, reservoirs: Reservoirs,

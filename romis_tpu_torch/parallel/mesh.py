@@ -28,7 +28,8 @@ class Bands:
     ``torch.distributed`` process group (None: the default group).
     ``exchange`` replaces the group's halo exchange (``parallel.halo.
     halo_extend``) by a function (x, radius, bands) → the extended band,
-    for running the bands of one frame in one process."""
+    for running the bands of one frame in one process; for a gradient
+    step its result must keep ``x``'s autograd graph in the band's rows."""
 
     height: int
     world: int = 1
@@ -71,6 +72,17 @@ class Bands:
         from .halo import halo_extend
 
         return halo_extend(t, radius, self)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the group's ranks, on every rank (one
+        ``all_reduce``; ``t`` itself for a world of 1)."""
+        if self.world == 1:
+            return t
+        import torch.distributed as dist
+
+        t = t.contiguous().clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every band's [..., h_loc, W] → the frame's [..., H, W] on every

@@ -29,18 +29,37 @@ bit for bit, at any world size. ``inject`` (the frame's neighbour
 coordinates and per-iteration reservoirs, the reference's hook) replaces
 the draws; each rank takes its rows.
 
-The reference's ``make_sharded_mis_train_step`` is not ported yet: it
-needs a differentiable halo exchange.
+``make_sharded_mis_train_step`` is the reference's SGD step of the L2 loss
+over the sharded R-MIS / R-OMIS frame, on the differentiable formulation
+(``fused_resampling=False``, ``render.rmis.differentiable_iteration`` on
+the band): each iteration's canonical reservoirs on the band's rows, their
+planes extended by the halo between the iteration's two checkpoints, the
+neighbourhoods gathered by kernel 9 on the extended planes (kernel 10 its
+backward, whose halo rows' gradients the exchange's transpose returns to
+the bands they came from), the shadow rays on the band's pixels. The loss
+and the gradients are summed over the ranks as in
+``parallel.shard.make_sharded_train_step``; under ``torchrun`` (see
+there)::
+
+    step = make_sharded_mis_train_step(geometry, lights, num_lights, height,
+                                       width, features, global_bands(height))
+    params, loss, grads = step(params, target, generator, cam)
+
+Without injected noise its image rows are the single-device step's
+(``diff.grad.make_mis_grad_fn``) bit for bit, its loss and gradients the
+same up to float32 summation order.
 """
 
 from __future__ import annotations
 
 from ..core.features import Features
+from ..diff.grad import SceneParams, _value_and_grad, render_mis_with_params
 from ..render.restir import KERNELS, FrameOps
 from ..render.rmis import render_rmis
 from ..render.romis import render_romis
 from .halo import gather_image
 from .mesh import Bands
+from .shard import band_l2_term, reduce_value_and_grad, sgd
 
 
 def render_rmis_sharded(generator, cam, geometry, lights, num_lights: int,
@@ -73,3 +92,40 @@ def render_romis_sharded(generator, cam, geometry, lights, num_lights: int,
         return gather_image(out, bands)
     image, alphas = out
     return gather_image(image, bands), gather_image(alphas, bands)
+
+
+def mis_band_loss(params: SceneParams, target, generator, cam, geometry,
+                  lights, num_lights: int, height: int, width: int,
+                  features: Features, bands: Bands, inject=None, noise=None,
+                  ops: FrameOps = KERNELS):
+    """This rank's term of the L2 loss of the R-MIS or R-OMIS frame (by
+    ``features.ray_trace_mode``) rendered on its band with ``params``
+    (``parallel.shard.band_l2_term``); ``inject`` and ``noise`` the whole
+    frame's, as in ``render.rmis.render_rmis``."""
+    bands.check_halo(features.spatial_resample_radius)
+    image = render_mis_with_params(params, generator, cam, geometry, lights,
+                                   num_lights, height, width, features,
+                                   inject, noise, ops, band=bands)
+    return band_l2_term(image, target, bands)
+
+
+def make_sharded_mis_train_step(geometry, lights, num_lights: int,
+                                height: int, width: int, features: Features,
+                                bands: Bands, lr: float = 1e-2,
+                                ops: FrameOps = KERNELS):
+    """SGD on the scene parameters over the sharded R-MIS / R-OMIS frame:
+    ``step(params, target, generator, cam, inject=None, noise=None)`` →
+    (new_params, loss, gradients), the loss and gradients summed over the
+    ranks and the same new parameters on every rank."""
+
+    def step(params: SceneParams, target, generator, cam, inject=None,
+             noise=None):
+        loss, grads = _value_and_grad(
+            lambda p: mis_band_loss(p, target, generator, cam, geometry,
+                                    lights, num_lights, height, width,
+                                    features, bands, inject, noise, ops),
+            params)
+        loss, grads = reduce_value_and_grad(loss, grads, bands)
+        return sgd(params, grads, lr), loss, grads
+
+    return step

@@ -31,13 +31,17 @@ the biased non-fused path; with ``coherent_spatial_offsets`` one offset per
 (pass, neighbour) instead of per pixel.
 
 A frame may render one row band of itself (``band``: a
-``parallel.mesh.Bands``, for the sharded frame of ``parallel/``): the band's
-rows of the rays, every random draw made for the whole frame and cut to
-the band's rows, and each neighbour read (temporal reprojection, the
-spatial passes) on the band's planes extended by a halo of neighbouring
-rows (``band.extend``) through the kernels' band entries. Without
-injected noise a band's rows are the whole frame's, bit for bit, whatever
-the number of bands.
+``parallel.mesh.Bands``, for the sharded frame and training step of
+``parallel/``): the band's rows of the rays, every random draw made for
+the whole frame and cut to the band's rows (the surrogate's replay RIS
+through kernel 14's band entry; a coherent offset, one per pass and
+neighbour, is the frame's), and each neighbour read (temporal
+reprojection, the spatial passes, the coherent gather) on the band's
+planes extended by a halo of neighbouring rows (``band.extend``) through
+the kernels' band entries. The halo exchange is differentiable, so the
+gathers' backwards send the halo rows' gradients back to their bands.
+Without injected noise a band's rows are the whole frame's, bit for bit,
+whatever the number of bands.
 
 ``FrameOps`` names the kernel entry points a frame calls. ``KERNELS`` (the
 default) holds the wrappers, which launch the CUDA kernels for CUDA tensors
@@ -328,16 +332,24 @@ def unpack_pixel_planes(g: torch.Tensor, k: int):
     return res, ctx
 
 
-def coherent_gather(planes: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
-    """planes [C, H, W] at ONE offset per neighbour, offs [2, R] →
-    [R, C, H, W], coordinates clamped into the image: the reference's
-    edge-padded dynamic slice."""
+def coherent_gather(planes: torch.Tensor, offs: torch.Tensor, band=None,
+                    radius: int = 0) -> torch.Tensor:
+    """planes [C, H, W] at ONE offset per neighbour, offs [2, R] (within
+    ±``radius``) → [R, C, H, W], coordinates clamped into the image: the
+    reference's edge-padded dynamic slice. On a row ``band`` the planes
+    are its rows: they are extended by ``radius`` rows (``band.extend``),
+    each row clamped in frame rows and read in the extended planes."""
     h, w = planes.shape[-2:]
     dev = planes.device
     rows_i = torch.arange(h, device=dev)
     cols_i = torch.arange(w, device=dev)
+    src, base, h_frame, halo = planes, 0, h, 0
+    if band is not None:
+        src = band.extend(planes, radius)
+        base, h_frame, halo = band.row_base, band.height, radius
     return torch.stack([
-        planes.index_select(-2, torch.clamp(rows_i + offs[0, n], 0, h - 1))
+        src.index_select(-2, torch.clamp(base + rows_i + offs[0, n], 0,
+                                         h_frame - 1) - base + halo)
         .index_select(-1, torch.clamp(cols_i + offs[1, n], 0, w - 1))
         for n in range(offs.shape[1])])
 
@@ -391,9 +403,11 @@ def spatial_reuse(generator, ctx: ShadeCtx, reservoirs: Reservoirs,
 
     On a row ``band`` (the context and reservoirs the band's rows,
     ``height`` the frame's; ``inject`` the whole frame's, cut to the
-    band's rows) every pass reads the planes extended by a halo of
-    ``spatial_resample_radius`` rows (``band.extend``): the context once,
-    the reservoirs every pass."""
+    band's rows but for coherent offsets) every pass reads the planes
+    extended by a halo of ``spatial_resample_radius`` rows
+    (``band.extend``): the context once, the reservoirs every pass; the
+    differentiable gathers' backwards return the halo rows' gradients to
+    the bands they came from."""
     k = features.num_samples_in_reservoir
     radius = features.spatial_resample_radius
     cut = (lambda t: t) if band is None else band.band_rows
@@ -423,17 +437,22 @@ def spatial_reuse(generator, ctx: ShadeCtx, reservoirs: Reservoirs,
                                               r, radius, features, **noise)
         return unpack_reservoir_planes(res_planes, k)
 
+    coherent = features.coherent_spatial_offsets
+
     def gather(planes, offs):
-        if features.coherent_spatial_offsets:
-            return coherent_gather(planes, offs)
+        if coherent:
+            return coherent_gather(planes, offs, band, radius)
         dy, dx = spatial.clamped_offsets(
             offs, height, width, 0 if band is None else band.row_base)
         return band_gather(band, radius, ops)(planes, dy, dx)
 
+    hw = tuple(ctx.depth_t.shape[-2:])
     for p in range(features.spatial_resampling_passes):
-        offs, gumbel, gumbel2 = (None if t is None else cut(t) for t in
-                                 _pass_noise(generator, inject, p, features,
-                                             height, width))
+        offs, gumbel, gumbel2 = _pass_noise(generator, inject, p, features,
+                                            height, width)
+        offs = offs if coherent else cut(offs)
+        gumbel = cut(gumbel)
+        gumbel2 = None if gumbel2 is None else cut(gumbel2)
         planes = pack_pixel_planes(reservoirs, ctx)
         if records is None:
             nbr, nbr_ctx = unpack_pixel_planes(gather(planes, offs), k)
@@ -441,12 +460,12 @@ def spatial_reuse(generator, ctx: ShadeCtx, reservoirs: Reservoirs,
                                       gumbel, geometry, ops.any_hit, gumbel2)
             continue
         c_main = planes.shape[0]
-        g = gather(torch.cat([planes, records.reshape(3 * k, height, width)])
+        g = gather(torch.cat([planes, records.reshape((3 * k,) + hw)])
                    .detach(), offs)
         nbr, nbr_ctx = unpack_pixel_planes(g[:, :c_main], k)
         # The one differentiable gather: K planes of big_w.
         nbr = replace(nbr, big_w=gather(reservoirs.big_w, offs))
-        nbr_rec = g[:, c_main:].reshape(-1, k, 3, height, width)
+        nbr_rec = g[:, c_main:].reshape((-1, k, 3) + hw)
         reservoirs, records = spatial_pass(
             ctx, reservoirs, nbr, nbr_ctx, features, gumbel, geometry,
             ops.any_hit, gumbel2, (records, nbr_rec), lights,
@@ -459,17 +478,6 @@ def final_shade(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
     """Per lane, shadow ray x Phong x W, averaged over the K lanes →
     [3, H, W] pre-tone-map."""
     return ops.final_shade(ctx, reservoirs, geometry, features)
-
-
-def check_band_features(features: Features) -> None:
-    """Refuse the options of the gradient paths on a row band: the
-    sharded frame renders forward; the sharded training step is not
-    ported."""
-    if features.surrogate_resampling_grad or features.coherent_spatial_offsets:
-        raise ValueError(
-            "a row band renders the forward frame: surrogate_resampling_grad "
-            "and coherent_spatial_offsets belong to the training step, whose "
-            "sharded form is not ported")
 
 
 def render_restir_frame(generator, cam: CameraParams, geometry, lights,
@@ -495,8 +503,8 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
     ris_u, temporal_g, spatial_inject = (None, None, None) if noise is None \
         else (tuple(noise) + (None,))[:3]
     cut = (lambda t: t) if band is None else band.band_rows
-    if band is not None:
-        check_band_features(features)
+    on_band = {} if band is None else dict(row_base=band.row_base,
+                                           h_global=height)
     # Replay records ride through the reuse phases on the surrogate
     # gradient path when the reuse runs its differentiable formulation.
     use_records = (features.surrogate_resampling_grad
@@ -509,19 +517,18 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
                     cut(rays.direction).contiguous())
     _, ctx = trace_primary(rays, geometry, features, ops)
     rec = None
+    ris_u = None if ris_u is None else cut(ris_u)
     if features.surrogate_resampling_grad:
         res, rec = gen_canonical_surrogate(
             ctx, lights, num_lights, geometry, features, generator=generator,
             uniforms=ris_u, replay=ops.ris_replay, gather=ops.gather_rows,
-            any_hit=ops.any_hit)
+            any_hit=ops.any_hit, **on_band)
         if not use_records:
             rec = None
     else:
         ris = ops.ris if _fused(features, ctx.position) \
             else gen_canonical_samples_plain
-        if band is not None:
-            ris = partial(ris, row_base=band.row_base, h_global=height)
-            ris_u = None if ris_u is None else cut(ris_u)
+        ris = partial(ris, **on_band)
         res = gen_canonical_samples(ctx, lights, num_lights, geometry,
                                     features, generator=generator,
                                     uniforms=ris_u, ris=ris,

@@ -32,14 +32,14 @@ soup above the soup kernels' 2048 triangles without a BVH is refused,
 naming ``with_bvh``.
 
 A frame may render one row band of itself (``band``, ``parallel.mesh.
-Bands``, for the sharded frames of ``parallel.mis``): the band's rows of
-the rays, the selection on the band's gates with a halo of radius rows
-(kernel 16's band entry), the neighbours' contexts through kernel 9 on the
-band's planes extended by that halo, every iteration's pack (kernel 15's
-band entry) extended by that halo once a frame, and each sweep on the
-band (kernel 17's band entry); draws are made for the whole frame and cut
-to the band's rows. Without injected noise a band's rows are the whole
-frame's, bit for bit.
+Bands``, for the sharded frames and step of ``parallel.mis``): the band's
+rows of the rays, the selection on the band's gates with a halo of radius
+rows (kernel 16's band entry), the neighbours' contexts through kernel 9
+on the band's planes extended by that halo, every iteration's pack
+(kernel 15's band entry) extended by that halo once a frame, and each
+sweep on the band (kernel 17's band entry); draws are made for the whole
+frame and cut to the band's rows. Without injected noise a band's rows
+are the whole frame's, bit for bit.
 
 With ``fused_resampling=False`` (``diff.grad.make_mis_grad_fn`` sets it,
 as the reference does) the iterations run the reference's differentiable
@@ -57,6 +57,11 @@ neighbour). Each iteration runs under ``torch.utils.checkpoint``
 (``checkpointed``), so the backward holds one iteration's intermediates
 at a time; its random numbers come from a seed drawn before the body
 (``canonical_draws``), so that the recompute draws what the forward drew.
+On a row band the differentiable iteration draws the band's rows of the
+frame's reservoirs (the replay RIS through kernel 14's band entry),
+extends their planes by the halo between two checkpoints
+(``differentiable_iteration``) and gathers the neighbourhoods with kernel
+9 on the extended planes.
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.camera import CameraParams, generate_rays
 from ..core.features import Features, MISWeight
-from ..core.types import Rays, ShadeCtx
+from ..core.types import Rays, Reservoirs, ShadeCtx
 from ..ops.band import frame_rows
 from ..ops.mis import (
     MAX_NEIGHBOURS, gather_neighbourhood, mis_pack_planes,
@@ -327,23 +332,27 @@ def checkpointed(fn, *args):
 
 def canonical(ctx: ShadeCtx, lights, num_lights: int, geometry,
               features: Features, ops: FrameOps, generator=None,
-              uniforms=None, records: bool = False):
+              uniforms=None, records: bool = False, row_base: int = 0,
+              h_global=None):
     """One iteration's canonical reservoirs on the differentiable path →
     (Reservoirs, replay records [K, 3, H, W] or None): with
     ``surrogate_resampling_grad`` the winner-replay surrogate (the
     detached replay RIS ``ops.ris_replay``, uniforms [S/K, 5, K, H, W]),
     its records kept with ``records``; else the plain candidate loop
     (uniforms [S/K, 4, K, H, W]), as the reference's
-    ``gen_canonical_samples`` chooses."""
+    ``gen_canonical_samples`` chooses. ``row_base`` and ``h_global``: a
+    row band's (``ops.band``), whose draws are the frame's."""
+    on_band = {} if h_global is None else dict(row_base=row_base,
+                                               h_global=h_global)
     if features.surrogate_resampling_grad:
         res, rec = gen_canonical_surrogate(
             ctx, lights, num_lights, geometry, features, generator=generator,
             uniforms=uniforms, replay=ops.ris_replay, gather=ops.gather_rows,
-            any_hit=ops.any_hit)
+            any_hit=ops.any_hit, **on_band)
         return res, rec if records else None
     return gen_canonical_samples(
         ctx, lights, num_lights, geometry, features, generator=generator,
-        uniforms=uniforms, ris=gen_canonical_samples_plain,
+        uniforms=uniforms, ris=partial(gen_canonical_samples_plain, **on_band),
         any_hit=ops.any_hit), None
 
 
@@ -356,7 +365,8 @@ def draw_seeds(generator, n: int) -> list[int]:
 
 def canonical_draws(generator, ctx: ShadeCtx, lights, num_lights: int,
                     geometry, features: Features, ops: FrameOps, inject=None,
-                    uniforms=None, records: bool = True):
+                    uniforms=None, records: bool = True, band=None,
+                    height=None):
     """it → iteration ``it``'s (Reservoirs, replay records or None) on
     ``ctx``'s pixels (the whole frame, or a band's rows): the injected
     reservoirs (no records, as in the reference), or ``canonical`` on the
@@ -364,42 +374,65 @@ def canonical_draws(generator, ctx: ShadeCtx, lights, num_lights: int,
     generator seeded inside the call from a seed drawn here; the records
     kept with ``records``. The per-iteration checkpoint's recompute then
     draws what the forward drew, and the caller's generator is not drawn
-    from by the backward."""
+    from by the backward. On a row ``band`` of a frame of ``height`` rows
+    (``inject`` and ``uniforms`` the whole frame's) the draws are the
+    frame's, cut to the band's rows."""
+    cut = (lambda t: t) if band is None else band.band_rows
     if inject is not None:
-        return lambda it: (inject[2][it], None)
+        return lambda it: (Reservoirs(**{
+            f.name: cut(getattr(inject[2][it], f.name))
+            for f in fields(Reservoirs)}), None)
     seeds = None if uniforms is not None else draw_seeds(
         generator, features.max_iterations_mis)
     dev = ctx.position.device
+    on_band = {} if band is None else dict(row_base=band.row_base,
+                                           h_global=height)
 
     def draw(it):
         gen = None if seeds is None else \
             torch.Generator(device=dev).manual_seed(seeds[it])
         return canonical(ctx, lights, num_lights, geometry, features, ops,
-                         gen, None if uniforms is None else uniforms[it],
-                         records)
+                         gen, None if uniforms is None else cut(uniforms[it]),
+                         records, **on_band)
     return draw
+
+
+def nb_planes(res, rec, romis: bool) -> tuple:
+    """An iteration's reservoirs → the planes its neighbourhood gathers:
+    (the slim pack,), or with replay ``records`` (the records as planes
+    [3K, H, W], detached; the differentiable planes: big_w (R-MIS) or
+    w_sum | chosen_w (R-OMIS))."""
+    if rec is None:
+        return (pack_mis_reservoirs(res, romis),)
+    diff = torch.cat([res.w_sum, res.chosen_w]) if romis else res.big_w
+    return rec.detach().reshape((-1,) + tuple(rec.shape[-2:])), diff
 
 
 def gather_nb_records(rec: torch.Tensor, diff: torch.Tensor,
                       offs: torch.Tensor, lights, ops: FrameOps):
     """The neighbourhood gather in replay-records mode (reference
-    ``rmis.gather_nb_records``): the winners' records [K, 3, H, W] (light
-    index | u | v, index -1 for none) gathered as data, only ``diff``
-    [C, H, W] (big_w, or w_sum | chosen_w) differentiably, and every
-    sample's position and colour re-derived at the receiver from the light
-    table through ``ops.gather_rows`` (kernel 2; kernel 13 its backward),
-    zero where the record has none. Under the surrogate the canonical
-    planes are derived so (``ops.wrs.surrogate_tail``), so these are bit
-    for bit the stored planes and the gradient's composition is theirs,
-    while the halo gather's backward shrinks to C planes → (pos
-    [D1, K, 3, H, W], color, diff [D1, C, H, W]), self first."""
+    ``rmis.gather_nb_records``): the winners' records [3K, H, W] (per lane
+    light index | u | v, index -1 for none) gathered as data, only
+    ``diff`` [C, H, W] (big_w, or w_sum | chosen_w) differentiably, and
+    every sample's position and colour re-derived at the receiver from the
+    light table through ``ops.gather_rows`` (kernel 2; kernel 13 its
+    backward), zero where the record has none. Under the surrogate the
+    canonical planes are derived so (``ops.wrs.surrogate_tail``), so these
+    are bit for bit the stored planes and the gradient's composition is
+    theirs, while the halo gather's backward shrinks to C planes → (pos
+    [D1, K, 3, H, W], color, diff [D1, C, H, W]), self first. For a row
+    band (offsets [2D, h, W]) the planes hold it inside a halo of rows
+    (``ops.spatial.halo_band_gather``)."""
     d = offs.shape[0] // 2
-    k, _, h, w = rec.shape
-    planes = rec.detach().reshape(3 * k, h, w)
-    g_rec = torch.cat([planes[None], ops.halo_gather(
-        planes, offs[:d], offs[d:])]).reshape(d + 1, k, 3, h, w)
-    g_dif = torch.cat([diff[None], ops.halo_gather(diff, offs[:d],
-                                                   offs[d:])])
+    h, w = offs.shape[-2:]
+    k = rec.shape[0] // 3
+    halo = (rec.shape[-2] - h) // 2
+
+    def nbhd(planes):
+        return torch.cat([planes[None, :, halo:halo + h], halo_band_gather(
+            planes, offs[:d], offs[d:], halo, ops.halo_gather)])
+    g_rec = nbhd(rec).reshape(d + 1, k, 3, h, w)
+    g_dif = nbhd(diff)
     idxf = g_rec[:, :, 0]
     has = idxf >= 0.0
     comps = sample_lights_planes(lights, torch.clamp_min(idxf, 0.0).int(),
@@ -411,19 +444,21 @@ def gather_nb_records(rec: torch.Tensor, diff: torch.Tensor,
     return pos, color, g_dif
 
 
-def gather_nb(res, rec, offs: torch.Tensor, lights, romis: bool,
-              ops: FrameOps):
-    """The neighbourhood reservoirs of the differentiable path, fields
-    [D1, K, (3,) H, W], self first: pos, color and big_w (R-MIS) or w_sum
-    and chosen_w (R-OMIS), the slim pack through ``ops.halo_gather``, or
-    with replay records ``gather_nb_records``."""
-    k = res.k
-    if rec is None:
-        return gather_neighbourhood(pack_mis_reservoirs(res, romis), offs,
+def gather_nb(planes: tuple, offs: torch.Tensor, lights, romis: bool, k: int,
+              ops: FrameOps, band=None, height=None):
+    """The neighbourhood reservoirs of the differentiable path from an
+    iteration's ``nb_planes``, fields [D1, K, (3,) H, W], self first: pos,
+    color and big_w (R-MIS) or w_sum and chosen_w (R-OMIS), the slim pack
+    through ``ops.halo_gather``, or with replay records
+    ``gather_nb_records``. On a row ``band`` of a frame of ``height`` rows
+    the planes are its rows inside a halo of radius rows."""
+    if len(planes) == 1:
+        on_band = {} if band is None else dict(row_base=band.row_base,
+                                               h_global=height)
+        return gather_neighbourhood(planes[0], offs,
                                     "romis" if romis else "rmis_equal", k,
-                                    gather=ops.halo_gather)
-    diff = torch.cat([res.w_sum, res.chosen_w]) if romis else res.big_w
-    pos, color, g = gather_nb_records(rec, diff, offs, lights, ops)
+                                    gather=ops.halo_gather, **on_band)
+    pos, color, g = gather_nb_records(*planes, offs, lights, ops)
     if romis:
         return SimpleNamespace(pos=pos, color=color, w_sum=g[:, :k],
                                chosen_w=g[:, k:])
@@ -433,16 +468,27 @@ def gather_nb(res, rec, offs: torch.Tensor, lights, romis: bool,
 def differentiable_iteration(ctx: ShadeCtx, offs: torch.Tensor, lights,
                              num_lights: int, geometry, features: Features,
                              mode: str, ops: FrameOps, draw, nbr_ctx=None,
-                             center=None):
-    """One iteration of the reference's differentiable formulation →
-    body(it, alphas=None), giving what ``ops.mis_iteration`` gives for
-    that iteration (the R-MIS contribution, or A's upper triangle, b and
-    with ``alphas`` the progressive sum). ``draw(it)`` gives the
-    iteration's reservoirs and records on ``ctx``'s pixels, which the
-    neighbourhood is gathered over; ``nbr_ctx`` is
+                             center=None, band=None, height=None):
+    """The reference's differentiable formulation of one iteration →
+    step(it, alphas=None), giving what ``ops.mis_iteration`` gives for
+    iteration ``it`` (the R-MIS contribution, or A's upper triangle, b and
+    with ``alphas`` the progressive sum), each iteration ``checkpointed``.
+    ``draw(it)`` gives the iteration's reservoirs and records on ``ctx``'s
+    pixels, which the neighbourhood is gathered over; ``nbr_ctx`` is
     ``resolve_neighbour_ctx`` on them. ``center`` slices the receiving
     pixels from those (a band's rows in ``diff.banded``; all of them by
-    default)."""
+    default).
+
+    The whole iteration runs under one checkpoint. On a row ``band`` of a
+    frame of ``height`` rows (``parallel/``) it runs under two: the draw
+    and the neighbourhood's planes (``nb_planes``) in the first, the
+    gathers over those planes extended by the halo and the rest in the
+    second, with the halo exchange (``band.extend``) between them, outside
+    both. So no checkpoint's recompute runs an exchange: every rank issues
+    the forward's exchanges in order, then their transposes in the
+    backward, in the autograd engine's order, which is the same on every
+    rank since the ranks build the same graph. The D1·K shadow rays stay
+    on the band's pixels."""
     from ..render.romis import romis_iteration_terms
 
     romis = mode == "romis"
@@ -455,9 +501,11 @@ def differentiable_iteration(ctx: ShadeCtx, offs: torch.Tensor, lights,
         nbr_ctx = None if nbr_ctx is None else center(nbr_ctx)
     get_j = ctx_j_getter(rctx, nbr_ctx)
 
-    def body(it, alphas=None):
-        res, rec = draw(it)
-        nb = gather_nb(res, rec, offs, lights, romis, ops)
+    def planes(it):
+        return nb_planes(*draw(it), romis)
+
+    def terms(pl, alphas=None):
+        nb = gather_nb(pl, offs, lights, romis, k, ops, band, height)
         if center is not None:
             nb = SimpleNamespace(**{f: center(v) for f, v in vars(nb).items()})
         vis = visibility(rctx.position, nb.pos, geometry, ops.any_hit)
@@ -466,7 +514,18 @@ def differentiable_iteration(ctx: ShadeCtx, offs: torch.Tensor, lights,
                                          num_lights, geometry, features, vis)
         return rmis_sample_contrib(rctx, get_j, nb, geometry, features,
                                    mode == "rmis_balance", vis)
-    return body
+
+    if band is None:
+        def body(it, alphas=None):
+            return terms(planes(it), alphas)
+        return lambda it, alphas=None: checkpointed(body, it, alphas)
+    radius = features.spatial_resample_radius
+
+    def step(it, alphas=None):
+        pl = checkpointed(planes, it)
+        return checkpointed(terms, tuple(band.extend(t, radius) for t in pl),
+                            alphas)
+    return step
 
 
 def iteration_step(generator, ctx: ShadeCtx, cen: torch.Tensor,
@@ -476,13 +535,8 @@ def iteration_step(generator, ctx: ShadeCtx, cen: torch.Tensor,
     """step(it, alphas=None) → iteration ``it``'s sweep outputs: with
     ``fused_resampling`` the sweep on the iteration packs (``ops.mis_ris``
     and ``ops.mis_iteration``, in order), else the differentiable
-    formulation, each iteration ``checkpointed``. A row ``band`` (of a
-    frame of ``height`` rows) takes the first."""
-    if band is not None and not features.fused_resampling:
-        raise ValueError(
-            "a row band renders the forward frame: fused_resampling=False "
-            "is the training step's formulation, whose sharded form is not "
-            "ported")
+    formulation (``differentiable_iteration``). Either takes a row
+    ``band`` (of a frame of ``height`` rows)."""
     if features.fused_resampling:
         packs = iteration_packs(generator, ctx, lights, num_lights, geometry,
                                 features, mode == "romis", ops, inject,
@@ -495,10 +549,11 @@ def iteration_step(generator, ctx: ShadeCtx, cen: torch.Tensor,
                          alphas=alphas)
         return step
     draw = canonical_draws(generator, ctx, lights, num_lights, geometry,
-                           features, ops, inject, uniforms)
-    body = differentiable_iteration(ctx, offs, lights, num_lights, geometry,
-                                    features, mode, ops, draw, nbr_ctx)
-    return lambda it, alphas=None: checkpointed(body, it, alphas)
+                           features, ops, inject, uniforms, band=band,
+                           height=height)
+    return differentiable_iteration(ctx, offs, lights, num_lights, geometry,
+                                    features, mode, ops, draw, nbr_ctx,
+                                    band=band, height=height)
 
 
 def render_rmis(generator, cam: CameraParams, geometry, lights,

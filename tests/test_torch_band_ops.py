@@ -2,7 +2,8 @@
 runs its plain version with the same band arguments. A row band's call, on
 planes cut from the whole frame's with a halo of radius rows (zeros beyond
 the frame, as an edge rank's), equals the whole frame's call's rows bit
-for bit: kernels 3 and 15 (the RIS and the MIS RIS), 5 and 11 (the spatial
+for bit: kernels 3, 14 and 15 (the RIS, the surrogate's replay RIS and
+the MIS RIS), 5 and 11 (the spatial
 passes, 11 also in its vis_check mode), 16 (the neighbour selection in its
 three similarity strategies) and 17 (the MIS sweep in its four modes and
 with ext_vis), on injected noise and on the generator's draws. Band
@@ -87,6 +88,31 @@ def test_ris_band(frame, world, rank):
             _ctx_rows(ctx, world, rank), *args, 2, romis,
             generator=torch.Generator().manual_seed(3), **band)
         assert torch.equal(got, rows(full, world, rank))
+
+
+@pytest.mark.parametrize("draws", ["uniforms", "generator"])
+@pytest.mark.parametrize("world,rank", BANDS, ids=BAND_IDS)
+def test_replay_band(frame, world, rank, draws):
+    """Kernel 14's band: the plain replay with the band's arguments gives
+    the whole frame's w_sum and both races' records in the band's rows,
+    on the frame's uniforms cut to them and on the generator's draws."""
+    scene, ctx, _ = frame
+    band = dict(row_base=_band(world, rank)[1], h_global=H)
+    args = (scene.lights, scene.num_lights, FEATS)
+    uni = None
+    if draws == "uniforms":
+        uni = torch.rand((S // K, 5, K, H, W),
+                         generator=torch.Generator().manual_seed(5))
+    full = ris.gen_canonical_replay(
+        ctx, *args, generator=torch.Generator().manual_seed(5), uniforms=uni)
+    got = ris.gen_canonical_replay(
+        _ctx_rows(ctx, world, rank), *args,
+        generator=torch.Generator().manual_seed(5),
+        uniforms=None if uni is None else rows(uni, world, rank), **band)
+    flat = [full[0], *full[1], *full[2]]
+    for g, f in zip([got[0], *got[1], *got[2]], flat):
+        assert torch.equal(g, rows(f, world, rank))
+    assert float(full[0].max()) > 0
 
 
 def _pass_inputs(frame):
@@ -240,6 +266,9 @@ def test_band_arguments_refused(frame):
     with pytest.raises(ValueError, match="without h_global"):
         ris.gen_canonical_samples_ris(ctx, scene.lights, scene.num_lights,
                                       FEATS, torch.Generator(), row_base=4)
+    with pytest.raises(ValueError, match="outside the frame"):
+        ris.gen_canonical_replay(ctx, scene.lights, scene.num_lights, FEATS,
+                                 torch.Generator(), row_base=4, h_global=H)
     with pytest.raises(ValueError, match="halo"):
         mis.gather_neighbourhood(res[:7 * K, :H - 1], torch.zeros(
             2 * R, H, W, dtype=torch.int32), "rmis_equal", K)

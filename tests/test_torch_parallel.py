@@ -243,7 +243,8 @@ def test_animated_case_reprojects():
 
 
 def test_refusals():
-    """The split rules, each refused with a ValueError that names it."""
+    """The split rules, each refused with a ValueError that names it; the
+    gradient options, once refused, render."""
     with pytest.raises(ValueError, match="divide"):
         Bands(30, 4)
     with pytest.raises(ValueError, match="rank"):
@@ -255,15 +256,23 @@ def test_refusals():
         bands.check_halo(16)
     with pytest.raises(ValueError, match="rows"):
         bands.band_rows(torch.zeros(3, 12, 8))
+    # The gradient options render on a band: the surrogate's frame (its
+    # replay RIS on the band) is the single frame's, bit for bit.
     from romis_tpu_torch import Features as PortFeatures
     from romis_tpu_torch.parallel.shard import render_frame_sharded
+    from romis_tpu_torch.render.pipeline import render_frame
 
     scene, cam = flagship_scene("cpu"), flagship_camera(16, 8, "cpu")
-    with pytest.raises(ValueError, match="training step"):
-        render_frame_sharded(torch.Generator(), cam, scene.geometry,
-                             scene.lights, scene.num_lights, 16, 8,
-                             PortFeatures(surrogate_resampling_grad=True),
-                             None, Bands(16))
+    feats = PortFeatures(surrogate_resampling_grad=True,
+                         initial_light_samples=8, spatial_resample_radius=2)
+    img, _ = render_frame_sharded(torch.Generator().manual_seed(9), cam,
+                                  scene.geometry, scene.lights,
+                                  scene.num_lights, 16, 8, feats, None,
+                                  Bands(16))
+    ref, _ = render_frame(torch.Generator().manual_seed(9), cam, scene, 16, 8,
+                          feats)
+    assert torch.equal(img, ref)
+    assert float(ref.mean()) > 0.01
 
 
 def test_maybe_init_distributed_without_cluster(monkeypatch):

@@ -1,5 +1,6 @@
-"""Rank bodies of the port's sharded-frame tests (``test_torch_parallel.py``,
-``test_torch_parallel_mis.py``), run in processes spawned with
+"""Rank bodies of the port's sharded-frame and sharded-step tests
+(``test_torch_parallel.py``, ``test_torch_parallel_mis.py``,
+``test_torch_parallel_grad.py``), run in processes spawned with
 ``torch.multiprocessing``: they import torch and the port only, never JAX
 or the JAX package.
 
@@ -22,6 +23,9 @@ import torch
 TIMEOUT_S = 60
 RANKS = 4
 WORLDS = (1, 2, 4)
+# A sharded step's loss and gradients against the single-device step's:
+# the same float32 terms summed in another order.
+STEP_RTOL = 1e-5
 
 
 def _init(rank: int, world: int, store: str) -> None:
@@ -172,23 +176,167 @@ def _single_frames(inputs):
     return {name: frames(case) for name, case in inputs["equal"].items()}
 
 
-BODIES = {"restir": restir_body, "mis": mis_body}
+def halo_transpose(x, c, radius, bands):
+    """The halo exchange's backward on this band: x the frame's [..., H, W],
+    c the cotangent of every band's extended rows, stacked in rank order
+    → (⟨halo_extend(x_band), c_band⟩, ⟨x_band, its gradient⟩, the
+    gradient)."""
+    h_ext = bands.h_loc + 2 * radius
+    xb = bands.band_rows(x).clone().requires_grad_()
+    cb = c[..., bands.rank * h_ext:(bands.rank + 1) * h_ext, :]
+    lhs = (bands.extend(xb, radius) * cb).sum()
+    (grad,) = torch.autograd.grad(lhs, xb)
+    return lhs.detach(), (xb.detach() * grad).sum(), grad
+
+
+def step_outputs(case, bands=None):
+    """A ReSTIR case = (scene, camera, Features, params, target, the two
+    steps' noise or None, seed) on ``bands``. With noise: two steps of
+    ``make_sharded_train_step``, the state carried → {"params": [after
+    each step], "loss": [...]}. Without (the generator's draws): the value
+    and gradient of two frames at the same parameters, the state carried,
+    through ``make_sharded_grad_fn`` (without ``bands``, ``make_grad_fn``)
+    → {"loss", "grads", "images": the frames' image rows}."""
+    from romis_tpu_torch.diff.grad import make_grad_fn, render_with_params
+    from romis_tpu_torch.parallel.shard import (
+        make_sharded_grad_fn, make_sharded_train_step,
+    )
+    from romis_tpu_torch.render.restir import initial_temporal_state
+
+    scene, cam, feats, params, target, noises, seed = case
+    h, w = target.shape[:2]
+    args = (scene.geometry, scene.lights, scene.num_lights, h, w, feats)
+    if noises is not None:
+        step, state = make_sharded_train_step(*args, bands), None
+        out, p = {"params": [], "loss": []}, params
+        for noise in noises:
+            p, loss, state = step(p, target, None, cam, state, noise)
+            out["params"].append(p)
+            out["loss"].append(loss)
+        return out
+    fn = make_grad_fn(*args) if bands is None else \
+        make_sharded_grad_fn(*args, bands)
+    gen = torch.Generator().manual_seed(seed)
+    prev = initial_temporal_state(h if bands is None else bands.h_loc, w,
+                                  feats.num_samples_in_reservoir, cam)
+    out = {"loss": [], "grads": [], "images": []}
+    for _ in range(2):
+        drawn = gen.get_state()
+        loss, grads, *state = fn(params, target, gen, cam, prev)
+        # The frame the step rendered, drawn again (its backward draws
+        # nothing), and its state.
+        with torch.no_grad():
+            image, prev = render_with_params(
+                params, torch.Generator().set_state(drawn), cam, *args, prev,
+                band=bands)
+        if state:
+            assert all(torch.equal(a, b) for a, b in zip(
+                state[0].reservoirs.__dict__.values(),
+                prev.reservoirs.__dict__.values()))
+        out["loss"].append(loss)
+        out["grads"].append(grads)
+        out["images"].append(image)
+    return out
+
+
+def mis_step_outputs(case, bands=None):
+    """An MIS case = (scene, camera, Features, params, target, inject or
+    None, seed) → one step through ``make_sharded_mis_train_step`` on
+    ``bands`` (else ``make_mis_grad_fn`` and SGD): {"params", "loss",
+    "grads", "image": the step's image rows (drawn again from the seed)}."""
+    from romis_tpu_torch.diff.grad import (
+        make_mis_grad_fn, render_mis_with_params,
+    )
+    from romis_tpu_torch.parallel.mis import make_sharded_mis_train_step
+    from romis_tpu_torch.parallel.shard import sgd
+
+    scene, cam, feats, params, target, inject, seed = case
+    h, w = target.shape[:2]
+    args = (scene.geometry, scene.lights, scene.num_lights, h, w, feats)
+    if bands is None:
+        loss, grads = make_mis_grad_fn(*args)(
+            params, target, torch.Generator().manual_seed(seed), cam, inject)
+        new = sgd(params, grads, 1e-2)
+    else:
+        new, loss, grads = make_sharded_mis_train_step(*args, bands)(
+            params, target, torch.Generator().manual_seed(seed), cam, inject)
+    with torch.no_grad():
+        image = render_mis_with_params(
+            params, torch.Generator().manual_seed(seed), cam, *args, inject,
+            band=bands)
+    return dict(params=new, loss=loss, grads=grads, image=image)
+
+
+def grad_body(inputs, bands_of):
+    """The halo exchange's transpose, the ReSTIR and MIS training steps on
+    the bands of ``bands_of(height)`` (the steps of every case in
+    ``inputs["restir"]`` and ``inputs["mis"]``)."""
+    out = {"halo": {}}
+    for name, (x, cs, radius) in inputs.get("halo", {}).items():
+        bands = bands_of(x.shape[-2])
+        out["halo"][name] = halo_transpose(x, cs[bands.world], radius, bands)
+    for kind, run in (("restir", step_outputs), ("mis", mis_step_outputs)):
+        out[kind] = {name: run(case, bands_of(case[4].shape[0]))
+                     for name, case in inputs.get(kind, {}).items()}
+    return out
+
+
+def _single_steps(inputs):
+    """The single-device steps of the cases on the generator's draws."""
+    return {kind: {name: run(case) for name, case in inputs.get(
+        kind, {}).items() if case[5] is None}
+            for kind, run in (("restir", step_outputs),
+                              ("mis", mis_step_outputs))}
+
+
+BODIES = {"restir": restir_body, "mis": mis_body, "grad": grad_body}
 # Rank 0's single-device frames: the equal cases' ("equal") and for the
-# MIS body its injected frames' ("inject", ``mis_body`` without bands).
+# MIS body its injected frames' ("inject", ``mis_body`` without bands);
+# the single-device steps of the gradient body's cases.
 SINGLE = {"restir": lambda inputs: dict(equal=_single_frames(inputs)),
           "mis": lambda inputs: dict(equal=_single_frames(inputs),
-                                     inject=mis_body(inputs, None))}
+                                     inject=mis_body(inputs, None)),
+          "grad": _single_steps}
 
 
-def spawn(directory: str, body: str, inputs):
-    """Save ``inputs``, run ``body`` on RANKS gloo ranks → ({world: the
-    outputs of the ranks of rank 0's group, in rank order}, rank 0's
-    single-device frames of the equal cases)."""
+def start(directory: str, body: str, inputs):
+    """Save ``inputs`` and start ``body`` on RANKS gloo ranks → the ranks'
+    context for ``finish``; the caller may work meanwhile."""
     import torch.multiprocessing as mp
 
     torch.save(inputs, os.path.join(directory, f"{body}_inputs.pt"))
-    mp.spawn(run, args=(directory, body), nprocs=RANKS, join=True)
+    return directory, body, mp.spawn(run, args=(directory, body),
+                                     nprocs=RANKS, join=False)
+
+
+def finish(started):
+    """Wait for the ranks of ``start`` → ({world: the outputs of the ranks
+    of rank 0's group, in rank order}, rank 0's single-device results)."""
+    directory, body, context = started
+    while not context.join():
+        pass
     outs = [torch.load(os.path.join(directory, f"{body}_{r}.pt"),
                        weights_only=False) for r in range(RANKS)]
     return {w: [outs[r][w] for r in range(w)] for w in WORLDS}, \
         outs[0]["single"]
+
+
+def image_rows(parts):
+    """The bands' image rows [h_loc, W, 3], in rank order → the frame's."""
+    return torch.cat(list(parts), dim=0)
+
+
+def close_grads(got, want):
+    """Every leaf of the SceneParams ``got`` finite and within STEP_RTOL
+    (and STEP_RTOL of the leaf's largest |g|) of ``want``'s."""
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert bool(torch.isfinite(a).all()), f.name
+        scale = max(float(b.abs().max()), 1e-30)
+        torch.testing.assert_close(a, b, rtol=STEP_RTOL,
+                                   atol=STEP_RTOL * scale, msg=f.name)
+
+
+def spawn(directory: str, body: str, inputs):
+    """``start`` then ``finish``: run ``body`` on RANKS gloo ranks."""
+    return finish(start(directory, body, inputs))
