@@ -1286,34 +1286,42 @@ def profile_run(torch, label: str, run, n: int, card: str, unit="frame",
               f"{key_[:70]}")
 
 
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper (its ``launches`` count), by KERNELS name."""
-    from romis_tpu_torch.ops import (
-        mis, nbrsel, rows, ris, scatter, shade, spatial, trace, walk,
-    )
+def kernel_entries() -> dict:
+    """Each kernel's C entry points, the keys it launches under in
+    ``utils.stats.launches``, by KERNELS name."""
+    return {"closest_hit": ("romis_closest_hit",),
+            "gather_rows": ("romis_gather_rows",),
+            "ris": ("romis_ris", "romis_ris_band"),
+            "final_shade": ("romis_final_shade",),
+            "spatial_pass": ("romis_spatial_pass", "romis_spatial_pass_band"),
+            "spatial_pass_unbiased": ("romis_spatial_pass:unbiased",
+                                      "romis_spatial_pass_band:unbiased"),
+            "halo_gather": ("romis_halo_gather",),
+            "any_hit": ("romis_any_hit",),
+            "scatter_rows_add": ("romis_scatter_rows_add",),
+            "halo_scatter": ("romis_halo_scatter",),
+            "ris_replay": ("romis_ris_replay",),
+            "neighbour_select": ("romis_neighbour_select",
+                                 "romis_neighbour_select_band"),
+            "mis_ris": ("romis_ris_mis", "romis_ris_mis_band"),
+            "mis_iteration": ("romis_mis_iteration",
+                              "romis_mis_iteration_band"),
+            "bvh_closest_hit": ("romis_bvh_closest",),
+            "bvh_any_hit": ("romis_bvh_any",),
+            "bvh_any_hit_k": ("romis_bvh_any_k",),
+            "bvh_final_shade": ("romis_final_shade_bvh",),
+            "zcount_occ": ("romis_zcount_occ",),
+            "any_hit_plucker": ("romis_any_hit_plucker",),
+            "neighbour_gather": ("romis_neighbour_gather",),
+            "ris_replay_band": ("romis_ris_replay_band",)}
 
-    return {"closest_hit": trace.closest_hit,
-            "gather_rows": rows.gather_rows,
-            "ris": ris.gen_canonical_samples_ris,
-            "final_shade": shade.final_shade_soup,
-            "spatial_pass": spatial.spatial_pass_fused,
-            "spatial_pass_unbiased": spatial.spatial_pass_unbiased_fused,
-            "halo_gather": spatial.halo_offset_gather,
-            "any_hit": trace.any_hit,
-            "scatter_rows_add": scatter.scatter_rows_add,
-            "halo_scatter": spatial.halo_offset_scatter,
-            "ris_replay": ris.gen_canonical_replay,
-            "neighbour_select": nbrsel.neighbour_select,
-            "mis_ris": ris.gen_mis_reservoir_planes,
-            "mis_iteration": mis.mis_iteration,
-            "bvh_closest_hit": walk.closest_hit_bvh,
-            "bvh_any_hit": walk.any_hit_bvh,
-            "bvh_any_hit_k": walk.any_hit_bvh_k,
-            "bvh_final_shade": shade.final_shade_bvh,
-            "zcount_occ": trace.zcount_occ,
-            "any_hit_plucker": trace.any_hit_plucker,
-            "neighbour_gather": spatial.neighbour_gather,
-            "ris_replay_band": BandEntryCount(ris.gen_canonical_replay)}
+
+def launch_counts(entries: dict) -> dict:
+    """Launches since ``stats.launches`` was cleared, by KERNELS name."""
+    from romis_tpu_torch.utils import stats
+
+    return {n: sum(stats.launches.get(e, 0) for e in es)
+            for n, es in entries.items()}
 
 
 def mis_grad_features(path: str):
@@ -1478,7 +1486,7 @@ def band_frames(torch, sc, cams, feats, bands, seed: int, dev):
         state.reservoirs)
 
 
-def band_phase(torch, dev, card: str, wrappers: dict, large=None) -> None:
+def band_phase(torch, dev, card: str, entries: dict, large=None) -> None:
     """Section 6: the frames as row bands in one process (see BAND_PATHS),
     each band's halo exchange replaced by slices of the whole frame's own
     tensors (recorded from the frame rendered as one band, which must be
@@ -1497,6 +1505,7 @@ def band_phase(torch, dev, card: str, wrappers: dict, large=None) -> None:
     from romis_tpu_torch.scene.scene import (
         flagship_camera, flagship_scene, torus_field, torus_field_camera,
     )
+    from romis_tpu_torch.utils import stats
 
     scene, cam = flagship_scene(dev), flagship_camera(H, W, dev)
     if large is None:
@@ -1552,14 +1561,13 @@ def band_phase(torch, dev, card: str, wrappers: dict, large=None) -> None:
         _, whole_ms = timed(lambda: band_frames(torch, sc, cams, feats, None,
                                                 17, dev))
         for n in BAND_SPLITS:
-            for fn in wrappers.values():
-                fn.launches = 0
+            stats.launches.clear()
             parts = [band_frames(torch, sc, cams, feats, Bands(
                 H, n, b, exchange=halo_replay(torch, rec.seen, Bands(H, n, b),
                                               True)), 17, dev)
                      for b in range(n)]
-            got = {k_: fn.launches for k_, fn in wrappers.items()
-                   if fn.launches}
+            got = {k_: c for k_, c in launch_counts(entries).items()
+                   if c}
             imgs = [torch.cat([p[0][f] for p in parts]) for f in
                     range(n_frames)]
             same = all(torch.equal(a, b) for a, b in zip(imgs, whole[0]))
@@ -2329,22 +2337,6 @@ def replay_band_checks(torch, dev, card: str, scene, cam) -> dict:
     return row
 
 
-class BandEntryCount:
-    """A band entry's launches that its wrapper counts apart
-    (``band_launches``), read and reset as a wrapper's ``launches``."""
-
-    def __init__(self, fn):
-        self.fn = fn
-
-    @property
-    def launches(self) -> int:
-        return self.fn.band_launches
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        self.fn.band_launches = n
-
-
 def shard_rank(rank: int, world: int, store: str, ref_file: str,
                out: str) -> None:
     """A rank of section 8's NCCL groups of 2 and 4 on card ``rank``: each
@@ -2398,7 +2390,7 @@ def shard_rank(rank: int, world: int, store: str, ref_file: str,
     dist.destroy_process_group()
 
 
-def shard_grad_phase(torch, dev, card: str, wrappers: dict) -> dict:
+def shard_grad_phase(torch, dev, card: str, entries: dict) -> dict:
     """Section 8: the sharded training steps. Kernel 14's band entry
     (``replay_band_checks``); then through an NCCL group of one rank each
     path of SHARD_GRAD and SHARD_MIS at 1920x1080, its images bit-equal to
@@ -2413,13 +2405,13 @@ def shard_grad_phase(torch, dev, card: str, wrappers: dict) -> dict:
 
     import torch.distributed as dist
 
-    from romis_tpu_torch.ops import ris
     from romis_tpu_torch.parallel.launch import global_bands
     from romis_tpu_torch.scene.scene import flagship_camera, flagship_scene
+    from romis_tpu_torch.utils import stats
 
     scene, cam = flagship_scene(dev), flagship_camera(H, W, dev)
     row = replay_band_checks(torch, dev, card, scene, cam)
-    refs, launched = {}, {n: 0 for n in wrappers}
+    refs, launched = {}, {n: 0 for n in entries}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                 world_size=1, rank=0)
@@ -2435,12 +2427,11 @@ def shard_grad_phase(torch, dev, card: str, wrappers: dict) -> dict:
             # the counts set to 0 just before it and read just after, and
             # timed.
             step = shard_step_fn(torch, dev, scene, path, setup, bands)
-            for fn in wrappers.values():
-                fn.launches = 0
+            stats.launches.clear()
             ms, peak, held = timed_steps(torch, step, FRAMES[path])
-            counts = {n: fn.launches for n, fn in wrappers.items()}
+            counts = launch_counts(entries)
             expect = {n: PATHS[path].get(n, 0) * FRAMES[path]
-                      for n in wrappers}
+                      for n in entries}
             print(f"path {path}: launches over {FRAMES[path]} step(s) "
                   f"{ {n: c for n, c in counts.items() if c} }")
             require(counts == expect, f"{path}: launch counts {counts} != "
@@ -2571,6 +2562,7 @@ def main() -> None:
         torus_field, torus_field_camera,
     )
     from romis_tpu_torch.ops.wrs import SHADOW_RAY_EPSILON
+    from romis_tpu_torch.utils import stats
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2612,7 +2604,7 @@ def main() -> None:
     print(f"build: host BVH builder {time.perf_counter() - t0:.1f} s -> "
           f"{host.name}")
 
-    wrappers = kernel_wrappers()
+    entries = kernel_entries()
 
     # ---- 3. each kernel against its plain version ----
     section("3")
@@ -4028,11 +4020,10 @@ def main() -> None:
             gpack, n_nbr, radius, key=gkey, pass_index=i),
     }
     for path in OP_PATHS:
-        for fn in wrappers.values():
-            fn.launches = 0
+        stats.launches.clear()
         outs = [op_calls[path](i) for i in range(FRAMES[path])]
         torch.cuda.synchronize()
-        got = {n: fn.launches for n, fn in wrappers.items()}
+        got = launch_counts(entries)
         expect = {n: PATHS[path].get(n, 0) * FRAMES[path] for n in KERNELS}
         print(f"path {path}: launches over {FRAMES[path]} calls "
               f"{ {n: c for n, c in got.items() if c} }")
@@ -4048,10 +4039,9 @@ def main() -> None:
                 or path in OP_PATHS or path in SHARD_GRAD + SHARD_MIS
                 or path == "cli"):
             continue
-        for fn in wrappers.values():
-            fn.launches = 0
+        stats.launches.clear()
         img_k, state_k = run_path(path, restir.KERNELS, 0)
-        got = {n: fn.launches for n, fn in wrappers.items()}
+        got = launch_counts(entries)
         ref = img_k  # the kernels' frame the plain run is held to
         if path in SMALL_PLAIN:
             g = torch.Generator(device=dev).manual_seed(3)
@@ -4153,10 +4143,9 @@ def main() -> None:
         require(len(files) == 1, f"cli: images {files}")
         return np.load(files[0]), time.perf_counter() - t0
 
-    for fn in wrappers.values():
-        fn.launches = 0
+    stats.launches.clear()
     img_a, t_a = run_cli(cdir / "a", FRAMES["cli"], cdir / "ck_a")
-    got = {n: fn.launches for n, fn in wrappers.items()}
+    got = launch_counts(entries)
     expect = {n: PATHS["cli"].get(n, 0) * FRAMES["cli"] for n in KERNELS}
     print(f"path cli: launches over {FRAMES['cli']} frames "
           f"{ {n: c for n, c in got.items() if c} }")
@@ -4285,13 +4274,12 @@ def main() -> None:
     for path in GRAD_PATHS:
         f, sc, c, p, prev, target, noise = grad_setup(path)
         fn_k = grad_fn(path, sc, (H, W))
-        for fn in wrappers.values():
-            fn.launches = 0
+        stats.launches.clear()
         step_k = fn_k(p, target, None, c, prev, noise)
         step_k2 = fn_k(p, target, torch.Generator(device=dev).manual_seed(12),
                        c, prev)
         torch.cuda.synchronize()
-        got = {n: fn.launches for n, fn in wrappers.items()}
+        got = launch_counts(entries)
         hw = (H, W)
         if path == "large_grad":
             # The plain step at 480x270 (the plain traversal walks the
@@ -4333,13 +4321,12 @@ def main() -> None:
         p, target, noise = mis_grad_setup(torch, path, sc, c, (H, W), dev)
         mis_setups[path] = (sc, c, p, target)
         fn_k = mis_grad_fn(path, sc, (H, W), restir.KERNELS)
-        for fn in wrappers.values():
-            fn.launches = 0
+        stats.launches.clear()
         step_k = fn_k(p, target, torch.Generator(device=dev).manual_seed(13),
                       c, noise=noise)
         step_k2, ms_k, pk, bk = timed(lambda: fn_k(
             p, target, torch.Generator(device=dev).manual_seed(12), c))
-        got = {n: fn.launches for n, fn in wrappers.items()}
+        got = launch_counts(entries)
         hw = (H, W)
         if path.startswith("large_"):
             hw = (LH, LW)
@@ -4380,13 +4367,12 @@ def main() -> None:
     for path in MIS_PATHS:
         f = path_feats[path]
         sc, c, _ = path_scene(path)
-        for fn in wrappers.values():
-            fn.launches = 0
+        stats.launches.clear()
         img_k, st = render_frame(None, c, sc, H, W, f, noise=mis_noise)
         img_k2, _ = render_frame(torch.Generator(device=dev).manual_seed(0),
                                  c, sc, H, W, f)
         torch.cuda.synchronize()
-        got = {n: fn.launches for n, fn in wrappers.items()}
+        got = launch_counts(entries)
         ref = img_k  # the kernels' frame the plain run is held to
         if path.startswith("large_"):
             # The plain run at 480x270 (its 12 rays per pixel walk the
@@ -5341,11 +5327,11 @@ def main() -> None:
           f"[{card}]")
 
     section("6: row bands")
-    band_phase(torch, dev, card, wrappers, large)
+    band_phase(torch, dev, card, entries, large)
     section("7: process group")
     group_phase(torch, card)
     section("8: sharded training steps")
-    shard = shard_grad_phase(torch, dev, card, wrappers)
+    shard = shard_grad_phase(torch, dev, card, entries)
     for n in KERNELS:
         launches[n] += shard["launches"][n]
     band = shard["row"]
@@ -5398,12 +5384,12 @@ def bands_main(mode: str) -> None:
     t0 = time.perf_counter()
     if mode == "--shard-grad":
         shard_grad_phase(torch, torch.device("cuda", 0), card,
-                         kernel_wrappers())
+                         kernel_entries())
         print(f"section 8: {time.perf_counter() - t0:.1f} s")
     else:
         if mode == "--bands":
             band_phase(torch, torch.device("cuda", 0), card,
-                       kernel_wrappers())
+                       kernel_entries())
         group_phase(torch, card)
         print(f"{'sections 6 and' if mode == '--bands' else 'section'} 7: "
               f"{time.perf_counter() - t0:.1f} s")

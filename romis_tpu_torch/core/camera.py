@@ -9,6 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import stats
 from .device import resolve_device
 from .types import Rays
 from .vec import vcross, vnormalize
@@ -75,7 +76,10 @@ def quat_rotate_imgminor(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def camera_position(cam: CameraParams) -> torch.Tensor:
     q = quat_from_euler_xyz(cam.rotation)
-    back = torch.tensor([0.0, 0.0, -1.0], device=cam.look_at.device)
+    # A copy from pageable host memory: on a CUDA device the host waits for
+    # the device's queue to drain first (the span romis.sync.camera).
+    with stats.span(stats.SYNC + "camera"):
+        back = torch.tensor([0.0, 0.0, -1.0], device=cam.look_at.device)
     return cam.look_at + quat_rotate(q, back * cam.distance)
 
 

@@ -30,6 +30,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from ..utils import stats
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "romis_tpu_torch"
 
@@ -231,15 +233,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, mode: str = "") -> None:
     """Call C entry point ``name`` on the current CUDA stream; raise if the
-    launch reported an error."""
+    launch reported an error, else count it in ``utils.stats.launches``
+    under ``name`` (``name:mode`` for an entry that runs two kernels)."""
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+    key = f"{name}:{mode}" if mode else name
+    stats.launches[key] = stats.launches.get(key, 0) + 1
 
 
 HOST_SOURCE = CSRC / "host" / "bvh_builder.cpp"

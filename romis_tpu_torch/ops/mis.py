@@ -309,8 +309,4 @@ def mis_iteration(cen_ctx: torch.Tensor, res_planes: torch.Tensor,
         else:
             _build.launch("romis_mis_iteration_band", *args, halo, row_base,
                           h_global)
-        mis_iteration.launches += 1
     return outs[0] if not romis else tuple(outs)
-
-
-mis_iteration.launches = 0

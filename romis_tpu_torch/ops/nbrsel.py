@@ -297,10 +297,6 @@ def neighbour_select(gates: torch.Tensor, d: int, radius: int,
         else:
             _build.launch("romis_neighbour_select_band", *args,
                           (h_in - h) // 2, row_base, h_global)
-        neighbour_select.launches += 1
     if two_classes:
         return s_out[0], p_out[0], s_out[1], p_out[1], cnt
     return s_out[0], p_out[0]
-
-
-neighbour_select.launches = 0

@@ -43,6 +43,7 @@ import torch
 from ..core.features import Features
 
 from ..core.types import Reservoirs, ShadeCtx, unpack_reservoir_planes
+from ..utils import stats
 from . import _build
 from .band import check_band
 
@@ -80,9 +81,12 @@ def _check_launch(ctx: ShadeCtx, lights, uniforms, n_uniforms: int,
 
 
 def _seed(generator: torch.Generator) -> int:
-    """A Philox key from the generator."""
-    return int(torch.randint(0, 2 ** 62, (), generator=generator,
-                             device=generator.device))
+    """A Philox key from the generator; its read back to the host is the
+    span ``romis.sync.ris_key``."""
+    key = torch.randint(0, 2 ** 62, (), generator=generator,
+                        device=generator.device)
+    with stats.span(stats.SYNC + "ris_key"):
+        return int(key)
 
 
 def gen_canonical_samples_ris(ctx: ShadeCtx, lights, num_lights: int,
@@ -123,11 +127,7 @@ def gen_canonical_samples_ris(ctx: ShadeCtx, lights, num_lights: int,
             _build.launch("romis_ris", *args)
         else:
             _build.launch("romis_ris_band", *args, row_base * w)
-        gen_canonical_samples_ris.launches += 1
     return unpack_reservoir_planes(out, k)
-
-
-gen_canonical_samples_ris.launches = 0
 
 
 @torch.no_grad()
@@ -166,17 +166,10 @@ def gen_canonical_replay(ctx: ShadeCtx, lights, num_lights: int,
                 int(not features.enable_shading))
         if h_global is None:
             _build.launch("romis_ris_replay", *args)
-            gen_canonical_replay.launches += 1
         else:
             _build.launch("romis_ris_replay_band", *args, row_base * w)
-            gen_canonical_replay.band_launches += 1
     return out[:, 0], (out[:, 1], out[:, 2], out[:, 3]), \
         (out[:, 4], out[:, 5], out[:, 6])
-
-
-# Launches of kernel 14's whole-frame entry and of its band entry.
-gen_canonical_replay.launches = 0
-gen_canonical_replay.band_launches = 0
 
 
 def gen_mis_reservoir_planes_plain(ctx: ShadeCtx, lights, num_lights: int,
@@ -235,8 +228,4 @@ def gen_mis_reservoir_planes(ctx: ShadeCtx, lights, num_lights: int,
             _build.launch("romis_ris_mis", *args)
         else:
             _build.launch("romis_ris_mis_band", *args, row_base * w)
-        gen_mis_reservoir_planes.launches += 1
     return out
-
-
-gen_mis_reservoir_planes.launches = 0

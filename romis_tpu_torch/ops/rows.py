@@ -44,7 +44,6 @@ def _gather_rows_forward(table: torch.Tensor, idx: torch.Tensor):
         return out
     _build.launch("romis_gather_rows", table.data_ptr(), t, c, idx.data_ptr(),
                   idx.numel(), out.data_ptr())
-    gather_rows.launches += 1
     return out
 
 
@@ -68,6 +67,3 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.requires_grad and torch.is_grad_enabled():
         return _GatherRows.apply(table, idx)
     return _gather_rows_forward(table, idx)
-
-
-gather_rows.launches = 0

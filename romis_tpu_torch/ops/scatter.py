@@ -105,8 +105,4 @@ def scatter_rows_add(ct: torch.Tensor, idx: torch.Tensor,
         _build.launch("romis_scatter_rows_add", flat_ct.data_ptr(), c,
                       flat_idx.data_ptr(), n, n_rows, scatter_tile(c, n_rows),
                       warp_cols(c, n_rows), out.data_ptr())
-        scatter_rows_add.launches += 1
     return out
-
-
-scatter_rows_add.launches = 0

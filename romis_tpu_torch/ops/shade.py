@@ -131,11 +131,7 @@ def final_shade_bvh(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
                       *(a.data_ptr() for a in planes), h * w, k,
                       nodes.data_ptr(), recs.data_ptr(),
                       int(not features.enable_shading), out.data_ptr())
-        final_shade_bvh.launches += 1
     return out
-
-
-final_shade_bvh.launches = 0
 
 
 def final_shade_soup(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
@@ -176,11 +172,7 @@ def final_shade_soup(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,
                       None if guard is None else guard.data_ptr(),
                       cols.shape[1], int(not features.enable_shading),
                       out.data_ptr(), None if occ is None else occ.data_ptr())
-        final_shade_soup.launches += 1
     return out if occ is None else (out, occ)
-
-
-final_shade_soup.launches = 0
 
 
 def shadow_occlusion_plain(ctx: ShadeCtx, reservoirs: Reservoirs, geometry,

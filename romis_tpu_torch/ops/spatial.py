@@ -297,7 +297,6 @@ def _halo_gather_forward(planes, dy, dx):
     if out.numel():
         _build.launch("romis_halo_gather", planes.data_ptr(), c, h, w, d,
                       dyi.data_ptr(), dxi.data_ptr(), out.data_ptr())
-        halo_offset_gather.launches += 1
     return out
 
 
@@ -337,11 +336,7 @@ def halo_offset_scatter(ct: torch.Tensor, dy: torch.Tensor,
     if ctc.numel():
         _build.launch("romis_halo_scatter", ctc.data_ptr(), d, c, h, w,
                       dyi.data_ptr(), dxi.data_ptr(), out.data_ptr())
-        halo_offset_scatter.launches += 1
     return out
-
-
-halo_offset_scatter.launches = 0
 
 
 def beyond_margin(dy: torch.Tensor, dx: torch.Tensor,
@@ -380,9 +375,6 @@ def halo_offset_gather(planes: torch.Tensor, dy: torch.Tensor,
     if planes.requires_grad and torch.is_grad_enabled():
         return _HaloGather.apply(planes, dy, dx)
     return _halo_gather_forward(planes, dy, dx)
-
-
-halo_offset_gather.launches = 0
 
 
 def halo_band_gather(planes: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
@@ -503,11 +495,7 @@ def neighbour_gather(planes: torch.Tensor, n_nbr: int, radius: int,
                       n_nbr, radius, o_ptr, key_ptr,
                       (_TAG_GATHER << 16) | (pass_index & 0xFFFF),
                       out.data_ptr())
-        neighbour_gather.launches += 1
     return out
-
-
-neighbour_gather.launches = 0
 
 
 def _noise(generator, inject, n_nbr, k, radius, h, w, row_base=0,
@@ -787,8 +775,8 @@ def pack_records(res_planes: torch.Tensor, cen_ctx: torch.Tensor, k: int,
     return rres, rctx
 
 
-def _launch_pass(name, wrapper, res_planes, gates, cen_ctx, k, n_nbr,
-                 radius, features, key, pass_index, inject, unbiased,
+def _launch_pass(name, res_planes, gates, cen_ctx, k, n_nbr, radius,
+                 features, key, pass_index, inject, unbiased,
                  vis_check=False, row_base=0, h_global=None):
     h_in, w = cen_ctx.shape[-2:]
     h = inner_rows(name, h_in, radius, row_base, h_global)
@@ -833,12 +821,13 @@ def _launch_pass(name, wrapper, res_planes, gates, cen_ctx, k, n_nbr,
                 out.data_ptr(), None if vis is None else vis.data_ptr(),
                 rres.data_ptr(), recs.data_ptr() if unbiased else None,
                 None if unbiased else recs.data_ptr())
+        # Kernels 5 and 11 share the entry; their launches count apart.
+        mode = "unbiased" if unbiased else ""
         if h_global is None:
-            _build.launch("romis_spatial_pass", *args)
+            _build.launch("romis_spatial_pass", *args, mode=mode)
         else:
             _build.launch("romis_spatial_pass_band", *args, halo, row_base,
-                          h_global)
-        wrapper.launches += 1
+                          h_global, mode=mode)
     return out if vis is None else (out, vis)
 
 
@@ -860,13 +849,9 @@ def spatial_pass_fused(res_planes: torch.Tensor, gates: torch.Tensor,
         return spatial_pass_plain(res_planes, gates, cen_ctx, k, n_nbr,
                                   radius, features, generator, key,
                                   pass_index, inject, row_base, h_global)
-    return _launch_pass("spatial_pass", spatial_pass_fused, res_planes,
-                        gates.contiguous(), cen_ctx, k, n_nbr, radius,
-                        features, key, pass_index, inject, False,
-                        row_base=row_base, h_global=h_global)
-
-
-spatial_pass_fused.launches = 0
+    return _launch_pass("spatial_pass", res_planes, gates.contiguous(),
+                        cen_ctx, k, n_nbr, radius, features, key, pass_index,
+                        inject, False, row_base=row_base, h_global=h_global)
 
 
 def spatial_pass_unbiased_vis(res_planes: torch.Tensor,
@@ -883,10 +868,10 @@ def spatial_pass_unbiased_vis(res_planes: torch.Tensor,
                                                radius, features, generator,
                                                key, pass_index, inject,
                                                row_base, h_global)
-    return _launch_pass("spatial_pass_unbiased", spatial_pass_unbiased_fused,
-                        res_planes, None, cen_ctx, k, n_nbr, radius, features,
-                        key, pass_index, inject, True, vis_check=True,
-                        row_base=row_base, h_global=h_global)
+    return _launch_pass("spatial_pass_unbiased", res_planes, None, cen_ctx, k,
+                        n_nbr, radius, features, key, pass_index, inject,
+                        True, vis_check=True, row_base=row_base,
+                        h_global=h_global)
 
 
 def spatial_pass_unbiased_fused(res_planes: torch.Tensor,
@@ -921,9 +906,6 @@ def spatial_pass_unbiased_fused(res_planes: torch.Tensor,
         halo = (res_planes.shape[-2] - h) // 2
         return z_visibility(planes, block, _inner(res_planes, halo, h),
                             _inner(cen_ctx, halo, h), geometry, k, n_nbr)
-    return _launch_pass("spatial_pass_unbiased", spatial_pass_unbiased_fused,
-                        res_planes, None, cen_ctx, k, n_nbr, radius, features,
-                        key, pass_index, inject, True, **band)
-
-
-spatial_pass_unbiased_fused.launches = 0
+    return _launch_pass("spatial_pass_unbiased", res_planes, None, cen_ctx, k,
+                        n_nbr, radius, features, key, pass_index, inject,
+                        True, **band)

@@ -140,7 +140,6 @@ def _closest_hit_forward(rays: Rays, geometry, t_max: float):
                   ptr(boxes), ptr(guard), ptr(index), cols.shape[1],
                   float(t_max), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
                   v.data_ptr())
-    closest_hit.launches += 1
     return t, tri, u, v
 
 
@@ -180,9 +179,6 @@ def closest_hit(rays: Rays, geometry, t_max: float = math.inf):
     return _closest_hit_forward(rays, geometry, t_max)
 
 
-closest_hit.launches = 0
-
-
 def any_hit_plain(origins, dirs, t_max, geometry,
                   counts=None) -> torch.Tensor:
     """The plain version: the block scan ``ops.intersect.intersect_any``
@@ -219,11 +215,7 @@ def any_hit(origins, dirs, t_max, geometry) -> torch.Tensor:
                       tm.data_ptr(), h, w, planes, cols.data_ptr(),
                       _ptr(boxes), _ptr(guard), cols.shape[1],
                       out.data_ptr())
-        any_hit.launches += 1
     return out
-
-
-any_hit.launches = 0
 
 
 def _zcount_rays(origins, targets, mask):
@@ -932,11 +924,7 @@ def zcount_occ(origins, targets, geometry, eps: float = 1e-3,
                       h, w, r1, k, cols.data_ptr(), boxes.data_ptr(),
                       guard.data_ptr(), cols.shape[1], float(eps),
                       out.data_ptr())
-        zcount_occ.launches += 1
     return out
-
-
-zcount_occ.launches = 0
 
 
 def _cross_rows(p, q):
@@ -1420,11 +1408,7 @@ def any_hit_plucker(origins, dirs, t_max, geometry) -> torch.Tensor:
                       tm.data_ptr(), h, w, planes, slots.data_ptr(),
                       _ptr(cols), _ptr(boxes), _ptr(guard), _ptr(blocks),
                       slots.shape[0], out.data_ptr())
-        any_hit_plucker.launches += 1
     return out
-
-
-any_hit_plucker.launches = 0
 
 
 def _ptr(a):

@@ -112,11 +112,7 @@ def closest_hit_bvh(rays: Rays, geometry, t_max: float = math.inf):
                       rays.direction.data_ptr(), h, w, nodes.data_ptr(),
                       wide.data_ptr(), recs.data_ptr(), float(t_max),
                       t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr())
-        closest_hit_bvh.launches += 1
     return t, tri, u, v
-
-
-closest_hit_bvh.launches = 0
 
 
 def tri_records(cols: torch.Tensor) -> torch.Tensor:
@@ -182,11 +178,7 @@ def any_hit_bvh(origins, dirs, t_max, geometry) -> torch.Tensor:
         _build.launch("romis_bvh_any", o.data_ptr(), d.data_ptr(),
                       tm.data_ptr(), h, w, s, nodes.data_ptr(),
                       wide.data_ptr(), recs.data_ptr(), out.data_ptr())
-        any_hit_bvh.launches += 1
     return out
-
-
-any_hit_bvh.launches = 0
 
 
 def any_hit_bvh_k(origins, dirs, t_max, geometry) -> torch.Tensor:
@@ -208,8 +200,4 @@ def any_hit_bvh_k(origins, dirs, t_max, geometry) -> torch.Tensor:
         _build.launch("romis_bvh_any_k", o.data_ptr(), d.data_ptr(),
                       tm.data_ptr(), n_pix, s, nodes.data_ptr(),
                       recs.data_ptr(), out.data_ptr())
-        any_hit_bvh_k.launches += 1
     return out
-
-
-any_hit_bvh_k.launches = 0

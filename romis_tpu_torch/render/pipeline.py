@@ -11,6 +11,7 @@ import torch
 
 from ..core.features import Features, RayTraceMode
 from ..io.image import write_image
+from ..utils import stats
 
 from ..core.camera import CameraParams
 from .restir import (
@@ -33,20 +34,21 @@ def render_frame(generator, cam: CameraParams, scene, height: int, width: int,
     Gumbel noise, and per spatial pass (offsets, Gumbel noise)), see
     ``render_restir_frame``; for R-MIS and R-OMIS (the neighbour
     selection's noise, RIS uniforms per iteration), see
-    ``render.rmis.render_rmis``."""
+    ``render.rmis.render_rmis``. The frame is the span ``stats.FRAME``."""
     g, li, nl = scene.geometry, scene.lights, scene.num_lights
     mode = features.ray_trace_mode
-    if mode == RayTraceMode.RMIS:
-        return render_rmis(generator, cam, g, li, nl, height, width, features,
-                           noise=noise, ops=ops), None
-    if mode == RayTraceMode.ROMIS:
-        return render_romis(generator, cam, g, li, nl, height, width,
-                            features, noise=noise, ops=ops), None
-    if prev is None:
-        prev = initial_temporal_state(height, width,
-                                      features.num_samples_in_reservoir, cam)
-    return render_restir_frame(generator, cam, g, li, nl, height, width,
-                               features, prev, noise=noise, ops=ops)
+    with stats.span(stats.FRAME):
+        if mode == RayTraceMode.RMIS:
+            return render_rmis(generator, cam, g, li, nl, height, width,
+                               features, noise=noise, ops=ops), None
+        if mode == RayTraceMode.ROMIS:
+            return render_romis(generator, cam, g, li, nl, height, width,
+                                features, noise=noise, ops=ops), None
+        if prev is None:
+            prev = initial_temporal_state(
+                height, width, features.num_samples_in_reservoir, cam)
+        return render_restir_frame(generator, cam, g, li, nl, height, width,
+                                   features, prev, noise=noise, ops=ops)
 
 
 def save_image(path: str, image: torch.Tensor) -> None:

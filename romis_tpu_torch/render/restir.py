@@ -86,6 +86,7 @@ from ..ops.wrs import (
     gumbel_noise,
     no_record,
 )
+from ..utils import stats
 
 # Spatial-reuse similarity gates (reference render_utils.cpp:113-118): more
 # than 10 % depth difference or 25° normal difference rejects a neighbour.
@@ -511,43 +512,50 @@ def render_restir_frame(generator, cam: CameraParams, geometry, lights,
                    and not features.unbiased_combination
                    and not features.fused_resampling)
 
-    rays = generate_rays(cam, height, width)
-    if band is not None:
-        rays = Rays(cut(rays.origin).contiguous(),
-                    cut(rays.direction).contiguous())
-    _, ctx = trace_primary(rays, geometry, features, ops)
+    with stats.span("romis.trace"):
+        rays = generate_rays(cam, height, width)
+        if band is not None:
+            rays = Rays(cut(rays.origin).contiguous(),
+                        cut(rays.direction).contiguous())
+        _, ctx = trace_primary(rays, geometry, features, ops)
     rec = None
     ris_u = None if ris_u is None else cut(ris_u)
-    if features.surrogate_resampling_grad:
-        res, rec = gen_canonical_surrogate(
-            ctx, lights, num_lights, geometry, features, generator=generator,
-            uniforms=ris_u, replay=ops.ris_replay, gather=ops.gather_rows,
-            any_hit=ops.any_hit, **on_band)
-        if not use_records:
-            rec = None
-    else:
-        ris = ops.ris if _fused(features, ctx.position) \
-            else gen_canonical_samples_plain
-        ris = partial(ris, **on_band)
-        res = gen_canonical_samples(ctx, lights, num_lights, geometry,
-                                    features, generator=generator,
-                                    uniforms=ris_u, ris=ris,
-                                    any_hit=ops.any_hit)
+    with stats.span("romis.ris"):
+        if features.surrogate_resampling_grad:
+            res, rec = gen_canonical_surrogate(
+                ctx, lights, num_lights, geometry, features,
+                generator=generator, uniforms=ris_u, replay=ops.ris_replay,
+                gather=ops.gather_rows, any_hit=ops.any_hit, **on_band)
+            if not use_records:
+                rec = None
+        else:
+            ris = ops.ris if _fused(features, ctx.position) \
+                else gen_canonical_samples_plain
+            ris = partial(ris, **on_band)
+            res = gen_canonical_samples(ctx, lights, num_lights, geometry,
+                                        features, generator=generator,
+                                        uniforms=ris_u, ris=ris,
+                                        any_hit=ops.any_hit)
     if features.temporal_reuse:
-        if temporal_g is None:
-            temporal_g = gumbel_noise(generator, (2, k, height, width))
-        res = temporal_reuse(cut(temporal_g), ctx, res, prev, height, width,
-                             features, ops, rec, band)
+        # Timed on the device too: temporal_ms.frame reads the pair.
+        with stats.span("romis.temporal", geometry.tri_cols.device):
+            if temporal_g is None:
+                temporal_g = gumbel_noise(generator, (2, k, height, width))
+            res = temporal_reuse(cut(temporal_g), ctx, res, prev, height,
+                                 width, features, ops, rec, band)
         if rec is not None:
             res, rec = res
     if features.spatial_reuse:
-        res = spatial_reuse(generator, ctx, res, height, width, features,
-                            ops, spatial_inject, rec, lights, geometry, band)
+        with stats.span("romis.spatial"):
+            res = spatial_reuse(generator, ctx, res, height, width, features,
+                                ops, spatial_inject, rec, lights, geometry,
+                                band)
         if rec is not None:
             res, rec = res
-    color = final_shade(ctx, res, geometry, features, ops)
-    if features.enable_tone_mapping:
-        color = exposure_tone_mapping(color, features)
+    with stats.span("romis.shade"):
+        color = final_shade(ctx, res, geometry, features, ops)
+        if features.enable_tone_mapping:
+            color = exposure_tone_mapping(color, features)
     image = color.permute(1, 2, 0)  # [H, W, 3] for display/output
     # The carry holds no autograd graph: a caller's next frame starts clean.
     return image, TemporalState(reservoirs=detached(res), ctx=detached(ctx),

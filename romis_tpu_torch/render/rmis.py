@@ -92,6 +92,7 @@ from ..ops.wrs import (
     gen_canonical_surrogate, visibility,
 )
 from ..scene.lights import sample_lights_planes
+from ..utils import stats
 from .neighbours import select_neighbour_indices
 from .restir import (
     KERNELS, PLAIN, FrameOps, _fused, band_gather, trace_primary,
@@ -358,9 +359,12 @@ def canonical(ctx: ShadeCtx, lights, num_lights: int, geometry,
 
 def draw_seeds(generator, n: int) -> list[int]:
     """``n`` seeds from ``generator``, drawn before the checkpointed bodies
-    that seed their own generators from them."""
-    return torch.randint(0, 2 ** 62, (n,), generator=generator,
-                         device=generator.device).tolist()
+    that seed their own generators from them. The read back to the host
+    is the span ``romis.sync.mis_seeds``."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator,
+                          device=generator.device)
+    with stats.span(stats.SYNC + "mis_seeds"):
+        return seeds.tolist()
 
 
 def canonical_draws(generator, ctx: ShadeCtx, lights, num_lights: int,
@@ -572,18 +576,22 @@ def render_rmis(generator, cam: CameraParams, geometry, lights,
     ``noise`` are the whole frame's."""
     check_mis(features, geometry, ops)
     nbr_noise, ris_u = (None, None) if noise is None else noise
-    ctx, cen, offs = neighbourhood(generator, cam, geometry, height, width,
-                                   features, ops, inject, nbr_noise, band)
     balance = features.mis_weight_rmis == MISWeight.BALANCE
     mode = "rmis_balance" if balance else "rmis_equal"
-    nbr_ctx = resolve_neighbour_ctx(cen, offs, band_gather(
-        band, features.spatial_resample_radius, ops)) if balance else None
+    with stats.span("romis.select"):
+        ctx, cen, offs = neighbourhood(generator, cam, geometry, height,
+                                       width, features, ops, inject,
+                                       nbr_noise, band)
+        nbr_ctx = resolve_neighbour_ctx(cen, offs, band_gather(
+            band, features.spatial_resample_radius, ops)) if balance \
+            else None
     step = iteration_step(generator, ctx, cen, offs, lights, num_lights,
                           geometry, features, mode, ops, inject, ris_u,
                           nbr_ctx, band, height)
     acc = torch.zeros((3,) + tuple(cen.shape[-2:]), device=cen.device)
     for it in range(features.max_iterations_mis):
-        acc = acc + step(it)
+        with stats.span("romis.mis_iter"):
+            acc = acc + step(it)
     color = acc / features.max_iterations_mis
     if features.enable_tone_mapping:
         color = exposure_tone_mapping(color, features)

@@ -40,6 +40,7 @@ from ..core.camera import CameraParams
 from ..core.features import Features
 from ..ops.mis import expand_a_upper, resolve_neighbour_ctx
 from ..ops.shading import exposure_tone_mapping
+from ..utils import stats
 from .restir import KERNELS, FrameOps, band_gather
 from .rmis import (
     FLT_MIN, check_mis, iteration_step, neighbour_phat, neighbourhood,
@@ -179,7 +180,9 @@ def romis_estimate(step, d1: int, k: int, height: int, width: int,
     """The R-OMIS accumulation over ``step(it, alphas)`` (the sweep's
     outputs for iteration ``it``) → (colour [3, H, W], α [3, D1, H, W]):
     A and b summed over the iterations and solved once (direct), or the
-    progressive estimate with α re-solved on the reference's schedule."""
+    progressive estimate with α re-solved on the reference's schedule.
+    Each iteration is a span ``romis.mis_iter``; each α solve a span
+    ``romis.alpha_solve``, also timed on ``device``'s clock."""
     progressive = features.use_progressive_romis
     a_up = torch.zeros((d1 * (d1 + 1) // 2, height, width), device=device)
     b_vec = torch.zeros((3 * d1, height, width), device=device)
@@ -189,20 +192,23 @@ def romis_estimate(step, d1: int, k: int, height: int, width: int,
     for it in range(features.max_iterations_mis):
         if (progressive and it >= 1
                 and it % features.progressive_update_mod == 0):
-            alphas = solve_alpha(expand_a_upper(a_up, d1),
-                                 b_vec.reshape(3, d1, height, width))
+            with stats.span("romis.alpha_solve", device):
+                alphas = solve_alpha(expand_a_upper(a_up, d1),
+                                     b_vec.reshape(3, d1, height, width))
         if progressive:
             final = final + alphas.sum(dim=1)
-        outs = step(it, alphas.reshape(3 * d1, height, width)
-                    if progressive else None)
+        with stats.span("romis.mis_iter"):
+            outs = step(it, alphas.reshape(3 * d1, height, width)
+                        if progressive else None)
         a_up = a_up + outs[0]
         b_vec = b_vec + outs[1]
         if progressive:
             final = final + outs[2] / total
     if progressive:
         return final / features.max_iterations_mis, alphas
-    alpha_out = solve_alpha(expand_a_upper(a_up, d1),
-                            b_vec.reshape(3, d1, height, width))
+    with stats.span("romis.alpha_solve", device):
+        alpha_out = solve_alpha(expand_a_upper(a_up, d1),
+                                b_vec.reshape(3, d1, height, width))
     return alpha_out.sum(dim=1), alpha_out
 
 
@@ -217,11 +223,13 @@ def render_romis(generator, cam: CameraParams, geometry, lights,
     ``render.rmis.render_rmis``."""
     check_mis(features, geometry, ops)
     nbr_noise, ris_u = (None, None) if noise is None else noise
-    ctx, cen, offs = neighbourhood(generator, cam, geometry, height, width,
-                                   features, ops, inject, nbr_noise, band)
+    with stats.span("romis.select"):
+        ctx, cen, offs = neighbourhood(generator, cam, geometry, height,
+                                       width, features, ops, inject,
+                                       nbr_noise, band)
+        nbr_ctx = resolve_neighbour_ctx(cen, offs, band_gather(
+            band, features.spatial_resample_radius, ops))
     d1 = features.num_neighbours_to_sample + 1
-    nbr_ctx = resolve_neighbour_ctx(cen, offs, band_gather(
-        band, features.spatial_resample_radius, ops))
     step = iteration_step(generator, ctx, cen, offs, lights, num_lights,
                           geometry, features, "romis", ops, inject, ris_u,
                           nbr_ctx, band, height)

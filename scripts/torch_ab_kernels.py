@@ -1523,7 +1523,6 @@ def section_4(c: Ctx) -> None:
     )
 
     theirs = parent_launch(c, shade.final_shade_soup)
-    theirs.launches = 0  # the wrapper counts on its module's name, swapped
     scene = flagship_scene(dev)
     soup = build_geometry([chip_smoke.random_soup(
         chip_smoke.SOUP_TRIS, (2.57, 1.23, -1.35), 3.0, seed=7)], dev)

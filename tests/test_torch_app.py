@@ -34,9 +34,7 @@ from romis_tpu_torch.scene.scene import (
     COLUMNS, flagship_camera, flagship_scene, torus_field_submeshes,
 )
 from romis_tpu_torch.utils.debug_vis import debug_images
-from romis_tpu_torch.utils.stats import (
-    JsonlLogger, PhaseTimer, frame_ray_counts, reservoir_stats,
-)
+from romis_tpu_torch.utils.stats import frame_ray_counts, reservoir_stats
 
 from helpers import random_reservoirs_and_ctx
 from torch_parity import port_camera, port_features, port_reservoirs
@@ -340,21 +338,6 @@ def test_debug_images_match_jax():
                                    rtol=1e-5, atol=1e-6, err_msg=name)
     for img in got.values():
         assert img.shape == (h, w, 3) and np.isfinite(img).all()
-
-
-def test_phase_timer_and_jsonl_logger(tmp_path):
-    timer = PhaseTimer("cpu")
-    for _ in range(2):
-        with timer("frame"):
-            torch.ones(4).sum()
-    assert timer.counts == {"frame": 2} and timer.totals["frame"] >= 0.0
-    assert "frame" in timer.report()
-    log = JsonlLogger(str(tmp_path / "x.jsonl"))
-    log.log({"a": 1})
-    log.log({"b": 2})
-    assert [json.loads(x) for x in
-            (tmp_path / "x.jsonl").read_text().splitlines()] == [{"a": 1},
-                                                                  {"b": 2}]
 
 
 def test_write_provenance(tmp_path):

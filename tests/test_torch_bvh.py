@@ -27,6 +27,7 @@ from romis_tpu_torch.ops.traverse import bvh_any, bvh_closest
 from romis_tpu_torch.scene.scene import (
     Material, SubMesh, build_geometry, torus_field,
 )
+from romis_tpu_torch.utils import stats
 
 from torch_parity import (
     jax_torus_field, port_bvh_scene, port_scene, random_rays, t,
@@ -231,9 +232,7 @@ def test_wrappers_run_plain_on_cpu(field):
     counter moves."""
     _, pscene, _ = field
     geo = pscene.geometry
-    for fn in (walk.closest_hit_bvh, walk.any_hit_bvh, walk.any_hit_bvh_k,
-               shade.final_shade_bvh):
-        fn.launches = 0
+    stats.launches.clear()
     o, d = _rays(9, 6, 8)
     rays = Rays(torch.from_numpy(o), torch.from_numpy(d))
     expect = bvh_closest(rays, geo, geo.bvh)
@@ -246,6 +245,4 @@ def test_wrappers_run_plain_on_cpu(field):
     occ = bvh_any(oo, torch.from_numpy(d), tm, geo, geo.bvh)
     for fn in (walk.any_hit_bvh, walk.any_hit_bvh_k, trace.any_hit):
         assert torch.equal(fn(oo, torch.from_numpy(d), tm, geo), occ)
-    assert (walk.closest_hit_bvh.launches == walk.any_hit_bvh.launches
-            == walk.any_hit_bvh_k.launches == shade.final_shade_bvh.launches
-            == 0)
+    assert stats.launches == {}

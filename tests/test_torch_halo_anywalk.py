@@ -44,6 +44,7 @@ from romis_tpu_torch.ops.bvh import with_bvh
 from romis_tpu_torch.ops.traverse import bvh_any, bvh_any_wide
 from romis_tpu_torch.render import restir
 from romis_tpu_torch.scene.scene import torus_field, torus_field_camera
+from romis_tpu_torch.utils import stats
 
 from chip_smoke import HARD_RAY_KINDS, hard_any_rays
 from torch_parity import jax_torus_field, port_bvh_scene, random_rays
@@ -162,11 +163,11 @@ def test_halo_gather_wrapper_runs_plain_on_cpu():
     rng = np.random.default_rng(2)
     planes = _planes(rng, 6, 21, 34, special=True)
     dy, dx = _offsets(rng, "image", 5, 21, 34)
-    spatial.halo_offset_gather.launches = 0
+    stats.launches.clear()
     got = spatial.halo_offset_gather(planes, dy, dx)
     assert torch.equal(_bits(got), _bits(spatial.halo_offset_gather_plain(
         planes, dy, dx)))
-    assert spatial.halo_offset_gather.launches == 0
+    assert stats.launches == {}
 
 
 @pytest.fixture(scope="module")
@@ -353,8 +354,7 @@ def test_any_wrappers_run_plain_on_cpu():
     to = res.pos - ctx.position
     tm = torch.linalg.vector_norm(to, dim=-3)
     d = to / tm.clamp_min(1e-20)[:, None]
-    for fn in (walk.any_hit_bvh, walk.any_hit_bvh_k, shade.final_shade_bvh):
-        fn.launches = 0
+    stats.launches.clear()
     occ = bvh_any(ctx.position + 1e-3 * d, d, tm, geometry, geometry.bvh)
     assert torch.equal(walk.any_hit_bvh(ctx.position + 1e-3 * d, d, tm,
                                         geometry), occ)
@@ -362,8 +362,7 @@ def test_any_wrappers_run_plain_on_cpu():
                                           geometry), occ)
     assert torch.equal(shade.final_shade_bvh(ctx, res, geometry, feats),
                        shade.final_shade_plain(ctx, res, geometry, feats))
-    assert (walk.any_hit_bvh.launches, walk.any_hit_bvh_k.launches,
-            shade.final_shade_bvh.launches) == (0, 0, 0)
+    assert stats.launches == {}
     recs = walk.kept_records(geometry)
     assert walk.kept_records(geometry) is recs
     assert torch.equal(recs, walk.tri_records(geometry.tri_cols))

@@ -23,6 +23,7 @@ from romis_tpu_torch.ops.bvh import with_bvh
 from romis_tpu_torch.ops.intersect import intersect_any
 from romis_tpu_torch.ops.traverse import bvh_any
 from romis_tpu_torch.scene.scene import torus_field
+from romis_tpu_torch.utils import stats
 
 from torch_parity import random_rays
 
@@ -169,12 +170,12 @@ def test_halo_scatter_wrapper_runs_plain_on_cpu():
     rng = np.random.default_rng(3)
     dy, dx = _offsets(rng, "mixed", 4, 21, 34)
     ct = torch.from_numpy(rng.normal(size=(4, 3, 21, 34)).astype(np.float32))
-    spatial.halo_offset_scatter.launches = 0
+    stats.launches.clear()
     got = spatial.halo_offset_scatter(ct, torch.from_numpy(dy),
                                       torch.from_numpy(dx))
     assert torch.equal(got, spatial.halo_offset_scatter_plain(
         ct, torch.from_numpy(dy), torch.from_numpy(dx)))
-    assert spatial.halo_offset_scatter.launches == 0
+    assert stats.launches == {}
 
 
 @pytest.fixture(scope="module")
@@ -213,8 +214,8 @@ def test_bvh_any_s16_matches_brute_force(field):
     brute = intersect_any(o, d, tm, replace(geo, bvh=None))
     assert torch.equal(occ, brute)
     assert 0.05 < occ.float().mean() < 0.95
-    walk.any_hit_bvh_k.launches = 0
+    stats.launches.clear()
     o4, d4, tm4 = (a.reshape((4, 4) + a.shape[1:]) for a in (o, d, tm))
     for fn in (walk.any_hit_bvh_k, trace.any_hit):
         assert torch.equal(fn(o4, d4, tm4, geo), occ.reshape(4, 4, h, w))
-    assert walk.any_hit_bvh_k.launches == 0
+    assert stats.launches == {}

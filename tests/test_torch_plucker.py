@@ -24,6 +24,7 @@ from romis_tpu.ops.pallas_trace import pallas_any_mxu, plucker_matrix as jax_plu
 from romis_tpu.scene.scene import build_geometry as jax_build_geometry
 from romis_tpu_torch.ops import trace
 from romis_tpu_torch.scene.scene import repack_rows
+from romis_tpu_torch.utils import stats
 
 from torch_parity import jax_torus_field, port_scene, random_soup
 
@@ -151,14 +152,14 @@ def test_wrapper_runs_the_plain_version_on_cpu_and_refuses_a_bvh():
 
     _, geometry = _geometries("soup")
     o, d, tm = (torch.from_numpy(a) for a in _segments(7))
-    launches = trace.any_hit_plucker.launches
+    stats.launches.clear()
     got = trace.any_hit_plucker(o, d[0], tm, geometry)  # dirs broadcast
     assert got.dtype == torch.bool and got.shape == (S, H, W)
     assert torch.equal(got, trace.any_hit_plucker_plain(o, d[0], tm,
                                                         geometry))
     assert torch.equal(got[1], trace.any_hit_plucker(o[1], d[0], tm[1],
                                                      geometry))
-    assert trace.any_hit_plucker.launches == launches
+    assert stats.launches == {}
     with pytest.raises(ValueError, match="BVH"):
         trace.any_hit_plucker(o, d, tm, with_bvh(geometry))
     with pytest.raises(ValueError, match="do not match"):

@@ -39,6 +39,7 @@ from romis_tpu_torch.ops.wrs import (
 )
 from romis_tpu_torch.render import restir
 from romis_tpu_torch.scene.scene import torus_field
+from romis_tpu_torch.utils import stats
 
 TORUS_ROWS = 24202  # the 5x5 torus field's triangles (chip_smoke.LARGE_TRIS)
 HELD = scatter.HELD  # csrc/scatter.cu kHeld
@@ -256,10 +257,10 @@ def test_scatter_wrapper_runs_plain_on_cpu():
     rng = np.random.default_rng(4)
     ct = torch.from_numpy(rng.normal(size=(9, 2, 7, 11)).astype(np.float32))
     idx = torch.from_numpy(rng.integers(-2, 40, (2, 7, 11)).astype(np.int32))
-    scatter.scatter_rows_add.launches = 0
+    stats.launches.clear()
     assert torch.equal(scatter.scatter_rows_add(ct, idx, 37),
                        scatter.scatter_rows_add_plain(ct, idx, 37))
-    assert scatter.scatter_rows_add.launches == 0
+    assert stats.launches == {}
 
 
 @pytest.fixture(scope="module")
@@ -344,6 +345,6 @@ def test_bvh_shade_mapping_gives_the_plain_bits(field, k, unshaded):
     plain = shade.final_shade_plain(ctx, res, geo, feats)
     assert torch.equal(model.view(torch.int32), plain.view(torch.int32))
     assert (plain > 0).float().mean() > 0.2
-    shade.final_shade_bvh.launches = 0
+    stats.launches.clear()
     assert torch.equal(shade.final_shade_bvh(ctx, res, geo, feats), plain)
-    assert shade.final_shade_bvh.launches == 0
+    assert stats.launches == {}

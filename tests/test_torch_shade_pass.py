@@ -49,6 +49,7 @@ from romis_tpu_torch.render import restir
 from romis_tpu_torch.scene.scene import (
     flagship_camera, flagship_scene, torus_field,
 )
+from romis_tpu_torch.utils import stats
 
 from chip_smoke import (
     HARD_RAY_KINDS, TORUS_CAM, hard_z_rays, pass_work, sector_bytes,
@@ -323,7 +324,7 @@ def test_soup_shade_wrapper_runs_plain_on_cpu(torus):
     gen = torch.Generator().manual_seed(9)
     res = gen_canonical_samples_plain(ctx, scene.lights, scene.num_lights,
                                       feats, generator=gen)
-    shade.final_shade_soup.launches = 0
+    stats.launches.clear()
     color, occ = shade.final_shade_soup(ctx, res, scene.geometry, feats,
                                         occlusion=True)
     assert torch.equal(color, shade.final_shade_plain(ctx, res,
@@ -332,7 +333,7 @@ def test_soup_shade_wrapper_runs_plain_on_cpu(torus):
         ctx, res, scene.geometry, feats))
     assert torch.equal(shade.final_shade_fused(ctx, res, scene.geometry,
                                                feats), color)
-    assert shade.final_shade_soup.launches == 0
+    assert stats.launches == {}
 
 
 def _pass_inputs(k, unshaded, h=24, w=40):
@@ -399,14 +400,14 @@ def test_pass_over_records_gives_the_plain_bits(k, unshaded):
 
 def test_pass_wrapper_runs_plain_on_cpu():
     ctx, rp, gates, feats, inject = _pass_inputs(2, False, 8, 12)
-    spatial.spatial_pass_fused.launches = 0
+    stats.launches.clear()
     cen = shade.pack_center_ctx(ctx)
     assert torch.equal(
         spatial.spatial_pass_fused(rp, gates, cen, 2, 5, 10, feats,
                                    inject=inject),
         spatial.spatial_pass_plain(rp, gates, cen, 2, 5, 10, feats,
                                    inject=inject))
-    assert spatial.spatial_pass_fused.launches == 0
+    assert stats.launches == {}
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])

@@ -27,6 +27,7 @@ from romis_tpu_torch.core.types import (
 )
 from romis_tpu_torch.ops import spatial, trace
 from romis_tpu_torch.ops.shade import pack_center_ctx
+from romis_tpu_torch.utils import stats
 
 from helpers import random_reservoirs_and_ctx
 from torch_parity import (
@@ -97,10 +98,10 @@ def test_zcount_wrapper_runs_the_plain_version_on_cpu():
     geometry = _port_geometry(_jax_soup(64, 4))
     rng = np.random.default_rng(1)
     o, t = (torch.from_numpy(a) for a in _rays(rng, 3, 2, 4, 6, 1.6))
-    launches = trace.zcount_occ.launches
+    stats.launches.clear()
     assert torch.equal(trace.zcount_occ(o, t, geometry),
                        trace.zcount_occ_plain(o, t, geometry))
-    assert trace.zcount_occ.launches == launches
+    assert stats.launches == {}
 
 
 def _pass_inputs(seed, h, w, k):
